@@ -26,22 +26,10 @@ import torch
 
 from repro_torch.core import relalg as R
 from repro_torch.core import scalar as S
-from repro_torch.tables.table import Column, Table
+from repro_torch.tables.table import Column, Table, resolve_device
 
 _F32_MAX = float(torch.finfo(torch.float32).max)
 _I32_MAX = int(torch.iinfo(torch.int32).max)
-
-
-def resolve_device(device=None) -> torch.device:
-    """An entry point's device: ``None`` means the card.  Raises where
-    CUDA is absent — only an explicit ``"cpu"`` runs on the host."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device and none is available; "
-                "pass device='cpu' to run on the host")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 @dataclasses.dataclass

@@ -36,12 +36,13 @@ from repro_torch.core import optimizer as O
 from repro_torch.core import relalg as R
 from repro_torch.core import scalar as S
 from repro_torch.core.binder import Binder, InlineConstraints
-from repro_torch.core.executor import Executor, MaskedTable, resolve_device
+from repro_torch.core.executor import Executor, MaskedTable
 from repro_torch.core.fingerprint import _norm, plan_fingerprint
 from repro_torch.core.frontend import Q
 from repro_torch.core.ir import UdfDef
 from repro_torch.core.policy import FROID, ExecutionPolicy, resolve_policy
-from repro_torch.tables.table import Column, DictEncoding, Table, catalog_from_numpy
+from repro_torch.tables.table import (Column, DictEncoding, Table, catalog_from_numpy,
+                                      resolve_device)
 
 # ---------------------------------------------------------------------------
 # results
@@ -257,6 +258,13 @@ class Session:
     # name/table are positional-only so columns may be called "name"/"table"
     def create_table(self, name: str, table: Table | None = None, /, **arrays):
         t = table if table is not None else Table.from_arrays(self.device, **arrays)
+        wrong = t.devices() - {self.device}
+        if wrong:
+            raise ValueError(
+                f"table {name!r} has columns on {sorted(map(str, wrong))} but the "
+                f"session runs on {self.device}; build it with "
+                f"Table.from_arrays({str(self.device)!r}, ...) or pass the arrays "
+                "to create_table")
         t.compute_stats()  # histograms for the optimizer
         self.catalog[name] = t
         return t

@@ -10,9 +10,13 @@
 // MXU and its 1024-row padding are not carried over: here each row adds
 // into its own group's slot directly.
 //
-// Bound: memory.  The work is n * (k + 1) additions; the bytes are
-// n * (4 + 1 + 4k) (gid, mask, vals each read once) plus G * (k+1) * 4
-// written, far below the card's operations-per-byte balance.
+// Bound: memory, and it depends on the data.  Every mask byte is read
+// (n bytes); gid only where the mask is set, vals only for selected rows
+// (mask set and gid in range): n + m * 4 + s * 4k bytes read for m set
+// mask bytes and s selected rows, plus G * (k+1) * 4 written.  The work is
+// s * (k + 1) additions, far below the card's operations-per-byte balance.
+// The kernel tests the mask before it loads gid, so a masked-off row costs
+// its mask byte alone (and whatever else shares its 32-byte sectors).
 //
 // Design: each block zeroes a G x (k+1) accumulator in shared memory, walks
 // its rows in a grid-stride loop adding with shared-memory atomics, and
@@ -52,9 +56,10 @@ __global__ void relagg_shared_kernel(const int32_t* __restrict__ gid,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
+    if (!mask[r]) continue;  // before gid: masked rows cost one byte
     const int g = gid[r];
-    // the guard comes before any indexing by g
-    if (mask[r] && g >= 0 && g < groups) {
+    // the range guard comes before any indexing by g
+    if (g >= 0 && g < groups) {
       float* slot = acc + (long long)g * width;
       const float* v = vals + r * k;
       for (int j = 0; j < k; ++j) atomicAdd(slot + j, v[j]);
@@ -78,8 +83,9 @@ __global__ void relagg_global_kernel(const int32_t* __restrict__ gid,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
+    if (!mask[r]) continue;
     const int g = gid[r];
-    if (mask[r] && g >= 0 && g < groups) {
+    if (g >= 0 && g < groups) {
       float* slot = out + (long long)g * width;
       const float* v = vals + r * k;
       for (int j = 0; j < k; ++j) atomicAdd(slot + j, v[j]);

@@ -6,8 +6,7 @@ to ``build/torch_kernels/`` at the root of the checkout, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
 loads at once.  A missing ``nvcc`` or a failed build raises; nothing falls
 back.  Nothing here runs at import: a kernel is built the first time its
-wrapper launches it (or by :func:`build_all`, which builds several sources
-in parallel).
+wrapper launches it.
 """
 from __future__ import annotations
 
@@ -17,17 +16,13 @@ import os
 import pathlib
 import shutil
 import subprocess
-import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
-#: nvcc's output (register and shared-memory use per kernel) by source name
-build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -44,49 +39,22 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns the
-    process (or None) and the library path."""
-    out = library_path(name)
-    if out.exists():
-        return None, out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return (proc, tmp), out
-
-
-def _finish(name: str, started, out: pathlib.Path) -> None:
-    if started is None:
-        return
-    proc, tmp = started
-    log, _ = proc.communicate()
-    build_logs[name] = log
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, out)
-
-
-def build_all(names) -> None:
-    """Build every named source that is not built yet, one nvcc process
-    per source, all started together."""
-    with _lock:
-        started = [(n, *_start(n)) for n in names if n not in _loaded]
-        for name, proc, out in started:
-            _finish(name, proc, out)
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it first if
     needed."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    build_all([name])
-    with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(library_path(name)))
-        return _loaded[name]
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        os.replace(tmp, out)
+    lib = _loaded[name] = ctypes.CDLL(str(out))
+    return lib

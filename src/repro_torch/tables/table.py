@@ -16,6 +16,23 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+
+def resolve_device(device=None) -> torch.device:
+    """An entry point's device: ``None`` means the card.  Raises where
+    CUDA is absent — only an explicit ``"cpu"`` runs on the host.  A card
+    is named with its index (``cuda`` becomes ``cuda:<current>``), so it
+    compares equal to the device of a tensor made there."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device and none is available; "
+                "pass device='cpu' to run on the host")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
 # ---------------------------------------------------------------------------
 # Dictionary encoding for string columns (host side, unchanged)
 # ---------------------------------------------------------------------------
@@ -206,9 +223,11 @@ class Table:
 
     # -- constructors ------------------------------------------------------
     @staticmethod
-    def from_arrays(device="cpu", /, **arrays) -> "Table":
-        """Build a table on ``device`` from host arrays (strings are
+    def from_arrays(device=None, /, **arrays) -> "Table":
+        """Build a table on ``device`` (``None`` means the card, see
+        :func:`resolve_device`) from host arrays (strings are
         dictionary-encoded) or ready :class:`Column` objects."""
+        device = resolve_device(device)
         cols = {}
         for name, arr in arrays.items():
             if isinstance(arr, Column):
@@ -233,6 +252,15 @@ class Table:
 
     def names(self) -> list[str]:
         return list(self.columns.keys())
+
+    def devices(self) -> set[torch.device]:
+        """Every device a column's data or validity lies on."""
+        out = set()
+        for c in self.columns.values():
+            out.add(c.data.device)
+            if c.valid is not None:
+                out.add(c.valid.device)
+        return out
 
     def column(self, name: str) -> Column:
         return self.columns[name]

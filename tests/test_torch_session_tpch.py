@@ -22,6 +22,7 @@ import repro_torch.core as PC
 from repro_torch.core import executor as PE
 from repro_torch.data.tpch_udfs import QUERIES as PORT_QUERIES
 from repro_torch.data.tpch_udfs import register_udfs as port_register
+from repro_torch.tables import table as PT
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
 from benchmarks.tpch_udfs import QUERIES as REF_QUERIES  # noqa: E402
@@ -112,7 +113,19 @@ def test_session_defaults_to_cuda(monkeypatch):
         PC.Session()
     with pytest.raises(RuntimeError, match="CUDA"):
         PE.Executor({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PT.Table.from_arrays(x=np.arange(3))
     assert PC.Session(device="cpu").device.type == "cpu"
+
+
+def test_create_table_rejects_another_device():
+    port = PC.Session(device="cpu")
+    elsewhere = PT.Table.from_arrays("meta", x=np.arange(4, dtype=np.float32))
+    with pytest.raises(ValueError, match="meta"):
+        port.create_table("t", elsewhere)
+    assert "t" not in port.catalog
+    here = PT.Table.from_arrays("cpu", x=np.arange(4, dtype=np.float32))
+    assert port.create_table("t", here) is here
 
 
 @pytest.mark.parametrize("policy", [PC.INTERPRETED, PC.HEKATON, PC.ROUTED],

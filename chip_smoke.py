@@ -7,11 +7,15 @@ Needs one NVIDIA GPU and the CUDA toolkit (``nvcc``); imports nothing of
 JAX and nothing of the reference package.  Every phase must pass, or the
 script exits non-zero:
 
-1. build — compiles the port's CUDA kernel (``csrc/relagg.cu``) from the
-   sources in this checkout;
-2. kernels — the relagg kernel against its plain torch version on the card,
-   on the shared-memory and the global-atomics path, with an empty mask and
-   with out-of-range group ids;
+1. build — compiles the port's CUDA kernels (``csrc/relagg.cu``,
+   ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``, one ``nvcc`` each, in
+   parallel) from the sources in this checkout;
+2. kernels — each kernel against its plain torch version on the card:
+   relagg on the shared-memory and the global-atomics path, with an empty
+   mask and with out-of-range group ids; flash_attention causal and not,
+   with windows, GQA, a decode offset, ragged lengths, bf16 and float32,
+   head dims 16/64/128; ssd_scan with one and 32 heads per group, L = 1,
+   100, 2048;
 3. main path — TPC-H at scale factor 1 (6,000,000 ``lineitem`` rows) on the
    card through ``Session.prepare`` / ``PreparedStatement.execute``: Q1,
    Q3, Q5, Q6, Q12 and Q14 in UDF and original form under FROID with
@@ -21,7 +25,18 @@ script exits non-zero:
 5. times — relagg on the inputs the main path handed it for Q12 and Q5:
    checked against the plain version, then timed as the kernel, the plain
    version and one PyTorch call computing the same function, beside the
-   bound that this data needs.
+   bound that this data needs;
+6. serving — granite-3-2b and then mamba2-370m at their published widths
+   and depths through ``ServeEngine.run`` with Froid-compiled admission on
+   the card: 8 requests with 512-2048-token prompts plus one 33,000-token
+   prompt that the ``admit`` rule rejects, served twice, with the kernel
+   launches counted over the first run;
+7. LM kernel times — flash_attention and ssd_scan on the inputs the
+   serving path handed them, against the plain version, the library call
+   (``scaled_dot_product_attention``; none computes the SSD scan) and the
+   bound that this data needs;
+8. LM cross-device — the smoke configs' prefill and decode logits and the
+   admission verdicts on the CPU and on the card.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -30,7 +45,11 @@ and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import gc
+import importlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -39,9 +58,12 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
-#: H100 SXM data sheet: device-memory rate and float32 (non-tensor-core) peak
+#: H100 SXM data sheet: device-memory rate, float32 (non-tensor-core) peak
+#: and dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+KERNELS = ("relagg", "flash_attention", "ssd_scan")
 QUERY_NAMES = ("Q1", "Q3", "Q5", "Q6", "Q12", "Q14")
 WARM_ROUNDS = 4
 
@@ -377,6 +399,523 @@ def time_relagg(label: str, args) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# LM serving path: flash_attention and ssd_scan
+# ---------------------------------------------------------------------------
+
+#: serving phase: (arch, the kernel its prefill runs)
+SERVE_ARCHS = (("granite3_2b", "flash_attention"), ("mamba2_370m", "ssd_scan"))
+SLOTS, MAX_LEN, MAX_NEW, N_REQUESTS, LONG_PROMPT = 4, 4096, 32, 8, 33_000
+
+
+def allclose(a, b, tol: float):
+    """(ok, max |a - b|) for |a - b| <= tol + tol * |b| elementwise, in
+    float32: the reference's ``assert_allclose(atol=tol, rtol=tol)``."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    return bool((diff <= tol + tol * b.abs()).all()), float(diff.max()) if diff.numel() else 0.0
+
+
+def flash_tol(dtype) -> float:
+    import torch
+
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def flash_kernel_phase() -> dict:
+    """flash_attention kernel vs plain on the card; tolerances of the
+    reference's sweep (``tests/test_kernels.py``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, Hq, Hk, Sq, Sk, D, dtype, kwargs)
+    cases = [(1, 4, 4, 256, 256, 64, dt, {"causal": c}) for dt in (f32, bf16)
+             for c in (True, False)]
+    cases += [(1, 8, 2, 96, 160, 64, dt, {"causal": c}) for dt in (f32, bf16)
+              for c in (True, False)]  # lengths the 64-row tiles do not divide
+    cases += [(2, 4, 1, 100, 300, 128, dt, {"causal": False}) for dt in (f32, bf16)]
+    cases += [(1, 4, hk, 200, 200, 64, dt, {"causal": True, "window": w})
+              for hk, w in ((4, 16), (1, 100)) for dt in (f32, bf16)]
+    cases += [(2, 4, 2, 1, 512, 64, f32, {"causal": True, "q_offset": 511}),
+              (2, 4, 2, 1, 512, 128, bf16, {"causal": True, "q_offset": 511}),
+              (4, 32, 8, 300, 300, 64, bf16, {"causal": True}),   # granite's heads
+              (2, 4, 2, 24, 24, 16, f32, {"causal": True}),       # smoke head dim
+              (2, 4, 2, 24, 24, 16, bf16, {"causal": True})]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    max_err = {f32: 0.0, bf16: 0.0}
+    for B, Hq, Hk, Sq, Sk, D, dt, kw in cases:
+        q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+        k = torch.randn((B, Hk, Sk, D), generator=g, device="cuda").to(dt)
+        v = torch.randn((B, Hk, Sk, D), generator=g, device="cuda").to(dt)
+        a = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        b = flash_attention_ref(q, k, v, **kw)
+        ok, err = allclose(a, b, flash_tol(dt))
+        label = f"flash_attention B={B} Hq={Hq} Hk={Hk} Sq={Sq} Sk={Sk} D={D} {dt} {kw}"
+        check(a.dtype == dt and a.shape == q.shape, f"{label}: output {a.dtype} {tuple(a.shape)}")
+        check(ok, f"{label}: max |kernel - plain| {err} over tolerance {flash_tol(dt)}")
+        max_err[dt] = max(max_err[dt], err)
+        log(f"{label}: ok (max |kernel - plain| {err:.3g})")
+    q = torch.randn((2, 4, 1, 64), generator=g, device="cuda")
+    k = torch.randn((2, 2, 512, 64), generator=g, device="cuda")
+    empty = flash_attention_cuda(q, k, k, causal=False, window=4, q_offset=600)
+    check(not bool(empty.any()), "flash_attention: a row with no valid key wrote non-zero")
+    log("flash_attention with no valid key: writes 0, ok")
+    return {"cases": len(cases) + 1, "max_abs_err_f32": max_err[f32],
+            "max_abs_err_bf16": max_err[bf16]}
+
+
+def ssd_rel_err(a, b) -> float:
+    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
+
+
+def ssd_kernel_phase() -> dict:
+    """ssd_scan kernel vs the plain per-step recurrence on the card:
+    max error below 3e-4 of max|y| (the reference's float32 bound)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk_for, ssd_scan_cuda
+
+    cases = [(4, 4, 1, 64, 128), (32, 1, 100, 64, 128), (32, 1, 2048, 64, 128),
+             (4, 4, 2048, 64, 128), (8, 8, 100, 16, 16)]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    max_abs = 0.0
+    for BH, BG, L, P, N in cases:
+        xdt = torch.randn((BH, L, P), generator=g, device="cuda") * 0.5
+        dtA = -(0.01 + 0.49 * torch.rand((BH, L), generator=g, device="cuda"))
+        B = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+        C = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+        a = ssd_scan_cuda(xdt, dtA, B, C, BH // BG)
+        torch.cuda.synchronize()
+        b = ssd_scan_ref(xdt, dtA, B, C, BH // BG)
+        err = ssd_rel_err(a, b)
+        label = f"ssd_scan BH={BH} BG={BG} L={L} P={P} N={N} (chunk {chunk_for(P, N)})"
+        check(err < 3e-4, f"{label}: error {err} of max|y|, over 3e-4")
+        worst = max(worst, err)
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        log(f"{label}: ok (max error {err:.3g} of max|y|)")
+    return {"cases": len(cases), "max_rel_err": worst, "max_abs_err": max_abs}
+
+
+def expected_verdict(tier: int, plen: int, req: int, temp: float, depth: int):
+    """The admission rules of ``serve/admission.py`` written out in Python:
+    an independent check of what the Froid-compiled plan decided on the
+    card.  Returns (admit, granted tokens, effective temperature)."""
+    admit = plen <= 32768 and not (depth > 512 and plen > 8192)
+    cap = 4096 if tier >= 2 else 1024 if tier == 1 else 256
+    if plen > 2048:
+        cap //= 2
+    granted = req if req < cap else cap
+    if temp < 0.0 or temp > 2.0:
+        t = 0.7
+    elif tier == 0:
+        t = 1.0 if temp > 1.0 else temp
+    else:
+        t = temp
+    return admit, granted, t
+
+
+def serve_requests(vocab: int):
+    """8 requests with 512-2048-token prompts (numpy seed 0), temperatures
+    0.0, 0.7 and 1.0 in turn, tiers 0-2, and a 9th whose 33,000-token
+    prompt the ``admit`` rule rejects."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 2049, N_REQUESTS)
+    tiers = rng.integers(0, 3, N_REQUESTS + 1)
+    reqs = [Request(rid=i, prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=MAX_NEW, temperature=(0.0, 0.7, 1.0)[i % 3],
+                    tier=int(tiers[i]))
+            for i, n in enumerate(lens)]
+    reqs.append(Request(rid=N_REQUESTS,
+                        prompt=rng.integers(0, vocab, LONG_PROMPT).astype(np.int32),
+                        max_new_tokens=MAX_NEW, temperature=0.0,
+                        tier=int(tiers[N_REQUESTS])))
+    return reqs
+
+
+class TimedModel:
+    """The model as the engine sees it, each prefill and decode step timed
+    on the host clock around work that ends in ``torch.cuda.synchronize``,
+    and its logits checked finite."""
+
+    def __init__(self, model):
+        self.model = model
+        self.device = model.device
+        self.prefill_ms: list[float] = []
+        self.decode_ms: list[float] = []
+        self.finite = True
+
+    def _timed(self, fn, sink, *args, **kwargs):
+        import torch
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t) * 1e3)
+        self.finite &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    def prefill(self, tokens, max_len=None):
+        return self._timed(self.model.prefill, self.prefill_ms, tokens, max_len=max_len)
+
+    def decode_step(self, cache, tokens):
+        return self._timed(self.model.decode_step, self.decode_ms, cache, tokens)
+
+
+class LongestCall:
+    """Wraps a kernel binding: passes every call through and keeps the
+    arguments of the call with the longest sequence (dim 1 of the first
+    argument for ssd_scan's (BH, L, P), dim 2 for attention's q)."""
+
+    def __init__(self, fn, seq_dim: int):
+        self.fn, self.seq_dim, self.args, self.kwargs = fn, seq_dim, None, None
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None or args[0].shape[self.seq_dim] > self.args[0].shape[self.seq_dim]:
+            self.args, self.kwargs = args, kwargs
+        return self.fn(*args, **kwargs)
+
+
+def device_busy(fn) -> tuple[float | None, list]:
+    """Device time (ms) of what ``fn`` runs on the card, as the union of the
+    intervals of the device events (kernels, copies) in a ``torch.profiler``
+    trace, and the five kernels with the most device time.  (None, []) if
+    the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, []
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return busy / 1e3, [(name[:60], ms / 1e3) for name, ms in top]
+
+
+def busy_breakdown(model, reqs, expected) -> dict:
+    """Device busy time of one prefill at the first batch's shape and of 4
+    decode steps after it (profiled apart from the timed runs, whose host
+    clock the profiler would inflate)."""
+    import torch
+
+    batch = [r for r in reqs if expected[r.rid][0]][:SLOTS]
+    S = max(len(r.prompt) for r in batch)
+    toks = np.zeros((len(batch), S), np.int32)
+    for i, r in enumerate(batch):
+        toks[i, S - len(r.prompt):] = r.prompt
+    toks = torch.as_tensor(toks, device="cuda")
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(toks, max_len=MAX_LEN)
+
+    def decode():
+        for _ in range(4):
+            nxt = state["logits"].argmax(-1).to(torch.int32)[:, None]
+            state["logits"], state["cache"] = model.decode_step(state["cache"], nxt)
+
+    prefill()  # warm
+    p_ms, p_top = device_busy(prefill)
+    d_ms, d_top = device_busy(decode)
+    del state
+    return {"prefill_busy_ms": p_ms, "prefill_top": p_top,
+            "decode_busy_ms_per_step": None if d_ms is None else d_ms / 4,
+            "decode_top": d_top}
+
+
+def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
+    """Serve the requests with ``arch`` at its published widths and depths
+    on the card, twice.  Returns the summary and the kernel arguments
+    captured from the first run."""
+    import torch
+
+    from repro_torch.configs import config_for
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = config_for(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+        f"float32 parameters ({n_params * 4 / 1e9:.2f} GB) initialised on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    reqs = serve_requests(cfg.vocab)
+    depth = len(reqs)
+    expected = {r.rid: expected_verdict(r.tier, len(r.prompt), r.max_new_tokens,
+                                        r.temperature, depth) for r in reqs}
+    n_batches = math.ceil(sum(v[0] for v in expected.values()) / SLOTS)
+    counters = {"flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    # the binding modules (each package's name of the same spelling is its
+    # ops function)
+    binding = importlib.import_module(f"repro_torch.kernels.{kernel}.{kernel}")
+    attr, seq_dim = (("flash_attention_cuda", 2) if kernel == "flash_attention"
+                     else ("ssd_scan_cuda", 1))
+
+    runs = []
+    capture = None
+    for i in range(2):
+        timed = TimedModel(model)
+        engine = ServeEngine(timed, slots=SLOTS, max_len=MAX_LEN, seed=0)
+        if i == 0:
+            capture = LongestCall(getattr(binding, attr), seq_dim)
+            setattr(binding, attr, capture)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for ops in counters.values():
+            ops.LAUNCHES = 0  # counts from here to the end of this run only
+        t = time.perf_counter()
+        try:
+            done = engine.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            if i == 0:
+                setattr(binding, attr, capture.fn)
+        wall = time.perf_counter() - t
+        launches = {name: ops.LAUNCHES for name, ops in counters.items()}
+        runs.append({"done": {c.rid: c for c in done}, "wall_s": wall, "launches": launches,
+                     "peak_bytes": torch.cuda.max_memory_allocated(), "timed": timed})
+
+    first, second = runs
+    for rid, (admit, granted, _) in expected.items():
+        c = first["done"][rid]
+        if not admit:
+            check(c.reason == "rejected" and not c.tokens,
+                  f"{arch} request {rid}: {c.reason}, expected rejected")
+            continue
+        check(c.reason == "length" and len(c.tokens) == granted,
+              f"{arch} request {rid}: {c.reason} with {len(c.tokens)} tokens, "
+              f"expected length with {granted}")
+        check(all(0 <= t < cfg.vocab for t in c.tokens), f"{arch} request {rid}: bad token id")
+        same = c.tokens == second["done"][rid].tokens
+        kind = "greedy" if reqs[rid].temperature == 0.0 else "sampled"
+        check(same, f"{arch} request {rid} ({kind}): tokens differ between two runs")
+    for run in runs:
+        check(run["timed"].finite, f"{arch}: non-finite logits")
+        want = {name: cfg.n_layers * n_batches if name == kernel else 0 for name in counters}
+        check(run["launches"] == want, f"{arch}: kernel launches {run['launches']}, "
+              f"expected {want} ({cfg.n_layers} layers x {n_batches} prefill batches)")
+        check(len(run["timed"].prefill_ms) == n_batches, f"{arch}: prefill batches")
+    generated = sum(len(c.tokens) for c in first["done"].values())
+    timed = first["timed"]
+    busy = busy_breakdown(model, reqs, expected)
+    summary = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "requests": len(reqs), "rejected": sum(not v[0] for v in expected.values()),
+        "prompt_lens": [len(r.prompt) for r in reqs], "prefill_batches": n_batches,
+        "prefill_ms": timed.prefill_ms, "prefill_ms_2nd_run": second["timed"].prefill_ms,
+        "decode_ms_per_token": float(np.mean(timed.decode_ms)),
+        "decode_ms_per_token_2nd_run": float(np.mean(second["timed"].decode_ms)),
+        "generated_tokens": generated, "wall_s": first["wall_s"],
+        "wall_s_2nd_run": second["wall_s"],
+        "tokens_per_s": generated / first["wall_s"],
+        "peak_gb": first["peak_bytes"] / 1e9, "launches": first["launches"][kernel],
+        **busy,
+    }
+    for what, wall in (("prefill", timed.prefill_ms[0]),
+                       ("decode", summary["decode_ms_per_token"])):
+        ms = busy[f"{what}_busy_ms" if what == "prefill" else "decode_busy_ms_per_step"]
+        summary[f"{what}_device_idle_share"] = None if ms is None else 1.0 - ms / wall
+        log(f"{cfg.name} {what}: device busy "
+            + ("not measured (no device events in the trace)" if ms is None else
+               f"{ms:.2f} ms of {wall:.2f} ms (idle share {1.0 - ms / wall:.3f}); top "
+               f"{[(n, round(t, 2)) for n, t in busy[what + '_top']]}"))
+    log(f"{cfg.name}: served {len(reqs)} requests ({summary['rejected']} rejected by "
+        f"admission, {generated} tokens) in {first['wall_s']:.2f} s and "
+        f"{second['wall_s']:.2f} s; prefill ms per batch {[round(x, 1) for x in timed.prefill_ms]}, "
+        f"decode {summary['decode_ms_per_token']:.2f} ms/token, "
+        f"{summary['tokens_per_s']:.1f} tokens/s, peak {summary['peak_gb']:.2f} GB; "
+        f"{kernel} launches {first['launches'][kernel]} per run; greedy and sampled "
+        f"tokens equal across the two runs")
+    args = (capture.args, capture.kwargs)
+    del model, engine, runs, first, second, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, args
+
+
+def valid_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int) -> int:
+    """(query, key) pairs the attention mask lets through, per (b, head)."""
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1, np.int64)
+    lo = np.maximum(0, qpos - window + 1) if window is not None else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def time_flash(args) -> dict:
+    """flash_attention on the serving path's own inputs: checked against the
+    plain version, timed beside it, beside ``scaled_dot_product_attention``
+    and beside the bound of this data: 4 D operations per (query, key) pair
+    the mask lets through at the bf16 tensor-core peak, against q, k, v and
+    o moved once each (K and V once for the n_rep heads that share them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    (q, k, v), kw = args
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    causal, window = kw.get("causal", True), kw.get("window")
+    q_offset = kw.get("q_offset", 0)
+    out = flash_attention_cuda(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    ok, err = allclose(out, ref, flash_tol(q.dtype))
+    check(ok, f"flash_attention at the serving inputs: max |kernel - plain| {err}")
+    sdpa_ok = causal and window is None and q_offset == 0 and Sq == Sk \
+        and kw.get("sm_scale") is None
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    lib_err = float((library().float() - ref.float()).abs().max()) if sdpa_ok else None
+    del ref
+    p1, k1, k2, p2 = (cuda_ms(f, reps=10) for f in (
+        lambda: flash_attention_ref(q, k, v, **kw), lambda: flash_attention_cuda(q, k, v, **kw),
+        lambda: flash_attention_cuda(q, k, v, **kw), lambda: flash_attention_ref(q, k, v, **kw)))
+    lib_ms = cuda_ms(library, reps=10) if sdpa_ok else None
+    pairs = valid_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
+    ops_count = 4 * D * pairs
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops_count / BF16_OPS_PER_S * 1e3
+    return {
+        "shape": [B, Hq, k.shape[1], Sq, Sk, D], "dtype": str(q.dtype), "kwargs": kw,
+        "pairs": pairs, "ops": ops_count, "bytes": nbytes,
+        "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "max_abs_err": err, "library_max_abs_err": lib_err,
+        "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
+    }
+
+
+def ssd_ops_needed(BH: int, L: int, P: int, N: int, Q: int) -> int:
+    """Operations of the chunked form at chunk Q on this data: per chunk of
+    r rows, the lower triangle of C B^T (r(r+1)/2 N multiply-adds) and of
+    its product with xdt (r(r+1)/2 P), C S for every chunk after the first
+    (r N P) and the state update for every chunk but the last (r N P)."""
+    total = 0
+    for c, c0 in enumerate(range(0, L, Q)):
+        r = min(Q, L - c0)
+        tri = r * (r + 1) // 2
+        total += tri * (N + P)
+        if c > 0:
+            total += r * N * P
+        if c0 + Q < L:
+            total += r * N * P
+    return 2 * total * BH
+
+
+def time_ssd(args) -> dict:
+    """ssd_scan on the serving path's own inputs: checked against the plain
+    chunked version, timed beside it and beside the bound of this data
+    (:func:`ssd_ops_needed` at the float32 peak, against xdt, dtA, B and C
+    once per group, and y).  No PyTorch call computes the SSD scan."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk_for, ssd_scan_cuda
+
+    (xdt, dtA, B, C, n_rep), _ = args
+    BH, L, P = xdt.shape
+    N = B.shape[2]
+    out = ssd_scan_cuda(xdt, dtA, B, C, n_rep)
+    ref = ssd_scan_chunked(xdt, dtA, B, C, n_rep)
+    err = ssd_rel_err(out, ref)
+    check(err < 3e-4, f"ssd_scan at the serving inputs: error {err} of max|y|")
+    max_abs = float((out - ref).abs().max())
+    del ref
+    p1, k1, k2, p2 = (cuda_ms(f, reps=10) for f in (
+        lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep), lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep),
+        lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep), lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep)))
+    Q = chunk_for(P, N)
+    ops_count = ssd_ops_needed(BH, L, P, N, Q)
+    nbytes = 4 * (2 * xdt.numel() + dtA.numel() + B.numel() + C.numel())
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
+    return {
+        "shape": [BH, B.shape[0], L, P, N], "chunk": Q, "ops": ops_count, "bytes": nbytes,
+        "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": None,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "max_abs_err": max_abs, "max_rel_err": err,
+        "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
+    }
+
+
+def lm_cross_device_phase() -> None:
+    """The smoke configs with the same parameters on the CPU and on the
+    card: prefill logits, then 4 teacher-forced decode steps, within
+    2e-2 x max|logit| (bf16 activations summed in another order); and the
+    admission verdicts at the rules' edges, equal."""
+    import torch
+
+    from repro_torch.configs import smoke_config_for
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.admission import AdmissionPolicy
+
+    for arch, _ in SERVE_ARCHS:
+        cfg = smoke_config_for(arch)
+        tree = T.init_params(torch.Generator("cpu").manual_seed(0), cfg, "cpu")
+
+        def to_card(t):
+            if isinstance(t, dict):
+                return {k: to_card(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [to_card(v) for v in t]
+            return t.to("cuda")
+
+        models = {"cpu": build_model(cfg, "cpu").load(tree),
+                  "card": build_model(cfg).load(to_card(tree))}
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+        la, ca = models["cpu"].prefill(toks, max_len=64)
+        lb, cb = models["card"].prefill(toks.cuda(), max_len=64)
+        tol = 2e-2 * float(la.abs().max())
+        worst = float((la - lb.cpu()).abs().max())
+        check(worst <= tol, f"{cfg.name} smoke prefill: cpu vs card {worst} > {tol}")
+        for step in range(4):
+            nt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32))
+            la, ca = models["cpu"].decode_step(ca, nt)
+            lb, cb = models["card"].decode_step(cb, nt.cuda())
+            err = float((la - lb.cpu()).abs().max())
+            check(err <= tol, f"{cfg.name} smoke decode {step}: cpu vs card {err} > {tol}")
+            worst = max(worst, err)
+        log(f"LM cross-device: {cfg.name} smoke prefill + 4 decode steps, cpu vs card "
+            f"max |diff| {worst:.3g} (tolerance {tol:.3g})")
+    plen = [2048, 2049, 8192, 8193, 32768, 32769, 100, 5000]
+    reqs = {"tier": np.array([0, 1, 2, 0, 1, 2, 0, 1]), "prompt_len": np.array(plen),
+            "max_new_tokens": np.array([32, 5000, 300, 2000, 10, 10, 256, 1024]),
+            "temperature": np.array([-0.1, 2.1, 0.0, 0.7, 1.0, 1.5, 2.0, 0.5])}
+    a = AdmissionPolicy(device="cpu").evaluate(reqs)
+    b = AdmissionPolicy().evaluate(reqs)
+    for name in a:
+        check(np.array_equal(a[name], b[name]), f"admission {name}: cpu {a[name]} vs card {b[name]}")
+    log("LM cross-device: admission verdicts cpu == card")
+
+
 def card_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -404,12 +943,16 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load("relagg")
-    log(f"build: relagg.cu in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))  # one nvcc per source, together
+    log(f"build: {', '.join(k + '.cu' for k in KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     kern = kernel_phase()
-    log(f"kernel phase: {kern['cases']} cases ok in {time.perf_counter() - t0:.1f} s")
+    flash = flash_kernel_phase()
+    ssd = ssd_kernel_phase()
+    log(f"kernel phase: {kern['cases']} relagg, {flash['cases']} flash_attention and "
+        f"{ssd['cases']} ssd_scan cases ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     main, session = main_path_phase()
@@ -428,6 +971,7 @@ def main() -> int:
             f"({t['bytes'] / 1e6:.3f} MB / 3.35 TB/s; {t['sector_bytes'] / 1e6:.3f} MB "
             f"in 32-byte sectors, {t['sector_bound_ms']:.5f} ms)")
     del session
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"times phase ok in {time.perf_counter() - t0:.1f} s")
 
@@ -435,18 +979,56 @@ def main() -> int:
     cross_device_phase()
     log(f"cross-device phase ok in {time.perf_counter() - t0:.1f} s")
 
+    serving, lm_times = {}, {}
+    for arch, kernel in SERVE_ARCHS:
+        t0 = time.perf_counter()
+        serving[arch], args = serving_phase(arch, kernel)
+        log(f"serving phase {arch} ok in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        t = lm_times[kernel] = (time_flash if kernel == "flash_attention" else time_ssd)(args)
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+               else "none (no PyTorch call computes it)")
+        log(f"{kernel} at the serving inputs {t['shape']}: == plain (max abs err "
+            f"{t['max_abs_err']:.3g}); kernel {t['ms']:.4f} ms ({t['tflops']:.2f} TFLOP/s), "
+            f"plain {t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}: {t['ops'] / 1e9:.3f} GFLOP, {t['bytes'] / 1e6:.3f} MB)")
+        log(f"{kernel} times ok in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    lm_cross_device_phase()
+    log(f"LM cross-device phase ok in {time.perf_counter() - t0:.1f} s")
+
     log(json.dumps({"main_path_warm_ms": main["times"], "relagg_q5": q5,
-                    "relagg_q12": q12}))
+                    "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
+                    "flash_sweep": flash, "ssd_sweep": ssd}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "relagg", "route": "cuda", "source": "src/repro_torch/csrc/relagg.cu",
-        "replaces": "src/repro/kernels/relagg/relagg.py:36",
-        "launches": main["launches"],
-        "max_abs_err": max(kern["max_abs_err"], q12["max_abs_err"], q5["max_abs_err"]),
-        "ms": q12["ms"], "plain_ms": q12["plain_ms"], "bound_ms": q12["bound_ms"],
-        "bound_by": q12["bound_by"], "library_ms": q12["library_ms"], "ok": True,
-    }]}), flush=True)
+    fa, sd = lm_times["flash_attention"], lm_times["ssd_scan"]
+    print(json.dumps({"kernels": [
+        {"name": "relagg", "route": "cuda", "source": "src/repro_torch/csrc/relagg.cu",
+         "replaces": "src/repro/kernels/relagg/relagg.py:36",
+         "launches": main["launches"],
+         "max_abs_err": max(kern["max_abs_err"], q12["max_abs_err"], q5["max_abs_err"]),
+         "ms": q12["ms"], "plain_ms": q12["plain_ms"], "bound_ms": q12["bound_ms"],
+         "bound_by": q12["bound_by"], "library_ms": q12["library_ms"], "ok": True},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",
+         "launches": serving["granite3_2b"]["launches"],
+         "max_abs_err": max(flash["max_abs_err_f32"], flash["max_abs_err_bf16"],
+                            fa["max_abs_err"]),
+         "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
+         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"], "ok": True},
+        {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:36",
+         "launches": serving["mamba2_370m"]["launches"],
+         "max_abs_err": max(ssd["max_abs_err"], sd["max_abs_err"]),
+         "ms": sd["ms"], "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
+         "bound_by": sd["bound_by"], "library_ms": None, "ok": True},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,148 @@
+"""GQA self-attention (full and sliding-window): a port of
+``src/repro/models/attention.py:16-123`` — ``init_attention``, the
+sequence form ``attention_seq`` (train / prefill, through the
+flash_attention kernel), the int8 KV-cache codec and the single-token
+``attention_decode`` (plain torch, as the reference uses no kernel there,
+``:112-120``), including the sliding-window ring buffer.
+
+``params`` is anything indexable by the reference's keys (a dict of
+tensors, or the port's :class:`repro_torch.models.transformer.Params`).
+MLA (``:127-241``) and cross-attention (``:245-279``) wait for their
+configs: they raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import _dense_init, apply_rope
+
+
+def init_attention(generator, cfg: ArchConfig, device=None):
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": _dense_init(generator, (D, H * hd), device=device),
+        "wk": _dense_init(generator, (D, Hkv * hd), device=device),
+        "wv": _dense_init(generator, (D, Hkv * hd), device=device),
+        "wo": _dense_init(generator, (H * hd, D), scale=(H * hd) ** -0.5,
+                          device=device),
+    }
+
+
+def attention_seq(params, x, cfg: ArchConfig, *, window=None, positions=None,
+                  q_offset: int = 0, causal: bool = True):
+    """Sequence-form attention (train / prefill).  Returns (out, (k, v))
+    with k, v (B, Hkv, S, hd) in the activations' dtype."""
+    B, S, D = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    if positions is None:
+        positions = q_offset + torch.arange(S, device=x.device)[None, :]
+    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
+    k = (x @ params["wk"].to(dt)).reshape(B, S, Hkv, hd)
+    v = (x @ params["wv"].to(dt)).reshape(B, S, Hkv, hd)
+    q = apply_rope(q.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), positions[:, None, :], cfg.rope_theta)
+    v = v.transpose(1, 2).contiguous()  # (B, Hkv, S, hd)
+    o = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    o = o.transpose(1, 2).reshape(B, S, H * hd)
+    return o @ params["wo"].to(dt), (k, v)
+
+
+def quantize_kv(x):
+    """Per-(batch, head, position) symmetric int8 over the head dim.
+    x: (..., hd) -> (int8 (..., hd), float32 scale (...)).  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def attention_decode(params, x, cache, pos: int, cfg: ArchConfig, *,
+                     window=None):
+    """Single-token decode.  cache: (k, v) each (B, Hkv, S_cache, hd), or
+    the int8 form (kq, ks, vq, vs) when ``cfg.kv_cache_int8``; ``pos``:
+    the current position (a Python int).  Returns (out, new_cache); the
+    cache tensors are updated in place (the reference returns new arrays).
+
+    For windowed layers the cache is a ring buffer of size ``window``."""
+    B, _, D = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    int8_cache = len(cache) == 4
+    if int8_cache:
+        k_cache, k_scale, v_cache, v_scale = cache
+    else:
+        k_cache, v_cache = cache
+    S_cache = k_cache.shape[2]
+
+    q = (x @ params["wq"].to(dt)).reshape(B, 1, H, hd)
+    k = (x @ params["wk"].to(dt)).reshape(B, 1, Hkv, hd)
+    v = (x @ params["wv"].to(dt)).reshape(B, 1, Hkv, hd)
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q.transpose(1, 2), posv[:, None, :], cfg.rope_theta)  # (B,H,1,hd)
+    k = apply_rope(k.transpose(1, 2), posv[:, None, :], cfg.rope_theta)
+    v = v.transpose(1, 2)
+
+    # floor modulo, as jnp's % on a non-negative position; past the end of
+    # a full cache the write lands on the last slot, as
+    # dynamic_update_slice clamps its start
+    slot = pos % S_cache if window is not None else min(pos, S_cache - 1)
+    if int8_cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_cache[:, :, slot:slot + 1] = kq
+        v_cache[:, :, slot:slot + 1] = vq
+        k_scale[:, :, slot:slot + 1] = ks
+        v_scale[:, :, slot:slot + 1] = vs
+        k_full = dequantize_kv(k_cache, k_scale, torch.float32)
+        v_full = dequantize_kv(v_cache, v_scale, torch.float32)
+        new_cache = (k_cache, k_scale, v_cache, v_scale)
+    else:
+        k_cache[:, :, slot:slot + 1] = k
+        v_cache[:, :, slot:slot + 1] = v
+        k_full, v_full = k_cache, v_cache
+        new_cache = (k_cache, v_cache)
+
+    # positions of cache slots (ring-aware) for masking
+    idx = torch.arange(S_cache, device=x.device)
+    if window is not None:
+        wrap = (pos // S_cache) * S_cache
+        slot_pos = torch.where(idx <= slot, wrap + idx, wrap - S_cache + idx)
+        valid = (slot_pos >= max(0, pos - window + 1)) & (slot_pos <= pos)
+    else:
+        valid = idx <= pos
+
+    # query head h reads KV head h // n_rep: the reference's jnp.repeat,
+    # written as a grouped product instead of a copy of the cache
+    n_rep = H // Hkv
+    qg = q.float().reshape(B, Hkv, n_rep, hd)
+    s = torch.einsum("bgrd,bgkd->bgrk", qg, k_full.float()) * (hd ** -0.5)
+    s = torch.where(valid, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bgkd->bgrd", p, v_full.float()).to(dt)
+    o = o.reshape(B, 1, H * hd)
+    return o @ params["wo"].to(dt), new_cache
+
+
+def init_mla(*args, **kwargs):
+    raise NotImplementedError("MLA (models/attention.py:127-241) is not ported "
+                              "yet: ROADMAP A17")
+
+
+mla_seq = mla_decode = init_mla
+
+
+def init_cross_attention(*args, **kwargs):
+    raise NotImplementedError("cross-attention (models/attention.py:245-279) is "
+                              "not ported yet: ROADMAP A18")
+
+
+cross_attention = cross_memory = init_cross_attention

@@ -1,0 +1,112 @@
+"""The flash_attention and ssd_scan CUDA kernels against their plain torch
+versions on the card.  These need an NVIDIA GPU with ``nvcc`` and skip
+elsewhere; on the card they run with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_card.py
+
+Tolerances are the reference's own (``tests/test_kernels.py``):
+flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
+outputs compared in float32); ssd_scan a max error below 3e-4 of max|y|
+in float32.  The kernels sum in another order than the plain versions
+(tiles of 64 keys, chunks of the kernel's own length)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
+
+pytestmark = [
+    pytest.mark.gpu,
+    pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device"),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D", [
+    (1, 4, 2, 256, 256, 64),
+    (1, 8, 2, 96, 160, 64),    # lengths the 64-row tiles do not divide
+    (2, 4, 4, 100, 100, 128),
+    (1, 2, 1, 64, 320, 128),
+    (4, 32, 8, 300, 300, 64),  # granite-3-2b's heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(rng, B, Hq, Hk, Sq, Sk, D, causal, dtype):
+    q, k, v = (torch.as_tensor(rng.normal(size=s), device="cuda").to(dtype)
+               for s in ((B, Hq, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D)))
+    before = fa_ops.LAUNCHES
+    a = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert a.dtype == dtype and a.shape == q.shape
+    b = flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [16, 100])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_flash_kernel_window(rng, window, n_rep):
+    q = torch.as_tensor(rng.normal(size=(1, 4, 200, 64)), dtype=torch.float32,
+                        device="cuda")
+    k, v = (torch.as_tensor(rng.normal(size=(1, 4 // n_rep, 200, 64)),
+                            dtype=torch.float32, device="cuda") for _ in range(2))
+    a = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    b = flash_attention_ref(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_decode_offset(rng, D):
+    """Sq = 1 at q_offset 511, and a window that leaves one row of a tile
+    with no valid key (it writes 0)."""
+    q = torch.as_tensor(rng.normal(size=(2, 4, 1, D)), dtype=torch.float32, device="cuda")
+    k, v = (torch.as_tensor(rng.normal(size=(2, 2, 512, D)), dtype=torch.float32,
+                            device="cuda") for _ in range(2))
+    a = fa_ops.flash_attention(q, k, v, causal=True, q_offset=511)
+    b = flash_attention_ref(q, k, v, causal=True, q_offset=511)
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-5, rtol=2e-5)
+    empty = fa_ops.flash_attention(q, k, v, causal=False, window=4, q_offset=600)
+    assert not empty.any()
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N", [
+    (4, 4, 1, 64, 128),
+    (4, 2, 100, 32, 64),
+    (32, 1, 2048, 64, 128),   # mamba2-370m: 32 heads on one group
+    (8, 8, 300, 16, 16),
+])
+def test_ssd_kernel_matches_plain(rng, BH, BG, L, P, N):
+    n_rep = BH // BG
+    xdt = torch.as_tensor(rng.normal(size=(BH, L, P)) * 0.5, dtype=torch.float32,
+                          device="cuda")
+    dtA = -torch.as_tensor(rng.uniform(0.01, 0.5, size=(BH, L)), dtype=torch.float32,
+                           device="cuda")
+    B, C = (torch.as_tensor(rng.normal(size=(BG, L, N)) * 0.3, dtype=torch.float32,
+                            device="cuda") for _ in range(2))
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+
+    a = ssd_scan_cuda(xdt, dtA, B, C, n_rep)
+    torch.cuda.synchronize()
+    b = ssd_scan_ref(xdt, dtA, B, C, n_rep) if L <= 300 \
+        else ssd_scan_chunked(xdt, dtA, B, C, n_rep)
+    err = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
+    assert err < 3e-4, err
+
+
+def test_ssd_ops_launches_once(rng):
+    x = torch.as_tensor(rng.normal(size=(2, 70, 4, 16)), dtype=torch.float32, device="cuda")
+    dt = torch.as_tensor(rng.uniform(0.05, 0.3, size=(2, 70, 4)), dtype=torch.float32,
+                         device="cuda")
+    A = -torch.as_tensor(rng.uniform(0.1, 1.0, size=(4,)), dtype=torch.float32, device="cuda")
+    Bm, Cm = (torch.as_tensor(rng.normal(size=(2, 70, 2, 16)) * 0.3, dtype=torch.float32,
+                              device="cuda") for _ in range(2))
+    before = ssd_ops.LAUNCHES
+    y = ssd_ops.ssd_scan(x, dt, A, Bm, Cm)
+    assert ssd_ops.LAUNCHES == before + 1
+    y_cpu = ssd_ops.ssd_scan(*(t.cpu() for t in (x, dt, A, Bm, Cm)))
+    err = float((y.cpu() - y_cpu).abs().max()) / float(y_cpu.abs().max())
+    assert err < 3e-4, err

@@ -1,0 +1,177 @@
+"""The port's serving path (``repro_torch.serve``) against the reference's
+(``repro.serve``) on the CPU.
+
+* Admission: the Froid-compiled rules evaluated by the port's ``Session``
+  give the reference's verdicts exactly, at the rules' edges.
+* Engine: with the reference's parameters carried across, greedy tokens
+  equal the reference's up to the first step where the reference's own
+  top-1/top-2 logit margin is below the bf16 tolerance (2e-2 x max|logit|
+  of that step); from there on bf16 rounding may pick either token.
+  ``jax.random.categorical`` and the port's sampler draw other tokens from
+  one seed, so temperature paths are checked for reproducibility and valid
+  ids only.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config_for
+from repro.models import build_model as ref_build
+from repro.serve.admission import AdmissionPolicy as RefAdmission
+from repro.serve.engine import Request as RefRequest
+from repro.serve.engine import ServeEngine as RefEngine
+from repro_torch import configs as tconfigs
+from repro_torch.launch import serve as launcher
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_reference
+from repro_torch.serve import AdmissionPolicy, Request, ServeEngine
+
+
+def _edge_requests(n: int, rng) -> dict:
+    """n queued requests (queue depth n) cycling through the rules' edges."""
+    plen = np.array([2048, 2049, 8192, 8193, 32768, 32769, 1, 5000])
+    temp = np.array([-0.1, 2.1, 0.0, 0.7, 1.0, 1.5, 2.0, 0.5, 1.2, 3.0], np.float32)
+    i = np.arange(n)
+    return {"tier": i % 3, "prompt_len": plen[i % len(plen)],
+            "max_new_tokens": rng.integers(1, 5000, n),
+            "temperature": temp[i % len(temp)]}
+
+
+@pytest.mark.parametrize("depth", [9, 512, 513])
+def test_admission_matches_reference(rng, depth):
+    """Queue depth 512 admits an 8193-token prompt, 513 sheds it."""
+    reqs = _edge_requests(depth, rng)
+    got = AdmissionPolicy(device="cpu").evaluate(reqs)
+    want = RefAdmission().evaluate(reqs)
+    for name in ("admit", "granted", "temp"):
+        assert got[name].dtype == want[name].dtype
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    shed = reqs["prompt_len"] == 8193
+    assert got["admit"][shed].all() == (depth <= 512)
+    assert not got["admit"][reqs["prompt_len"] == 32769].any()
+
+
+class _Recording:
+    """The reference model, recording the logits of every prefill and
+    decode step in order (a test-side proxy; nothing of the reference
+    changes)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+        self._decode = jax.jit(model.decode_step)
+
+    def prefill(self, params, tokens, max_len=None):
+        logits, cache = self.model.prefill(params, tokens, max_len=max_len)
+        self.logits.append(np.asarray(logits))
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens):
+        logits, cache = self._decode(params, cache, tokens)
+        self.logits.append(np.asarray(logits))
+        return logits, cache
+
+
+def _requests(cls, rng, vocab, temps):
+    lens = [9, 14, 6, 11, 12]
+    reqs = [cls(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                max_new_tokens=6, temperature=t, tier=1)
+            for i, (n, t) in enumerate(zip(lens, temps))]
+    reqs.append(cls(rid=len(lens), prompt=np.zeros(33_000, np.int32), max_new_tokens=6,
+                    temperature=0.0, tier=1))  # over 32768: rejected before prefill
+    return reqs
+
+
+@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m"])
+def test_engine_greedy_tokens_match_reference(arch):
+    ref_cfg = smoke_config_for(arch)
+    model = ref_build(ref_cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    port = params_from_reference(jax.tree.map(np.asarray, params),
+                                 tconfigs.smoke_config_for(arch), "cpu")
+    temps = [0.0] * 5
+    rec = _Recording(model)
+    ref_eng = RefEngine(rec, params, slots=4, max_len=64)
+    ref_eng._decode = rec.decode_step  # record each step
+    ref_done = {c.rid: c for c in ref_eng.run(
+        _requests(RefRequest, np.random.default_rng(0), ref_cfg.vocab, temps))}
+    done = {c.rid: c for c in ServeEngine(port, slots=4, max_len=64).run(
+        _requests(Request, np.random.default_rng(0), ref_cfg.vocab, temps))}
+    assert done[5].reason == ref_done[5].reason == "rejected" and not done[5].tokens
+
+    # step logits per batch: batch 0 holds requests 0-3, batch 1 request 4
+    steps = {0: rec.logits[:6], 1: rec.logits[6:12]}
+    compared = 0
+    for rid in range(5):
+        batch, row = divmod(rid, 4)
+        want, got = ref_done[rid].tokens, done[rid].tokens
+        assert done[rid].reason == ref_done[rid].reason == "length"
+        assert len(got) == len(want) == 6
+        for j, logits in enumerate(steps[batch]):
+            top2 = np.sort(logits[row])[-2:]
+            if top2[1] - top2[0] < 2e-2 * np.abs(logits).max():
+                break
+            assert got[j] == want[j], (rid, j)
+            compared += 1
+    assert compared >= 10
+
+
+def test_engine_sampling_is_reproducible():
+    cfg = tconfigs.smoke_config_for("granite3_2b")
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    temps = [0.7, 1.0, 0.0, 0.7, 1.0]
+    runs = [ServeEngine(model, slots=4, max_len=64, seed=7).run(
+        _requests(Request, np.random.default_rng(1), cfg.vocab, temps)) for _ in range(2)]
+    a, b = ({c.rid: c.tokens for c in run} for run in runs)
+    assert a == b
+    assert all(0 <= t < cfg.vocab for toks in a.values() for t in toks)
+    assert a[5] == [] and all(len(a[i]) == 6 for i in range(5))
+
+
+def test_unported_intake_raises():
+    cfg = tconfigs.smoke_config_for("granite3_2b")
+    eng = ServeEngine(build_model(cfg, "cpu").init(), slots=2, max_len=32)
+    with pytest.raises(NotImplementedError, match="A6"):
+        eng.submit(Request(rid=0, prompt=np.zeros(4, np.int32)))
+    with pytest.raises(NotImplementedError, match="A6"):
+        eng.drain()
+    with pytest.raises(NotImplementedError, match="A6"):
+        eng.admission.submit(tier=1, prompt_len=4, max_new_tokens=4, temperature=0.0)
+    with pytest.raises(NotImplementedError, match="A6"):
+        AdmissionPolicy(device="cpu", fuse=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        AdmissionPolicy(device="cpu", store="plans")
+
+
+def test_interpreted_admission_raises():
+    with pytest.raises(NotImplementedError):
+        AdmissionPolicy(froid=False, device="cpu").evaluate(
+            _edge_requests(3, np.random.default_rng(0)))
+
+
+def test_launcher_runs_on_the_cpu(capsys):
+    done = launcher.main(["--arch", "mamba2_370m", "--smoke", "--device", "cpu",
+                          "--requests", "3", "--max-new", "3"])
+    assert len(done) == 3 and all(len(c.tokens) == 3 for c in done)
+    assert "req 2: 3 tokens (length)" in capsys.readouterr().out
+
+
+def test_serving_imports_leave_jax_and_repro_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.serve, repro_torch.models.convert\n"
+        "import repro_torch.kernels.flash_attention.flash_attention\n"
+        "import repro_torch.kernels.ssd_scan.ssd_scan\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "sys.exit(1 if loaded else 0)\n"
+    )
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0, out.stdout + out.stderr

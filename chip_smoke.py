@@ -478,7 +478,7 @@ def ssd_kernel_phase() -> dict:
     import torch
 
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan import chunk_for, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, ssd_scan_cuda
 
     cases = [(4, 4, 1, 64, 128), (32, 1, 100, 64, 128), (32, 1, 2048, 64, 128),
              (4, 4, 2048, 64, 128), (8, 8, 100, 16, 16)]
@@ -494,7 +494,7 @@ def ssd_kernel_phase() -> dict:
         torch.cuda.synchronize()
         b = ssd_scan_ref(xdt, dtA, B, C, BH // BG)
         err = ssd_rel_err(a, b)
-        label = f"ssd_scan BH={BH} BG={BG} L={L} P={P} N={N} (chunk {chunk_for(P, N)})"
+        label = f"ssd_scan BH={BH} BG={BG} L={L} P={P} N={N} (chunk {chunk()})"
         check(err < 3e-4, f"{label}: error {err} of max|y|, over 3e-4")
         worst = max(worst, err)
         max_abs = max(max_abs, float((a - b).abs().max()))
@@ -784,6 +784,14 @@ def time_flash(args) -> dict:
     ref = flash_attention_ref(q, k, v, **kw)
     ok, err = allclose(out, ref, flash_tol(q.dtype))
     check(ok, f"flash_attention at the serving inputs: max |kernel - plain| {err}")
+    # the same inputs in float32, where the tolerance is tight enough to see
+    # a masking or tile-skipping error at the path's own length
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    ok32, err32 = allclose(flash_attention_cuda(q32, k32, v32, **kw),
+                           flash_attention_ref(q32, k32, v32, **kw), flash_tol(torch.float32))
+    check(ok32, f"flash_attention at the serving inputs in float32: max |kernel - plain| "
+          f"{err32} over tolerance {flash_tol(torch.float32)}")
+    del q32, k32, v32
     sdpa_ok = causal and window is None and q_offset == 0 and Sq == Sk \
         and kw.get("sm_scale") is None
 
@@ -807,26 +815,28 @@ def time_flash(args) -> dict:
         "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        "max_abs_err": err, "library_max_abs_err": lib_err,
+        "max_abs_err": err, "max_abs_err_f32": err32, "library_max_abs_err": lib_err,
         "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
     }
 
 
-def ssd_ops_needed(BH: int, L: int, P: int, N: int, Q: int) -> int:
+def ssd_ops_needed(BH: int, BG: int, L: int, P: int, N: int, Q: int) -> int:
     """Operations of the chunked form at chunk Q on this data: per chunk of
-    r rows, the lower triangle of C B^T (r(r+1)/2 N multiply-adds) and of
-    its product with xdt (r(r+1)/2 P), C S for every chunk after the first
+    r rows, the lower triangle of C B^T (r(r+1)/2 N multiply-adds) once per
+    group, since it does not depend on the head; per head, that triangle's
+    product with xdt (r(r+1)/2 P), C S for every chunk after the first
     (r N P) and the state update for every chunk but the last (r N P)."""
-    total = 0
+    per_group = per_head = 0
     for c, c0 in enumerate(range(0, L, Q)):
         r = min(Q, L - c0)
         tri = r * (r + 1) // 2
-        total += tri * (N + P)
+        per_group += tri * N
+        per_head += tri * P
         if c > 0:
-            total += r * N * P
+            per_head += r * N * P
         if c0 + Q < L:
-            total += r * N * P
-    return 2 * total * BH
+            per_head += r * N * P
+    return 2 * (per_group * BG + per_head * BH)
 
 
 def time_ssd(args) -> dict:
@@ -835,7 +845,7 @@ def time_ssd(args) -> dict:
     (:func:`ssd_ops_needed` at the float32 peak, against xdt, dtA, B and C
     once per group, and y).  No PyTorch call computes the SSD scan."""
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
-    from repro_torch.kernels.ssd_scan.ssd_scan import chunk_for, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, ssd_scan_cuda
 
     (xdt, dtA, B, C, n_rep), _ = args
     BH, L, P = xdt.shape
@@ -849,8 +859,8 @@ def time_ssd(args) -> dict:
     p1, k1, k2, p2 = (cuda_ms(f, reps=10) for f in (
         lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep), lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep),
         lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep), lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep)))
-    Q = chunk_for(P, N)
-    ops_count = ssd_ops_needed(BH, L, P, N, Q)
+    Q = chunk()
+    ops_count = ssd_ops_needed(BH, B.shape[0], L, P, N, Q)
     nbytes = 4 * (2 * xdt.numel() + dtA.numel() + B.numel() + C.numel())
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3

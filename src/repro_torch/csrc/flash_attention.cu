@@ -236,8 +236,8 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike); D: 16, 32, 64 or
-// 128 (granite-3-2b's 64, MLA's padded 128, and the smoke configs' 16).
+// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike); D: 16, 64 or 128
+// (granite-3-2b's 64, MLA's padded 128, and the smoke configs' 16).
 // All four tensors are contiguous.  window is read only when has_window.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int Hk, int Sq, int Sk, int D,
@@ -250,11 +250,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype * 1000 + D) {
     case 16: return launch<float, 16>(a, B, s);
-    case 32: return launch<float, 32>(a, B, s);
     case 64: return launch<float, 64>(a, B, s);
     case 128: return launch<float, 128>(a, B, s);
     case 1016: return launch<__nv_bfloat16, 16>(a, B, s);
-    case 1032: return launch<__nv_bfloat16, 32>(a, B, s);
     case 1064: return launch<__nv_bfloat16, 64>(a, B, s);
     case 1128: return launch<__nv_bfloat16, 128>(a, B, s);
     default: return (int)cudaErrorInvalidValue;

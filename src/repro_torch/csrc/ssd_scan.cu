@@ -13,15 +13,17 @@
 // exponent is <= 0 (A < 0, dt > 0), and the kernel keeps the
 // exp(cum_i - cum_j) form: exp(cum_i) / exp(cum_j) would under- and
 // overflow.  The function is the same for any chunk length up to
-// rounding, so the kernel picks its own (ssd_scan_chunk): the reference's
-// Q = 128 needs ~265 KB of shared memory at N = 128, P = 64, over the
-// 227 KB a block may opt in to, so Q is 64 there.  L need not be a
+// rounding, so the kernel takes its own, Q = 64: the reference's Q = 128
+// needs ~265 KB of shared memory at N = 128, P = 64, over the 227 KB a
+// block may opt in to, while Q = 64 fits every config in the repo
+// (jamba's P = N = 128 at ~181 KB; ssd_scan_smem_bytes).  L need not be a
 // multiple of Q: rows past L load as zeros (dtA = 0 leaves cum_end at the
 // last real row) and are not written.
 //
 // Bound: at the serving path's shapes (mamba2-370m prefill: N = 128,
-// P = 64, one group for 32 heads) the chunked form does ~2 N P + (N + P)
-// (Q + 1) operations per row against 2 P + 1 floats of xdt, dtA and y per
+// P = 64, one group for 32 heads) the chunked form needs ~4 N P +
+// (Q + 1) (P + N / n_rep) operations per row of a head (C B^T depends on
+// the group, not the head) against 2 P + 1 floats of xdt, dtA and y per
 // row (B and C once per group): operations, at the float32 rate of the
 // CUDA cores (67 TFLOP/s; the reference's float32 tolerance rules out
 // TF32).
@@ -33,7 +35,9 @@
 // shared memory; each phase (scores, outputs, state update) gives every
 // thread independent output elements, so no atomics.  B and C rows are
 // padded by one float so the column walks do not collide in banks.  Only
-// the lower triangle of the scores is computed.
+// the lower triangle of the scores is computed, but each of the n_rep
+// heads of a group computes the same C B^T again (32 heads at
+// mamba2-370m, ~1.2x the operations the function needs there).
 //
 // Plain C interface, bound with ctypes: the entry returns the cudaError_t
 // of its launch (0 on success).
@@ -44,21 +48,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxChunk = 64;
-constexpr int kMinChunk = 16;
+constexpr int kChunk = 64;
 
-size_t smem_floats(int Q, int P, int N) {
-  return (size_t)N * P + (size_t)Q * P + 2 * (size_t)Q * (N + 1) +
-         (size_t)Q * (Q + 1) + 2 * (size_t)Q;
-}
-
-int optin_budget() {
-  int dev = 0, value = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&value, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return value;
+size_t smem_bytes(int P, int N) {
+  const size_t Q = kChunk;
+  return sizeof(float) * ((size_t)N * P + Q * P + 2 * Q * (N + 1) +
+                          Q * (Q + 1) + 2 * Q);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -66,6 +61,8 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ Bm, const float* __restrict__ Cm,
                     float* __restrict__ y, int L, int P, int N, int n_rep,
                     int Q) {
+  // Q (always kChunk) is an argument, not a constant: compiled with a
+  // constant Q the kernel ran ~1.4x slower on the H100 (PERF.md)
   extern __shared__ float smem[];
   const int NP = N + 1;
   const int QP = Q + 1;
@@ -165,14 +162,18 @@ const char* ssd_scan_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The chunk length the kernel takes for (P, N) on the current device: the
-// largest of 64, 32, 16 whose working set fits the shared memory a block
-// may opt in to; 0 if none does.
-int ssd_scan_chunk(int P, int N) {
-  const size_t budget = (size_t)optin_budget();
-  for (int Q = kMaxChunk; Q >= kMinChunk; Q /= 2)
-    if (smem_floats(Q, P, N) * sizeof(float) <= budget) return Q;
-  return 0;
+// The chunk length the kernel takes; the shared memory a block needs at
+// head dim P and state dim N; the most a block may opt in to on the
+// current device (0 if it cannot be read).
+int ssd_scan_chunk() { return kChunk; }
+size_t ssd_scan_smem_bytes(int P, int N) { return smem_bytes(P, N); }
+int ssd_scan_smem_optin() {
+  int dev = 0, value = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&value, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return value;
 }
 
 // xdt (BH, L, P), dtA (BH, L), B and C (BG, L, N), y (BH, L, P): float32,
@@ -182,15 +183,13 @@ int ssd_scan_fwd(const void* xdt, const void* dtA, const void* B, const void* C,
                  void* stream) {
   if (BH <= 0 || L <= 0) return 0;
   if (P <= 0 || N <= 0 || n_rep <= 0) return (int)cudaErrorInvalidValue;
-  const int Q = ssd_scan_chunk(P, N);
-  if (Q == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(Q, P, N) * sizeof(float);
+  const size_t smem = smem_bytes(P, N);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   ssd_scan_kernel<<<BH, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)xdt, (const float*)dtA, (const float*)B, (const float*)C,
-      (float*)y, L, P, N, n_rep, Q);
+      (float*)y, L, P, N, n_rep, kChunk);
   return (int)cudaGetLastError();
 }
 

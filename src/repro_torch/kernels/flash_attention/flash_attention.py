@@ -5,8 +5,8 @@
 One block per (64-row query tile, query head, batch); K/V tiles of 64 keys
 staged in shared memory; the online-softmax state in float32 registers;
 key tiles that the causal or window mask covers wholly are never visited.
-bf16 and float32 inputs, head dims 16, 32, 64 and 128 (granite-3-2b
-takes 64, MLA will pad to 128, the smoke configs take 16).  See the
+bf16 and float32 inputs, head dims 16, 64 and 128 (granite-3-2b takes
+64, MLA will pad to 128, the smoke configs take 16).  See the
 source's header for the bound and the design.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 64, 128)
 
 
 def _lib() -> ctypes.CDLL:

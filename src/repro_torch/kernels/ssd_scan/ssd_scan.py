@@ -2,10 +2,9 @@
 which replaces ``src/repro/kernels/ssd_scan/ssd_scan.py::_ssd_kernel``.
 
 One block per head walks its chunks in order with the (N, P) float32
-state in shared memory.  The kernel picks its own chunk length
-(:func:`chunk_for`): the largest of 64, 32, 16 whose working set fits the
-shared memory a block may opt in to.  See the source's header for the
-bound and the design.
+state in shared memory, chunk by chunk at the kernel's own chunk length
+of 64 (:func:`chunk`).  See the source's header for the bound and the
+design.
 """
 from __future__ import annotations
 
@@ -22,18 +21,21 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         lib.ssd_scan_fwd.restype = ctypes.c_int
-        lib.ssd_scan_chunk.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ssd_scan_chunk.argtypes = []
         lib.ssd_scan_chunk.restype = ctypes.c_int
+        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_size_t
+        lib.ssd_scan_smem_optin.argtypes = []
+        lib.ssd_scan_smem_optin.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def chunk_for(P: int, N: int) -> int:
-    """The chunk length the kernel takes for head dim P and state dim N on
-    the current device (0 if even 16 does not fit)."""
-    return _lib().ssd_scan_chunk(P, N)
+def chunk() -> int:
+    """The chunk length the kernel takes."""
+    return _lib().ssd_scan_chunk()
 
 
 def ssd_scan_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
@@ -55,11 +57,14 @@ def ssd_scan_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
     BH, L, P = xdt.shape
     N = B.shape[2]
     lib = _lib()
-    if lib.ssd_scan_chunk(P, N) == 0:
-        raise ValueError(f"ssd_scan_cuda: P={P}, N={N} do not fit shared memory")
     xdt, dtA, B, C = (t.contiguous() for t in ts)
     y = torch.empty_like(xdt)
     with torch.cuda.device(xdt.device):
+        need, have = lib.ssd_scan_smem_bytes(P, N), lib.ssd_scan_smem_optin()
+        if need > have:
+            raise ValueError(f"ssd_scan_cuda: P={P}, N={N} at chunk {lib.ssd_scan_chunk()} "
+                             f"need {need} bytes of shared memory a block; the device "
+                             f"allows {have}")
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_fwd(xdt.data_ptr(), dtA.data_ptr(), B.data_ptr(),
                                C.data_ptr(), y.data_ptr(), BH, L, P, N, n_rep,

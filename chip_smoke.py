@@ -9,11 +9,15 @@ script exits non-zero:
 
 1. build — compiles the port's CUDA kernels (``csrc/relagg.cu``,
    ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``, one ``nvcc`` each, in
-   parallel) from the sources in this checkout;
+   parallel) from the sources in this checkout, and prints each kernel
+   instance's registers, shared memory and spills (``ptxas -v``) and its
+   tensor-core instructions (HGMMA, from ``cuobjdump -sass``); a bf16
+   flash_attention instance without HGMMA fails;
 2. kernels — each kernel against its plain torch version on the card:
    relagg on the shared-memory and the global-atomics path, with an empty
    mask and with out-of-range group ids; flash_attention causal and not,
-   with windows, GQA, a decode offset, ragged lengths, bf16 and float32,
+   with windows, GQA, a decode offset, ragged lengths, rows with no valid
+   key, bf16 (the tensor-core kernel) and float32 (the CUDA-core one),
    head dims 16/64/128; ssd_scan with one and 32 heads per group, L = 1,
    100, 2048;
 3. main path — TPC-H at scale factor 1 (6,000,000 ``lineitem`` rows) on the
@@ -34,7 +38,9 @@ script exits non-zero:
 7. LM kernel times — flash_attention and ssd_scan on the inputs the
    serving path handed them, against the plain version, the library call
    (``scaled_dot_product_attention``; none computes the SSD scan) and the
-   bound that this data needs;
+   bound that this data needs; flash_attention in bf16 also against the
+   plain version in float32 by mean |diff|, beside a control that leaves
+   one 64-key tile out and must read above the limit;
 8. LM cross-device — the smoke configs' prefill and decode logits and the
    admission verdicts on the CPU and on the card.
 
@@ -51,6 +57,7 @@ import importlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +100,92 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# build report
+# ---------------------------------------------------------------------------
+
+
+def demangle(names: list[str], tool: pathlib.Path) -> list[str]:
+    """Kernel names as ``cu++filt`` gives them, without the anonymous
+    namespace and the argument list; the mangled names if it is missing."""
+    if not tool.exists():
+        return names
+    out = subprocess.run([str(tool)], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    short = [re.sub(r"\(anonymous namespace\)::", "", n) for n in out]
+    return [re.sub(r"^void |\([^()]*\)$", "", n) for n in short]
+
+
+def ptxas_report(text: str) -> dict[str, dict]:
+    """Registers, static shared memory and spills per kernel, from the
+    ``ptxas -v`` lines that the build kept."""
+    found: dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            found[name] = {"registers": None, "smem": 0, "spill_stores": None,
+                           "spill_loads": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found[name]["spill_stores"], found[name]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            found[name]["smem"] = int(sm.group(1)) if sm else 0
+    return found
+
+
+def hgmma_counts(lib: pathlib.Path, tool: pathlib.Path) -> dict[str, int]:
+    """Tensor-core instructions (HGMMA) per kernel in the library's SASS."""
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def build_report() -> dict[str, dict]:
+    """Per kernel instance of the three libraries: ``ptxas -v``'s registers,
+    shared memory and spills, and the HGMMA count of its SASS.  Fails
+    unless each bf16 flash_attention instance (D = 16, 64, 128) holds
+    tensor-core instructions."""
+    from repro_torch.kernels import _build
+
+    bindir = pathlib.Path(_build._nvcc()).parent
+    report = {}
+    for kernel in KERNELS:
+        text = _build.build_log(kernel)
+        for line in text.splitlines():
+            if "warning" in line.lower() or "wgmma" in line.lower():
+                log(f"ptxas {kernel}.cu: {line.strip()}")
+        res = ptxas_report(text)
+        hgmma = hgmma_counts(_build.library_path(kernel), bindir / "cuobjdump")
+        mangled = sorted(res)
+        for m, name in zip(mangled, demangle(mangled, bindir / "cu++filt")):
+            r = report[name] = {**res[m], "hgmma": hgmma.get(m, 0), "source": f"{kernel}.cu"}
+            log(f"ptxas {name} ({kernel}.cu): {r['registers']} registers, {r['smem']} bytes "
+                f"static shared memory, spill stores {r['spill_stores']} / loads "
+                f"{r['spill_loads']} bytes; HGMMA instructions in its SASS: {r['hgmma']}")
+    bf16 = {n: r["hgmma"] for n, r in report.items() if "flash_fwd_bf16" in n}
+    check(len(bf16) == 3, f"expected the bf16 flash_attention instances D = 16, 64, 128: "
+          f"{sorted(bf16)}")
+    check(all(bf16.values()), f"a bf16 flash_attention instance has no HGMMA: {bf16}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +517,9 @@ def flash_tol(dtype) -> float:
 
 def flash_kernel_phase() -> dict:
     """flash_attention kernel vs plain on the card; tolerances of the
-    reference's sweep (``tests/test_kernels.py``)."""
+    reference's sweep (``tests/test_kernels.py``).  bf16 goes to the
+    tensor-core kernel and float32 to the CUDA-core one, so each mask case
+    runs in both."""
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
@@ -439,11 +534,21 @@ def flash_kernel_phase() -> dict:
     cases += [(2, 4, 1, 100, 300, 128, dt, {"causal": False}) for dt in (f32, bf16)]
     cases += [(1, 4, hk, 200, 200, 64, dt, {"causal": True, "window": w})
               for hk, w in ((4, 16), (1, 100)) for dt in (f32, bf16)]
-    cases += [(2, 4, 2, 1, 512, 64, f32, {"causal": True, "q_offset": 511}),
-              (2, 4, 2, 1, 512, 128, bf16, {"causal": True, "q_offset": 511}),
-              (4, 32, 8, 300, 300, 64, bf16, {"causal": True}),   # granite's heads
+    cases += [(1, 4, 2, 200, 200, D, bf16, {"causal": True, "window": w})
+              for D in (16, 128) for w in (16, 100)]
+    # decode: one query row at q_offset 511
+    cases += [(2, 4, 2, 1, 512, D, dt, {"causal": True, "q_offset": 511})
+              for D in (16, 64, 128) for dt in (f32, bf16)]
+    cases += [(4, 32, 8, 300, 300, 64, bf16, {"causal": True}),   # granite's heads
               (2, 4, 2, 24, 24, 16, f32, {"causal": True}),       # smoke head dim
-              (2, 4, 2, 24, 24, 16, bf16, {"causal": True})]
+              (2, 4, 2, 24, 24, 16, bf16, {"causal": True}),
+              # Sk not a multiple of the 64-key tile, Sq > Sk, a chunked
+              # prefill's offset, a negative scale
+              (1, 4, 1, 200, 333, 16, bf16, {"causal": True}),
+              (1, 4, 2, 333, 200, 128, bf16, {"causal": False}),
+              (1, 4, 2, 70, 333, 64, bf16, {"causal": True, "q_offset": 263}),
+              (1, 4, 2, 96, 160, 64, f32, {"causal": True, "sm_scale": -0.1}),
+              (1, 4, 2, 96, 160, 64, bf16, {"causal": True, "sm_scale": -0.1})]
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = {f32: 0.0, bf16: 0.0}
     for B, Hq, Hk, Sq, Sk, D, dt, kw in cases:
@@ -459,12 +564,31 @@ def flash_kernel_phase() -> dict:
         check(ok, f"{label}: max |kernel - plain| {err} over tolerance {flash_tol(dt)}")
         max_err[dt] = max(max_err[dt], err)
         log(f"{label}: ok (max |kernel - plain| {err:.3g})")
-    q = torch.randn((2, 4, 1, 64), generator=g, device="cuda")
-    k = torch.randn((2, 2, 512, 64), generator=g, device="cuda")
-    empty = flash_attention_cuda(q, k, k, causal=False, window=4, q_offset=600)
-    check(not bool(empty.any()), "flash_attention: a row with no valid key wrote non-zero")
-    log("flash_attention with no valid key: writes 0, ok")
-    return {"cases": len(cases) + 1, "max_abs_err_f32": max_err[f32],
+    # rows with no valid key write 0: a lone decode row past the window,
+    # and a tile whose rows 29-63 see no key (qpos 90 + i, window 20, Sk 100)
+    # beside rows that do
+    empties = 0
+    for D in (16, 64):
+        for dt in (f32, bf16):
+            q = torch.randn((2, 4, 1, D), generator=g, device="cuda").to(dt)
+            k = torch.randn((2, 2, 512, D), generator=g, device="cuda").to(dt)
+            empty = flash_attention_cuda(q, k, k, causal=False, window=4, q_offset=600)
+            check(not bool(empty.any()),
+                  f"flash_attention D={D} {dt}: a row with no valid key wrote non-zero")
+            q = torch.randn((1, 4, 64, D), generator=g, device="cuda").to(dt)
+            k = torch.randn((1, 2, 100, D), generator=g, device="cuda").to(dt)
+            kw = {"causal": False, "window": 20, "q_offset": 90}
+            a = flash_attention_cuda(q, k, k, **kw)
+            b = flash_attention_ref(q, k, k, **kw)
+            check(not bool(a[:, :, 29:].any()) and not bool(b[:, :, 29:].any()),
+                  f"flash_attention D={D} {dt}: rows with no valid key beside rows with "
+                  f"some wrote non-zero")
+            ok, err = allclose(a, b, flash_tol(dt))
+            check(ok, f"flash_attention D={D} {dt} {kw}: max |kernel - plain| {err}")
+            empties += 2
+    log(f"flash_attention with no valid key: writes 0 in {empties} cases (D = 16, 64; "
+        f"float32 and bf16), ok")
+    return {"cases": len(cases) + empties, "max_abs_err_f32": max_err[f32],
             "max_abs_err_bf16": max_err[bf16]}
 
 
@@ -584,11 +708,13 @@ class LongestCall:
         return self.fn(*args, **kwargs)
 
 
-def device_busy(fn) -> tuple[float | None, list]:
+def device_busy(fn) -> tuple[float | None, list, dict]:
     """Device time (ms) of what ``fn`` runs on the card, as the union of the
     intervals of the device events (kernels, copies) in a ``torch.profiler``
-    trace, and the five kernels with the most device time.  (None, []) if
-    the trace holds no device event."""
+    trace, the five kernels with the most device time, and the port's own
+    kernels by name (``flash_fwd_bf16``, ``flash_fwd_kernel``, ...) with
+    their time and launches.  (None, [], {}) if the trace holds no device
+    event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -600,14 +726,19 @@ def device_busy(fn) -> tuple[float | None, list]:
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        return None, []
-    busy, end, by_name = 0.0, float("-inf"), {}
+        return None, [], {}
+    busy, end, by_name, port = 0.0, float("-inf"), {}, {}
     for a, b, name in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
+        m = re.search(r"(flash_fwd_\w+|ssd_\w+|relagg_\w+)", name)
+        if m:
+            entry = port.setdefault(m.group(1), {"ms": 0.0, "launches": 0})
+            entry["ms"] += (b - a) / 1e3
+            entry["launches"] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return busy / 1e3, [(name[:60], ms / 1e3) for name, ms in top]
+    return busy / 1e3, [(name[:60], ms / 1e3) for name, ms in top], port
 
 
 def busy_breakdown(model, reqs, expected) -> dict:
@@ -633,10 +764,10 @@ def busy_breakdown(model, reqs, expected) -> dict:
             state["logits"], state["cache"] = model.decode_step(state["cache"], nxt)
 
     prefill()  # warm
-    p_ms, p_top = device_busy(prefill)
-    d_ms, d_top = device_busy(decode)
+    p_ms, p_top, p_port = device_busy(prefill)
+    d_ms, d_top, _ = device_busy(decode)
     del state
-    return {"prefill_busy_ms": p_ms, "prefill_top": p_top,
+    return {"prefill_busy_ms": p_ms, "prefill_top": p_top, "prefill_port_kernels": p_port,
             "decode_busy_ms_per_step": None if d_ms is None else d_ms / 4,
             "decode_top": d_top}
 
@@ -720,6 +851,14 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
     generated = sum(len(c.tokens) for c in first["done"].values())
     timed = first["timed"]
     busy = busy_breakdown(model, reqs, expected)
+    port = busy["prefill_port_kernels"]
+    if kernel == "flash_attention" and busy["prefill_busy_ms"] is not None:
+        # the bf16 activations reach the tensor-core kernel, never the
+        # CUDA-core one: one launch per layer in the traced prefill
+        check("flash_fwd_kernel" not in port
+              and port.get("flash_fwd_bf16", {}).get("launches") == cfg.n_layers,
+              f"{arch} prefill: port kernels in the trace {port}, expected "
+              f"flash_fwd_bf16 x {cfg.n_layers} and no flash_fwd_kernel")
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
         "requests": len(reqs), "rejected": sum(not v[0] for v in expected.values()),
@@ -740,7 +879,8 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
         log(f"{cfg.name} {what}: device busy "
             + ("not measured (no device events in the trace)" if ms is None else
                f"{ms:.2f} ms of {wall:.2f} ms (idle share {1.0 - ms / wall:.3f}); top "
-               f"{[(n, round(t, 2)) for n, t in busy[what + '_top']]}"))
+               f"{[(n, round(t, 2)) for n, t in busy[what + '_top']]}"
+               + (f"; port kernels {port}" if what == "prefill" else "")))
     log(f"{cfg.name}: served {len(reqs)} requests ({summary['rejected']} rejected by "
         f"admission, {generated} tokens) in {first['wall_s']:.2f} s and "
         f"{second['wall_s']:.2f} s; prefill ms per batch {[round(x, 1) for x in timed.prefill_ms]}, "
@@ -763,12 +903,52 @@ def valid_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+#: the bf16 kernel against the plain version computed in float32 on the
+#: same bf16 inputs: mean |diff| at most this share of mean |plain|.  The
+#: kernel's bf16 output alone rounds by ~0.0014 of |o| on average (half an
+#: ulp of 8 bits, uniformly spread); P is rounded to bf16 once more before
+#: the value product.  A dropped 64-key tile must read above the limit.
+FLASH_MEAN_LIMIT = 0.004
+
+
+def plain_f32_without(q, k, v, kw, keys: range):
+    """The plain version's arithmetic (``ref.flash_attention_ref``) in
+    float32 on q, k, v with ``keys`` masked out as well: what a kernel that
+    skipped those keys would give.  One batch row at a time, to keep the
+    (Hq, Sq, Sk) scores small."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import _mask
+
+    B, Hq, Sq, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if kw.get("sm_scale") is None else kw["sm_scale"]
+    mask = _mask(Sq, Sk, kw.get("causal", True), kw.get("window"), kw.get("q_offset", 0),
+                 q.device)
+    mask[:, keys.start:keys.stop] = False
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        kb = k[b].float().repeat_interleave(Hq // Hk, 0)
+        vb = v[b].float().repeat_interleave(Hq // Hk, 0)
+        s = torch.einsum("hqd,hkd->hqk", q[b].float(), kb) * scale
+        s = torch.where(mask, s, float("-inf"))
+        p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        den = p.sum(-1, keepdim=True)
+        out[b] = torch.einsum("hqk,hkd->hqd", p / torch.where(den > 0, den, 1.0), vb)
+        del s, p
+    return out
+
+
 def time_flash(args) -> dict:
     """flash_attention on the serving path's own inputs: checked against the
     plain version, timed beside it, beside ``scaled_dot_product_attention``
     and beside the bound of this data: 4 D operations per (query, key) pair
     the mask lets through at the bf16 tensor-core peak, against q, k, v and
-    o moved once each (K and V once for the n_rep heads that share them)."""
+    o moved once each (K and V once for the n_rep heads that share them).
+    In bf16 the kernel is also held by mean |diff| to the plain version in
+    float32 (:data:`FLASH_MEAN_LIMIT`), beside the same measure of the plain
+    version with the middle 64-key tile left out (the control, which must
+    read above the limit) and of SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -784,14 +964,6 @@ def time_flash(args) -> dict:
     ref = flash_attention_ref(q, k, v, **kw)
     ok, err = allclose(out, ref, flash_tol(q.dtype))
     check(ok, f"flash_attention at the serving inputs: max |kernel - plain| {err}")
-    # the same inputs in float32, where the tolerance is tight enough to see
-    # a masking or tile-skipping error at the path's own length
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    ok32, err32 = allclose(flash_attention_cuda(q32, k32, v32, **kw),
-                           flash_attention_ref(q32, k32, v32, **kw), flash_tol(torch.float32))
-    check(ok32, f"flash_attention at the serving inputs in float32: max |kernel - plain| "
-          f"{err32} over tolerance {flash_tol(torch.float32)}")
-    del q32, k32, v32
     sdpa_ok = causal and window is None and q_offset == 0 and Sq == Sk \
         and kw.get("sm_scale") is None
 
@@ -800,6 +972,32 @@ def time_flash(args) -> dict:
 
     lib_err = float((library().float() - ref.float()).abs().max()) if sdpa_ok else None
     del ref
+    # the same inputs in float32, for the CUDA-core kernel, where the
+    # tolerance is tight enough to see a masking or tile-skipping error at
+    # the path's own length
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    ref32 = flash_attention_ref(q32, k32, v32, **kw)
+    ok32, err32 = allclose(flash_attention_cuda(q32, k32, v32, **kw), ref32,
+                           flash_tol(torch.float32))
+    check(ok32, f"flash_attention at the serving inputs in float32: max |kernel - plain| "
+          f"{err32} over tolerance {flash_tol(torch.float32)}")
+    # the bf16 kernel against that float32 plain version, by mean |diff|
+    mean_plain = float(ref32.abs().mean())
+    limit = FLASH_MEAN_LIMIT * mean_plain
+    mean_diff = float((out.float() - ref32).abs().mean())
+    tile = (Sk // 64) // 2
+    control = float((plain_f32_without(q32, k32, v32, kw, range(64 * tile, 64 * tile + 64))
+                     - ref32).abs().mean())
+    sdpa_mean = float((library().float() - ref32).abs().mean()) if sdpa_ok else None
+    del q32, k32, v32, ref32, out
+    check(mean_diff <= limit, f"flash_attention bf16 at the serving inputs: mean |kernel - "
+          f"plain in float32| {mean_diff} over {limit} ({FLASH_MEAN_LIMIT} x mean |plain|)")
+    check(control > limit, f"flash_attention: the control without key tile {tile} reads "
+          f"{control}, not above the limit {limit}: the check cannot see a dropped tile")
+    log(f"flash_attention bf16 at the serving inputs: mean |kernel - plain in float32| "
+        f"{mean_diff:.6g}, limit {limit:.6g} ({FLASH_MEAN_LIMIT} x mean |plain| "
+        f"{mean_plain:.6g}); the plain version without key tile {tile}: {control:.6g}; "
+        f"SDPA: {sdpa_mean if sdpa_mean is None else f'{sdpa_mean:.6g}'}")
     p1, k1, k2, p2 = (cuda_ms(f, reps=10) for f in (
         lambda: flash_attention_ref(q, k, v, **kw), lambda: flash_attention_cuda(q, k, v, **kw),
         lambda: flash_attention_cuda(q, k, v, **kw), lambda: flash_attention_ref(q, k, v, **kw)))
@@ -816,6 +1014,8 @@ def time_flash(args) -> dict:
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "max_abs_err": err, "max_abs_err_f32": err32, "library_max_abs_err": lib_err,
+        "mean_abs_err_vs_f32": mean_diff, "mean_limit": limit, "control_dropped_tile": control,
+        "library_mean_abs_err_vs_f32": sdpa_mean,
         "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
     }
 
@@ -825,7 +1025,8 @@ def ssd_ops_needed(BH: int, BG: int, L: int, P: int, N: int, Q: int) -> int:
     r rows, the lower triangle of C B^T (r(r+1)/2 N multiply-adds) once per
     group, since it does not depend on the head; per head, that triangle's
     product with xdt (r(r+1)/2 P), C S for every chunk after the first
-    (r N P) and the state update for every chunk but the last (r N P)."""
+    (r N P) and the state update for every chunk but the last (r N P).
+    It grows with Q; at Q = 1 it is the recurrence's own work."""
     per_group = per_head = 0
     for c, c0 in enumerate(range(0, L, Q)):
         r = min(Q, L - c0)
@@ -839,13 +1040,38 @@ def ssd_ops_needed(BH: int, BG: int, L: int, P: int, N: int, Q: int) -> int:
     return 2 * (per_group * BG + per_head * BH)
 
 
+#: the chunk at which ssd_scan's bound is counted: 1, the per-step
+#: recurrence (S_t = exp(dtA_t) S_{t-1} + B_t xdt_t^T, y_t = C_t S_t, ~4 N P
+#: operations a row and head).  At the serving path's lengths every longer
+#: chunk computes the same function with more operations (its lower
+#: triangle grows with the chunk), so this is the least work the function
+#: needs, whatever chunk a kernel takes; counted at the kernel's own chunk,
+#: a kernel with a smaller chunk would read a smaller bound.  For short
+#: sequences (L = 100 at mamba2-370m's widths) one quadratic chunk needs
+#: fewer, and :func:`ssd_bound` refuses such a shape.
+SSD_BOUND_CHUNK = 1
+
+
+def ssd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
+    """(operations, bytes) that ssd_scan needs at these shapes: operations
+    at :data:`SSD_BOUND_CHUNK`, after checking that no chunk length in
+    1..L needs fewer; bytes for xdt, dtA and y once per head, B and C once
+    per group, float32."""
+    ops_count = ssd_ops_needed(BH, BG, L, P, N, SSD_BOUND_CHUNK)
+    least = min(range(1, L + 1), key=lambda q: ssd_ops_needed(BH, BG, L, P, N, q))
+    check(least == SSD_BOUND_CHUNK, f"ssd_scan bound: at L = {L} chunk {least} needs fewer "
+          f"operations than chunk {SSD_BOUND_CHUNK}; the bound would not be a least time")
+    nbytes = 4 * (2 * BH * L * P + BH * L + 2 * BG * L * N)
+    return ops_count, nbytes
+
+
 def time_ssd(args) -> dict:
     """ssd_scan on the serving path's own inputs: checked against the plain
     chunked version, timed beside it and beside the bound of this data
-    (:func:`ssd_ops_needed` at the float32 peak, against xdt, dtA, B and C
-    once per group, and y).  No PyTorch call computes the SSD scan."""
+    (:func:`ssd_bound`: operations at the float32 peak, bytes at the
+    memory rate).  No PyTorch call computes the SSD scan."""
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
-    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
 
     (xdt, dtA, B, C, n_rep), _ = args
     BH, L, P = xdt.shape
@@ -859,13 +1085,11 @@ def time_ssd(args) -> dict:
     p1, k1, k2, p2 = (cuda_ms(f, reps=10) for f in (
         lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep), lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep),
         lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep), lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep)))
-    Q = chunk()
-    ops_count = ssd_ops_needed(BH, B.shape[0], L, P, N, Q)
-    nbytes = 4 * (2 * xdt.numel() + dtA.numel() + B.numel() + C.numel())
+    ops_count, nbytes = ssd_bound(BH, B.shape[0], L, P, N)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
     return {
-        "shape": [BH, B.shape[0], L, P, N], "chunk": Q, "ops": ops_count, "bytes": nbytes,
+        "shape": [BH, B.shape[0], L, P, N], "ops": ops_count, "bytes": nbytes,
         "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": None,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -956,6 +1180,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.load, KERNELS))  # one nvcc per source, together
     log(f"build: {', '.join(k + '.cu' for k in KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    build = build_report()
 
     t0 = time.perf_counter()
     kern = kernel_phase()
@@ -1013,7 +1238,7 @@ def main() -> int:
 
     log(json.dumps({"main_path_warm_ms": main["times"], "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
-                    "flash_sweep": flash, "ssd_sweep": ssd}, default=str))
+                    "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     fa, sd = lm_times["flash_attention"], lm_times["ssd_scan"]

@@ -4,9 +4,11 @@ Each ``src/repro_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``.  Builds go
 to ``build/torch_kernels/`` at the root of the checkout, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.  A missing ``nvcc`` or a failed build raises; nothing falls
-back.  Nothing here runs at import: a kernel is built the first time its
-wrapper launches it.
+loads at once.  Beside each library, a ``.log`` file keeps what ``nvcc``
+printed: ``ptxas -v``'s registers, shared memory and spills per kernel
+(:func:`build_log`).  A missing ``nvcc`` or a failed build raises; nothing
+falls back.  Nothing here runs at import: a kernel is built the first time
+its wrapper launches it.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -55,6 +57,14 @@ def load(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, out)
     lib = _loaded[name] = ctypes.CDLL(str(out))
     return lib
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<name>.cu`` (built first
+    if needed)."""
+    load(name)
+    return library_path(name).with_suffix(".log").read_text()

@@ -2,12 +2,19 @@
 (``csrc/flash_attention.cu``), which replaces
 ``src/repro/kernels/flash_attention/flash_attention.py::_flash_kernel``.
 
-One block per (64-row query tile, query head, batch); K/V tiles of 64 keys
-staged in shared memory; the online-softmax state in float32 registers;
-key tiles that the causal or window mask covers wholly are never visited.
-bf16 and float32 inputs, head dims 16, 64 and 128 (granite-3-2b takes
-64, MLA will pad to 128, the smoke configs take 16).  See the
-source's header for the bound and the design.
+One block per (64-row query tile, query head, batch), K/V tiles of 64
+keys, the online-softmax state in float32 registers, key tiles that the
+causal or window mask covers wholly never visited.  Head dims 16, 64 and
+128 (granite-3-2b takes 64, MLA will pad to 128, the smoke configs take
+16).
+
+bf16 runs on the tensor cores: one warpgroup per block, S = Q K^T and
+O += P V as ``wgmma`` products (P from registers, rounded to bf16 only
+there), K and V through a two-stage ring of ``cp.async`` copies.  Its bound
+is the operations, at 989 TFLOP/s.  Not done yet: warp specialisation, a
+persistent grid, fp8.  float32 runs on the CUDA cores, as first ported, to
+keep its 2e-5 agreement with the plain version.  See the source's header
+for the design.
 """
 from __future__ import annotations
 
@@ -59,6 +66,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sm_scale is None:
         sm_scale = D ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: bf16 q, k, v must start at a "
+                         "16-byte boundary (the kernel copies 16 bytes at a time)")
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):

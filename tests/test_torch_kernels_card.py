@@ -6,9 +6,10 @@ elsewhere; on the card they run with
 
 Tolerances are the reference's own (``tests/test_kernels.py``):
 flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
-outputs compared in float32); ssd_scan a max error below 3e-4 of max|y|
-in float32.  The kernels sum in another order than the plain versions
-(tiles of 64 keys, chunks of the kernel's own length)."""
+outputs compared in float32; bf16 runs the tensor-core kernel, float32 the
+CUDA-core one); ssd_scan a max error below 3e-4 of max|y| in float32.  The
+kernels sum in another order than the plain versions (tiles of 64 keys,
+chunks of the kernel's own length)."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 pytestmark = [
     pytest.mark.gpu,
@@ -30,6 +33,8 @@ pytestmark = [
     (2, 4, 4, 100, 100, 128),
     (1, 2, 1, 64, 320, 128),
     (4, 32, 8, 300, 300, 64),  # granite-3-2b's heads
+    (2, 4, 2, 24, 24, 16),     # the smoke configs' head dim
+    (1, 4, 1, 200, 333, 16),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -42,33 +47,36 @@ def test_flash_kernel_matches_plain(rng, B, Hq, Hk, Sq, Sk, D, causal, dtype):
     assert fa_ops.LAUNCHES == before + 1
     assert a.dtype == dtype and a.shape == q.shape
     b = flash_attention_ref(q, k, v, causal=causal)
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    tol = FLASH_TOL[dtype]
     np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
                                atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("window", [16, 100])
 @pytest.mark.parametrize("n_rep", [1, 4])
-def test_flash_kernel_window(rng, window, n_rep):
-    q = torch.as_tensor(rng.normal(size=(1, 4, 200, 64)), dtype=torch.float32,
-                        device="cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window(rng, window, n_rep, dtype):
+    q = torch.as_tensor(rng.normal(size=(1, 4, 200, 64)), device="cuda").to(dtype)
     k, v = (torch.as_tensor(rng.normal(size=(1, 4 // n_rep, 200, 64)),
-                            dtype=torch.float32, device="cuda") for _ in range(2))
+                            device="cuda").to(dtype) for _ in range(2))
     a = fa_ops.flash_attention(q, k, v, causal=True, window=window)
     b = flash_attention_ref(q, k, v, causal=True, window=window)
-    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
-@pytest.mark.parametrize("D", [64, 128])
-def test_flash_kernel_decode_offset(rng, D):
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_decode_offset(rng, D, dtype):
     """Sq = 1 at q_offset 511, and a window that leaves one row of a tile
     with no valid key (it writes 0)."""
-    q = torch.as_tensor(rng.normal(size=(2, 4, 1, D)), dtype=torch.float32, device="cuda")
-    k, v = (torch.as_tensor(rng.normal(size=(2, 2, 512, D)), dtype=torch.float32,
-                            device="cuda") for _ in range(2))
+    q = torch.as_tensor(rng.normal(size=(2, 4, 1, D)), device="cuda").to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(2, 2, 512, D)), device="cuda").to(dtype)
+            for _ in range(2))
     a = fa_ops.flash_attention(q, k, v, causal=True, q_offset=511)
     b = flash_attention_ref(q, k, v, causal=True, q_offset=511)
-    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
     empty = fa_ops.flash_attention(q, k, v, causal=False, window=4, q_offset=600)
     assert not empty.any()
 

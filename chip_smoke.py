@@ -12,14 +12,19 @@ script exits non-zero:
    parallel) from the sources in this checkout, and prints each kernel
    instance's registers, shared memory and spills (``ptxas -v``) and its
    tensor-core instructions (HGMMA, from ``cuobjdump -sass``); a bf16
-   flash_attention instance without HGMMA fails;
+   flash_attention instance without HGMMA fails, and so does an ssd_scan
+   kernel that spills or a set of ssd_scan kernels other than its four
+   passes;
 2. kernels — each kernel against its plain torch version on the card:
    relagg on the shared-memory and the global-atomics path, with an empty
    mask and with out-of-range group ids; flash_attention causal and not,
    with windows, GQA, a decode offset, ragged lengths, rows with no valid
    key, bf16 (the tensor-core kernel) and float32 (the CUDA-core one),
    head dims 16/64/128; ssd_scan with one and 32 heads per group, L = 1,
-   100, 2048;
+   40 (under one chunk), 100, 1819, 2048, mamba2-370m's and jamba-1.5's
+   widths (P = N = 128, 8 groups), against the per-step recurrence and,
+   with the states it passes between chunks, the plain version of its own
+   four passes;
 3. main path — TPC-H at scale factor 1 (6,000,000 ``lineitem`` rows) on the
    card through ``Session.prepare`` / ``PreparedStatement.execute``: Q1,
    Q3, Q5, Q6, Q12 and Q14 in UDF and original form under FROID with
@@ -34,11 +39,14 @@ script exits non-zero:
    and depths through ``ServeEngine.run`` with Froid-compiled admission on
    the card: 8 requests with 512-2048-token prompts plus one 33,000-token
    prompt that the ``admit`` rule rejects, served twice, with the kernel
-   launches counted over the first run;
+   launches counted over the first run, and a traced prefill's port
+   kernels checked by name and count (the bf16 flash kernel, the four
+   ssd_scan passes once a layer each);
 7. LM kernel times — flash_attention and ssd_scan on the inputs the
    serving path handed them, against the plain version, the library call
    (``scaled_dot_product_attention``; none computes the SSD scan) and the
-   bound that this data needs; flash_attention in bf16 also against the
+   bound that this data needs, ssd_scan also split by pass and beside its
+   scratch bytes; flash_attention in bf16 also against the
    plain version in float32 by mean |diff|, beside a control that leaves
    one 64-key tile out and must read above the limit;
 8. LM cross-device — the smoke configs' prefill and decode logits and the
@@ -165,6 +173,7 @@ def build_report() -> dict[str, dict]:
     unless each bf16 flash_attention instance (D = 16, 64, 128) holds
     tensor-core instructions."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan.ssd_scan import PASSES
 
     bindir = pathlib.Path(_build._nvcc()).parent
     report = {}
@@ -185,6 +194,11 @@ def build_report() -> dict[str, dict]:
     check(len(bf16) == 3, f"expected the bf16 flash_attention instances D = 16, 64, 128: "
           f"{sorted(bf16)}")
     check(all(bf16.values()), f"a bf16 flash_attention instance has no HGMMA: {bf16}")
+    ssd = {n.split("::")[-1]: r for n, r in report.items() if r["source"] == "ssd_scan.cu"}
+    check(set(ssd) == set(PASSES), f"ssd_scan.cu's kernels {sorted(ssd)}, expected "
+          f"{list(PASSES)}")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ssd.values()),
+          f"an ssd_scan kernel spills: {ssd}")
     return report
 
 
@@ -597,33 +611,53 @@ def ssd_rel_err(a, b) -> float:
 
 
 def ssd_kernel_phase() -> dict:
-    """ssd_scan kernel vs the plain per-step recurrence on the card:
-    max error below 3e-4 of max|y| (the reference's float32 bound)."""
+    """ssd_scan kernels vs the plain per-step recurrence on the card: max
+    error below 3e-4 of max|y| (the reference's float32 bound); and vs the
+    plain version of the kernels' own passes at their chunk
+    (``ssd_scan_state_passing``): y to the same bound, and the states the
+    state pass leaves (the state entering each chunk past the first) within
+    1e-5."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_state_passing
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, plan
 
-    cases = [(4, 4, 1, 64, 128), (32, 1, 100, 64, 128), (32, 1, 2048, 64, 128),
-             (4, 4, 2048, 64, 128), (8, 8, 100, 16, 16)]
+    # (BH, BG, L, P, N): L = 1, under one chunk, ragged; mamba2-370m's
+    # widths (one group for 32 heads) and its smoke; jamba-1.5's full widths
+    # (P = N = 128, 8 groups) at the first serving batch's length and its
+    # smoke (2 groups)
+    cases = [(4, 4, 1, 64, 128), (8, 2, 40, 64, 128), (32, 1, 100, 64, 128),
+             (32, 1, 2048, 64, 128), (4, 4, 2048, 64, 128), (8, 8, 100, 16, 16),
+             (16, 8, 1819, 128, 128), (4, 2, 100, 16, 16)]
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
-    max_abs = 0.0
+    worst = worst_states = max_abs = 0.0
     for BH, BG, L, P, N in cases:
         xdt = torch.randn((BH, L, P), generator=g, device="cuda") * 0.5
         dtA = -(0.01 + 0.49 * torch.rand((BH, L), generator=g, device="cuda"))
         B = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
         C = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
-        a = ssd_scan_cuda(xdt, dtA, B, C, BH // BG)
+        call = plan(xdt, dtA, B, C, BH // BG)
+        for _, launch in call.passes:
+            launch()
         torch.cuda.synchronize()
+        a = call.y
         b = ssd_scan_ref(xdt, dtA, B, C, BH // BG)
-        err = ssd_rel_err(a, b)
+        y_sp, s_in = ssd_scan_state_passing(xdt, dtA, B, C, BH // BG, chunk(),
+                                            return_states=True)
+        err, err_sp = ssd_rel_err(a, b), ssd_rel_err(a, y_sp)
+        err_states = (float((call.states - s_in[:, 1:]).abs().max())
+                      if call.states.numel() else 0.0)
         label = f"ssd_scan BH={BH} BG={BG} L={L} P={P} N={N} (chunk {chunk()})"
-        check(err < 3e-4, f"{label}: error {err} of max|y|, over 3e-4")
-        worst = max(worst, err)
+        check(err < 3e-4, f"{label}: error {err} of max|y| against the recurrence, over 3e-4")
+        check(err_sp < 3e-4, f"{label}: error {err_sp} of max|y| against the plain passes")
+        check(err_states < 1e-5, f"{label}: passed states off by {err_states}, over 1e-5")
+        worst = max(worst, err, err_sp)
+        worst_states = max(worst_states, err_states)
         max_abs = max(max_abs, float((a - b).abs().max()))
-        log(f"{label}: ok (max error {err:.3g} of max|y|)")
-    return {"cases": len(cases), "max_rel_err": worst, "max_abs_err": max_abs}
+        log(f"{label}: ok (max error {err:.3g} of max|y| against the recurrence, {err_sp:.3g} "
+            f"against the plain passes; passed states {err_states:.3g})")
+    return {"cases": len(cases), "max_rel_err": worst, "max_abs_err": max_abs,
+            "max_abs_err_states": worst_states}
 
 
 def expected_verdict(tier: int, plen: int, req: int, temp: float, depth: int):
@@ -781,6 +815,7 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
     from repro_torch.configs import config_for
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_binding
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine
 
@@ -816,6 +851,7 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
         torch.cuda.reset_peak_memory_stats()
         for ops in counters.values():
             ops.LAUNCHES = 0  # counts from here to the end of this run only
+        ssd_binding.KERNEL_LAUNCHES.update(dict.fromkeys(ssd_binding.PASSES, 0))
         t = time.perf_counter()
         try:
             done = engine.run(reqs)
@@ -826,6 +862,7 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
         wall = time.perf_counter() - t
         launches = {name: ops.LAUNCHES for name, ops in counters.items()}
         runs.append({"done": {c.rid: c for c in done}, "wall_s": wall, "launches": launches,
+                     "ssd_kernel_launches": dict(ssd_binding.KERNEL_LAUNCHES),
                      "peak_bytes": torch.cuda.max_memory_allocated(), "timed": timed})
 
     first, second = runs
@@ -848,6 +885,10 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
         check(run["launches"] == want, f"{arch}: kernel launches {run['launches']}, "
               f"expected {want} ({cfg.n_layers} layers x {n_batches} prefill batches)")
         check(len(run["timed"].prefill_ms) == n_batches, f"{arch}: prefill batches")
+        # every serving prompt spans more than one chunk: four passes a call
+        want_passes = dict.fromkeys(ssd_binding.PASSES, want["ssd_scan"])
+        check(run["ssd_kernel_launches"] == want_passes, f"{arch}: ssd_scan kernel launches "
+              f"{run['ssd_kernel_launches']}, expected {want_passes}")
     generated = sum(len(c.tokens) for c in first["done"].values())
     timed = first["timed"]
     busy = busy_breakdown(model, reqs, expected)
@@ -859,6 +900,15 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
               and port.get("flash_fwd_bf16", {}).get("launches") == cfg.n_layers,
               f"{arch} prefill: port kernels in the trace {port}, expected "
               f"flash_fwd_bf16 x {cfg.n_layers} and no flash_fwd_kernel")
+    if kernel == "ssd_scan" and busy["prefill_busy_ms"] is not None:
+        # the four passes once a layer each, C B^T (ssd_chunk_cb) included:
+        # once per group and chunk within its launch, not once per head;
+        # and no kernel of the earlier design (ssd_scan_kernel)
+        ssd = {name: entry["launches"] for name, entry in port.items()
+               if name.startswith("ssd_")}
+        check(ssd == dict.fromkeys(ssd_binding.PASSES, cfg.n_layers),
+              f"{arch} prefill: ssd kernels in the trace {ssd}, expected each of "
+              f"{list(ssd_binding.PASSES)} x {cfg.n_layers} and nothing else")
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
         "requests": len(reqs), "rejected": sum(not v[0] for v in expected.values()),
@@ -870,6 +920,8 @@ def serving_phase(arch: str, kernel: str) -> tuple[dict, tuple]:
         "wall_s_2nd_run": second["wall_s"],
         "tokens_per_s": generated / first["wall_s"],
         "peak_gb": first["peak_bytes"] / 1e9, "launches": first["launches"][kernel],
+        "kernel_launches": (sum(first["ssd_kernel_launches"].values()) if kernel == "ssd_scan"
+                            else first["launches"][kernel]),
         **busy,
     }
     for what, wall in (("prefill", timed.prefill_ms[0]),
@@ -1065,13 +1117,34 @@ def ssd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
     return ops_count, nbytes
 
 
+def pass_split_ms(call, reps: int = 10) -> dict[str, float]:
+    """Mean device time of each of a call's launches, from CUDA events
+    between them over ``reps`` runs of the whole sequence."""
+    import torch
+
+    for _, launch in call.passes:  # warm
+        launch()
+    marks = []
+    for _ in range(reps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(call.passes) + 1)]
+        events[0].record()
+        for (_, launch), event in zip(call.passes, events[1:]):
+            launch()
+            event.record()
+        marks.append(events)
+    torch.cuda.synchronize()
+    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / reps
+            for i, (name, _) in enumerate(call.passes)}
+
+
 def time_ssd(args) -> dict:
     """ssd_scan on the serving path's own inputs: checked against the plain
     chunked version, timed beside it and beside the bound of this data
     (:func:`ssd_bound`: operations at the float32 peak, bytes at the
-    memory rate).  No PyTorch call computes the SSD scan."""
+    memory rate), split by pass, with the scratch the passes hand on.  No
+    PyTorch call computes the SSD scan."""
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import plan, ssd_scan_cuda
 
     (xdt, dtA, B, C, n_rep), _ = args
     BH, L, P = xdt.shape
@@ -1085,9 +1158,16 @@ def time_ssd(args) -> dict:
     p1, k1, k2, p2 = (cuda_ms(f, reps=10) for f in (
         lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep), lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep),
         lambda: ssd_scan_cuda(xdt, dtA, B, C, n_rep), lambda: ssd_scan_chunked(xdt, dtA, B, C, n_rep)))
+    call = plan(xdt, dtA, B, C, n_rep)
+    split = pass_split_ms(call)
+    scratch = call.scratch_bytes()
+    del call
     ops_count, nbytes = ssd_bound(BH, B.shape[0], L, P, N)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
+    log(f"ssd_scan at the serving inputs {[BH, B.shape[0], L, P, N]}: scratch "
+        f"{scratch / 1e6:.3f} MB; device ms by pass "
+        f"{ {name: round(ms, 4) for name, ms in split.items()} } (sum {sum(split.values()):.4f})")
     return {
         "shape": [BH, B.shape[0], L, P, N], "ops": ops_count, "bytes": nbytes,
         "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": None,
@@ -1095,6 +1175,7 @@ def time_ssd(args) -> dict:
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "max_abs_err": max_abs, "max_rel_err": err,
         "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
+        "scratch_bytes": scratch, "pass_ms": split,
     }
 
 
@@ -1262,7 +1343,8 @@ def main() -> int:
          "launches": serving["mamba2_370m"]["launches"],
          "max_abs_err": max(ssd["max_abs_err"], sd["max_abs_err"]),
          "ms": sd["ms"], "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
-         "bound_by": sd["bound_by"], "library_ms": None, "ok": True},
+         "bound_by": sd["bound_by"], "library_ms": None,
+         "kernel_launches": serving["mamba2_370m"]["kernel_launches"], "ok": True},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,47 +1,76 @@
-// Mamba-2 SSD scan by chunks for Hopper (sm_90a).
+// Mamba-2 SSD scan for Hopper (sm_90a), as the chunk-parallel SSD
+// algorithm of the Mamba-2 paper (arXiv 2405.21060, the hardware-efficient
+// SSD algorithm: intra-chunk outputs, chunk states, state passing,
+// state-to-output).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/ssd_scan.py::_ssd_kernel
 // (launched by ssd_scan_pallas).  Per head bh, with its B and C read from
-// group g = bh / n_rep, it computes the recurrence
+// group g = bh / n_rep, the function is the recurrence
 //     S_t = exp(dtA_t) S_{t-1} + B_t (x) xdt_t,      y_t = C_t . S_t
-// chunk by chunk (chunk length Q, cum = inclusive cumsum of dtA in the
-// chunk):
-//     y_i  = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j
-//            + exp(cum_i) C_i . S
-//     S   <- exp(cum_end) S + sum_j B_j (x) xdt_j exp(cum_end - cum_j)
-// with S the (N, P) float32 state carried from chunk to chunk.  Every
-// exponent is <= 0 (A < 0, dt > 0), and the kernel keeps the
-// exp(cum_i - cum_j) form: exp(cum_i) / exp(cum_j) would under- and
-// overflow.  The function is the same for any chunk length up to
-// rounding, so the kernel takes its own, Q = 64: the reference's Q = 128
-// needs ~265 KB of shared memory at N = 128, P = 64, over the 227 KB a
-// block may opt in to, while Q = 64 fits every config in the repo
-// (jamba's P = N = 128 at ~181 KB; ssd_scan_smem_bytes).  L need not be a
-// multiple of Q: rows past L load as zeros (dtA = 0 leaves cum_end at the
-// last real row) and are not written.
+// with S an (N, P) float32 state.  Cut into chunks of Q = 64 rows, with cum
+// the inclusive cumsum of dtA restarted at every chunk,
+//     y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xdt_j
+//           + exp(cum_i) C_i . S_in[c]
+//     S_in[c+1] = exp(cum_end) S_in[c] + sum_j B_j (x) xdt_j exp(cum_end - cum_j)
+// Every exponent is <= 0 (A < 0, dt > 0) and stays a difference, as in
+// the reference: exp(cum_i) / exp(cum_j) would under- and overflow.  L need
+// not be a multiple of Q: rows past L load as zeros and are not written.
 //
-// Bound: the least work the function needs is that of the per-step
-// recurrence (chunk 1), ~4 N P operations per row of a head; a chunk of Q
-// adds its lower triangle, ~(Q + 1) (P + N / n_rep) per row (C B^T depends
-// on the group, not the head).  Against that, 2 P + 1 floats of xdt, dtA
-// and y per row (B and C once per group).  At the serving path's shapes
-// (mamba2-370m prefill: N = 128, P = 64, one group for 32 heads, 1,819
-// rows) that is 7.66 GFLOP against 128 MB: operations, at the float32 rate
-// of the CUDA cores (67 TFLOP/s; the reference's float32 tolerance rules
-// out TF32), 0.114 ms.  This kernel's chunk of 64 does ~1.1x that work.
+// Four kernels, launched in order on one stream by the binding, which
+// allocates every scratch buffer (the kernels allocate nothing):
+//   1. ssd_chunk_cb, grid (n_chunks, BG): the lower triangle of C_c B_c^T,
+//      once per (batch x group, chunk), not once per head, into
+//      cbt (BG, n_chunks, Q, Q), stored transposed ([j][i]) for pass 4.
+//   2. ssd_chunk_state, grid (n_chunks - 1, BH, N/64 x P/64 tiles): each
+//      chunk's own end state sum_j B_j (x) xdt_j exp(cum_end - cum_j) into
+//      states (BH, n_chunks - 1, N, P), and its decay exp(cum_end) into
+//      decay (BH, n_chunks - 1).  The last chunk's state is never read.
+//   3. ssd_state_pass, grid (N P / 1024, BH): walks the chunks in order,
+//      4 state elements a thread, and rewrites states in place with the
+//      state after each chunk: S <- decay_c S + states[c]; states[c] <- S.
+//   4. ssd_chunk_out, grid (n_chunks, BH, P/64): y_c = (CB o exp(cum_i -
+//      cum_j) o tri) xdt_c + (exp(cum_i) C_c) S_in[c], one product of K =
+//      Q + N; chunk 0 has no state term.
+// Passes 2 and 4 recompute their chunk's 64-entry cumsum from dtA (one warp,
+// 256 bytes) instead of reading one back: the same cost, and no (BH, L)
+// buffer.  Passes 3 and 4 stay apart: fused, the blocks of a head would
+// walk its chunks in order, 128 blocks for 132 SMs at mamba2-370m's
+// prefill.
 //
-// Design: one block of 256 threads per head bh (B * H blocks), walking its
-// chunks in order, since chunk c needs the state after chunk c - 1 (the
-// TPU kernel's sequential grid axis becomes this loop).  The state, the
-// chunk's xdt, B, C, cum and the masked (C B^T o decay) scores all sit in
-// shared memory; each phase (scores, outputs, state update) gives every
-// thread independent output elements, so no atomics.  B and C rows are
-// padded by one float so the column walks do not collide in banks.  Only
-// the lower triangle of the scores is computed, but each of the n_rep
-// heads of a group computes the same C B^T again (32 heads at
-// mamba2-370m, ~1.2x the operations the function needs there).
+// Inside passes 1, 2 and 4, a block of 256 threads computes a 64 x 64
+// output tile from two 64 x 64 operand tiles in shared memory, both laid
+// out k-major, each thread a 4 x 4 register tile: one float4 of each
+// operand feeds 16 FMAs, and a warp's 4 x 8 threads read 4 and 8 distinct
+// float4s, so shared memory does not set the pace.  Global loads are
+// float4 (P and N multiples of 4); where a block loops over K (pass 1's N,
+// pass 4's scores then state) the next tile's loads are issued into
+// registers before the current tile's products.  Float32 FFMA on the CUDA
+// cores: the reference's float32 tolerance (3e-4 of max|y|) rules out
+// plain TF32.
 //
-// Plain C interface, bound with ctypes: the entry returns the cudaError_t
+// Q = 64 fixes the tiles (two 16 KB operand tiles a block, ~33 KB of
+// static shared memory whatever P and N are, so no shape needs more than a
+// block may have) and the chunk-local work.  A Q of 128 would halve the
+// state scratch but double the triangle and need 128-row tiles.
+//
+// Scratch at mamba2-370m's first prefill batch (BH 128, BG 4, L 1,819,
+// P 64, N 128; 29 chunks): states 4 x 128 x 28 x 128 x 64 B = 117.4 MB,
+// written by pass 2, read and rewritten by pass 3, read by pass 4 (470 MB
+// of traffic the bound does not count); cbt 1.9 MB, which stays in L2.
+//
+// Bound: the least work the function needs is the per-step recurrence's,
+// ~4 N P operations a row of a head; 7.66 GFLOP at that batch, 0.114 ms at
+// the CUDA cores' float32 rate of 67 TFLOP/s (chip_smoke.py, ssd_bound).
+// These passes do ~8.9 GFLOP (the chunks' triangles, skipped by warp
+// above the diagonal) and move ~0.6 GB (~0.18 ms at 3.35 TB/s).  What holds
+// them above that on the H100 (chip_smoke.py's split by pass, PERF.md):
+// passes 2 and 4, whose products run at a third to two fifths of the float32
+// rate, and pass 3, which runs near the memory rate.  Thread tiles of 8 x 8
+// and of 16 x 8, and a cp.async pipeline through persistent blocks, were
+// tried for passes 2 and 4 and gained at most a few per cent: not kept.
+// Tensor cores (3xTF32, to keep float32 accuracy) are the next step.
+//
+// Plain C interface, bound with ctypes: each entry returns the cudaError_t
 // of its launch (0 on success).
 
 #include <cuda_runtime.h>
@@ -50,111 +79,315 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 64;
+constexpr int kChunk = 64;  // Q
+constexpr int kTile = 64;   // the edge of a block's output and operand tiles
+constexpr int kStateDepth = 8;  // loads in flight a thread in pass 3
+static_assert(kChunk == 2 * 32, "one warp scans a chunk, two entries a lane");
+static_assert(kChunk == kTile, "a chunk is one operand tile deep");
 
-size_t smem_bytes(int P, int N) {
-  const size_t Q = kChunk;
-  return sizeof(float) * ((size_t)N * P + Q * P + 2 * Q * (N + 1) +
-                          Q * (Q + 1) + 2 * Q);
+// A thread's place in a 64 x 64 output tile: 16 x 16 threads of 4 x 4
+// outputs; warp w covers rows 16 (w / 2) .. + 15 and columns 32 (w % 2) ..
+// + 31 (4 x 8 threads).
+__device__ __forceinline__ int tile_row(int tid) {
+  return ((tid >> 5) >> 1) * 4 + ((tid & 31) >> 3);
+}
+__device__ __forceinline__ int tile_col(int tid) {
+  return ((tid >> 5) & 1) * 8 + (tid & 7);
 }
 
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// acc[a][b] += sum_{k < k_end} As[k][4 tm + a] * Bs[k][4 tn + b]
+__device__ __forceinline__ void tile_fma(const float* __restrict__ As,
+                                         const float* __restrict__ Bs, int k_end,
+                                         int tm, int tn, float (&acc)[4][4]) {
+#pragma unroll 4
+  for (int k = 0; k < k_end; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(As + k * kTile + 4 * tm);
+    const float4 b = *reinterpret_cast<const float4*>(Bs + k * kTile + 4 * tn);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// A k-major operand tile [k][c] from rows of a row-major array (row k at
+// src + k * ld), zeros where k >= k_valid or c >= c_valid: 4 float4 a
+// thread, 16 threads a row.
+__device__ __forceinline__ void fetch_rows(float4 (&v)[4], const float* __restrict__ src,
+                                           size_t ld, int k_valid, int c_valid) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = threadIdx.x + r * kThreads;
+    const int k = e >> 4, c = (e & 15) * 4;
+    v[r] = k < k_valid && c < c_valid ? load4(src + (size_t)k * ld + c) : zero4();
+  }
+}
+
+// Stores what fetch_rows fetched, each row k times row_scale[k] if given.
+__device__ __forceinline__ void store_rows(float* dst, const float4 (&v)[4],
+                                           const float* row_scale) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = threadIdx.x + r * kThreads;
+    const int k = e >> 4, c = (e & 15) * 4;
+    float4 x = v[r];
+    if (row_scale != nullptr) {
+      const float s = row_scale[k];
+      x = make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+    }
+    *reinterpret_cast<float4*>(dst + k * kTile + c) = x;
+  }
+}
+
+// A k-major operand tile [k][m] from the rows m of a row-major array (row m
+// at src + m * ld, k along it), zeros where m >= m_valid or k >= k_valid:
+// consecutive lanes take consecutive m, so the transposed stores below do
+// not collide in banks.
+__device__ __forceinline__ void fetch_cols(float4 (&v)[4], const float* __restrict__ src,
+                                           size_t ld, int m_valid, int k_valid) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = threadIdx.x + r * kThreads;
+    const int m = e & (kTile - 1), k = (e >> 6) * 4;
+    v[r] = m < m_valid && k < k_valid ? load4(src + (size_t)m * ld + k) : zero4();
+  }
+}
+
+// Stores what fetch_cols fetched, column m times col_scale[m] if given.
+__device__ __forceinline__ void store_cols(float* dst, const float4 (&v)[4],
+                                           const float* col_scale) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = threadIdx.x + r * kThreads;
+    const int m = e & (kTile - 1), k = (e >> 6) * 4;
+    const float s = col_scale != nullptr ? col_scale[m] : 1.f;
+    dst[(k + 0) * kTile + m] = v[r].x * s;
+    dst[(k + 1) * kTile + m] = v[r].y * s;
+    dst[(k + 2) * kTile + m] = v[r].z * s;
+    dst[(k + 3) * kTile + m] = v[r].w * s;
+  }
+}
+
+// Inclusive cumsum of a[c0 .. c0 + Q) into cum (shared), zeros past L, by
+// warp 0: each lane sums two entries, then the lanes scan.  The caller
+// synchronises before reading cum.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int c0, int L,
+                                             float* cum) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, i = c0 + 2 * lane;
+  const float a0 = i < L ? a[i] : 0.f;
+  const float a1 = i + 1 < L ? a[i + 1] : 0.f;
+  float incl = a0 + a1;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  cum[2 * lane] = excl + a0;
+  cum[2 * lane + 1] = incl;
+}
+
+// Pass 1: cbt[g][c][j][i] = C_i . B_j for the tiles holding some j <= i.
+// Wholly upper tiles are never written, and pass 4 never reads them.
 __global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dtA,
-                    const float* __restrict__ Bm, const float* __restrict__ Cm,
-                    float* __restrict__ y, int L, int P, int N, int n_rep,
-                    int Q) {
-  // Q (always kChunk) is an argument, not a constant: compiled with a
-  // constant Q the kernel ran ~1.4x slower on the H100 (PERF.md)
-  extern __shared__ float smem[];
-  const int NP = N + 1;
-  const int QP = Q + 1;
-  float* S = smem;           // N x P, the carried state
-  float* X = S + N * P;      // Q x P
-  float* Bs = X + Q * P;     // Q x NP
-  float* Cs = Bs + Q * NP;   // Q x NP
-  float* G = Cs + Q * NP;    // Q x QP, (C B^T o decay), lower triangle
-  float* cum = G + Q * QP;   // Q
-  float* w = cum + Q;        // Q, exp(cum_end - cum_j)
+    ssd_chunk_cb(const float* __restrict__ Bm, const float* __restrict__ Cm,
+                 float* __restrict__ cbt, int L, int N, int n_chunks) {
+  __shared__ __align__(16) float Cs[kTile * kTile];  // [n][i]
+  __shared__ __align__(16) float Bs[kTile * kTile];  // [n][j]
+  const int c = blockIdx.x, g = blockIdx.y, c0 = c * kChunk;
+  const int rows = min(kChunk, L - c0);
+  const int tm = tile_row(threadIdx.x), tn = tile_col(threadIdx.x);
+  const float* Cg = Cm + ((size_t)g * L + c0) * N;
+  const float* Bg = Bm + ((size_t)g * L + c0) * N;
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
+  float acc[4][4] = {};
+  float4 vc[4], vb[4];
+  fetch_cols(vc, Cg, N, rows, N);
+  fetch_cols(vb, Bg, N, rows, N);
+  for (int n0 = 0; n0 < N; n0 += kTile) {
+    __syncthreads();  // the last tile's products are done
+    store_cols(Cs, vc, nullptr);
+    store_cols(Bs, vb, nullptr);
+    __syncthreads();
+    if (n0 + kTile < N) {
+      fetch_cols(vc, Cg + n0 + kTile, N, rows, N - n0 - kTile);
+      fetch_cols(vb, Bg + n0 + kTile, N, rows, N - n0 - kTile);
+    }
+    tile_fma(Cs, Bs, min(kTile, N - n0), tm, tn, acc);
+  }
+  if (tn <= tm) {
+    float* out = cbt + ((size_t)g * n_chunks + c) * kChunk * kChunk;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      *reinterpret_cast<float4*>(out + (4 * tn + b) * kChunk + 4 * tm) =
+          make_float4(acc[0][b], acc[1][b], acc[2][b], acc[3][b]);
+  }
+}
+
+// Pass 2: states[bh][c][n][p] = sum_j B_j[n] xdt_j[p] exp(cum_end - cum_j)
+// for the (n, p) tile blockIdx.z, and decay[bh][c] = exp(cum_end).  Only
+// chunks c < n_chunks - 1, all of whose rows lie in [0, L).
+__global__ void __launch_bounds__(kThreads)
+    ssd_chunk_state(const float* __restrict__ xdt, const float* __restrict__ dtA,
+                    const float* __restrict__ Bm, float* __restrict__ states,
+                    float* __restrict__ decay, int L, int P, int N, int n_rep,
+                    int n_states, int n_tiles_n) {
+  __shared__ __align__(16) float Bs[kTile * kTile];  // [j][n]
+  __shared__ __align__(16) float Xs[kTile * kTile];  // [j][p], times w_j
+  __shared__ float cum[kChunk];
+  __shared__ float w[kChunk];  // exp(cum_end - cum_j)
+  const int c = blockIdx.x, bh = blockIdx.y, c0 = c * kChunk;
+  const int n0 = (blockIdx.z % n_tiles_n) * kTile, p0 = (blockIdx.z / n_tiles_n) * kTile;
   const int g = bh / n_rep;
-  const float* x = xdt + (size_t)bh * L * P;
-  const float* a = dtA + (size_t)bh * L;
-  const float* Bg = Bm + (size_t)g * L * N;
-  const float* Cg = Cm + (size_t)g * L * N;
-  float* yo = y + (size_t)bh * L * P;
+  const int tid = threadIdx.x, tm = tile_row(tid), tn = tile_col(tid);
 
-  for (int e = tid; e < N * P; e += kThreads) S[e] = 0.f;
+  float4 vb[4], vx[4];
+  fetch_rows(vb, Bm + ((size_t)g * L + c0) * N + n0, N, kChunk, N - n0);
+  fetch_rows(vx, xdt + ((size_t)bh * L + c0) * P + p0, P, kChunk, P - p0);
+  chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  store_rows(Bs, vb, nullptr);
+  __syncthreads();
+  const float cend = cum[kChunk - 1];
+  if (tid < kChunk) w[tid] = expf(cend - cum[tid]);
+  if (blockIdx.z == 0 && tid == 0) decay[(size_t)bh * n_states + c] = expf(cend);
+  __syncthreads();
+  store_rows(Xs, vx, w);
+  __syncthreads();
 
-  for (int c0 = 0; c0 < L; c0 += Q) {
-    const int rows = min(Q, L - c0);
-    __syncthreads();  // the last chunk's reads of X, Bs, Cs, G, cum, w done
-    for (int e = tid; e < Q * P; e += kThreads) {
-      const int r = e / P;
-      X[e] = r < rows ? x[(size_t)c0 * P + e] : 0.f;
+  float acc[4][4] = {};
+  tile_fma(Bs, Xs, kChunk, tm, tn, acc);
+  float* out = states + (((size_t)bh * n_states + c) * N + n0) * P + p0;
+  const int p = 4 * tn;
+  if (p0 + p < P) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int n = 4 * tm + a;
+      if (n0 + n < N)
+        *reinterpret_cast<float4*>(out + (size_t)n * P + p) =
+            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
     }
-    for (int e = tid; e < Q * N; e += kThreads) {
-      const int r = e / N, n = e % N;
-      const bool in = r < rows;
-      Bs[r * NP + n] = in ? Bg[(size_t)(c0 + r) * N + n] : 0.f;
-      Cs[r * NP + n] = in ? Cg[(size_t)(c0 + r) * N + n] : 0.f;
-    }
-    if (tid < 32) {
-      // inclusive prefix sum of dtA over the chunk: each lane sums a run of
-      // consecutive entries, then the lanes scan their run totals
-      const int per = (Q + 31) / 32;
-      const int lo = min(tid * per, Q), hi = min(lo + per, Q);
-      float run = 0.f;
-      for (int i = lo; i < hi; ++i) {
-        run += c0 + i < L ? a[c0 + i] : 0.f;
-        cum[i] = run;
-      }
-      float incl = run;
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += t;
-      }
-      const float base = incl - run;
-      for (int i = lo; i < hi; ++i) cum[i] += base;
-    }
-    __syncthreads();
+  }
+}
 
-    const float cend = cum[Q - 1];
-    for (int e = tid; e < Q; e += kThreads) w[e] = expf(cend - cum[e]);
-    for (int e = tid; e < Q * Q; e += kThreads) {
-      const int i = e / Q, j = e % Q;
-      float s = 0.f;
-      if (j <= i && i < rows) {
-        for (int n = 0; n < N; ++n) s = fmaf(Cs[i * NP + n], Bs[j * NP + n], s);
-        s *= expf(cum[i] - cum[j]);
-      }
-      G[i * QP + j] = s;
+// Pass 3: in place, states[bh][c] becomes the state after chunk c, which is
+// the state entering chunk c + 1.
+__global__ void __launch_bounds__(kThreads)
+    ssd_state_pass(float* __restrict__ states, const float* __restrict__ decay, int NP4,
+                   int n_states) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= NP4) return;
+  const int bh = blockIdx.y;
+  float4* s = reinterpret_cast<float4*>(states) + (size_t)bh * n_states * NP4 + e;
+  const float* d = decay + (size_t)bh * n_states;
+  float4 run = zero4();
+  for (int k0 = 0; k0 < n_states; k0 += kStateDepth) {
+    float4 v[kStateDepth];
+    float dk[kStateDepth];
+#pragma unroll
+    for (int u = 0; u < kStateDepth; ++u) {
+      const bool in = k0 + u < n_states;
+      v[u] = in ? s[(size_t)(k0 + u) * NP4] : zero4();
+      dk[u] = in ? d[k0 + u] : 0.f;
     }
-    __syncthreads();
-
-    for (int e = tid; e < rows * P; e += kThreads) {
-      const int i = e / P, p = e % P;
-      float acc = 0.f;
-      for (int j = 0; j <= i; ++j) acc = fmaf(G[i * QP + j], X[j * P + p], acc);
-      float st = 0.f;
-      for (int n = 0; n < N; ++n) st = fmaf(Cs[i * NP + n], S[n * P + p], st);
-      yo[(size_t)(c0 + i) * P + p] = acc + expf(cum[i]) * st;
-    }
-    __syncthreads();  // every read of S for this chunk's outputs done
-
-    if (c0 + Q < L) {
-      const float dend = expf(cend);
-      for (int e = tid; e < N * P; e += kThreads) {
-        const int n = e / P, p = e % P;
-        float acc = 0.f;
-        for (int j = 0; j < rows; ++j)
-          acc = fmaf(Bs[j * NP + n], X[j * P + p] * w[j], acc);
-        S[e] = dend * S[e] + acc;
+#pragma unroll
+    for (int u = 0; u < kStateDepth; ++u) {
+      if (k0 + u < n_states) {
+        run = make_float4(fmaf(dk[u], run.x, v[u].x), fmaf(dk[u], run.y, v[u].y),
+                          fmaf(dk[u], run.z, v[u].z), fmaf(dk[u], run.w, v[u].w));
+        s[(size_t)(k0 + u) * NP4] = run;
       }
     }
   }
 }
+
+// The scores tile [j][i] from what fetch_rows fetched of cbt:
+// C_i . B_j exp(cum_i - cum_j) where j <= i < rows, else 0 (a select, not
+// a product: the upper tiles of cbt hold whatever the buffer held).
+__device__ __forceinline__ void store_scores(float* dst, const float4 (&v)[4],
+                                             const float* cum, int rows) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = threadIdx.x + r * kThreads;
+    const int j = e >> 4, i = (e & 15) * 4;
+    const float x[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+    float o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      o[q] = j <= i + q && i + q < rows ? x[q] * expf(cum[i + q] - cum[j]) : 0.f;
+    *reinterpret_cast<float4*>(dst + j * kTile + i) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Pass 4: y[bh][c0 + i][p0 + p] for the chunk's rows and the P tile
+// blockIdx.z: the scores' product with xdt, then, past chunk 0, the state
+// term as N / 64 more tiles of K.
+__global__ void __launch_bounds__(kThreads)
+    ssd_chunk_out(const float* __restrict__ xdt, const float* __restrict__ dtA,
+                  const float* __restrict__ Cm, const float* __restrict__ cbt,
+                  const float* __restrict__ states, float* __restrict__ y, int L, int P,
+                  int N, int n_rep, int n_chunks) {
+  __shared__ __align__(16) float As[kTile * kTile];  // [j][i] scores, then [n][i] C
+  __shared__ __align__(16) float Bs[kTile * kTile];  // [j][p] xdt, then [n][p] state
+  __shared__ float cum[kChunk];
+  __shared__ float ecum[kChunk];  // exp(cum_i)
+  const int c = blockIdx.x, bh = blockIdx.y, p0 = blockIdx.z * kTile;
+  const int g = bh / n_rep, c0 = c * kChunk, rows = min(kChunk, L - c0);
+  const int tid = threadIdx.x, tm = tile_row(tid), tn = tile_col(tid);
+  const float* Cg = Cm + ((size_t)g * L + c0) * N;
+  const float* S = c > 0 ? states + ((size_t)bh * (n_chunks - 1) + c - 1) * N * P + p0
+                         : nullptr;
+  const int n_tiles = 1 + (c > 0 ? (N + kTile - 1) / kTile : 0);
+  // the triangle: warp w's rows end at 16 (w / 2) + 15, so its scores
+  // need no j past that
+  const int tri_end = 16 * ((tid >> 5) >> 1) + 16;
+
+  float4 va[4], vb[4];
+  fetch_rows(va, cbt + ((size_t)g * n_chunks + c) * kChunk * kChunk, kChunk, kChunk, kChunk);
+  fetch_rows(vb, xdt + ((size_t)bh * L + c0) * P + p0, P, rows, P - p0);
+  chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  __syncthreads();
+  if (tid < kChunk) ecum[tid] = expf(cum[tid]);  // read from tile 1 on
+
+  float acc[4][4] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t == 0)
+      store_scores(As, va, cum, rows);
+    else
+      store_cols(As, va, ecum);
+    store_rows(Bs, vb, nullptr);
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      const int n0 = t * kTile;  // the next tile's first n
+      fetch_cols(va, Cg + n0, N, rows, N - n0);
+      fetch_rows(vb, S + (size_t)n0 * P, P, N - n0, P - p0);
+    }
+    tile_fma(As, Bs, t == 0 ? tri_end : min(kTile, N - (t - 1) * kTile), tm, tn, acc);
+    __syncthreads();  // the products are done before the next tile's stores
+  }
+
+  const int p = p0 + 4 * tn;
+  if (p < P) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = 4 * tm + a;
+      if (i < rows)
+        *reinterpret_cast<float4*>(y + ((size_t)bh * L + c0 + i) * P + p) =
+            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    }
+  }
+}
+
+int n_chunks_of(int L) { return (L + kChunk - 1) / kChunk; }
+int tiles_of(int d) { return (d + kTile - 1) / kTile; }
 
 }  // namespace
 
@@ -164,34 +397,53 @@ const char* ssd_scan_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The chunk length the kernel takes; the shared memory a block needs at
-// head dim P and state dim N; the most a block may opt in to on the
-// current device (0 if it cannot be read).
+// The chunk length the kernels take.
 int ssd_scan_chunk() { return kChunk; }
-size_t ssd_scan_smem_bytes(int P, int N) { return smem_bytes(P, N); }
-int ssd_scan_smem_optin() {
-  int dev = 0, value = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&value, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return value;
+
+// All arrays float32, contiguous, 16-byte aligned; P and N multiples of 4.
+// xdt (BH, L, P), dtA (BH, L), B and C (BG, L, N), y (BH, L, P) with
+// BH == BG * n_rep; cbt (BG, n_chunks, Q, Q); states (BH, n_chunks - 1, N,
+// P); decay (BH, n_chunks - 1).
+
+int ssd_chunk_cb_launch(const void* B, const void* C, void* cbt, int BG, int L, int N,
+                        void* stream) {
+  if (BG <= 0 || L <= 0) return 0;
+  const int nc = n_chunks_of(L);
+  ssd_chunk_cb<<<dim3(nc, BG), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)B, (const float*)C, (float*)cbt, L, N, nc);
+  return (int)cudaGetLastError();
 }
 
-// xdt (BH, L, P), dtA (BH, L), B and C (BG, L, N), y (BH, L, P): float32,
-// contiguous; BH == BG * n_rep.
-int ssd_scan_fwd(const void* xdt, const void* dtA, const void* B, const void* C,
-                 void* y, int BH, int L, int P, int N, int n_rep,
-                 void* stream) {
+int ssd_chunk_state_launch(const void* xdt, const void* dtA, const void* B, void* states,
+                           void* decay, int BH, int L, int P, int N, int n_rep,
+                           void* stream) {
+  const int ns = n_chunks_of(L) - 1;
+  if (BH <= 0 || ns <= 0) return 0;
+  const int tn = tiles_of(N);
+  ssd_chunk_state<<<dim3(ns, BH, tn * tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)xdt, (const float*)dtA, (const float*)B, (float*)states,
+      (float*)decay, L, P, N, n_rep, ns, tn);
+  return (int)cudaGetLastError();
+}
+
+int ssd_state_pass_launch(void* states, const void* decay, int BH, int L, int P, int N,
+                          void* stream) {
+  const int ns = n_chunks_of(L) - 1;
+  if (BH <= 0 || ns <= 0) return 0;
+  const int np4 = N * P / 4;
+  ssd_state_pass<<<dim3((np4 + kThreads - 1) / kThreads, BH), kThreads, 0,
+                   (cudaStream_t)stream>>>((float*)states, (const float*)decay, np4, ns);
+  return (int)cudaGetLastError();
+}
+
+int ssd_chunk_out_launch(const void* xdt, const void* dtA, const void* C, const void* cbt,
+                         const void* states, void* y, int BH, int L, int P, int N,
+                         int n_rep, void* stream) {
   if (BH <= 0 || L <= 0) return 0;
-  if (P <= 0 || N <= 0 || n_rep <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(P, N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_scan_kernel<<<BH, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)xdt, (const float*)dtA, (const float*)B, (const float*)C,
-      (float*)y, L, P, N, n_rep, kChunk);
+  const int nc = n_chunks_of(L);
+  ssd_chunk_out<<<dim3(nc, BH, tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)xdt, (const float*)dtA, (const float*)C, (const float*)cbt,
+      (const float*)states, (float*)y, L, P, N, n_rep, nc);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,7 @@ of dt into x and A and its model-to-kernel layout reshapes, ``:32-35, 49``;
 
 A tensor on the CPU takes the plain torch version (the chunked form above
 64 steps, the per-step recurrence below, as the reference picks off the
-TPU); a CUDA tensor launches the hand-written Hopper kernel
+TPU); a CUDA tensor launches the hand-written Hopper kernels
 (``csrc/ssd_scan.cu``) or raises.
 """
 from __future__ import annotations
@@ -14,8 +14,9 @@ import torch
 
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
 
-#: kernel launches made by :func:`ssd_scan` (a plain count, read by
-#: ``chip_smoke.py`` to show the serving path went through the kernel)
+#: calls of :func:`ssd_scan` that launched the CUDA kernels (a plain count,
+#: read by ``chip_smoke.py`` to show the serving path went through them; each
+#: call's launches by kernel are ``ssd_scan.ssd_scan.KERNEL_LAUNCHES``)
 LAUNCHES = 0
 
 
@@ -25,7 +26,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
     x: (B, L, H, P); dt: (B, L, H) positive step sizes; A: (H,) negative
     decay rates; B, C: (B, L, G, N), each group shared by H // G heads.
     Returns y (B, L, H, P).  ``chunk`` is the plain chunked form's chunk;
-    the kernel picks its own (the function is the same up to rounding)."""
+    the kernels take their own (the function is the same up to rounding)."""
     global LAUNCHES
     Bb, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]

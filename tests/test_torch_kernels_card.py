@@ -7,9 +7,10 @@ elsewhere; on the card they run with
 Tolerances are the reference's own (``tests/test_kernels.py``):
 flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
 outputs compared in float32; bf16 runs the tensor-core kernel, float32 the
-CUDA-core one); ssd_scan a max error below 3e-4 of max|y| in float32.  The
-kernels sum in another order than the plain versions (tiles of 64 keys,
-chunks of the kernel's own length)."""
+CUDA-core one); ssd_scan a max error below 3e-4 of max|y| in float32, and
+the states its state pass leaves within 1e-5 of the plain version of its
+passes.  The kernels sum in another order than the plain versions (tiles
+of 64 keys, chunks of the kernel's own length)."""
 import numpy as np
 import pytest
 import torch
@@ -17,7 +18,8 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked, ssd_scan_ref,
+                                              ssd_scan_state_passing)
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -81,20 +83,28 @@ def test_flash_kernel_decode_offset(rng, D, dtype):
     assert not empty.any()
 
 
-@pytest.mark.parametrize("BH,BG,L,P,N", [
-    (4, 4, 1, 64, 128),
-    (4, 2, 100, 32, 64),
-    (32, 1, 2048, 64, 128),   # mamba2-370m: 32 heads on one group
-    (8, 8, 300, 16, 16),
-])
-def test_ssd_kernel_matches_plain(rng, BH, BG, L, P, N):
-    n_rep = BH // BG
+def _ssd_inputs(rng, BH, BG, L, P, N):
     xdt = torch.as_tensor(rng.normal(size=(BH, L, P)) * 0.5, dtype=torch.float32,
                           device="cuda")
     dtA = -torch.as_tensor(rng.uniform(0.01, 0.5, size=(BH, L)), dtype=torch.float32,
                            device="cuda")
     B, C = (torch.as_tensor(rng.normal(size=(BG, L, N)) * 0.3, dtype=torch.float32,
                             device="cuda") for _ in range(2))
+    return xdt, dtA, B, C
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N", [
+    (4, 4, 1, 64, 128),
+    (4, 2, 100, 32, 64),
+    (32, 1, 2048, 64, 128),   # mamba2-370m: 32 heads on one group
+    (8, 8, 300, 16, 16),
+    (8, 2, 40, 64, 128),      # under one chunk
+    (16, 8, 1819, 128, 128),  # jamba-1.5's widths, 8 groups
+    (4, 2, 100, 16, 16),      # jamba-1.5's smoke widths, 2 groups
+])
+def test_ssd_kernel_matches_plain(rng, BH, BG, L, P, N):
+    n_rep = BH // BG
+    xdt, dtA, B, C = _ssd_inputs(rng, BH, BG, L, P, N)
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
 
     a = ssd_scan_cuda(xdt, dtA, B, C, n_rep)
@@ -103,6 +113,29 @@ def test_ssd_kernel_matches_plain(rng, BH, BG, L, P, N):
         else ssd_scan_chunked(xdt, dtA, B, C, n_rep)
     err = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
     assert err < 3e-4, err
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N", [
+    (4, 2, 130, 16, 16),
+    (32, 1, 1819, 64, 128),   # mamba2-370m's first serving batch, one row
+    (16, 8, 300, 128, 128),   # jamba-1.5's widths
+])
+def test_ssd_kernel_matches_state_passing(rng, BH, BG, L, P, N):
+    """Against the plain version of the kernels' own passes at their chunk:
+    y, and the states the state pass leaves in the scratch (the state
+    entering each chunk past the first)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, plan
+
+    xdt, dtA, B, C = _ssd_inputs(rng, BH, BG, L, P, N)
+    call = plan(xdt, dtA, B, C, BH // BG)
+    for _, launch in call.passes:
+        launch()
+    torch.cuda.synchronize()
+    y, s_in = ssd_scan_state_passing(xdt, dtA, B, C, BH // BG, chunk(), return_states=True)
+    err = float((call.y - y).abs().max()) / (float(y.abs().max()) + 1e-9)
+    assert err < 3e-4, err
+    assert call.states.shape == s_in[:, 1:].shape
+    assert float((call.states - s_in[:, 1:]).abs().max()) < 1e-5
 
 
 def test_ssd_ops_launches_once(rng):

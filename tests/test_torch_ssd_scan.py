@@ -1,11 +1,14 @@
 """The port's plain SSD scan versions against the reference's Pallas kernel
 (``ssd_scan_pallas(..., interpret=True)``), its ``ops.ssd_scan`` in the
 model layout (B, L, H, P), and ``ssd_decode_step`` stepped over a sequence,
-on the same inputs made with numpy from a seed.
+on the same inputs made with numpy from a seed; and the plain version of
+the CUDA kernels' four passes (``ssd_scan_state_passing``) against the
+Pallas kernel, the per-step recurrence and the recurrence's state at every
+chunk boundary.
 
 Tolerances are the reference's (``tests/test_kernels.py``): the max error
 below 3e-4 of max|y| in float32 and 3e-2 in bf16; decode steps against the
-full scan within 1e-4 absolute.  The CUDA kernel itself runs only on the
+full scan within 1e-4 absolute; the passed states within 1e-5 absolute.  The CUDA kernel itself runs only on the
 card: ``test_torch_kernels_card.py``.
 """
 import jax.numpy as jnp
@@ -16,7 +19,8 @@ import torch
 from repro.kernels.ssd_scan import ops as jax_ops
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked, ssd_scan_ref,
+                                              ssd_scan_state_passing)
 
 
 def _rel_err(t, j):
@@ -48,6 +52,43 @@ def test_plain_matches_pallas(rng, BH, BG, L, P, N, chunk, dtype):
     assert ref.dtype == chunked.dtype == tdt
     assert _rel_err(ref, pallas) < tol
     assert _rel_err(chunked, pallas) < tol
+
+
+def _recurrence_states(xdt, dtA, B, C, n_rep, chunk):
+    """The per-step recurrence's state entering each chunk: (BH, n_chunks,
+    N, P), zero for the first."""
+    Bx = B.repeat_interleave(n_rep, dim=0)
+    S = torch.zeros((xdt.shape[0], B.shape[2], xdt.shape[2]))
+    out = []
+    for t in range(xdt.shape[1]):
+        if t % chunk == 0:
+            out.append(S)
+        S = torch.exp(dtA[:, t])[:, None, None] * S + Bx[:, t, :, None] * xdt[:, t, None, :]
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N,chunk", [
+    (2, 2, 1, 16, 16, 64),       # L = 1
+    (4, 2, 40, 16, 16, 64),      # under one chunk
+    (4, 2, 150, 16, 16, 64),     # ragged
+    (32, 1, 150, 16, 16, 64),    # 32 heads on one group
+    (4, 4, 130, 64, 128, 64),    # mamba2-370m's widths, ragged
+    (32, 1, 192, 64, 128, 64),   # mamba2-370m's widths and heads
+    (4, 2, 100, 128, 128, 64),   # jamba-1.5's widths, ragged
+    (2, 1, 96, 128, 128, 32),    # another chunk, dividing L
+])
+def test_state_passing_matches_pallas_and_recurrence(rng, BH, BG, L, P, N, chunk):
+    arrs = _kernel_inputs(rng, BH, BG, L, P, N)
+    tx = [torch.as_tensor(a, dtype=torch.float32) for a in arrs]
+    pallas = ssd_scan_pallas(*(jnp.asarray(a, jnp.float32) for a in arrs), BH // BG,
+                             chunk=chunk, interpret=True)
+    y, s_in = ssd_scan_state_passing(*tx, BH // BG, chunk, return_states=True)
+    assert y.dtype == torch.float32 and y.shape == (BH, L, P)
+    assert _rel_err(y, pallas) < 3e-4
+    assert _rel_err(y, ssd_scan_ref(*tx, BH // BG).numpy()) < 3e-4
+    assert s_in.shape == (BH, -(-L // chunk), N, P)
+    np.testing.assert_allclose(s_in.numpy(), _recurrence_states(*tx, BH // BG, chunk).numpy(),
+                               atol=1e-5, rtol=0)
 
 
 def _model_inputs(rng, Bb, L, H, P, G, N):

@@ -15,8 +15,7 @@ import torch
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
 
 #: calls of :func:`ssd_scan` that launched the CUDA kernels (a plain count,
-#: read by ``chip_smoke.py`` to show the serving path went through them; each
-#: call's launches by kernel are ``ssd_scan.ssd_scan.KERNEL_LAUNCHES``)
+#: read by ``chip_smoke.py`` to show the serving path went through them)
 LAUNCHES = 0
 
 

@@ -20,8 +20,6 @@ from repro_torch.kernels import _build
 #: the kernels, in launch order; the middle two run only when L spans more
 #: than one chunk
 PASSES = ("ssd_chunk_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
-#: launches by kernel (a plain count; ``ops.LAUNCHES`` counts wrapper calls)
-KERNEL_LAUNCHES = dict.fromkeys(PASSES, 0)
 
 _ARGTYPES = {
     "ssd_chunk_cb_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3,
@@ -129,7 +127,6 @@ def plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             if err:
                 raise RuntimeError(f"{name} launch failed: "
                                    + lib.ssd_scan_error_string(err).decode())
-            KERNEL_LAUNCHES[name] += 1
         return launch
 
     names = PASSES if nc > 1 else ("ssd_chunk_cb", "ssd_chunk_out")

@@ -17,18 +17,21 @@
 // not be a multiple of Q: rows past L load as zeros and are not written.
 //
 // Four kernels, launched in order on one stream by the binding, which
-// allocates every scratch buffer (the kernels allocate nothing):
-//   1. ssd_chunk_cb, grid (n_chunks, BG): the lower triangle of C_c B_c^T,
+// allocates every scratch buffer (the kernels allocate nothing).  The
+// grid's x axis walks the chunks (or a head's state tiles) fastest and then
+// the heads (or groups), x = c + n_chunks * bh, so that any number of heads
+// runs (the y and z axes stop at 65,535 blocks):
+//   1. ssd_chunk_cb, grid (n_chunks x BG): the lower triangle of C_c B_c^T,
 //      once per (batch x group, chunk), not once per head, into
 //      cbt (BG, n_chunks, Q, Q), stored transposed ([j][i]) for pass 4.
-//   2. ssd_chunk_state, grid (n_chunks - 1, BH, N/64 x P/64 tiles): each
+//   2. ssd_chunk_state, grid ((n_chunks - 1) x BH, N/64 x P/64 tiles): each
 //      chunk's own end state sum_j B_j (x) xdt_j exp(cum_end - cum_j) into
 //      states (BH, n_chunks - 1, N, P), and its decay exp(cum_end) into
 //      decay (BH, n_chunks - 1).  The last chunk's state is never read.
-//   3. ssd_state_pass, grid (N P / 1024, BH): walks the chunks in order,
+//   3. ssd_state_pass, grid (N P / 1024 x BH): walks the chunks in order,
 //      4 state elements a thread, and rewrites states in place with the
 //      state after each chunk: S <- decay_c S + states[c]; states[c] <- S.
-//   4. ssd_chunk_out, grid (n_chunks, BH, P/64): y_c = (CB o exp(cum_i -
+//   4. ssd_chunk_out, grid (n_chunks x BH, P/64): y_c = (CB o exp(cum_i -
 //      cum_j) o tri) xdt_c + (exp(cum_i) C_c) S_in[c], one product of K =
 //      Q + N; chunk 0 has no state term.
 // Passes 2 and 4 recompute their chunk's 64-entry cumsum from dtA (one warp,
@@ -203,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
                  float* __restrict__ cbt, int L, int N, int n_chunks) {
   __shared__ __align__(16) float Cs[kTile * kTile];  // [n][i]
   __shared__ __align__(16) float Bs[kTile * kTile];  // [n][j]
-  const int c = blockIdx.x, g = blockIdx.y, c0 = c * kChunk;
+  const int c = blockIdx.x % n_chunks, g = blockIdx.x / n_chunks, c0 = c * kChunk;
   const int rows = min(kChunk, L - c0);
   const int tm = tile_row(threadIdx.x), tn = tile_col(threadIdx.x);
   const float* Cg = Cm + ((size_t)g * L + c0) * N;
@@ -234,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Pass 2: states[bh][c][n][p] = sum_j B_j[n] xdt_j[p] exp(cum_end - cum_j)
-// for the (n, p) tile blockIdx.z, and decay[bh][c] = exp(cum_end).  Only
+// for the (n, p) tile blockIdx.y, and decay[bh][c] = exp(cum_end).  Only
 // chunks c < n_chunks - 1, all of whose rows lie in [0, L).
 __global__ void __launch_bounds__(kThreads)
     ssd_chunk_state(const float* __restrict__ xdt, const float* __restrict__ dtA,
@@ -245,8 +248,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float Xs[kTile * kTile];  // [j][p], times w_j
   __shared__ float cum[kChunk];
   __shared__ float w[kChunk];  // exp(cum_end - cum_j)
-  const int c = blockIdx.x, bh = blockIdx.y, c0 = c * kChunk;
-  const int n0 = (blockIdx.z % n_tiles_n) * kTile, p0 = (blockIdx.z / n_tiles_n) * kTile;
+  const int c = blockIdx.x % n_states, bh = blockIdx.x / n_states, c0 = c * kChunk;
+  const int n0 = (blockIdx.y % n_tiles_n) * kTile, p0 = (blockIdx.y / n_tiles_n) * kTile;
   const int g = bh / n_rep;
   const int tid = threadIdx.x, tm = tile_row(tid), tn = tile_col(tid);
 
@@ -258,7 +261,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const float cend = cum[kChunk - 1];
   if (tid < kChunk) w[tid] = expf(cend - cum[tid]);
-  if (blockIdx.z == 0 && tid == 0) decay[(size_t)bh * n_states + c] = expf(cend);
+  if (blockIdx.y == 0 && tid == 0) decay[(size_t)bh * n_states + c] = expf(cend);
   __syncthreads();
   store_rows(Xs, vx, w);
   __syncthreads();
@@ -283,9 +286,10 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     ssd_state_pass(float* __restrict__ states, const float* __restrict__ decay, int NP4,
                    int n_states) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const int tiles = (NP4 + kThreads - 1) / kThreads;
+  const int e = (blockIdx.x % tiles) * kThreads + threadIdx.x;
   if (e >= NP4) return;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / tiles;
   float4* s = reinterpret_cast<float4*>(states) + (size_t)bh * n_states * NP4 + e;
   const float* d = decay + (size_t)bh * n_states;
   float4 run = zero4();
@@ -328,7 +332,7 @@ __device__ __forceinline__ void store_scores(float* dst, const float4 (&v)[4],
 }
 
 // Pass 4: y[bh][c0 + i][p0 + p] for the chunk's rows and the P tile
-// blockIdx.z: the scores' product with xdt, then, past chunk 0, the state
+// blockIdx.y: the scores' product with xdt, then, past chunk 0, the state
 // term as N / 64 more tiles of K.
 __global__ void __launch_bounds__(kThreads)
     ssd_chunk_out(const float* __restrict__ xdt, const float* __restrict__ dtA,
@@ -339,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float Bs[kTile * kTile];  // [j][p] xdt, then [n][p] state
   __shared__ float cum[kChunk];
   __shared__ float ecum[kChunk];  // exp(cum_i)
-  const int c = blockIdx.x, bh = blockIdx.y, p0 = blockIdx.z * kTile;
+  const int c = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks, p0 = blockIdx.y * kTile;
   const int g = bh / n_rep, c0 = c * kChunk, rows = min(kChunk, L - c0);
   const int tid = threadIdx.x, tm = tile_row(tid), tn = tile_col(tid);
   const float* Cg = Cm + ((size_t)g * L + c0) * N;
@@ -389,6 +393,12 @@ __global__ void __launch_bounds__(kThreads)
 int n_chunks_of(int L) { return (L + kChunk - 1) / kChunk; }
 int tiles_of(int d) { return (d + kTile - 1) / kTile; }
 
+// x = per_head * heads blocks, or 0 if that passes the grid's x limit
+unsigned grid_x(int per_head, int heads) {
+  const long long x = (long long)per_head * heads;
+  return x <= 0x7fffffff ? (unsigned)x : 0u;
+}
+
 }  // namespace
 
 extern "C" {
@@ -409,7 +419,9 @@ int ssd_chunk_cb_launch(const void* B, const void* C, void* cbt, int BG, int L, 
                         void* stream) {
   if (BG <= 0 || L <= 0) return 0;
   const int nc = n_chunks_of(L);
-  ssd_chunk_cb<<<dim3(nc, BG), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned x = grid_x(nc, BG);
+  if (x == 0) return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_cb<<<x, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)B, (const float*)C, (float*)cbt, L, N, nc);
   return (int)cudaGetLastError();
 }
@@ -420,7 +432,9 @@ int ssd_chunk_state_launch(const void* xdt, const void* dtA, const void* B, void
   const int ns = n_chunks_of(L) - 1;
   if (BH <= 0 || ns <= 0) return 0;
   const int tn = tiles_of(N);
-  ssd_chunk_state<<<dim3(ns, BH, tn * tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned x = grid_x(ns, BH);
+  if (x == 0) return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_state<<<dim3(x, tn * tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)xdt, (const float*)dtA, (const float*)B, (float*)states,
       (float*)decay, L, P, N, n_rep, ns, tn);
   return (int)cudaGetLastError();
@@ -431,8 +445,10 @@ int ssd_state_pass_launch(void* states, const void* decay, int BH, int L, int P,
   const int ns = n_chunks_of(L) - 1;
   if (BH <= 0 || ns <= 0) return 0;
   const int np4 = N * P / 4;
-  ssd_state_pass<<<dim3((np4 + kThreads - 1) / kThreads, BH), kThreads, 0,
-                   (cudaStream_t)stream>>>((float*)states, (const float*)decay, np4, ns);
+  const unsigned x = grid_x((np4 + kThreads - 1) / kThreads, BH);
+  if (x == 0) return (int)cudaErrorInvalidConfiguration;
+  ssd_state_pass<<<x, kThreads, 0, (cudaStream_t)stream>>>((float*)states,
+                                                           (const float*)decay, np4, ns);
   return (int)cudaGetLastError();
 }
 
@@ -441,7 +457,9 @@ int ssd_chunk_out_launch(const void* xdt, const void* dtA, const void* C, const 
                          int n_rep, void* stream) {
   if (BH <= 0 || L <= 0) return 0;
   const int nc = n_chunks_of(L);
-  ssd_chunk_out<<<dim3(nc, BH, tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned x = grid_x(nc, BH);
+  if (x == 0) return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_out<<<dim3(x, tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)xdt, (const float*)dtA, (const float*)C, (const float*)cbt,
       (const float*)states, (float*)y, L, P, N, n_rep, nc);
   return (int)cudaGetLastError();

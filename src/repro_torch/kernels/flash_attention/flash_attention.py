@@ -4,11 +4,13 @@
 
 One block per (64-row query tile, query head, batch), K/V tiles of 64
 keys, the online-softmax state in float32 registers, key tiles that the
-causal or window mask covers wholly never visited.  Head dims 16, 64 and
-128 (granite-3-2b takes 64, MLA will pad to 128, the smoke configs take
-16).
+causal or window mask covers wholly never visited.  Head dims 16, 64, 96,
+128 and 256 (:data:`HEAD_DIMS`: the smoke configs take 16, granite-3-2b
+64, phi3-mini-3.8b 96, as MLA will once ported, its v padded to its qk
+head dim of 96; gemma3-12b 256); any other raises.
 
-bf16 runs on the tensor cores: one warpgroup per block, S = Q K^T and
+bf16 runs on the tensor cores: one warpgroup per block (two at D = 256,
+each with its own 64 rows of a 128-row query tile), S = Q K^T and
 O += P V as ``wgmma`` products (P from registers, rounded to bf16 only
 there), K and V through a two-stage ring of ``cp.async`` copies.  Its bound
 is the operations, at 989 TFLOP/s.  Not done yet: warp specialisation, a
@@ -25,7 +27,8 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
+#: the head dims ``csrc/flash_attention.cu`` instantiates, in both dtypes
+HEAD_DIMS = (16, 64, 96, 128, 256)
 
 
 def _lib() -> ctypes.CDLL:

@@ -81,10 +81,9 @@ def _check(xdt, dtA, B, C, n_rep) -> None:
         raise ValueError(f"shapes xdt {tuple(xdt.shape)}, dtA {tuple(dtA.shape)}, "
                          f"B {tuple(B.shape)}, C {tuple(C.shape)}, n_rep {n_rep}")
     P, N = xdt.shape[2], B.shape[2]
-    if P % 4 or N % 4 or xdt.shape[0] > 65535:
-        raise ValueError(f"ssd_scan_cuda takes P and N multiples of 4 (float4 loads) "
-                         f"and at most 65,535 heads; got P={P}, N={N}, "
-                         f"BH={xdt.shape[0]}")
+    if P % 4 or N % 4:
+        raise ValueError(f"ssd_scan_cuda takes P and N multiples of 4 (float4 loads); "
+                         f"got P={P}, N={N}")
 
 
 def plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

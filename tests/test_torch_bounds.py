@@ -8,6 +8,11 @@ it imports numpy and the standard library only.
 - ssd_scan: ``ssd_ops_needed`` is least at chunk 1 and grows with the
   chunk at the serving path's lengths, and the bound ``ssd_bound`` takes
   the function's shapes only, nothing of the kernel (its chunk).
+
+Beside the bounds, helpers its checks rest on: the head dim read from a
+flash kernel's name, the capture of the longest serving call of each kind
+(gemma3's local and global layers), and the source edits its
+``--flash-variants`` mode builds.
 """
 import ast
 import importlib.util
@@ -119,3 +124,53 @@ def test_ssd_bound_refuses_a_shape_where_another_chunk_is_cheaper(smoke):
     recurrence, so chunk 1 would not give a least time."""
     with pytest.raises(RuntimeError, match="needs fewer"):
         smoke.ssd_bound(MAMBA["BH"], MAMBA["BG"], 100, MAMBA["P"], MAMBA["N"])
+
+
+@pytest.mark.parametrize("B,Hq,D,window,ops,ms", [
+    (4, 32, 96, None, 81_360_814_080, 0.08227),    # phi3-mini-3.8b, MHA
+    (4, 16, 256, None, 108_481_085_440, 0.10969),  # gemma3-12b, a global layer
+    (4, 16, 256, 1024, 87_744_839_680, 0.08872),   # gemma3-12b, a local layer
+])
+def test_flash_bound_at_phi3_and_gemma3_prefill(smoke, B, Hq, D, window, ops, ms):
+    """4 D operations per valid pair at the first 1,819-token prefill batch;
+    a local layer's 1,024-key window lets 1,338,880 pairs through per
+    (batch, head) instead of 1,655,290."""
+    pairs = smoke.valid_pairs(1819, 1819, True, window, 0)
+    assert pairs == (1_655_290 if window is None else 1_338_880)
+    assert 4 * D * pairs * B * Hq == ops
+    assert ops / smoke.BF16_OPS_PER_S * 1e3 == pytest.approx(ms, abs=1e-5)
+
+
+@pytest.mark.parametrize("name,D", [
+    ("tc::flash_fwd_bf16<96>", 96),
+    ("_ZN12_GLOBAL__N_12tc14flash_fwd_bf16ILi256EEEvNS_4ArgsE", 256),
+    ("tc::flash_fwd_bf16<16>", 16),
+    ("<unnamed>::tc::flash_fwd_bf16<(int)128>", 128),   # as cu++filt prints it
+])
+def test_flash_head_dim_from_the_kernel_name(smoke, name, D):
+    assert smoke.flash_head_dim(name) == D
+
+
+def test_longest_call_keeps_each_kind(smoke):
+    """The capture keeps the longest windowed call and the longest call
+    without a window apart (gemma3's local and global layers), and counts
+    the calls of each kind."""
+    seen = []
+    capture = smoke.LongestCall(lambda *a, **kw: seen.append(a[0].shape) or a[0], 2)
+    for S, window in ((100, 1024), (300, None), (200, 1024), (50, None), (150, 1024)):
+        capture(np.zeros((1, 2, S, 4)), causal=True, window=window)
+    assert len(seen) == 5
+    assert {kind: args[0].shape[2] for kind, (args, _) in capture.calls.items()} == \
+        {"window": 200, "full": 300}
+    assert capture.calls["window"][1] == {"causal": True, "window": 1024}
+    assert capture.counts == {"window": 3, "full": 2}
+
+
+@pytest.mark.parametrize("name", ["d96_one_warpgroup", "early_copies", "ex2_approx"])
+def test_flash_variant_edits_apply_once(smoke, name):
+    """Each edit ``--flash-variants`` makes finds its text once in
+    ``csrc/flash_attention.cu``, so the variant differs from the shipped
+    source in that place alone."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu").read_text()
+    for old, new in smoke.FLASH_VARIANTS[name]:
+        assert src.count(old) == 1 and old != new

@@ -41,6 +41,8 @@ def _close(t, j, tol):
     (1, 4, 2, 128, 128, 64),
     (1, 4, 1, 96, 160, 64),   # lengths the blocks do not divide
     (1, 2, 1, 64, 320, 128),
+    (1, 2, 2, 96, 160, 96),   # phi3-mini-3.8b's head dim, MHA
+    (1, 4, 2, 64, 128, 256),  # gemma3-12b's head dim, GQA
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -98,3 +100,19 @@ def test_ops_has_no_fallback_off_the_cpu():
     q = torch.empty((1, 2, 4, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention(q, q[:, :1], q[:, :1])
+
+
+def test_binding_head_dims_are_the_compiled_instances():
+    """The binding's HEAD_DIMS are the head dims ``csrc/flash_attention.cu``
+    instantiates, in float32 and in bf16 alike: every other D raises in the
+    binding before it reaches the kernel."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    src = (pathlib.Path(ops.__file__).resolve().parents[2] / "csrc" /
+           "flash_attention.cu").read_text()
+    cases = [int(c) for c in re.findall(r"case (\d+): return launch", src)]
+    assert sorted(c for c in cases if c < 1000) == list(HEAD_DIMS) == [16, 64, 96, 128, 256]
+    assert sorted(c - 1000 for c in cases if c >= 1000) == list(HEAD_DIMS)

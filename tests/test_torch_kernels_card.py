@@ -7,7 +7,8 @@ elsewhere; on the card they run with
 Tolerances are the reference's own (``tests/test_kernels.py``):
 flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
 outputs compared in float32; bf16 runs the tensor-core kernel, float32 the
-CUDA-core one); ssd_scan a max error below 3e-4 of max|y| in float32, and
+CUDA-core one; head dims 16, 64, 96, 128 and 256); ssd_scan a max error
+below 3e-4 of max|y| in float32, and
 the states its state pass leaves within 1e-5 of the plain version of its
 passes.  The kernels sum in another order than the plain versions (tiles
 of 64 keys, chunks of the kernel's own length)."""
@@ -37,6 +38,10 @@ pytestmark = [
     (4, 32, 8, 300, 300, 64),  # granite-3-2b's heads
     (2, 4, 2, 24, 24, 16),     # the smoke configs' head dim
     (1, 4, 1, 200, 333, 16),
+    (1, 4, 4, 200, 333, 96),   # phi3-mini-3.8b's head dim, MHA
+    (1, 4, 2, 333, 200, 96),
+    (1, 4, 2, 200, 333, 256),  # gemma3-12b's head dim, GQA
+    (1, 4, 4, 333, 200, 256),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -67,7 +72,7 @@ def test_flash_kernel_window(rng, window, n_rep, dtype):
                                atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_decode_offset(rng, D, dtype):
     """Sq = 1 at q_offset 511, and a window that leaves one row of a tile
@@ -81,6 +86,33 @@ def test_flash_kernel_decode_offset(rng, D, dtype):
                                atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
     empty = fa_ops.flash_attention(q, k, v, causal=False, window=4, q_offset=600)
     assert not empty.any()
+
+
+@pytest.mark.parametrize("D", [96, 256])
+@pytest.mark.parametrize("n_rep", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window_1024(rng, D, n_rep, dtype):
+    """gemma3-12b's 1,024-key causal window over 1,300 keys, at the head
+    dims phi3-mini-3.8b and gemma3-12b take, with MHA and GQA."""
+    q = torch.as_tensor(rng.normal(size=(1, 4, 1300, D)), device="cuda").to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(1, 4 // n_rep, 1300, D)),
+                            device="cuda").to(dtype) for _ in range(2))
+    a = fa_ops.flash_attention(q, k, v, causal=True, window=1024)
+    b = flash_attention_ref(q, k, v, causal=True, window=1024)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [32, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_other_head_dims_raise(D, dtype):
+    """A head dim without a compiled instance raises on a CUDA tensor;
+    nothing falls back to the plain version."""
+    q = torch.zeros((1, 2, 8, D), device="cuda", dtype=dtype)
+    before = fa_ops.LAUNCHES
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q, q)
+    assert fa_ops.LAUNCHES == before
 
 
 def _ssd_inputs(rng, BH, BG, L, P, N):
@@ -101,6 +133,7 @@ def _ssd_inputs(rng, BH, BG, L, P, N):
     (8, 2, 40, 64, 128),      # under one chunk
     (16, 8, 1819, 128, 128),  # jamba-1.5's widths, 8 groups
     (4, 2, 100, 16, 16),      # jamba-1.5's smoke widths, 2 groups
+    (70_000, 70_000, 80, 4, 4),  # more heads than a grid's y axis holds
 ])
 def test_ssd_kernel_matches_plain(rng, BH, BG, L, P, N):
     n_rep = BH // BG

@@ -50,10 +50,16 @@ def _err(t, j):
 
 
 def _variant(name: str, which: str):
-    """granite smoke config, plain or with a sliding window or an int8 KV
-    cache, in the reference's and the port's dataclasses."""
+    """A smoke config, plain, with a sliding window or an int8 KV cache
+    (granite), or at the arch's published head dim (``"head_dim"``: phi3's
+    96 with MHA; gemma3's 256 with local/local/global layers, a 16-token
+    window and tied embeddings), in the reference's and the port's
+    dataclasses."""
     ref, port = smoke_config_for(name), tconfigs.smoke_config_for(name)
-    if which == "window":
+    if which == "head_dim":
+        hd = config_for(name).head_dim
+        ref, port = dataclasses.replace(ref, head_dim=hd), dataclasses.replace(port, head_dim=hd)
+    elif which == "window":
         ref = dataclasses.replace(ref, super_block=(type(ref.super_block[0])(window=8),
                                                     type(ref.super_block[0])()))
         port = dataclasses.replace(port, super_block=(LayerSpec(window=8), LayerSpec()))
@@ -165,23 +171,33 @@ def _prefill_then_decode(ref_cfg, cfg, rng, tol, steps=4):
         assert float(np.abs(tl.numpy() - np.asarray(jl)).max()) <= tol * scale
 
 
+#: archs whose parity runs at the published head dim (the flash instances
+#: at D = 96 and 256 that only they take on the card)
+PUBLISHED_HEAD_DIM = ("phi3_mini_38b", "gemma3_12b")
+
+
 @pytest.mark.parametrize("arch,which", [("granite3_2b", "plain"), ("granite3_2b", "window"),
-                                        ("granite3_2b", "int8"), ("mamba2_370m", "plain")])
+                                        ("granite3_2b", "int8"), ("mamba2_370m", "plain"),
+                                        ("phi3_mini_38b", "head_dim"),
+                                        ("gemma3_12b", "head_dim")])
 def test_prefill_and_decode_match_reference(rng, arch, which):
-    """bf16 activations, as served: within 2e-2 x max|logit|."""
+    """bf16 activations, as served: within 2e-2 x max|logit|.  The 20-token
+    prompt is longer than gemma3's 16-token window, so its decode runs the
+    ring buffer."""
     ref_cfg, cfg = _variant(arch, which)
     _prefill_then_decode(ref_cfg, cfg, rng, 2e-2)
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", *PUBLISHED_HEAD_DIM])
 def test_prefill_and_decode_match_reference_float32(rng, monkeypatch, arch):
     """The same stack with float32 activations and caches in both packages:
-    within 1e-4 x max|logit|, so the bf16 test's slack is rounding only."""
+    within 1e-4 x max|logit|, so the bf16 test's slack is rounding only
+    (phi3 and gemma3 at their published head dims)."""
     monkeypatch.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TT, "COMPUTE_DTYPE", torch.float32)
     monkeypatch.setattr(RT.init_cache, "__defaults__", (0, jnp.float32))
     monkeypatch.setattr(TT.init_cache, "__defaults__", (0, torch.float32, None))
-    ref_cfg, cfg = _variant(arch, "plain")
+    ref_cfg, cfg = _variant(arch, "head_dim" if arch in PUBLISHED_HEAD_DIM else "plain")
     _prefill_then_decode(ref_cfg, cfg, rng, 1e-4)
     model, params, port = _carried(ref_cfg, cfg, seed=1)
     toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)

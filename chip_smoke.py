@@ -36,7 +36,9 @@ script exits non-zero:
 5. times — relagg on the inputs the main path handed it for Q12 and Q5:
    checked against the plain version, then timed as the kernel, the plain
    version and one PyTorch call computing the same function, beside the
-   bound that this data needs;
+   bound that this data needs; the kernel's device time from a
+   ``torch.profiler`` trace, its host cost and its device events per call
+   apart from the CUDA-event figure;
 6. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -71,6 +73,12 @@ and prints no result.
 runs only the flash_attention sweep's cases at head dims 16, 64 and 128
 and prints a sha256 of each output: the same line from two source trees
 on one card says their kernels computed the same bits.
+
+    python3 chip_smoke.py --relagg-times
+
+builds relagg alone and reads it at Q12's and Q5's inputs (TPC-H at SF 1)
+as phase 5 does, its repeat readings not checked: copied into another
+source tree, it reads that tree's kernel the same way.
 
     python3 chip_smoke.py --flash-variants
 
@@ -367,13 +375,14 @@ def run_statement(session, query, policy):
     return cold, float(np.median(warm))
 
 
-def main_path_phase(sf: float = 1.0) -> tuple[dict, object]:
+def tpch_session(sf: float):
+    """A session on the card holding TPC-H at scale factor ``sf`` and the
+    UDFs of its queries."""
     import torch
 
     import repro_torch.core as C
     from repro_torch.data.tpch import generate_tpch
-    from repro_torch.data.tpch_udfs import QUERIES, register_udfs
-    from repro_torch.kernels.relagg import ops
+    from repro_torch.data.tpch_udfs import register_udfs
 
     session = C.Session()  # the card
     t0 = time.perf_counter()
@@ -384,7 +393,17 @@ def main_path_phase(sf: float = 1.0) -> tuple[dict, object]:
     log(f"TPC-H sf={sf}: {session.catalog['lineitem'].num_rows} lineitem rows, "
         f"{resident / 1e9:.3f} GB of columns on {session.device}, "
         f"generated and loaded in {time.perf_counter() - t0:.1f} s")
+    return session
 
+
+def main_path_phase(sf: float = 1.0) -> tuple[dict, object]:
+    import torch
+
+    import repro_torch.core as C
+    from repro_torch.data.tpch_udfs import QUERIES
+    from repro_torch.kernels.relagg import ops
+
+    session = tpch_session(sf)
     on = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
     off = C.FROID
     launches: dict[str, int] = {}
@@ -475,11 +494,66 @@ def sectors_touched(rows, row_bytes: int) -> int:
     return int(torch.cat([(start + s) // 32 for s in steps]).unique().numel())
 
 
-def time_relagg(label: str, args) -> dict:
+def f32_ulps(a, b) -> np.ndarray:
+    """Distance in float32 units in the last place between ``a`` and ``b``
+    (float32 arrays): the count of float32 values between them, +0 and -0
+    as one."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, dtype=np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+def relagg_repeat(label: str, launch, ref_sums, strict: bool) -> dict:
+    """Two more launches on the same inputs: whether their sums and counts
+    are bit-identical to each other, and the sums' largest distance in
+    float32 ulps from the float64 sum rounded once.  With ``strict`` both
+    are checks: bit-identical, and within 1 ulp."""
+    s1, c1 = launch()
+    s2, c2 = launch()
+    same = bool(np.array_equal(s1.cpu().numpy().view(np.uint32), s2.cpu().numpy().view(np.uint32))
+                and np.array_equal(c1.cpu().numpy(), c2.cpu().numpy()))
+    ulps = int(f32_ulps(s1.cpu().numpy(), ref_sums.astype(np.float32)).max(initial=0))
+    if strict:
+        check(same, f"{label}: two launches on the same inputs differ")
+        check(ulps <= 1, f"{label}: sums {ulps} float32 ulps off the float64 sum rounded once")
+    return {"bit_identical": same, "max_ulps": ulps}
+
+
+def relagg_split(fn, calls: int = 20) -> dict:
+    """The kernel's device time apart from its host cost: ``device_ms`` is
+    the device time of the ``relagg*`` kernel events per call in a
+    ``torch.profiler`` trace of ``calls`` back-to-back calls (one event a
+    call on the shared path, so also their mean duration),
+    ``launches_per_call`` the trace's device events (kernels, fills,
+    copies) per call, and ``host_ms_per_call`` the host's time to issue one
+    call (:func:`host_ms_per_call`)."""
+    for _ in range(3):  # warm
+        fn()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, _, port, events = device_busy(run)
+    check(events > 0, "relagg: the trace holds no device event")
+    relagg_ms = sum(e["ms"] for name, e in port.items()
+                    if name.startswith("relagg") and "<" not in name)
+    return {"device_ms": relagg_ms / calls, "launches_per_call": events / calls,
+            "host_ms_per_call": host_ms_per_call(fn)}
+
+
+def time_relagg(label: str, args, strict: bool = False) -> dict:
     """Check the kernel against the plain version on the main path's own
     inputs, then time both and the library call.  The bound counts the
     bytes this data needs: every mask byte, gid where the mask is set, vals
-    of selected rows, and the (G, k+1) output."""
+    of selected rows, and the (G, k+1) output.  Beside the event figure
+    ``ms``, the kernel's device time, host cost and launches per call
+    (:func:`relagg_split`), and, from two more launches, whether they are
+    bit-identical and how many float32 ulps their sums lie from the float64
+    sum rounded once (:func:`relagg_repeat`; checks unless ``strict`` is
+    False, which only reads them)."""
     import torch
 
     from repro_torch.kernels.relagg.ref import grouped_aggregate_ref
@@ -492,7 +566,7 @@ def time_relagg(label: str, args) -> dict:
 
     ksums, kcounts = relagg_cuda(gid, mask, vals, G)
     psums, pcounts = grouped_aggregate_ref(gid, mask, vals, G)
-    _, absum, ref_counts = f64_reference(gid, mask, vals, G)
+    ref_sums, absum, ref_counts = f64_reference(gid, mask, vals, G)
     kc, kcs = kcounts.cpu().numpy(), ksums.cpu().numpy().astype(np.float64)
     check(np.array_equal(kc, pcounts.cpu().numpy()),
           f"relagg at {label}'s inputs: counts differ from the plain version")
@@ -514,9 +588,11 @@ def time_relagg(label: str, args) -> dict:
     def plain():
         return grouped_aggregate_ref(gid, mask, vals, G)
 
+    repeat = relagg_repeat(f"relagg at {label}'s inputs", kernel, ref_sums, strict)
     # turns: plain, kernel, kernel, plain; then the library call
     p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
     lib_ms = cuda_ms(library)
+    split = relagg_split(kernel)
     masked_in = int(mask.sum())
     selected = int(sel.sum())
     out_bytes = G * (k + 1) * 4
@@ -540,7 +616,29 @@ def time_relagg(label: str, args) -> dict:
         "max_abs_err": float(err.max(initial=0.0)),
         "max_err_over_abs_sum": float(np.max(err / np.maximum(absum, 1e-30),
                                              initial=0.0)),
+        **split, **repeat,
     }
+
+
+def relagg_times_phase() -> dict:
+    """``--relagg-times``: relagg alone at Q12's and Q5's inputs from TPC-H
+    at SF 1, through :func:`time_relagg` with the repeat only read, so that
+    this script, copied into another tree, reads that tree's kernel the
+    same way."""
+    from repro_torch.kernels import _build
+
+    _build.load("relagg")
+    session = tpch_session(1.0)
+    return {label: time_relagg(label, capture_relagg_args(session, label), strict=False)
+            for label in ("Q12", "Q5")}
+
+
+def relagg_times_line(label: str, t: dict) -> str:
+    return (f"relagg at {label}'s inputs, {t['path']} path: event {t['ms']:.5f} ms, device "
+            f"{t['device_ms']:.5f} ms, host {t['host_ms_per_call']:.5f} ms and "
+            f"{t['launches_per_call']:g} device events a call; bound {t['bound_ms']:.5f} ms; "
+            f"bit-identical repeat {t['bit_identical']}, {t['max_ulps']} ulps off the "
+            f"float64 sum")
 
 
 # ---------------------------------------------------------------------------
@@ -1543,6 +1641,12 @@ def main() -> int:
     if sys.argv[1:] == ["--flash-variants"]:
         print(json.dumps({"card": card, "flash_variants": flash_variants_phase()}), flush=True)
         return 0
+    if sys.argv[1:] == ["--relagg-times"]:
+        times = relagg_times_phase()
+        for label, t in times.items():
+            log(relagg_times_line(label, t))
+        print(json.dumps({"card": card, "tree": str(ROOT), "relagg": times}), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1576,6 +1680,7 @@ def main() -> int:
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bytes'] / 1e6:.3f} MB / 3.35 TB/s; {t['sector_bytes'] / 1e6:.3f} MB "
             f"in 32-byte sectors, {t['sector_bound_ms']:.5f} ms)")
+        log(relagg_times_line(label, t))
     del session
     gc.collect()
     torch.cuda.empty_cache()
@@ -1629,7 +1734,8 @@ def main() -> int:
          "launches": main["launches"],
          "max_abs_err": max(kern["max_abs_err"], q12["max_abs_err"], q5["max_abs_err"]),
          "ms": q12["ms"], "plain_ms": q12["plain_ms"], "bound_ms": q12["bound_ms"],
-         "bound_by": q12["bound_by"], "library_ms": q12["library_ms"], "ok": True},
+         "bound_by": q12["bound_by"], "library_ms": q12["library_ms"],
+         "device_ms": q12["device_ms"], "ok": True},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

@@ -4,33 +4,63 @@
 // (launched by relagg_pallas): for rows r with mask[r] and 0 <= gid[r] < G,
 //     out[gid[r], j] += vals[r, j]   (j < k)
 //     out[gid[r], k] += 1
-// into a zero-initialised (G, k+1) float32 output.  Masked rows and rows
-// whose group id lies outside [0, G) add nothing, as on the TPU where such a
-// row hits no one-hot column.  The TPU's one-hot (rows x G) product on the
-// MXU and its 1024-row padding are not carried over: here each row adds
-// into its own group's slot directly.
+// into a (G, k+1) float32 output, every slot of which the kernel writes.
+// Masked rows and rows whose group id lies outside [0, G) add nothing, as
+// on the TPU where such a row hits no one-hot column.  The TPU's one-hot
+// (rows x G) product on the MXU and its 1024-row padding are not carried
+// over: here each selected row adds into its own group's slots.
 //
 // Bound: memory, and it depends on the data.  Every mask byte is read
 // (n bytes); gid only where the mask is set, vals only for selected rows
 // (mask set and gid in range): n + m * 4 + s * 4k bytes read for m set
 // mask bytes and s selected rows, plus G * (k+1) * 4 written.  The work is
 // s * (k + 1) additions, far below the card's operations-per-byte balance.
-// The kernel tests the mask before it loads gid, so a masked-off row costs
-// its mask byte alone (and whatever else shares its 32-byte sectors).
+// At the TPC-H main path's selectivities (0.1-1% of 6,000,000 rows) nearly
+// all of it is the mask scan.
 //
-// Design: each block zeroes a G x (k+1) accumulator in shared memory, walks
-// its rows in a grid-stride loop adding with shared-memory atomics, and
-// flushes every non-zero slot with one global atomicAdd.  Where the
-// accumulator does not fit the shared-memory budget (high-cardinality keys,
-// e.g. c_name's 150,000 codes at TPC-H SF 1), relagg_global adds straight
-// into the output with global atomics.  At small G many threads hit the
-// same few shared slots, so shared-atomic contention is the expected
-// bottleneck; pre-aggregating within a warp before the atomics is the
-// planned remedy.
+// Design, shared-memory path (relagg_shared_kernel; G * (k+1) float64
+// slots a warp fit the shared memory a block may opt in to):
+// - Fixed row partition: the binding fixes the grid from the device's SM
+//   count and n, and block b owns rows [b * per_block, (b+1) * per_block).
+//   The same inputs on the same card always meet the same order.
+// - Vectorised mask scan: each lane loads kUnroll 16-byte mask words
+//   (uint4) before it looks at any; a warp whose words are all zero moves
+//   on at once.  The head of a block's range up to the first 16-byte
+//   aligned mask address and the tail after its last whole word are read
+//   one byte a lane, so a mask with any storage offset works.
+// - Candidate list: each warp lists the set bytes it meets in shared
+//   memory, in a fixed order (word, then lane, then byte), and loads gid
+//   and vals only for those, 32 rows at a time, once its list is full or
+//   its range is done, vals beside gid rather than after it (so a listed
+//   row whose gid lies outside [0, G) costs its vals too; the executor's
+//   masks exclude such rows).  At low selectivity a warp waits on one such
+//   load in all, not on one for each word.
+// - Pre-aggregation without atomics, in float64: of the 32 rows in hand,
+//   the lanes that hold a selected row stage its vals in their warp's
+//   shared memory and the lanes of one group find each other
+//   (__match_any_sync).  Each (group, column) slot in hand then goes to
+//   one lane, which sums that group's staged values of that column in
+//   lane order and adds the sum to its warp's own float64 slot, so a
+//   warp's chain of dependent adds is one group's rows long, not rows x k.
+//   Only that warp writes those slots, so the order is fixed.  The block
+//   then sums its warps' slots in warp order into its own float64 partial
+//   in device memory.
+// - Cross-block sum in the same launch: the last block to finish (a
+//   __threadfence and an atomic ticket, which it resets for the next call)
+//   sums the partials in block order, in runs of consecutive blocks added
+//   in run order, rounds once to float32 and writes every output slot.  So
+//   the output needs no fill, and a call is one launch.
+// This path is bit-deterministic: a call on the same inputs and the same
+// card gives the same bits every time.
 //
-// Counts add exact 1.0f values, so they are exact in any order below 2^24
-// per group.  Value sums depend on the order the atomics land in and are
-// compared with a tolerance.
+// Global path (relagg_global_kernel, then relagg_round_kernel; high-
+// cardinality keys, e.g. c_name's 150,000 codes at TPC-H SF 1): the same
+// scan and lists, each selected row adding straight into a float64 accumulator in
+// device memory with atomics; the second kernel rounds it once to float32
+// into the output and zeroes it for the next call.  Counts add exact 1.0s;
+// the sums' float64 atomics land in a run-dependent order, so the last bit
+// of a float32 sum may differ from call to call, as with the executor's
+// float64 segment sums.
 //
 // Plain C interface, bound with ctypes: every entry returns the
 // cudaError_t of its launch (0 on success).
@@ -40,115 +70,308 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;  // 16-byte mask words a lane loads before it looks at them
+constexpr int kList = 512;  // candidate rows a warp's list holds: 32 lanes x 16 bytes
+constexpr int kChunk = 16;  // partials a thread of the last block loads at a time
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void relagg_shared_kernel(const int32_t* __restrict__ gid,
-                                     const uint8_t* __restrict__ mask,
-                                     const float* __restrict__ vals,
-                                     float* __restrict__ out,
-                                     long long n, int k, int groups) {
-  extern __shared__ float acc[];
-  const int width = k + 1;
-  const int slots = groups * width;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
+struct Args {
+  const int32_t* gid;
+  const uint8_t* mask;
+  const float* vals;
+  float* out;
+  double* scratch;     // shared path: the blocks' partials; global: the accumulator
+  unsigned* ticket;    // shared path: blocks finished so far
+  long long n;
+  long long per_block;
+  int k;
+  int groups;
+};
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    if (!mask[r]) continue;  // before gid: masked rows cost one byte
-    const int g = gid[r];
-    // the range guard comes before any indexing by g
-    if (g >= 0 && g < groups) {
-      float* slot = acc + (long long)g * width;
-      const float* v = vals + r * k;
-      for (int j = 0; j < k; ++j) atomicAdd(slot + j, v[j]);
-      atomicAdd(slot + k, 1.0f);
+// Bits 0-3: which of the four bytes of x are non-zero.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
+  const unsigned t = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((t >> 7) & 1u) | ((t >> 14) & 2u) | ((t >> 21) & 4u) | ((t >> 28) & 8u);
+}
+
+__device__ __forceinline__ unsigned set_bytes(uint4 w) {
+  return nonzero_bytes(w.x) | (nonzero_bytes(w.y) << 4) | (nonzero_bytes(w.z) << 8) |
+         (nonzero_bytes(w.w) << 12);
+}
+
+// One warp's candidate rows (set mask bytes) and where it adds them.  Every
+// lane of the warp calls every member.  Rows are listed in the order the
+// warp meets them and added in list order, 32 at a time: shared path into
+// the warp's own float64 slots `acc` without atomics, global path into the
+// accumulator with atomics.
+template <bool kShared>
+struct WarpRows {
+  const Args& a;
+  long long lo;  // the block's first row: list entries are offsets from it
+  int* list;     // kList entries
+  double* acc;
+  float* stage;  // shared path: (k, 32) vals of the rows in hand
+  int* group_id;          // shared path: the groups in hand ...
+  unsigned* group_peers;  // ... and the lanes that hold each one's rows
+  int lane;
+  int count;     // entries listed, the same in every lane
+
+  // Adds the listed rows whose gid lies in [0, G), and empties the list.
+  __device__ __forceinline__ void flush() {
+    const int k = a.k;
+    const long long width = k + 1;
+    for (int j0 = 0; j0 < count; j0 += 32) {
+      int g = -1;
+      long long r = 0;
+      if (j0 + lane < count) {
+        r = lo + list[j0 + lane];
+        g = __ldg(a.gid + r);
+      }
+      const bool sel = g >= 0 && g < a.groups;  // the range guard comes before any indexing by g
+      if constexpr (kShared) {
+        if (j0 + lane < count) {  // beside gid, not after it: one wait, not two
+          for (int c = 0; c < k; ++c) stage[c * 32 + lane] = __ldg(a.vals + r * k + c);
+        }
+        const unsigned selected = __ballot_sync(kFull, sel);
+        unsigned peers = 0u;
+        if (sel) peers = __match_any_sync(selected, g);
+        // the groups in hand, each by its lowest lane, numbered in lane order
+        const unsigned leaders = __ballot_sync(kFull, sel && __ffs(peers) - 1 == lane);
+        if (sel && __ffs(peers) - 1 == lane) {
+          const int i = __popc(leaders & ((1u << lane) - 1u));
+          group_id[i] = g;
+          group_peers[i] = peers;
+        }
+        __syncwarp();
+        // one (group, column) slot a lane: the group's rows in lane order
+        for (int p = lane; p < __popc(leaders) * width; p += 32) {
+          const int i = p / (int)width, c = p - i * (int)width;
+          const unsigned rows_of = group_peers[i];
+          double x = 0.0;
+          if (c < k) {
+            for (unsigned q = rows_of; q; q &= q - 1u) x += (double)stage[c * 32 + __ffs(q) - 1];
+          } else {
+            x = (double)__popc(rows_of);
+          }
+          acc[group_id[i] * width + c] += x;
+        }
+      } else if (sel) {
+        double* slot = acc + g * width;
+        for (int c = 0; c < k; ++c) atomicAdd(slot + c, (double)__ldg(a.vals + r * k + c));
+        atomicAdd(slot + k, 1.0);
+      }
+      __syncwarp();  // the stage and the list are free again
+    }
+    count = 0;
+  }
+
+  // Lists the rows lo + offset + j for the set bits j of each lane's `bits`,
+  // lowest lane first and, within a lane, lowest bit first.
+  __device__ __forceinline__ void append(int offset, unsigned bits) {
+    if (!__ballot_sync(kFull, bits != 0u)) return;  // nearly every word at low selectivity
+    const int mine = __popc(bits);
+    int upto = mine;  // inclusive prefix count over the lanes
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, upto, d);
+      if (lane >= d) upto += y;
+    }
+    const int total = __shfl_sync(kFull, upto, 31);
+    if (count + total > kList) flush();
+    for (int at = count + upto - mine; bits; bits &= bits - 1u) list[at++] = offset + __ffs(bits) - 1;
+    count += total;
+    __syncwarp();
+  }
+};
+
+// Every block: list and add its rows [lo, hi).  The head of the range, up
+// to the first 16-byte aligned mask address, and its tail after the last
+// whole word are read one byte a lane (lanes of warp 0), then every lane
+// loads kUnroll words of the range before it looks at any.
+template <bool kShared>
+__device__ __forceinline__ void scan(const Args& a, WarpRows<kShared>& rows) {
+  const int lane = rows.lane;
+  const long long lo = rows.lo;
+  const long long hi = min(a.n, lo + a.per_block);
+  const uintptr_t address = reinterpret_cast<uintptr_t>(a.mask + lo);
+  const long long first = lo + min((long long)((16u - (address & 15u)) & 15u), hi - lo);
+  const long long words = (hi - first) >> 4;
+  const long long tail = first + (words << 4);
+  const int n_head = (int)(first - lo), n_tail = (int)(hi - tail);  // each below 16
+
+  if (threadIdx.x < 32) {
+    long long row = lo + lane;
+    if (lane >= n_head) row = tail + (lane - n_head);
+    const bool mine = lane < n_head + n_tail;
+    rows.append((int)(row - lo), mine && a.mask[row] != 0 ? 1u : 0u);
+  }
+
+  const uint4* w = reinterpret_cast<const uint4*>(a.mask + first);
+  for (long long i0 = 0; i0 < words; i0 += (long long)kThreads * kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u * kThreads + threadIdx.x;
+      v[u] = i < words ? __ldg(w + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u * kThreads + threadIdx.x;
+      rows.append((int)(first - lo + 16 * i), set_bytes(v[u]));
     }
   }
+  rows.flush();
+}
+
+__device__ __forceinline__ long long block_lo(const Args& a) {
+  return min(a.n, (long long)blockIdx.x * a.per_block);
+}
+
+// One block an SM (the binding's grid), so a thread may take 128 registers.
+__global__ void __launch_bounds__(kThreads, 1) relagg_shared_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+  const int slots = a.groups * (a.k + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  double* warp_slots = reinterpret_cast<double*>(smem);  // (kWarps, slots)
+  int* lists = reinterpret_cast<int*>(warp_slots + (long long)kWarps * slots);
+  int* group_ids = lists + kWarps * kList;                                // (kWarps, 32)
+  unsigned* group_peers = reinterpret_cast<unsigned*>(group_ids + kWarps * 32);  // (kWarps, 32)
+  float* stages = reinterpret_cast<float*>(group_peers + kWarps * 32);
+  for (int i = threadIdx.x; i < kWarps * slots; i += kThreads) warp_slots[i] = 0.0;
   __syncthreads();
 
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    const float a = acc[i];
-    if (a != 0.0f) atomicAdd(out + i, a);
-  }
-}
+  WarpRows<true> rows{a,
+                      block_lo(a),
+                      lists + warp * kList,
+                      warp_slots + (long long)warp * slots,
+                      stages + warp * 32 * a.k,
+                      group_ids + warp * 32,
+                      group_peers + warp * 32,
+                      lane,
+                      0};
+  scan<true>(a, rows);
+  __syncthreads();
 
-__global__ void relagg_global_kernel(const int32_t* __restrict__ gid,
-                                     const uint8_t* __restrict__ mask,
-                                     const float* __restrict__ vals,
-                                     float* __restrict__ out,
-                                     long long n, int k, int groups) {
-  const int width = k + 1;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    if (!mask[r]) continue;
-    const int g = gid[r];
-    if (g >= 0 && g < groups) {
-      float* slot = out + (long long)g * width;
-      const float* v = vals + r * k;
-      for (int j = 0; j < k; ++j) atomicAdd(slot + j, v[j]);
-      atomicAdd(slot + k, 1.0f);
+  // the block's partial: its warps' slots summed in warp order
+  double* partial = a.scratch + (long long)blockIdx.x * slots;
+  for (int s = threadIdx.x; s < slots; s += kThreads) {
+    double x = 0.0;
+    for (int v = 0; v < kWarps; ++v) x += warp_slots[v * slots + s];
+    partial[s] = x;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last block: the partials in block order, as `runs` runs of
+  // consecutive blocks, each summed in order, then the runs in order
+  const int blocks = gridDim.x;
+  const int runs = max(1, min(kThreads / slots, min(kWarps, blocks)));
+  const int per_run = (blocks + runs - 1) / runs;
+  double* run_sums = warp_slots;  // (runs, slots); runs <= kWarps
+  for (int t = threadIdx.x; t < runs * slots; t += kThreads) {
+    const int q = t / slots, s = t - q * slots;
+    const int b1 = min(blocks, (q + 1) * per_run);
+    double x = 0.0;
+    for (int b0 = q * per_run; b0 < b1; b0 += kChunk) {  // kChunk loads in flight
+      double v[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        v[u] = b0 + u < b1 ? __ldcg(a.scratch + (long long)(b0 + u) * slots + s) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) x += v[u];  // + 0.0 past b1 leaves x as it is
     }
+    run_sums[t] = x;
   }
+  __syncthreads();
+  for (int s = threadIdx.x; s < slots; s += kThreads) {
+    double x = 0.0;
+    for (int q = 0; q < runs; ++q) x += run_sums[q * slots + s];
+    a.out[s] = (float)x;  // rounded once
+  }
+  if (threadIdx.x == 0) *a.ticket = 0u;  // for the next call on this scratch
 }
 
-int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, value = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&value, attr, dev) != cudaSuccess) return 0;
-  return value;
+__global__ void __launch_bounds__(kThreads) relagg_global_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  WarpRows<false> rows{a,       block_lo(a), reinterpret_cast<int*>(smem) + warp * kList,
+                       a.scratch, nullptr,     nullptr, nullptr, lane, 0};
+  scan<false>(a, rows);
 }
 
-// Enough blocks to fill every SM `per_sm` times, and no more blocks than
-// the rows need.
-int grid_for(long long n, int per_sm) {
-  const long long need = (n + kThreads - 1) / kThreads;
-  const long long fill =
-      (long long)device_attr(cudaDevAttrMultiProcessorCount) * per_sm;
-  long long grid = need < fill ? need : fill;
-  return grid < 1 ? 1 : (int)grid;
+// The accumulator rounded once into the output, and zeroed again.
+__global__ void relagg_round_kernel(double* acc, float* out, long long slots) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < slots;
+       i += (long long)gridDim.x * blockDim.x) {
+    out[i] = (float)acc[i];
+    acc[i] = 0.0;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest dynamic shared memory a block may opt in to, in bytes.
-int relagg_smem_budget() {
-  return device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+// The device's SM count, and the dynamic shared memory a block of
+// relagg_shared_kernel may opt in to there: the device's opt-in limit less
+// the kernel's static shared memory, in bytes.
+int relagg_device_info(int device, int* sm_count, int* smem_budget) {
+  cudaError_t err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, relagg_shared_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *smem_budget = optin - (int)attr.sharedSizeBytes;
+  return 0;
+}
+
+// Lets relagg_shared_kernel take `bytes` of dynamic shared memory on the
+// current device; the binding calls it once per device and larger size.
+int relagg_reserve_smem(int bytes) {
+  return (int)cudaFuncSetAttribute(relagg_shared_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 const char* relagg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int relagg_shared(const void* gid, const void* mask, const void* vals,
-                  void* out, long long n, int k, int groups, void* stream) {
-  if (n <= 0) return 0;
-  const size_t smem = (size_t)groups * (k + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      relagg_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, relagg_shared_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  relagg_shared_kernel<<<grid_for(n, per_sm < 1 ? 1 : per_sm), kThreads, smem,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)gid, (const uint8_t*)mask, (const float*)vals,
-      (float*)out, n, k, groups);
+// One launch.  `scratch` holds grid * G * (k+1) doubles, `ticket` one
+// unsigned that is 0 between calls; `out` needs no fill.
+int relagg_shared(const void* gid, const void* mask, const void* vals, void* out,
+                  void* scratch, void* ticket, long long n, long long per_block, int k,
+                  int groups, int grid, int smem, void* stream) {
+  const Args a{(const int32_t*)gid, (const uint8_t*)mask, (const float*)vals, (float*)out,
+               (double*)scratch, (unsigned*)ticket, n, per_block, k, groups};
+  relagg_shared_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int relagg_global(const void* gid, const void* mask, const void* vals,
-                  void* out, long long n, int k, int groups, void* stream) {
-  if (n <= 0) return 0;
-  relagg_global_kernel<<<grid_for(n, 8), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)gid, (const uint8_t*)mask, (const float*)vals,
-      (float*)out, n, k, groups);
+// Two launches.  `scratch` holds G * (k+1) doubles that are 0 between
+// calls; `out` needs no fill.
+int relagg_global(const void* gid, const void* mask, const void* vals, void* out,
+                  void* scratch, long long n, long long per_block, int k, int groups,
+                  int grid, int smem, void* stream) {
+  const Args a{(const int32_t*)gid, (const uint8_t*)mask, (const float*)vals, (float*)out,
+               (double*)scratch, nullptr, n, per_block, k, groups};
+  relagg_global_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long slots = (long long)groups * (k + 1);
+  const long long need = (slots + 255) / 256;
+  const int round_grid = (int)(need < 4096 ? (need < 1 ? 1 : need) : 4096);
+  relagg_round_kernel<<<round_grid, 256, 0, (cudaStream_t)stream>>>((double*)scratch,
+                                                                   (float*)out, slots);
   return (int)cudaGetLastError();
 }
 

@@ -30,11 +30,10 @@
 //   one byte a lane, so a mask with any storage offset works.
 // - Candidate list: each warp lists the set bytes it meets in shared
 //   memory, in a fixed order (word, then lane, then byte), and loads gid
-//   and vals only for those, 32 rows at a time, once its list is full or
-//   its range is done, vals beside gid rather than after it (so a listed
-//   row whose gid lies outside [0, G) costs its vals too; the executor's
-//   masks exclude such rows).  At low selectivity a warp waits on one such
-//   load in all, not on one for each word.
+//   only for those and vals only for the selected ones, 32 rows at a time,
+//   once its list is full or its range is done.  At low selectivity a warp
+//   waits on one gid load and one vals load in all, not on a pair for each
+//   word.
 // - Pre-aggregation without atomics, in float64: of the 32 rows in hand,
 //   the lanes that hold a selected row stage its vals in their warp's
 //   shared memory and the lanes of one group find each other
@@ -45,22 +44,27 @@
 //   Only that warp writes those slots, so the order is fixed.  The block
 //   then sums its warps' slots in warp order into its own float64 partial
 //   in device memory.
-// - Cross-block sum in the same launch: the last block to finish (a
-//   __threadfence and an atomic ticket, which it resets for the next call)
-//   sums the partials in block order, in runs of consecutive blocks added
-//   in run order, rounds once to float32 and writes every output slot.  So
-//   the output needs no fill, and a call is one launch.
+// - Cross-block sum in the same launch, in block order at two levels: the
+//   blocks fall in groups of kGroup consecutive ones; the last block of a
+//   group to finish (a barrier, one thread's __threadfence and an atomic
+//   ticket, which it resets for the next call) sums its group's partials
+//   in block order, and the
+//   last group to finish sums the groups' sums in group order, rounds once
+//   to float32 and writes every output slot.  Most groups' sums overlap
+//   other blocks' scans, so the tail after the slowest block is two short
+//   sums, not one over every block.  The output needs no fill, and a call
+//   is one launch.
 // This path is bit-deterministic: a call on the same inputs and the same
 // card gives the same bits every time.
 //
 // Global path (relagg_global_kernel, then relagg_round_kernel; high-
 // cardinality keys, e.g. c_name's 150,000 codes at TPC-H SF 1): the same
-// scan and lists, each selected row adding straight into a float64 accumulator in
-// device memory with atomics; the second kernel rounds it once to float32
-// into the output and zeroes it for the next call.  Counts add exact 1.0s;
-// the sums' float64 atomics land in a run-dependent order, so the last bit
-// of a float32 sum may differ from call to call, as with the executor's
-// float64 segment sums.
+// scan and lists, each selected row adding straight into a float64
+// accumulator in device memory with atomics; the second kernel rounds it
+// once to float32 into the output and zeroes it for the next call.  Counts
+// add exact 1.0s; the sums' float64 atomics land in a run-dependent order,
+// so the last bit of a float32 sum may differ from call to call, as with
+// the executor's float64 segment sums.
 //
 // Plain C interface, bound with ctypes: every entry returns the
 // cudaError_t of its launch (0 on success).
@@ -74,7 +78,8 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;  // 16-byte mask words a lane loads before it looks at them
 constexpr int kList = 512;  // candidate rows a warp's list holds: 32 lanes x 16 bytes
-constexpr int kChunk = 16;  // partials a thread of the last block loads at a time
+constexpr int kGroup = 12;  // blocks whose partials one block sums
+constexpr int kChunk = 16;  // partials a thread loads at a time
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -83,7 +88,7 @@ struct Args {
   const float* vals;
   float* out;
   double* scratch;     // shared path: the blocks' partials; global: the accumulator
-  unsigned* ticket;    // shared path: blocks finished so far
+  unsigned* ticket;    // shared path: groups finished, then blocks finished in each group
   long long n;
   long long per_block;
   int k;
@@ -131,7 +136,7 @@ struct WarpRows {
       }
       const bool sel = g >= 0 && g < a.groups;  // the range guard comes before any indexing by g
       if constexpr (kShared) {
-        if (j0 + lane < count) {  // beside gid, not after it: one wait, not two
+        if (sel) {
           for (int c = 0; c < k; ++c) stage[c * 32 + lane] = __ldg(a.vals + r * k + c);
         }
         const unsigned selected = __ballot_sync(kFull, sel);
@@ -179,7 +184,8 @@ struct WarpRows {
     }
     const int total = __shfl_sync(kFull, upto, 31);
     if (count + total > kList) flush();
-    for (int at = count + upto - mine; bits; bits &= bits - 1u) list[at++] = offset + __ffs(bits) - 1;
+    int at = count + upto - mine;
+    for (; bits; bits &= bits - 1u) list[at++] = offset + __ffs(bits) - 1;
     count += total;
     __syncwarp();
   }
@@ -224,6 +230,43 @@ __device__ __forceinline__ void scan(const Args& a, WarpRows<kShared>& rows) {
   rows.flush();
 }
 
+// Whether this block is the last of `count` to arrive at `ticket`, after
+// its writes are visible to the others; the last one resets the ticket for
+// the next call.  Every thread of the block calls it.  One thread fences
+// for the block, after the barrier that orders the block's writes before
+// it, as cooperative groups' grid sync does.
+__device__ __forceinline__ bool last_to_arrive(unsigned* ticket, int count) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == (unsigned)count - 1u;
+    if (last) {
+      *ticket = 0u;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+// Rows [b0, b1) of column s of the (rows, slots) float64 array p, added
+// in row order, kChunk loads in flight at a time.
+__device__ __forceinline__ double ordered_sum(const double* p, int slots, int s, int b0,
+                                              int b1) {
+  double x = 0.0;
+  for (; b0 < b1; b0 += kChunk) {
+    double v[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      v[u] = b0 + u < b1 ? __ldcg(p + (long long)(b0 + u) * slots + s) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) x += v[u];  // + 0.0 past b1 leaves x as it is
+  }
+  return x;
+}
+
 __device__ __forceinline__ long long block_lo(const Args& a) {
   return min(a.n, (long long)blockIdx.x * a.per_block);
 }
@@ -231,7 +274,6 @@ __device__ __forceinline__ long long block_lo(const Args& a) {
 // One block an SM (the binding's grid), so a thread may take 128 registers.
 __global__ void __launch_bounds__(kThreads, 1) relagg_shared_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ bool last;
   const int slots = a.groups * (a.k + 1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   double* warp_slots = reinterpret_cast<double*>(smem);  // (kWarps, slots)
@@ -261,41 +303,21 @@ __global__ void __launch_bounds__(kThreads, 1) relagg_shared_kernel(Args a) {
     for (int v = 0; v < kWarps; ++v) x += warp_slots[v * slots + s];
     partial[s] = x;
   }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-
-  // the last block: the partials in block order, as `runs` runs of
-  // consecutive blocks, each summed in order, then the runs in order
-  const int blocks = gridDim.x;
-  const int runs = max(1, min(kThreads / slots, min(kWarps, blocks)));
-  const int per_run = (blocks + runs - 1) / runs;
-  double* run_sums = warp_slots;  // (runs, slots); runs <= kWarps
-  for (int t = threadIdx.x; t < runs * slots; t += kThreads) {
-    const int q = t / slots, s = t - q * slots;
-    const int b1 = min(blocks, (q + 1) * per_run);
-    double x = 0.0;
-    for (int b0 = q * per_run; b0 < b1; b0 += kChunk) {  // kChunk loads in flight
-      double v[kChunk];
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        v[u] = b0 + u < b1 ? __ldcg(a.scratch + (long long)(b0 + u) * slots + s) : 0.0;
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) x += v[u];  // + 0.0 past b1 leaves x as it is
-    }
-    run_sums[t] = x;
-  }
-  __syncthreads();
+  // blocks in groups of kGroup consecutive ones: the last of a group to
+  // finish sums the group's partials in block order, and the last group to
+  // finish sums the groups' sums in group order and rounds once
+  const int blocks = gridDim.x, group = blockIdx.x / kGroup;
+  const int n_groups = (blocks + kGroup - 1) / kGroup;
+  const int g0 = group * kGroup, g1 = min(blocks, g0 + kGroup);
+  if (!last_to_arrive(a.ticket + 1 + group, g1 - g0)) return;
+  double* group_sums = a.scratch + (long long)blocks * slots;  // (n_groups, slots)
   for (int s = threadIdx.x; s < slots; s += kThreads) {
-    double x = 0.0;
-    for (int q = 0; q < runs; ++q) x += run_sums[q * slots + s];
-    a.out[s] = (float)x;  // rounded once
+    group_sums[(long long)group * slots + s] = ordered_sum(a.scratch, slots, s, g0, g1);
   }
-  if (threadIdx.x == 0) *a.ticket = 0u;  // for the next call on this scratch
+  if (!last_to_arrive(a.ticket, n_groups)) return;
+  for (int s = threadIdx.x; s < slots; s += kThreads) {
+    a.out[s] = (float)ordered_sum(group_sums, slots, s, 0, n_groups);  // rounded once
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) relagg_global_kernel(Args a) {
@@ -346,8 +368,9 @@ const char* relagg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// One launch.  `scratch` holds grid * G * (k+1) doubles, `ticket` one
-// unsigned that is 0 between calls; `out` needs no fill.
+// One launch.  `scratch` holds (grid + ceil(grid / kGroup)) * G * (k+1)
+// doubles, `ticket` 1 + ceil(grid / kGroup) unsigneds that are 0 between
+// calls; `out` needs no fill.
 int relagg_shared(const void* gid, const void* mask, const void* vals, void* out,
                   void* scratch, void* ticket, long long n, long long per_block, int k,
                   int groups, int grid, int smem, void* stream) {

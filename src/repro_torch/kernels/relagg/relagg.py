@@ -4,19 +4,20 @@ replaces ``src/repro/kernels/relagg/relagg.py::_relagg_kernel``.
 Where a block's warps' float64 slots fit the shared memory a block may opt
 in to (:func:`uses_shared`), one launch scans a fixed partition of the rows
 (:func:`launch_plan`), pre-aggregates each warp's rows in its own slots in
-a fixed order, and its last block sums the blocks' float64 partials in
-block order and rounds once to float32: the sums are the same bits every
-call.  Otherwise (high-cardinality keys) the rows add into a float64
-accumulator in device memory with atomics, and a second launch rounds it
-once; the last bit of a sum may then differ between calls.  See the
-source's header for the bound and the design.
+a fixed order, sums the blocks' float64 partials in block order (in groups
+of :data:`BLOCK_GROUP` blocks, then the groups in order) and rounds once
+to float32: the sums are the same bits every call.  Otherwise
+(high-cardinality keys) the rows add into a float64 accumulator in device
+memory with atomics, and a second launch rounds it once; the last bit of a
+sum may then differ between calls.  See the source's header for the bound
+and the design.
 
 Host work a call is what the call needs: the device's SM count and
 shared-memory budget are read once per device, the shared-memory opt-in
 is set once per device and larger size, and the float64 scratch and the
-last block's ticket are kept per device and stream, grown when a larger
-``G * (k+1)`` comes.  The output is allocated with ``torch.empty``: the
-kernel writes every slot.
+tickets of the cross-block sum are kept per device and stream, the scratch
+grown when a larger ``G * (k+1)`` comes.  The output is allocated with
+``torch.empty``: the kernel writes every slot.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.relagg.ref import rows_per_block
+from repro_torch.kernels.relagg.ref import BLOCK_GROUP, rows_per_block
 
 #: threads a block and warps a block, as ``kThreads`` in the source
 THREADS = 512
@@ -47,17 +48,13 @@ _L = ctypes.c_longlong
 class LaunchPlan:
     """How one call launches: the path, the grid, the rows each block owns,
     the dynamic shared memory a block takes and the float64 scratch slots
-    (the blocks' partials on the shared path, the accumulator on the
-    global one)."""
+    (the blocks' partials and their groups' sums on the shared path, the
+    accumulator on the global one)."""
     shared: bool
     grid: int
     per_block: int
     smem: int
     scratch_slots: int
-
-    @property
-    def scratch_bytes(self) -> int:
-        return self.scratch_slots * 8
 
 
 def shared_bytes(num_groups: int, n_aggs: int) -> int:
@@ -72,6 +69,12 @@ def shared_bytes(num_groups: int, n_aggs: int) -> int:
 GLOBAL_SMEM = WARPS * LIST * 4
 
 
+def groups_of(blocks: int) -> int:
+    """Groups of :data:`BLOCK_GROUP` consecutive blocks, the last one
+    short."""
+    return -(-blocks // BLOCK_GROUP)
+
+
 @functools.lru_cache(maxsize=1024)
 def launch_plan(sm_count: int, smem_budget: int, n: int, num_groups: int,
                 n_aggs: int) -> LaunchPlan:
@@ -84,7 +87,7 @@ def launch_plan(sm_count: int, smem_budget: int, n: int, num_groups: int,
     slots = num_groups * (n_aggs + 1)
     smem = shared_bytes(num_groups, n_aggs)
     if smem <= smem_budget:
-        return LaunchPlan(True, grid, per_block, smem, grid * slots)
+        return LaunchPlan(True, grid, per_block, smem, (grid + groups_of(grid)) * slots)
     return LaunchPlan(False, grid, per_block, GLOBAL_SMEM, slots)
 
 
@@ -137,10 +140,12 @@ class _Device:
         return buf
 
     def ticket_for(self, stream: int) -> torch.Tensor:
+        """The shared path's tickets, 0 between calls: one for the groups of
+        blocks and one for each group."""
         ticket = self.tickets.get(stream)
         if ticket is None:
             ticket = self.tickets[stream] = torch.zeros(
-                1, dtype=torch.int32, device=f"cuda:{self.index}")
+                1 + groups_of(self.sm_count), dtype=torch.int32, device=f"cuda:{self.index}")
         return ticket
 
 
@@ -201,4 +206,4 @@ def relagg_cuda(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor,
                                 out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
                                 num_groups, plan.grid, plan.smem, stream)
     _raise(lib, err, "launch")
-    return out[:, :k], out[:, k]
+    return out.narrow(1, 0, k), out.select(1, k)

@@ -2,8 +2,9 @@
 the CPU.
 
 ``grouped_aggregate_blocked`` sums each block's rows of a fixed partition
-in float64, adds the blocks' partials in block order and rounds once to
-float32, as ``csrc/relagg.cu`` does on its shared-memory path.  It is held
+in float64, adds the blocks' partials in block order (in groups of 12
+blocks, then the groups in order) and rounds once to float32, as
+``csrc/relagg.cu`` does on its shared-memory path.  It is held
 to the JAX kernel (Pallas in interpret mode, as ``tests/test_kernels.py``
 runs it) at the reference's rtol/atol 1e-4 (``tests/test_kernels.py:25``),
 to a float64 numpy sum within 1 float32 ulp, and its counts to the same
@@ -24,7 +25,8 @@ import pytest
 import torch
 
 from repro.kernels.relagg.relagg import relagg_pallas
-from repro_torch.kernels.relagg.ref import grouped_aggregate_blocked, rows_per_block
+from repro_torch.kernels.relagg.ref import (BLOCK_GROUP, grouped_aggregate_blocked,
+                                            rows_per_block)
 from repro_torch.kernels.relagg.relagg import (GLOBAL_SMEM, LIST, MIN_ROWS_PER_BLOCK,
                                                THREADS, WARPS, launch_plan, shared_bytes)
 
@@ -80,7 +82,7 @@ def test_blocked_matches_pallas(rng, n, groups, n_aggs, blocks):
 
 @pytest.mark.parametrize("n", [1000, 100_000])
 @pytest.mark.parametrize("groups", [1, 7, 25, 1000])
-@pytest.mark.parametrize("blocks", [1, 132])
+@pytest.mark.parametrize("blocks", [1, 13, 132])
 def test_blocked_within_one_ulp_of_float64(rng, smoke, n, groups, blocks):
     gid, mask, vals = _inputs(rng, n, groups, 3, outside=0.05)
     sums, counts = _blocked(gid, mask, vals, groups, blocks)
@@ -126,22 +128,23 @@ def _smem(G, k):
 
 @pytest.mark.parametrize("n,G,k,shared,grid,per_block,smem,scratch_bytes", [
     # TPC-H SF 1 Q12 and Q5, as the main path hands them to relagg
-    (6_000_000, 7, 4, True, 132, 45_456, _smem(7, 4), 132 * 35 * 8),
-    (6_000_000, 25, 2, True, 132, 45_456, _smem(25, 2), 132 * 75 * 8),
+    # (132 blocks' partials and 11 groups' sums)
+    (6_000_000, 7, 4, True, 132, 45_456, _smem(7, 4), 143 * 35 * 8),
+    (6_000_000, 25, 2, True, 132, 45_456, _smem(25, 2), 143 * 75 * 8),
     # c_name's 150,000 codes: the global path, one float64 accumulator and
     # the warps' lists
     (6_000_000, 150_000, 1, False, 132, 45_456, 16 * 512 * 4, 150_000 * 2 * 8),
     # the largest G at k = 1 whose warps' slots fit, and the next one
-    (100_000, 755, 1, True, 13, 7_696, _smem(755, 1), 13 * 1_510 * 8),
+    (100_000, 755, 1, True, 13, 7_696, _smem(755, 1), (13 + 2) * 1_510 * 8),
     (100_000, 756, 1, False, 13, 7_696, 16 * 512 * 4, 1_512 * 8),
     # small and empty inputs: one block
-    (64, 1, 1, True, 1, 64, _smem(1, 1), 16),
-    (257, 130, 8, True, 1, 272, _smem(130, 8), 130 * 9 * 8),
-    (0, 7, 4, True, 1, 0, _smem(7, 4), 35 * 8),
+    (64, 1, 1, True, 1, 64, _smem(1, 1), 2 * 16),
+    (257, 130, 8, True, 1, 272, _smem(130, 8), 2 * 130 * 9 * 8),
+    (0, 7, 4, True, 1, 0, _smem(7, 4), 2 * 35 * 8),
 ])
 def test_launch_plan(n, G, k, shared, grid, per_block, smem, scratch_bytes):
     plan = launch_plan(H100_SMS, H100_SMEM, n, G, k)
-    assert (plan.shared, plan.grid, plan.per_block, plan.smem, plan.scratch_bytes) == \
+    assert (plan.shared, plan.grid, plan.per_block, plan.smem, plan.scratch_slots * 8) == \
         (shared, grid, per_block, smem, scratch_bytes)
 
 
@@ -160,13 +163,15 @@ def test_launch_plan_follows_the_device(sms, budget, n, G, k):
     assert plan.shared == (shared_bytes(G, k) <= budget)
     assert plan.smem == (shared_bytes(G, k) if plan.shared else GLOBAL_SMEM)
     slots = G * (k + 1)
-    assert plan.scratch_slots == (plan.grid * slots if plan.shared else slots)
+    groups = -(-plan.grid // BLOCK_GROUP)
+    assert plan.scratch_slots == ((plan.grid + groups) * slots if plan.shared else slots)
 
 
 def test_binding_constants_are_the_source_s():
     src = (ROOT / "src" / "repro_torch" / "csrc" / "relagg.cu").read_text()
     assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == THREADS
     assert int(re.search(r"constexpr int kList = (\d+);", src).group(1)) == LIST
+    assert int(re.search(r"constexpr int kGroup = (\d+);", src).group(1)) == BLOCK_GROUP
     assert WARPS == THREADS // 32
 
 
@@ -177,3 +182,16 @@ def test_binding_constants_are_the_source_s():
 ])
 def test_f32_ulps(smoke, a, b, ulps):
     assert int(smoke.f32_ulps(np.float32([a]), np.float32([b]))[0]) == ulps
+
+
+@pytest.mark.parametrize("name", ["recommended", "leader_sums", "column_lanes", "one_level_sum",
+                                  "two_blocks_per_sm", "probe_no_rows", "probe_no_sums",
+                                  "probe_no_cross_block", "probe_no_scan"])
+def test_relagg_variant_edits_apply_once(smoke, name):
+    """Each edit ``chip_smoke.py --relagg-variants`` makes finds its text
+    once in ``csrc/relagg.cu``."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "relagg.cu").read_text()
+    same, edits, blocks_per_sm = smoke.RELAGG_VARIANTS[name]
+    assert blocks_per_sm in (1, 2) and (edits or blocks_per_sm > 1)
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new

@@ -690,9 +690,10 @@ _FLUSH_EACH_WORD = ("    count += total;\n    __syncwarp();\n",
 #: checked against the plain version and timed; a probe leaves part of the
 #: work out, so its time says what that part costs, and it is only timed.
 RELAGG_VARIANTS = {
-    # the recommended design: rows added as each mask word is scanned (no
-    # list), each group's lowest lane summing all its columns, and the last
-    # block summing every block's partial in block order
+    # the direct design, which the others refine: rows added as each mask
+    # word is scanned (no list), each group's lowest lane summing all its
+    # columns, and the last block summing every block's partial in block
+    # order
     "recommended": (True, [_FLUSH_EACH_WORD, (_PAIR_LOOP, _LEADER_SUMS + _NO_PAIR_LOOP),
                            _ONE_LEVEL], 1),
     # the list, with each group's lowest lane summing all its columns

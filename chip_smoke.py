@@ -668,6 +668,262 @@ def relagg_times_line(label: str, t: dict) -> str:
             f"float64 sum")
 
 
+#: ``lineitem`` rows of the cut sessions the iterative policies run on:
+#: the reference's figure for INTERPRETED (``benchmarks/bench_tpch.py:50``)
+#: and ten times it for HEKATON; every other table stays whole at SF 1
+ITERATIVE_ROWS = {"interpreted": 300, "hekaton": 3000}
+#: the tolerance of the UDF == original check (examples/tpch_udf_demo.py)
+MODE_RTOL, MODE_ATOL = 2e-3, 1e-2
+
+
+def cut_session(full, rows: int):
+    """A session on the card holding ``full``'s tables with ``lineitem`` cut
+    to its first ``rows`` rows (the reference's ``_subset_db``,
+    ``benchmarks/bench_tpch.py:71``); the other tables are shared with
+    ``full``, their statistics too."""
+    import repro_torch.core as C
+    from repro_torch.data.tpch_udfs import register_udfs
+    from repro_torch.tables.table import Column, Table
+
+    sub = C.Session()  # the card
+    for name, t in full.catalog.items():
+        if name == "lineitem":
+            sub.create_table(name, Table({
+                n: Column(c.data[:rows], None if c.valid is None else c.valid[:rows],
+                          c.dictionary)
+                for n, c in t.columns.items()}))
+        else:
+            sub.catalog[name] = t
+    register_udfs(sub)
+    return sub
+
+
+def by_name(table):
+    """``table`` with its columns in name order: two policies' plans may
+    order them differently."""
+    from repro_torch.tables.table import Table
+
+    return Table({n: table.columns[n] for n in sorted(table.names())})
+
+
+def as_float(table):
+    """``table`` with every numeric column as float32: an interpreted UDF's
+    column is float32 whatever the UDF returns (the reference's rule)."""
+    import torch
+
+    from repro_torch.tables.table import Column, Table
+
+    return Table({n: Column(c.data.to(torch.float32)
+                            if c.dictionary is None and c.data.dtype != torch.bool
+                            else c.data, c.valid, c.dictionary)
+                  for n, c in table.columns.items()})
+
+
+def check_on_card(result, label: str) -> None:
+    check(result.masked.mask.device.type == "cuda", f"{label}: mask is not on the card")
+    for n, c in result.masked.table.columns.items():
+        check(c.data.device.type == "cuda" and c.validity().device.type == "cuda",
+              f"{label}: column {n} is not on the card")
+
+
+def iterative_phase(full, froid_warm_ms: dict) -> dict:
+    """The paper's Fig. 9 on the card: the six TPC-H UDF queries under
+    INTERPRETED (the ``python``-mode interpreter) and HEKATON (``scan``
+    mode, one row-function call per row), ``pallas_agg`` on, on sessions
+    whose ``lineitem`` is cut (:data:`ITERATIVE_ROWS`).  The mode oracle
+    holds on each cut session: FROID == INTERPRETED == HEKATON on the
+    300-row one, FROID == HEKATON on the 3,000-row one (and INTERPRETED
+    there too for a query that returned no rows at 300), at
+    :data:`MODE_RTOL`/:data:`MODE_ATOL`; every query returns rows on one
+    of them.  relagg must launch in Q5 and Q12
+    under both iterative policies.  Each statement runs twice and the
+    second (warm) run is the one timed: per invocation, extrapolated to
+    ``full``'s ``lineitem`` rows, and against FROID's warm SF-1 time."""
+    import dataclasses
+
+    import repro_torch.core as C
+    from repro_torch.data.tpch_udfs import QUERIES
+    from repro_torch.kernels.relagg import ops
+
+    froid = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    policies = {m: dataclasses.replace(C.PRESETS[m], name=m + "+relagg", pallas_agg=True)
+                for m in ITERATIVE_ROWS}
+    full_rows = full.catalog["lineitem"].num_rows
+    runs, launched = {}, {}  # launched: the iterative statements' own
+    result_rows: dict[str, int] = {}  # the most rows a query returned
+    for session_mode, rows in ITERATIVE_ROWS.items():
+        sub = cut_session(full, rows)
+        for name in QUERY_NAMES:
+            modes = list(ITERATIVE_ROWS)
+            if session_mode == "hekaton" and result_rows[name] > 0:
+                modes = ["hekaton"]  # INTERPRETED also where 300 rows gave none
+            base = sub.execute(QUERIES[name][0](), froid)
+            check_on_card(base, f"{name} froid at {rows} rows")
+            result_rows[name] = max(result_rows.get(name, 0), base.table.num_rows)
+            want = as_float(by_name(base.table))
+            for mode in modes:
+                label = f"{name} {mode} at {rows} rows"
+                ops.LAUNCHES = 0  # counts this statement's two runs only
+                stmt = sub.prepare(QUERIES[name][0](), policies[mode])
+                cold = stmt.execute()
+                warm = stmt.execute()
+                launched[(mode, rows, name)] = ops.LAUNCHES
+                for r in (cold, warm):
+                    check_on_card(r, label)
+                    compare_tables(want, as_float(by_name(r.table)),
+                                   f"{label} vs froid", rtol=MODE_RTOL, atol=MODE_ATOL)
+                if name in ("Q5", "Q12"):
+                    check(launched[(mode, rows, name)] > 0,
+                          f"{label}: relagg did not launch")
+                st = warm.stats
+                invocations = st["invocations"] if mode == "interpreted" else st["udf_rows"]
+                ms = warm.elapsed_s * 1e3
+                extrapolated_ms = ms * full_rows / rows
+                rec = runs[(mode, rows, name)] = {
+                    "mode": mode, "rows": rows, "query": name,
+                    "result_rows": base.table.num_rows,
+                    "cold_ms": cold.elapsed_s * 1e3, "warm_ms": ms,
+                    "invocations": invocations,
+                    "statements_executed": st.get("statements_executed"),
+                    "udf_rows": st["udf_rows"],
+                    "us_per_invocation": ms * 1e3 / max(invocations, 1),
+                    "extrapolated_s": extrapolated_ms / 1e3,
+                    "froid_sf1_warm_ms": froid_warm_ms[name],
+                    "slowdown": extrapolated_ms / froid_warm_ms[name],
+                    "relagg_launches": launched[(mode, rows, name)],
+                }
+                log(f"{label}: == froid ({base.table.num_rows} result rows); warm {ms:.1f} ms (cold {rec['cold_ms']:.1f}), "
+                    f"{invocations} invocations"
+                    + (f", {rec['statements_executed']} statements"
+                       if mode == "interpreted" else " (one row-function call a row)")
+                    + f", {rec['us_per_invocation']:.1f} us an invocation; at "
+                    f"{full_rows} rows {rec['extrapolated_s']:.1f} s, "
+                    f"{rec['slowdown']:.3g}x FROID's warm {froid_warm_ms[name]:.2f} ms; "
+                    f"relagg launches {rec['relagg_launches']}")
+        del sub
+    for name in QUERY_NAMES:
+        check(result_rows[name] > 0, f"{name} returned no rows on either cut session")
+    return {"runs": list(runs.values()), "relagg_launches": sum(launched.values())}
+
+
+def scan_mode_sync_check(full, rows: int = 3000) -> dict:
+    """A loop-free UDF body in ``scan`` mode queues on the card without a
+    host sync: the hook runs over ``rows`` ``lineitem`` rows under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    synchronising call (a blocking copy, a read of a device value)."""
+    import torch
+
+    import repro_torch.core as C
+    from repro_torch.core import scalar as S
+
+    sub = cut_session(full, rows)
+    li = sub.catalog["lineitem"]
+    env = {n: S.Value(c.data, c.valid, c.dictionary) for n, c in li.columns.items()}
+    ctx = S.EvalContext(num_rows=li.num_rows, device=sub.device)
+    calls = {"q6conditions": ("l_shipdate", "l_discount", "l_quantity"),
+             "q12conditions": ("l_shipmode", "l_commitdate", "l_receiptdate", "l_shipdate"),
+             "discount_taxprice": ("l_extendedprice", "l_discount", "l_tax")}
+    out = {}
+    for fname, args in calls.items():
+        interp = C.Interpreter(sub.catalog, sub.registry, mode="scan")
+        expr = S.UdfCall(fname, [S.ColRef(a) for a in args])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            v = interp.eval_udf_call(expr, env, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(v.data.shape) == (rows,) and v.data.device == sub.device,
+              f"{fname}: scan-mode output {tuple(v.data.shape)} on {v.data.device}")
+        check(bool(torch.isfinite(v.data).all()), f"{fname}: non-finite scan-mode output")
+        out[fname] = {"rows": rows, "host_ms": host_ms, "total_ms": total_ms,
+                      "us_per_row": total_ms * 1e3 / rows}
+        log(f"scan mode {fname} over {rows} rows: no host sync; issued in {host_ms:.1f} ms, "
+            f"done in {total_ms:.1f} ms ({out[fname]['us_per_row']:.1f} us a row)")
+    return out
+
+
+def example_string(name: str) -> str:
+    """A module-level string of ``examples/cursor_loops.py``, read from its
+    source without running it."""
+    import ast
+
+    tree = ast.parse((ROOT / "examples" / "cursor_loops.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and node.targets[0].id == name
+                and isinstance(node.value, ast.Constant)):
+            return node.value.value
+    raise RuntimeError(f"examples/cursor_loops.py has no string {name}")
+
+
+def cursor_phase() -> dict:
+    """``examples/cursor_loops.py``'s cursor-loop UDF, parsed by the port,
+    over the example's data on the card under FROID (the loop stays a UDF
+    call until the loop rewrite is ported), INTERPRETED and HEKATON; each
+    is held to the loop written out in numpy and to the others."""
+    import torch
+
+    import repro_torch.core as C
+
+    s = C.Session()
+    rng = np.random.default_rng(0)
+    fk = rng.integers(0, 8, 64)
+    val = np.round(rng.uniform(-10, 10, 64), 2).astype(np.float32)
+    s.create_table("facts", fk=fk, val=val)
+    s.create_table("keys", k=np.arange(5))
+    s.create_function(C.parse_udf(example_string("CURSOR_TOTAL")))
+    q = (C.scan("keys").filter(C.col("k") < C.param("cut"))
+         .compute(out=C.udf("cursor_total", C.col("k") * 1.0)).project("k", "out"))
+    cut = 4
+    expected = []
+    for k in range(cut):
+        t = np.float32(0.0)
+        for v in val[fk <= k]:
+            t = np.float32(t * np.float32(0.5) + v)
+            if t > 75.0:
+                break
+        expected.append(t)
+    tables, out = {}, {}
+    for policy in (C.FROID, C.INTERPRETED, C.HEKATON):
+        r = s.execute(q, policy, params={"cut": cut})
+        check_on_card(r, f"cursor_total {policy.name}")
+        got = r.table.columns["out"].data.cpu().numpy()
+        check(np.allclose(got, expected, rtol=1e-5, atol=1e-5),
+              f"cursor_total {policy.name}: {got.tolist()} vs the loop's {expected}")
+        tables[policy.name] = r.table
+        out[policy.name] = {"ms": r.elapsed_s * 1e3, "out": got.tolist()}
+    for name in ("interpreted", "hekaton"):
+        compare_tables(tables["froid"], tables[name], f"cursor_total froid vs {name}",
+                       rtol=MODE_RTOL, atol=MODE_ATOL)
+    torch.cuda.synchronize()
+    log(f"cursor loop: FROID == INTERPRETED == HEKATON == the loop in numpy, "
+        f"out {out['froid']['out']}; ms " + ", ".join(
+            f"{k} {v['ms']:.1f}" for k, v in out.items()))
+    return out
+
+
+def iterative_only_phase() -> dict:
+    """``--iterative``: relagg, TPC-H at SF 1, FROID's warm times of the six
+    UDF queries, then :func:`iterative_phase`, :func:`scan_mode_sync_check`
+    and :func:`cursor_phase`."""
+    import repro_torch.core as C
+    from repro_torch.data.tpch_udfs import QUERIES
+    from repro_torch.kernels import _build
+
+    _build.load("relagg")
+    session = tpch_session(1.0)
+    froid = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    warm = {name: run_statement(session, QUERIES[name][0](), froid)[1]
+            for name in QUERY_NAMES}
+    log("FROID warm ms at SF 1: " + ", ".join(f"{k} {v:.2f}" for k, v in warm.items()))
+    return {"froid_warm_ms": warm, "iterative": iterative_phase(session, warm),
+            "scan_sync": scan_mode_sync_check(session), "cursor": cursor_phase()}
+
+
 # source text the variants below replace
 _PAIR_LOOP = ("        // one (group, column) slot a lane: the group's rows in lane order\n"
               "        for (int p = lane; p < __popc(leaders) * width; p += 32) {")
@@ -1817,6 +2073,10 @@ def main() -> int:
             log(relagg_times_line(label, t))
         print(json.dumps({"card": card, "tree": str(ROOT), "relagg": times}), flush=True)
         return 0
+    if sys.argv[1:] == ["--iterative"]:
+        print(json.dumps({"card": card, "iterative": iterative_only_phase()}, default=str),
+              flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1851,10 +2111,18 @@ def main() -> int:
             f"({t['bytes'] / 1e6:.3f} MB / 3.35 TB/s; {t['sector_bytes'] / 1e6:.3f} MB "
             f"in 32-byte sectors, {t['sector_bound_ms']:.5f} ms)")
         log(relagg_times_line(label, t))
+    log(f"times phase ok in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    froid_warm = {name: main["times"][f"{name}/udf/relagg_on_warm_ms"]
+                  for name in QUERY_NAMES}
+    iterative = iterative_phase(session, froid_warm)
+    scan_sync = scan_mode_sync_check(session)
+    cursor = cursor_phase()
     del session
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"times phase ok in {time.perf_counter() - t0:.1f} s")
+    log(f"iterative phase ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     cross_device_phase()
@@ -1891,7 +2159,8 @@ def main() -> int:
     lm_cross_device_phase()
     log(f"LM cross-device phase ok in {time.perf_counter() - t0:.1f} s")
 
-    log(json.dumps({"main_path_warm_ms": main["times"], "relagg_q5": q5,
+    log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
+                    "scan_sync": scan_sync, "cursor": cursor, "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1905,7 +2174,10 @@ def main() -> int:
          "max_abs_err": max(kern["max_abs_err"], q12["max_abs_err"], q5["max_abs_err"]),
          "ms": q12["ms"], "plain_ms": q12["plain_ms"], "bound_ms": q12["bound_ms"],
          "bound_by": q12["bound_by"], "library_ms": q12["library_ms"],
-         "device_ms": q12["device_ms"], "ok": True},
+         "device_ms": q12["device_ms"], "ok": True,
+         # the iterative policies' own run (INTERPRETED and HEKATON on the
+         # cut sessions, FROID beside them)
+         "launches_iterative": iterative["relagg_launches"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

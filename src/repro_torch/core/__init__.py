@@ -2,6 +2,7 @@
 for the modules this package has ported."""
 from repro_torch.core.algebrizer import AlgebrizeError, algebrize
 from repro_torch.core.binder import Binder, InlineConstraints
+from repro_torch.core.database import Database
 from repro_torch.core.executor import Executor, MaskedTable
 from repro_torch.core.frontend import (
     Q,
@@ -31,6 +32,7 @@ from repro_torch.core.frontend import (
     udf,
     var,
 )
+from repro_torch.core.interpreter import Interpreter, InterpreterError
 from repro_torch.core.ir import (
     Assign,
     Break,
@@ -55,19 +57,22 @@ from repro_torch.core.policy import (
 from repro_torch.core.session import (
     PreparedStatement,
     QueryResult,
+    RunResult,
     Session,
     param_signature,
     plan_fingerprint,
 )
+from repro_torch.core.tsql import FETCH_STATUS, UnsupportedConstructError, parse_udf
 
 __all__ = [
-    "AlgebrizeError", "algebrize", "Binder", "InlineConstraints",
-    "Executor", "MaskedTable", "Q", "UdfBuilder", "avg_",
+    "AlgebrizeError", "algebrize", "Binder", "InlineConstraints", "Database",
+    "RunResult", "Executor", "MaskedTable", "Q", "UdfBuilder", "avg_",
     "between", "case", "cast", "coalesce", "col", "count_", "dateadd",
     "datepart", "exists", "func", "in_list", "isnull", "like", "lit", "max_",
     "min_", "not_exists", "param", "scalar_subquery", "scan", "sum_", "udf",
-    "var", "Assign", "Declare", "IfElse", "Return", "UdfDef",
+    "var", "Interpreter", "InterpreterError", "Assign", "Declare", "IfElse", "Return", "UdfDef",
     "Break", "While", "Fetch", "CursorLoop",
+    "FETCH_STATUS", "UnsupportedConstructError", "parse_udf",
     "explain", "optimize",
     "Session", "PreparedStatement", "QueryResult",
     "ExecutionPolicy", "FROID", "INTERPRETED", "HEKATON", "ROUTED", "PRESETS",

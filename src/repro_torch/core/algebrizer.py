@@ -192,10 +192,14 @@ class Algebrizer:
 
     def emit_loop(self, st, computed: dict, local: dict, env: dict):
         """Cursor and WHILE loops: the Aggify rewrite (``repro/loops/`` in
-        the reference, ``algebrizer.py:190-227``) is not ported yet.  The
-        binder catches this error and leaves the ``UdfCall`` in the plan,
-        as the reference does for loops it cannot rewrite."""
-        raise AlgebrizeError("cursor loops: not yet ported")
+        the reference, ``algebrizer.py:190-227``) is not ported yet
+        (ROADMAP A3.2).  The binder catches this error and leaves the
+        ``UdfCall`` in the plan, as the reference does for loops it cannot
+        rewrite; the per-row interpreter then runs it."""
+        raise AlgebrizeError(
+            f"{self.udf.name}: cursor and WHILE loops are not rewritten yet "
+            "(ROADMAP A3.2: LoopScan and loops/); the call stays for the "
+            "per-row interpreter")
 
     def emit_cond(self, plan, env, reg: IR.CondRegion):
         # 1. evaluate the predicate ONCE into an implicit column (§4.2.1:

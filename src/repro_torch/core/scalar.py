@@ -10,6 +10,7 @@ NULL as false, exactly as in SQL.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Any, Callable, Sequence
 
@@ -511,6 +512,24 @@ _CMPS = {
 }
 
 
+#: Whether a host value copied to a CUDA device is queued without waiting
+#: for the copy (``non_blocking``).  The interpreter's ``scan`` mode sets it
+#: while it drives its row function, so that a row body queues on the card
+#: without a host sync, as the reference's compiled row function runs;
+#: everywhere else the copy stays blocking.
+ASYNC_HOST_COPIES: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "async_host_copies", default=False)
+
+
+def host_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` (a Python scalar, list or numpy array) as a ``dtype``
+    tensor on ``device``, copied as :data:`ASYNC_HOST_COPIES` says.  A
+    pageable host buffer is staged by the CUDA driver before a
+    non-blocking copy returns, so the host value may go right away."""
+    return torch.as_tensor(value, dtype=dtype).to(
+        device, non_blocking=ASYNC_HOST_COPIES.get())
+
+
 def _take_clipped(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, idx, mode="clip")``: torch raises on an
     out-of-range index where the reference clamps it."""
@@ -519,8 +538,7 @@ def _take_clipped(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _encode_const_for(dictionary: DictEncoding | None, value, device):
     if dictionary is not None and isinstance(value, str):
-        return torch.tensor(dictionary.lookup(value), dtype=torch.int32,
-                            device=device)
+        return host_tensor(dictionary.lookup(value), torch.int32, device)
     return None
 
 
@@ -530,10 +548,10 @@ def _const_tensor(value, device) -> torch.Tensor:
     A bare ``torch.tensor(5)`` would be int64 and widen every column it
     touches."""
     if isinstance(value, (bool, np.bool_)):
-        return torch.tensor(bool(value), dtype=torch.bool, device=device)
+        return host_tensor(bool(value), torch.bool, device)
     if isinstance(value, (int, np.integer)):
-        return torch.tensor(int(value), dtype=torch.int32, device=device)
-    return torch.tensor(float(value), dtype=torch.float32, device=device)
+        return host_tensor(int(value), torch.int32, device)
+    return host_tensor(float(value), torch.float32, device)
 
 
 def _harmonize(values: list[Value]) -> list[Value]:
@@ -550,9 +568,9 @@ def _harmonize(values: list[Value]) -> list[Value]:
         if v.dictionary is None or v.dictionary is union:
             out.append(Value(v.data, v.valid, union))
             continue
-        remap = torch.tensor(
+        remap = host_tensor(
             [union.code(v.dictionary.decode(i)) for i in range(len(v.dictionary))],
-            dtype=torch.int32, device=v.data.device,
+            torch.int32, v.data.device,
         )
         out.append(Value(_take_clipped(remap, v.data), v.valid, union))
     return out
@@ -594,15 +612,13 @@ def eval_scalar(expr: Scalar, env: dict[str, Value], ctx: EvalContext) -> Value:
                 return null_value(device=dev)
             if isinstance(e.value, str):
                 enc = DictEncoding([e.value])
-                return Value(torch.tensor(0, dtype=torch.int32, device=dev),
-                             None, enc)
+                return Value(host_tensor(0, torch.int32, dev), None, enc)
             if isinstance(e.value, bool):
-                return Value(torch.tensor(e.value, dtype=torch.bool, device=dev))
+                return Value(host_tensor(e.value, torch.bool, dev))
             if isinstance(e.value, int):
-                return Value(torch.tensor(e.value, dtype=torch.int32, device=dev))
-            return Value(torch.as_tensor(
-                np.asarray(e.value), device=dev,
-            ).to(torch_dtype(e.dtype or np.float32)))
+                return Value(host_tensor(e.value, torch.int32, dev))
+            return Value(host_tensor(np.asarray(e.value),
+                                     torch_dtype(e.dtype or np.float32), dev))
         if isinstance(e, ColRef):
             if e.name not in env:
                 raise KeyError(f"unbound column {e.name!r}; have {sorted(env)}")
@@ -714,8 +730,8 @@ def eval_scalar(expr: Scalar, env: dict[str, Value], ctx: EvalContext) -> Value:
             v = ev(e.expr)
             if v.dictionary is None:
                 raise TypeError("LIKE requires a string (dictionary) column")
-            mask = torch.as_tensor(v.dictionary.like_mask(e.pattern),
-                                   device=v.data.device)
+            mask = host_tensor(v.dictionary.like_mask(e.pattern), torch.bool,
+                               v.data.device)
             return Value(_take_clipped(mask, v.data), v.valid)
         if isinstance(e, InList):
             v = ev(e.expr)
@@ -767,7 +783,7 @@ def eval_scalar(expr: Scalar, env: dict[str, Value], ctx: EvalContext) -> Value:
         if n == "exp":
             return Value(torch.exp(x), args[0].valid)
         if n == "log":
-            tiny = torch.tensor(1e-30, dtype=torch.float32, device=x.device)
+            tiny = host_tensor(1e-30, torch.float32, x.device)
             return Value(torch.log(torch.maximum(x, tiny)), args[0].valid)
         if n == "power":
             return Value(torch.pow(x, args[1].data), _and_valid(*args))

@@ -16,10 +16,11 @@ Session / PreparedStatement, the engine's prepare-once-execute-many API.
 
 Entry points run on the card: ``Session(device=None)`` means ``"cuda"`` and
 raises where CUDA is absent; only an explicit ``device="cpu"`` runs on the
-host.  Not in this slice: ``execute_many``, ``execute_async``, fusion,
-persistence, cost routing and fault injection, and the interpreter — a
-plan that still holds a ``UdfCall``, and the INTERPRETED and HEKATON
-policies, raise ``NotImplementedError``.
+host.  A plan that still holds a ``UdfCall`` (INTERPRETED, HEKATON, or
+FROID past its inlining budget) runs it on the per-row interpreter: the
+compiled path with a ``scan``-mode hook, the eager path with the policy's
+``udf_mode``.  Not in this slice: ``execute_many``, ``execute_async``,
+fusion, persistence, cost routing and fault injection.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from repro_torch.core.binder import Binder, InlineConstraints
 from repro_torch.core.executor import Executor, MaskedTable
 from repro_torch.core.fingerprint import _norm, plan_fingerprint
 from repro_torch.core.frontend import Q
+from repro_torch.core.interpreter import Interpreter
 from repro_torch.core.ir import UdfDef
 from repro_torch.core.policy import FROID, ExecutionPolicy, resolve_policy
 from repro_torch.tables.table import (Column, DictEncoding, Table, catalog_from_numpy,
@@ -79,6 +81,10 @@ class QueryResult:
         pol = self.policy.name if self.policy else "?"
         return (f"QueryResult(rows={self.masked.num_rows}, policy={pol}, "
                 f"cache_hit={self.cache_hit}, elapsed_s={self.elapsed_s:.4f})")
+
+
+#: backward-compatible alias — the old Database.run result type
+RunResult = QueryResult
 
 
 # monotonic stamps for cache tokens: attached to catalog/registry objects
@@ -197,20 +203,9 @@ def _has_udf_calls(plan: R.RelNode) -> bool:
 
 
 def _check_supported(policy: ExecutionPolicy) -> None:
-    if not policy.inline_udfs:
-        raise NotImplementedError(
-            f"policy {policy.name!r} interprets UDFs per row; the interpreter "
-            "is not ported yet (ROADMAP A4)")
     if policy.route:
         raise NotImplementedError(
             "cost routing is not ported yet (ROADMAP A8)")
-
-
-def _require_inlined(plan: R.RelNode) -> None:
-    if _has_udf_calls(plan):
-        raise NotImplementedError(
-            "the plan still holds a UDF call the binder could not inline; "
-            "the per-row interpreter is not ported yet (ROADMAP A4)")
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +219,7 @@ class _Executable:
     plan: R.RelNode
     out_dicts: dict  # column name -> DictEncoding | None
     stats: dict  # logical reads of one execution
+    interp: Interpreter | None = None  # the scan-mode hook, if the plan calls UDFs
 
 
 # ---------------------------------------------------------------------------
@@ -399,7 +395,16 @@ class Session:
             return entry, True, True
         self.cache_stats["exec_misses"] += 1
         plan, plan_hit = self._cached_plan(node, query_fp, policy)
-        _require_inlined(plan)
+
+        # iterative hook for UDF calls left in the plan (froid OFF, or
+        # hybrid plans where the inlining budget ran out).  'scan' mode is
+        # the reference's only jit-traceable interpreter, so the compiled
+        # path always uses it regardless of policy.udf_mode.
+        interp = hook = None
+        if _has_udf_calls(plan):
+            interp = Interpreter(self.catalog, self.registry, mode="scan",
+                                 device=self.device)
+            hook = interp.eval_udf_call
 
         # host-side metadata (dictionaries) is captured; data goes by
         # argument, so a catalog reload with the same shape reuses nothing
@@ -430,8 +435,8 @@ class Session:
                 name: S.Value(data, valid, pdicts[name])
                 for name, (data, valid) in param_args.items()
             }
-            ex = Executor(catalog, use_pallas_agg=policy.pallas_agg,
-                          device=device)
+            ex = Executor(catalog, udf_column_evaluator=hook,
+                          use_pallas_agg=policy.pallas_agg, device=device)
             out = ex.execute(plan, params=pvals)
             for n, c in out.table.columns.items():
                 out_dicts[n] = c.dictionary
@@ -447,7 +452,7 @@ class Session:
                 pargs[pname] = (v.data, v.validity())
             return raw(self._catalog_args(catalog_token), pargs)
 
-        entry = _Executable(fn, plan, out_dicts, run_stats)
+        entry = _Executable(fn, plan, out_dicts, run_stats, interp)
         self._execs[key] = entry
         return entry, False, plan_hit
 
@@ -477,6 +482,7 @@ class PreparedStatement:
         self.node = node
         self.policy = policy
         self._query_fp = plan_fingerprint(node)
+        self._interp: Interpreter | None = None
         # stamp of the last plan this statement executed eagerly — a
         # plan-cache hit only counts as warm once *this statement* has run
         # that plan before
@@ -493,6 +499,22 @@ class PreparedStatement:
     def explain(self) -> str:
         return O.explain(self._ensure_plan())
 
+    def _eager_interp(self) -> Interpreter:
+        # kept across executes so the per-statement plan cache stays warm —
+        # but rebuilt if the session's catalog/registry dicts were rebound
+        # wholesale; the identity check is on live objects
+        interp = self._interp
+        if (interp is None
+                or interp.catalog is not self.session.catalog
+                or interp.registry is not self.session.registry):
+            interp = self._interp = Interpreter(
+                self.session.catalog, self.session.registry,
+                mode=self.policy.udf_mode,
+                jit_statements=self.policy.jit_statements,
+                device=self.session.device,
+            )
+        return interp
+
     def execute(self, params: dict | None = None) -> QueryResult:
         if self.policy.compile_plan:
             return self._execute_compiled(params)
@@ -503,6 +525,7 @@ class PreparedStatement:
         entry, exec_hit, plan_hit = self.session._executable(
             self.node, self._query_fp, self.policy, params, env_token
         )
+        rows_before = entry.interp.rows_driven if entry.interp else 0
         t0 = time.perf_counter()
         mask, cols = entry.fn(params, env_token[0])
         self.session.synchronize()
@@ -512,6 +535,8 @@ class PreparedStatement:
              for n, (data, valid) in cols.items()}
         )
         stats = {**entry.stats, "compiled": True}
+        if entry.interp is not None:
+            stats["udf_rows"] = entry.interp.rows_driven - rows_before
         return QueryResult(MaskedTable(table, mask), entry.plan, elapsed, stats,
                            policy=self.policy,
                            cache_hit=exec_hit and plan_hit)
@@ -520,16 +545,24 @@ class PreparedStatement:
         plan, plan_hit = self.session._cached_plan(
             self.node, self._query_fp, self.policy
         )
-        _require_inlined(plan)
         warm = plan_hit and self._executed_plan == _stamp(plan)
         self._executed_plan = _stamp(plan)
         device = self.session.device
+        interp = self._eager_interp()
         executor = Executor(self.session.catalog,
+                            udf_column_evaluator=interp.eval_udf_call,
                             use_pallas_agg=self.policy.pallas_agg, device=device)
         pvals = {n: _param_value(v, device) for n, v in (params or {}).items()}
+        before, rows_before = dict(interp.stats), interp.rows_driven
         t0 = time.perf_counter()
         masked = executor.execute(plan, params=pvals)
         self.session.synchronize()
         elapsed = time.perf_counter() - t0
-        return QueryResult(masked, plan, elapsed, executor.stats,
+        # interpreter stats are cumulative over the statement's lifetime;
+        # report this execution's delta (which, as in the reference, also
+        # stands for the executor's own logical reads)
+        delta = {k: interp.stats[k] - before.get(k, 0) for k in interp.stats}
+        stats = {**executor.stats, **delta,
+                 "udf_rows": interp.rows_driven - rows_before}
+        return QueryResult(masked, plan, elapsed, stats,
                            policy=self.policy, cache_hit=warm)

@@ -26,9 +26,9 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--admission", default="froid", choices=["froid"],
-                    help="ExecutionPolicy preset for the admission rules "
-                         "(interpreted and hekaton wait for ROADMAP A4)")
+    ap.add_argument("--admission", default="froid",
+                    choices=["froid", "interpreted", "hekaton"],
+                    help="ExecutionPolicy preset for the admission rules")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)

@@ -14,8 +14,9 @@ Not in this slice: the per-request coalescing path (``request_statement``,
 ``submit``, ``verdict``, ``evaluate_coalesced`` and the ``scheduler``,
 ``mesh``, ``fuse``, ``adaptive`` and ``timeout_s`` arguments) waits for
 ``execute_many`` and the scheduler (ROADMAP A6), ``store`` for
-persistence (A9); INTERPRETED and HEKATON raise at execution, as the
-port's ``Session`` does (A4).
+persistence (A9).  Under INTERPRETED and HEKATON the rules run on the
+port's per-row interpreter (``python`` and ``scan`` mode), on the same
+device.
 """
 from __future__ import annotations
 

@@ -149,9 +149,34 @@ def test_unported_intake_raises():
 
 
 def test_interpreted_admission_raises():
-    with pytest.raises(NotImplementedError):
-        AdmissionPolicy(froid=False, device="cpu").evaluate(
-            _edge_requests(3, np.random.default_rng(0)))
+    """``froid=False`` (INTERPRETED, the per-row interpreter) now gives the
+    reference's verdicts."""
+    reqs = _edge_requests(9, np.random.default_rng(0))
+    got = AdmissionPolicy(froid=False, device="cpu").evaluate(reqs)
+    want = RefAdmission(froid=False).evaluate(reqs)
+    for name in ("admit", "granted", "temp"):
+        assert got[name].dtype == want[name].dtype
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("policy", ["interpreted", "hekaton"])
+@pytest.mark.parametrize("depth", [9, 513])
+def test_iterative_admission_matches_froid(depth, policy):
+    """The rules interpreted per request give FROID's verdicts, at the
+    rules' edges (queue depth 513 sheds an 8193-token prompt)."""
+    reqs = _edge_requests(depth, np.random.default_rng(depth))
+    froid = AdmissionPolicy(device="cpu").evaluate(reqs)
+    got = AdmissionPolicy(policy=policy, device="cpu").evaluate(reqs)
+    for name in ("admit", "granted", "temp"):
+        assert got[name].dtype == froid[name].dtype
+        np.testing.assert_array_equal(got[name], froid[name], err_msg=name)
+
+
+def test_launcher_hekaton_admission_on_the_cpu(capsys):
+    done = launcher.main(["--arch", "granite3_2b", "--smoke", "--device", "cpu",
+                          "--requests", "3", "--max-new", "2", "--admission", "hekaton"])
+    assert len(done) == 3 and all(len(c.tokens) == 2 for c in done)
+    assert "req 2: 2 tokens (length)" in capsys.readouterr().out
 
 
 def test_launcher_runs_on_the_cpu(capsys):

@@ -131,17 +131,34 @@ def test_create_table_rejects_another_device():
 @pytest.mark.parametrize("policy", [PC.INTERPRETED, PC.HEKATON, PC.ROUTED],
                          ids=lambda p: p.name)
 def test_unported_policies_raise(sessions, policy):
-    _, port = sessions
-    with pytest.raises(NotImplementedError):
-        port.prepare(PORT_QUERIES["Q6"][0](), policy)
+    """ROUTED still raises, naming its ROADMAP item; INTERPRETED and
+    HEKATON, which the per-row interpreter now runs, give the reference's
+    answer to the same call (Q6 in its UDF form, the whole catalog)."""
+    ref, port = sessions
+    if policy is PC.ROUTED:
+        with pytest.raises(NotImplementedError, match="A8"):
+            port.prepare(PORT_QUERIES["Q6"][0](), policy)
+        return
+    got = port.prepare(PORT_QUERIES["Q6"][0](), policy).execute()
+    want = ref.execute(REF_QUERIES["Q6"][0](), RC.PRESETS[policy.name])
+    assert_rows_equal(want.table, got.table, policy.name)
+    assert got.stats["udf_rows"] == ref.catalog["lineitem"].num_rows
 
 
 def test_uninlined_udf_call_raises():
-    port = PC.Session(device="cpu", constraints=PC.InlineConstraints(enabled=False))
-    port.create_table("t", x=np.arange(5, dtype=np.float32))
-    u = PC.UdfBuilder("twice", [("v", "float32")], "float32")
-    u.return_(PC.param("v") * 2.0)
-    port.create_function(u.build())
-    q = PC.scan("t").compute(y=PC.udf("twice", PC.col("x")))
-    with pytest.raises(NotImplementedError):
-        port.execute(q)
+    """With inlining off, FROID's plan keeps the UDF call; it now runs on
+    the scan-mode interpreter and gives the reference's answer."""
+    tables, answers = [], []
+    for M, kw in ((RC, {}), (PC, {"device": "cpu"})):
+        s = M.Session(constraints=M.InlineConstraints(enabled=False), **kw)
+        s.create_table("t", x=np.arange(5, dtype=np.float32))
+        u = M.UdfBuilder("twice", [("v", "float32")], "float32")
+        u.return_(M.param("v") * 2.0)
+        s.create_function(u.build())
+        r = s.execute(M.scan("t").compute(y=M.udf("twice", M.col("x"))))
+        answers.append(r)
+        tables.append(r.table)
+    assert answers[1].stats["udf_rows"] == 5
+    np.testing.assert_array_equal(tables[1].columns["y"].data.numpy(),
+                                  [0.0, 2.0, 4.0, 6.0, 8.0])
+    assert_rows_equal(tables[0], tables[1], "inlining off")

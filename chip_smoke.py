@@ -42,7 +42,16 @@ script exits non-zero:
    ``torch.profiler`` trace, its host cost and its device events per call
    apart from the CUDA-event figure; two more launches bit-identical and
    within 1 ulp of the float64 sum;
-6. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
+6. iterative UDFs — the paper's Fig. 9: the six TPC-H UDF queries under
+   INTERPRETED (``lineitem`` cut to 300 rows) and HEKATON (3,000 rows),
+   every other table at SF 1, with ``pallas_agg`` on: each held to FROID
+   on the same cut session, relagg launching in Q5 and Q12 under both,
+   the outputs on the card; per invocation, extrapolated to SF 1 and
+   against FROID's warm time.  Then a loop-free HEKATON body over 3,000
+   rows under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
+   and ``examples/cursor_loops.py``'s cursor-loop UDF under FROID,
+   INTERPRETED and HEKATON against the loop written out in numpy;
+7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
    through ``ServeEngine.run`` with Froid-compiled admission on the card:
@@ -52,7 +61,7 @@ script exits non-zero:
    the peak device memory, and a traced prefill's port kernels checked by
    name and count (the bf16 flash kernel at the model's head dim, the four
    ssd_scan passes once a layer each);
-7. LM kernel times — flash_attention and ssd_scan on the inputs the
+8. LM kernel times — flash_attention and ssd_scan on the inputs the
    serving path handed them (gemma3: a global and a local layer), against
    the plain version, the library call (``scaled_dot_product_attention``,
    with the window as a mask where there is one; none computes the SSD
@@ -61,7 +70,7 @@ script exits non-zero:
    plain version in float32 by mean |diff|, beside a control that leaves
    one 64-key tile out and must read above the limit (over the rows that
    tile reaches, and at granite's layer over all rows as well);
-8. LM cross-device — the smoke configs' prefill and decode logits (phi3's
+9. LM cross-device — the smoke configs' prefill and decode logits (phi3's
    and gemma3's at their published head dims, 96 and 256, beside the same
    with the plain version in place of the kernel on the card) and the
    admission verdicts on the CPU and on the card.
@@ -82,6 +91,11 @@ on one card says their kernels computed the same bits.
 builds relagg alone and reads it at Q12's and Q5's inputs (TPC-H at SF 1)
 as phase 5 does, its repeat readings not checked: copied into another
 source tree, it reads that tree's kernel the same way.
+
+    python3 chip_smoke.py --iterative
+
+runs phase 6 alone, after FROID's warm times at SF 1 that it compares
+against (relagg is built, nothing else).
 
     python3 chip_smoke.py --relagg-variants
 

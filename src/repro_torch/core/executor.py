@@ -163,7 +163,7 @@ class Executor:
     ):
         self.catalog = catalog
         # froid-OFF hook: computes a whole column by iterating the UDF per
-        # row (the interpreter, a later slice, wires this in)
+        # row (Interpreter.eval_udf_call)
         self.udf_column_evaluator = udf_column_evaluator
         self.use_pallas_agg = use_pallas_agg
         self.device = resolve_device(device)

@@ -101,6 +101,8 @@ class Interpreter:
         #: mode leaves at zero
         self.rows_driven = 0
         self._flags: dict[bool, torch.Tensor] = {}
+        # scan mode's literals, made once (see EvalContext.consts)
+        self._consts: dict = {}
 
     def _flag(self, value: bool) -> torch.Tensor:
         """A 0-d bool constant on the device, made once (never written in
@@ -399,7 +401,8 @@ class Interpreter:
 
         def ev(expr, vars):
             ctx = S.EvalContext(executor=executor, num_rows=1, params=params,
-                                vars=vars, device=self.device)
+                                vars=vars, device=self.device,
+                                consts=self._consts)
             return S.eval_scalar(expr, {}, ctx)
 
         def guard_of(live, flow):
@@ -441,7 +444,7 @@ class Interpreter:
                         ret = S.Value(
                             torch.where(take, v.data.to(ret.data.dtype),
                                         ret.data),
-                            torch.where(take, v.validity(), ret.validity()),
+                            _where_valid(take, v, ret),
                             ret.dictionary or v.dictionary,
                         )
                         retset = retset | take
@@ -459,6 +462,11 @@ class Interpreter:
                     for k in sorted(set(tvars) | set(evars)):
                         tv = tvars.get(k, vars.get(k))
                         evv = evars.get(k, vars.get(k))
+                        if tv is not None and tv is evv:
+                            # written in neither branch: the merge is the
+                            # value itself, as a compiler folds it
+                            vars[k] = tv
+                            continue
                         if tv is None:
                             tv = self._null()
                         if evv is None:
@@ -659,6 +667,14 @@ def _has_return(stmts) -> bool:
     return False
 
 
+def _where_valid(pred, tv: S.Value, ev: S.Value):
+    """``where(pred, tv.validity(), ev.validity())``, left None (all
+    valid) where both sides are."""
+    if tv.valid is None and ev.valid is None:
+        return None
+    return torch.where(pred, tv.validity(), ev.validity())
+
+
 def _merge(pred, tv: S.Value, ev: S.Value) -> S.Value:
     td, ed = tv.data, ev.data
     if td.dtype != ed.dtype:
@@ -666,7 +682,7 @@ def _merge(pred, tv: S.Value, ev: S.Value) -> S.Value:
         td, ed = td.to(common), ed.to(common)
     return S.Value(
         torch.where(pred, td, ed),
-        torch.where(pred, tv.validity(), ev.validity()),
+        _where_valid(pred, tv, ev),
         tv.dictionary or ev.dictionary,
     )
 
@@ -674,6 +690,8 @@ def _merge(pred, tv: S.Value, ev: S.Value) -> S.Value:
 def _merge_ret(pred, tret, tretset, eret, eretset, null, false):
     if tret is None and eret is None:
         return None, false
+    if tret is eret and tretset is eretset:
+        return tret, tretset
     if tret is None:
         tret, tretset = null(eret.data.dtype), false
     if eret is None:

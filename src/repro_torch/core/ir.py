@@ -70,7 +70,8 @@ class While(Statement):
     """WHILE pred BEGIN body END — a general (non-cursor) loop.
 
     Never algebrizable (no driving relation): FROID falls back to the
-    interpreter; the scan-mode interpreter lowers it to ``lax.while_loop``."""
+    interpreter; the scan-mode interpreter runs it as a host loop that reads
+    its condition each iteration (the reference's ``lax.while_loop``)."""
 
     pred: S.Scalar
     body: list[Statement]

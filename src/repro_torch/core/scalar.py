@@ -579,11 +579,14 @@ def _harmonize(values: list[Value]) -> list[Value]:
 class EvalContext:
     """Everything scalar evaluation needs from the engine.  ``device`` is
     where constants and intermediate columns are made; the default is the
-    CPU (plan-time constant folding)."""
+    CPU (plan-time constant folding).  ``consts``, where given, keeps each
+    literal's Value across evaluations (``id`` of the :class:`Const` ->
+    (the node, its Value)): the interpreter's ``scan`` mode makes a row
+    function's literals once, as a compiled function holds them."""
 
     def __init__(
         self, executor=None, num_rows: int = 1, params=None, outer=None,
-        vars=None, device=None,
+        vars=None, device=None, consts: dict | None = None,
     ):
         self.executor = executor  # repro_torch.core.executor.Executor
         self.num_rows = num_rows
@@ -591,6 +594,21 @@ class EvalContext:
         self.outer = outer or {}  # name -> Value (for correlated refs)
         self.vars = vars or {}  # name -> Value (interpreter variable frame)
         self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.consts = consts
+
+
+def _const_value(e: "Const", dev) -> Value:
+    if e.value is None:
+        return null_value(device=dev)
+    if isinstance(e.value, str):
+        enc = DictEncoding([e.value])
+        return Value(host_tensor(0, torch.int32, dev), None, enc)
+    if isinstance(e.value, bool):
+        return Value(host_tensor(e.value, torch.bool, dev))
+    if isinstance(e.value, int):
+        return Value(host_tensor(e.value, torch.int32, dev))
+    return Value(host_tensor(np.asarray(e.value),
+                             torch_dtype(e.dtype or np.float32), dev))
 
 
 def eval_scalar(expr: Scalar, env: dict[str, Value], ctx: EvalContext) -> Value:
@@ -608,17 +626,12 @@ def eval_scalar(expr: Scalar, env: dict[str, Value], ctx: EvalContext) -> Value:
 
     def _eval(e: Scalar) -> Value:
         if isinstance(e, Const):
-            if e.value is None:
-                return null_value(device=dev)
-            if isinstance(e.value, str):
-                enc = DictEncoding([e.value])
-                return Value(host_tensor(0, torch.int32, dev), None, enc)
-            if isinstance(e.value, bool):
-                return Value(host_tensor(e.value, torch.bool, dev))
-            if isinstance(e.value, int):
-                return Value(host_tensor(e.value, torch.int32, dev))
-            return Value(host_tensor(np.asarray(e.value),
-                                     torch_dtype(e.dtype or np.float32), dev))
+            if ctx.consts is None:
+                return _const_value(e, dev)
+            hit = ctx.consts.get(id(e))
+            if hit is None or hit[0] is not e:
+                hit = ctx.consts[id(e)] = (e, _const_value(e, dev))
+            return hit[1]
         if isinstance(e, ColRef):
             if e.name not in env:
                 raise KeyError(f"unbound column {e.name!r}; have {sorted(env)}")

@@ -650,3 +650,142 @@ def test_database_run_compiled_and_forwarding():
     assert any(isinstance(e, PS.UdfCall) for n in PR.walk_plan(plan)
                for ex in n.exprs() for e in PS.walk(ex))
     assert "Scan t" in port.explain(q)
+
+
+# ---------------------------------------------------------------------------
+# the mode oracle and the loop oracle (tests/conformance_util.py:210, :444)
+# on the port, beside the reference
+# ---------------------------------------------------------------------------
+
+#: ``conformance_util.FIXED_PROGRAMS`` written against either package's
+#: builders (its ops hold the reference's expression objects)
+PROGRAMS = {
+    "correlated_min_null_guard": lambda M: [
+        ("declare", "v0", M.lit(1.5)),
+        ("select_agg", "v0", "min", True, 0),
+        ("ifelse", M.var("v0").is_null(), "v0", M.param("p") * 2.0, None, None, True),
+        ("return", M.var("v0") + M.param("p")),
+    ],
+    "uncorrelated_sum_case": lambda M: [
+        ("declare", "v0", M.param("p") * 1.0),
+        ("select_agg", "v0", "sum", False, 4),
+        ("set", "v0", M.case([(M.var("v0") > M.param("p"), M.var("v0"))], M.lit(0.5))),
+        ("return", M.coalesce(M.var("v0"), M.lit(0.0))),
+    ],
+    "avg_ifelse_branches": lambda M: [
+        ("declare", "v0", None),
+        ("select_agg", "v0", "avg", True, 0),
+        ("ifelse", M.var("v0") > M.lit(0.0), "v0", M.var("v0") / 2.0,
+         "v0", M.param("p") - 3.0, False),
+        ("return", M.var("v0") * 2.0 - 1.0),
+    ],
+    "count_max_division": lambda M: [
+        ("declare", "v0", M.lit(2.0)),
+        ("declare", "v1", None),
+        ("select_agg", "v1", "count", False, 7),
+        ("set", "v0", M.param("p") / M.var("v0")),
+        ("select_agg", "v1", "max", False, 7),
+        ("return", M.coalesce(M.var("v1"), M.var("v0"), M.lit(-1.0))),
+    ],
+}
+AGGS = {"sum": "sum_", "min": "min_", "max": "max_", "avg": "avg_", "count": "count_"}
+
+
+def _program_udf(M, ops):
+    """``conformance_util.build_udf`` on either package's builder."""
+    u = M.UdfBuilder("f", [("p", "float32")], "float32")
+    for op in ops:
+        if op[0] == "declare":
+            u.declare(op[1], "float32", op[2])
+        elif op[0] == "set":
+            u.set(op[1], op[2])
+        elif op[0] == "select_agg":
+            _, tgt, agg, corr, thresh = op
+            pred = (M.col("fk") == M.param("p") if corr
+                    else M.col("qty") >= M.lit(thresh))
+            u.select({tgt: getattr(M, AGGS[agg])(M.col("val"))},
+                     frm=M.scan("facts"), where=pred)
+        elif op[0] == "ifelse":
+            _, pred, t_tgt, t_expr, e_tgt, e_expr, ret_in_then = op
+            with u.if_(pred):
+                u.set(t_tgt, t_expr)
+                if ret_in_then:
+                    u.return_(M.var(t_tgt) + 1.0)
+            if e_tgt is not None:
+                with u.else_():
+                    u.set(e_tgt, e_expr)
+        else:
+            u.return_(op[1])
+    return u.build()
+
+
+def _loop_udf(M, body, guard_cap=None, break_cap=None):
+    """``conformance_util.build_loop_udf`` on either package's builder."""
+    u = M.UdfBuilder("floop", [("x", "float32")], "float32")
+    u.declare("t", "float32", M.lit(0.0))
+    if body == "plain_while":
+        u.declare("i", "float32", M.lit(0.0))
+        with u.while_(M.var("i") < M.param("x")):
+            u.set("i", M.var("i") + 1.0)
+            u.set("t", M.var("t") + M.var("i"))
+        u.return_(M.var("t"))
+        return u.build()
+    u.declare("v", "float32", None)
+    u.declare("q", "float32", None)
+    guard = None if guard_cap is None else M.var("t") < M.lit(float(guard_cap))
+    with u.cursor_loop({"v": "val", "q": "qty"}, M.scan("facts"),
+                       where=M.col("fk") <= M.param("x"), guard=guard):
+        if body == "sum":
+            u.set("t", M.var("t") + M.var("v"))
+        elif body == "sum_if":
+            with u.if_(M.var("q") > M.lit(2.0)):
+                u.set("t", M.var("t") + M.var("v"))
+        else:
+            u.set("t", M.var("t") * 0.5 + M.var("v"))
+        if break_cap is not None:
+            with u.if_(M.var("t") > M.lit(float(break_cap))):
+                u.break_()
+    u.return_(M.var("t"))
+    return u.build()
+
+
+def _oracle(build_udf, fname, seed, n_rows, params_list):
+    """The port's FROID == INTERPRETED == HEKATON, and each iterative
+    policy == the reference's (rows and counters)."""
+    ref, port = RC.Session(), PC.Session(device="cpu")
+    for name, arrays in _facts_tables(n_rows, seed).items():
+        ref.create_table(name, **arrays)
+        port.create_table(name, **arrays)
+    ref.create_function(build_udf(RC))
+    port.create_function(build_udf(PC))
+    q = lambda M: _keys_query(M, fname)
+    froid = [port.execute(q(PC), PC.FROID, params=p) for p in params_list]
+    for i, p in enumerate(params_list):
+        assert_rows(ref.execute(q(RC), RC.FROID, params=p), froid[i], f"FROID[{i}]")
+    for policy in ITERATIVE:
+        pstmt, rstmt = port.prepare(q(PC), _policy(PC, policy)), ref.prepare(
+            q(RC), _policy(RC, policy))
+        for i, p in enumerate(params_list):
+            got = pstmt.execute(params=p)
+            assert_rows(froid[i], got, f"FROID vs {policy}[{i}]", across_policies=True)
+            want = rstmt.execute(params=p)
+            assert_rows(want, got, f"reference {policy}[{i}]")
+            assert_stats(want, got, f"reference {policy}[{i}]")
+
+
+PARAMS = [{"cut": 5, "shift": 0.5}, {"cut": 7, "shift": -1.0}]
+
+
+@pytest.mark.parametrize("name", list(PROGRAMS))
+def test_mode_oracle_fixed_programs(name):
+    _oracle(lambda M: _program_udf(M, PROGRAMS[name](M)), "f", 0, 23, PARAMS)
+
+
+LOOP_SPECS = [("sum", None, None), ("sum_if", None, None), ("running", None, None),
+              ("running", 10.0, 75.0), ("sum", 40.0, None), ("sum", None, 15.0),
+              ("plain_while", None, None)]
+
+
+@pytest.mark.parametrize("spec", LOOP_SPECS, ids=lambda s: "-".join(map(str, s)))
+def test_loop_oracle(spec):
+    _oracle(lambda M: _loop_udf(M, *spec), "floop", 1, 23, PARAMS)

@@ -53,7 +53,9 @@ from repro_torch.tables.table import (Column, DictEncoding, Table, catalog_from_
 
 class QueryResult:
     """Result of one execution.  ``table`` (compacted host-visible rows)
-    materializes lazily; ``masked`` is the device form."""
+    materializes lazily; ``masked`` is the device form.  ``stats`` holds
+    the reference's counters and, where the per-row interpreter ran, the
+    port's ``udf_rows``: the rows it was driven over in this execution."""
 
     def __init__(self, masked: MaskedTable, plan: R.RelNode,
                  elapsed_s: float, stats: dict,

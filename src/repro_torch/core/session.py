@@ -19,7 +19,7 @@ raises where CUDA is absent; only an explicit ``device="cpu"`` runs on the
 host.  A plan that still holds a ``UdfCall`` (INTERPRETED, HEKATON, or
 FROID past its inlining budget) runs it on the per-row interpreter: the
 compiled path with a ``scan``-mode hook, the eager path with the policy's
-``udf_mode``.  Not in this slice: ``execute_many``, ``execute_async``,
+``udf_mode``.  Not ported yet: ``execute_many``, ``execute_async``,
 fusion, persistence, cost routing and fault injection.
 """
 from __future__ import annotations

@@ -92,11 +92,6 @@ builds relagg alone and reads it at Q12's and Q5's inputs (TPC-H at SF 1)
 as phase 5 does, its repeat readings not checked: copied into another
 source tree, it reads that tree's kernel the same way.
 
-    python3 chip_smoke.py --iterative
-
-runs phase 6 alone, after FROID's warm times at SF 1 that it compares
-against (relagg is built, nothing else).
-
     python3 chip_smoke.py --relagg-variants
 
 builds the edits of ``csrc/relagg.cu`` in :data:`RELAGG_VARIANTS` (designs
@@ -918,24 +913,6 @@ def cursor_phase() -> dict:
         f"out {out['froid']['out']}; ms " + ", ".join(
             f"{k} {v['ms']:.1f}" for k, v in out.items()))
     return out
-
-
-def iterative_only_phase() -> dict:
-    """``--iterative``: relagg, TPC-H at SF 1, FROID's warm times of the six
-    UDF queries, then :func:`iterative_phase`, :func:`scan_mode_sync_check`
-    and :func:`cursor_phase`."""
-    import repro_torch.core as C
-    from repro_torch.data.tpch_udfs import QUERIES
-    from repro_torch.kernels import _build
-
-    _build.load("relagg")
-    session = tpch_session(1.0)
-    froid = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
-    warm = {name: run_statement(session, QUERIES[name][0](), froid)[1]
-            for name in QUERY_NAMES}
-    log("FROID warm ms at SF 1: " + ", ".join(f"{k} {v:.2f}" for k, v in warm.items()))
-    return {"froid_warm_ms": warm, "iterative": iterative_phase(session, warm),
-            "scan_sync": scan_mode_sync_check(session), "cursor": cursor_phase()}
 
 
 # source text the variants below replace
@@ -2087,10 +2064,6 @@ def main() -> int:
             log(relagg_times_line(label, t))
         print(json.dumps({"card": card, "tree": str(ROOT), "relagg": times}), flush=True)
         return 0
-    if sys.argv[1:] == ["--iterative"]:
-        print(json.dumps({"card": card, "iterative": iterative_only_phase()}, default=str),
-              flush=True)
-        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2189,8 +2162,8 @@ def main() -> int:
          "ms": q12["ms"], "plain_ms": q12["plain_ms"], "bound_ms": q12["bound_ms"],
          "bound_by": q12["bound_by"], "library_ms": q12["library_ms"],
          "device_ms": q12["device_ms"], "ok": True,
-         # the iterative policies' own run (INTERPRETED and HEKATON on the
-         # cut sessions, FROID beside them)
+         # INTERPRETED's and HEKATON's statements on the cut sessions only,
+         # the count set to 0 before each statement (FROID's runs not counted)
          "launches_iterative": iterative["relagg_launches"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",

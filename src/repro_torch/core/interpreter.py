@@ -62,7 +62,7 @@ class _Flow:
 
 
 def _vocab(value: S.Value):
-    return None if value.dictionary is None else value.dictionary.vocab
+    return None if value.dictionary is None else value.dictionary.key
 
 
 def _catalog_device(catalog) -> torch.device:
@@ -374,14 +374,10 @@ class Interpreter:
             fn = self._scan_cache[key] = row_fn
         arg_arrays = [(a.data, a.validity()) for a in args]
         datas, valids = [], []
-        token = S.ASYNC_HOST_COPIES.set(True)
-        try:
-            for i in range(n):  # one invocation per row, in order
-                data, valid = fn([(d[i], v[i]) for d, v in arg_arrays])
-                datas.append(data.reshape(()))
-                valids.append(valid.reshape(()))
-        finally:
-            S.ASYNC_HOST_COPIES.reset(token)
+        for i in range(n):  # one invocation per row, in order
+            data, valid = fn([(d[i], v[i]) for d, v in arg_arrays])
+            datas.append(data.reshape(()))
+            valids.append(valid.reshape(()))
         if not datas:
             return S.Value(torch.zeros((0,), dtype=torch.float32, device=self.device),
                            torch.zeros((0,), dtype=torch.bool, device=self.device))

@@ -10,7 +10,6 @@ NULL as false, exactly as in SQL.
 """
 from __future__ import annotations
 
-import contextvars
 import dataclasses
 from typing import Any, Callable, Sequence
 
@@ -512,22 +511,13 @@ _CMPS = {
 }
 
 
-#: Whether a host value copied to a CUDA device is queued without waiting
-#: for the copy (``non_blocking``).  The interpreter's ``scan`` mode sets it
-#: while it drives its row function, so that a row body queues on the card
-#: without a host sync, as the reference's compiled row function runs;
-#: everywhere else the copy stays blocking.
-ASYNC_HOST_COPIES: contextvars.ContextVar[bool] = contextvars.ContextVar(
-    "async_host_copies", default=False)
-
-
 def host_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
     """``value`` (a Python scalar, list or numpy array) as a ``dtype``
-    tensor on ``device``, copied as :data:`ASYNC_HOST_COPIES` says.  A
-    pageable host buffer is staged by the CUDA driver before a
-    non-blocking copy returns, so the host value may go right away."""
-    return torch.as_tensor(value, dtype=dtype).to(
-        device, non_blocking=ASYNC_HOST_COPIES.get())
+    tensor on ``device``, queued without waiting for the copy, so that no
+    path syncs the host for a constant.  A pageable host buffer is staged
+    by the CUDA driver before a non-blocking copy returns, so the host
+    value may go right away."""
+    return torch.as_tensor(value, dtype=dtype).to(device, non_blocking=True)
 
 
 def _take_clipped(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

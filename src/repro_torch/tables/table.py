@@ -38,12 +38,31 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+class VocabKey:
+    """A vocabulary as a cache key: hashed once, equal to another key
+    exactly when the vocabularies are equal, and to itself in O(1)."""
+
+    __slots__ = ("vocab", "_hash")
+
+    def __init__(self, vocab: tuple[str, ...]):
+        self.vocab = vocab
+        self._hash = hash(vocab)
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        return self is other or (
+            isinstance(other, VocabKey) and self.vocab == other.vocab)
+
+
 class DictEncoding:
     """A host-side vocabulary assigning int32 codes to strings."""
 
     def __init__(self, values: Sequence[str] = ()):
         self._to_code: dict[str, int] = {}
         self._from_code: list[str] = []
+        self._key: VocabKey | None = None
         for v in values:
             self.code(v)
 
@@ -53,6 +72,7 @@ class DictEncoding:
             c = len(self._from_code)
             self._to_code[value] = c
             self._from_code.append(value)
+            self._key = None  # the vocabulary grew
         return c
 
     def lookup(self, value: str) -> int:
@@ -67,6 +87,14 @@ class DictEncoding:
         """The code -> string table, in code order (round-trips the
         encoding: ``DictEncoding(enc.vocab)`` assigns identical codes)."""
         return tuple(self._from_code)
+
+    @property
+    def key(self) -> VocabKey:
+        """The vocabulary as a :class:`VocabKey`, made once per growth: the
+        interpreter keys its per-statement cache by it on every row."""
+        if self._key is None:
+            self._key = VocabKey(self.vocab)
+        return self._key
 
     def __len__(self) -> int:
         return len(self._from_code)

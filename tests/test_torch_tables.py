@@ -51,6 +51,23 @@ def test_from_arrays_empty_and_single_string():
         assert ref.columns["s"].dictionary.vocab == port.columns["s"].dictionary.vocab
 
 
+def test_dictionary_key_is_made_once_per_growth():
+    """The vocabulary key the interpreter's caches use: the same object
+    until the vocabulary grows, equal across dictionaries exactly when
+    their vocabularies are equal, the reference's codes kept."""
+    words = ["delta", "alpha", "charlie"]
+    enc, ref = PT.DictEncoding(words), RT.DictEncoding(words)
+    key = enc.key
+    assert enc.key is key and key.vocab == tuple(words)
+    assert enc.code("alpha") == ref.code("alpha") == 1 and enc.key is key
+    other = PT.DictEncoding(words)
+    assert other.key == key and hash(other.key) == hash(key)
+    assert enc.code("bravo") == ref.code("bravo") == 3
+    assert enc.key is not key and enc.key != key and enc.key != other.key
+    assert enc.key.vocab == tuple(words) + ("bravo",)
+    assert PT.DictEncoding().key == PT.DictEncoding().key != key
+
+
 def test_catalog_from_numpy_keeps_codes():
     ref = RT.Table.from_arrays(**_arrays(3))
     host = {"t": {c: (np.asarray(col.data), None,

@@ -49,8 +49,13 @@ script exits non-zero:
    the outputs on the card; per invocation, extrapolated to SF 1 and
    against FROID's warm time.  Then a loop-free HEKATON body over 3,000
    rows under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
-   and ``examples/cursor_loops.py``'s cursor-loop UDF under FROID,
-   INTERPRETED and HEKATON against the loop written out in numpy;
+   and the cursor loops: ``examples/cursor_loops.py``'s UDF under FROID
+   (rewritten to a ``LoopScan``), INTERPRETED and HEKATON against the loop
+   written out in numpy; both loop kinds under the three policies at 300
+   ``facts`` rows, FROID's plans checked, with relagg launching in a
+   grouped query over a loop UDF's output; FROID against HEKATON at 3,000
+   rows (scan kind), FROID's plan also with no host sync; and the reduce
+   kind at 6,000,000 rows (FROID);
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -856,62 +861,303 @@ def scan_mode_sync_check(full, rows: int = 3000) -> dict:
     return out
 
 
-def example_string(name: str) -> str:
-    """A module-level string of ``examples/cursor_loops.py``, read from its
-    source without running it."""
+def source_string(path: str, name: str) -> str:
+    """A module-level string of the repo file ``path``, read from its source
+    without running it."""
     import ast
 
-    tree = ast.parse((ROOT / "examples" / "cursor_loops.py").read_text())
+    tree = ast.parse((ROOT / path).read_text())
     for node in tree.body:
         if (isinstance(node, ast.Assign) and node.targets[0].id == name
                 and isinstance(node.value, ast.Constant)):
             return node.value.value
-    raise RuntimeError(f"examples/cursor_loops.py has no string {name}")
+    raise RuntimeError(f"{path} has no string {name}")
 
 
-def cursor_phase() -> dict:
-    """``examples/cursor_loops.py``'s cursor-loop UDF, parsed by the port,
-    over the example's data on the card under FROID (the loop stays a UDF
-    call until the loop rewrite is ported), INTERPRETED and HEKATON; each
-    is held to the loop written out in numpy and to the others."""
-    import torch
+#: ``facts`` rows of the cursor-loop cells: the mode oracle (FROID,
+#: INTERPRETED and HEKATON, both loop kinds), the Aggify comparison (FROID
+#: against HEKATON, scan kind) and the reduce kind at TPC-H SF 1's
+#: ``lineitem`` row count (FROID only: interpreting it would take hours)
+CURSOR_ROWS = {"oracle": 300, "aggify": 3000, "reduce": 6_000_000}
 
+
+def cursor_facts(rows: int, seed: int = 0) -> tuple[np.ndarray, ...]:
+    """``facts`` as ``examples/cursor_loops.py`` makes it (``fk``, ``val``),
+    at ``rows`` rows, and after them the ``qty`` column that
+    ``tests/test_loops.py``'s cursor also fetches."""
+    rng = np.random.default_rng(seed)
+    fk = rng.integers(0, 8, rows)
+    val = np.round(rng.uniform(-10, 10, rows), 2).astype(np.float32)
+    return fk, val, rng.integers(0, 9, rows)
+
+
+def cursor_session(rows: int, keys: np.ndarray):
+    """A session on the card with ``facts`` at ``rows`` rows, ``keys`` (and
+    an int group key ``g``), and both loop UDFs: the example's
+    ``cursor_total`` (scan kind) and ``tests/test_loops.py``'s commutative
+    fold, registered as ``cursor_sum`` (reduce kind)."""
     import repro_torch.core as C
 
     s = C.Session()
-    rng = np.random.default_rng(0)
-    fk = rng.integers(0, 8, 64)
-    val = np.round(rng.uniform(-10, 10, 64), 2).astype(np.float32)
-    s.create_table("facts", fk=fk, val=val)
-    s.create_table("keys", k=np.arange(5))
-    s.create_function(C.parse_udf(example_string("CURSOR_TOTAL")))
-    q = (C.scan("keys").filter(C.col("k") < C.param("cut"))
-         .compute(out=C.udf("cursor_total", C.col("k") * 1.0)).project("k", "out"))
-    cut = 4
-    expected = []
-    for k in range(cut):
+    fk, val, qty = cursor_facts(rows)
+    s.create_table("facts", fk=fk, val=val, qty=qty)
+    s.create_table("keys", k=keys, g=keys % 2)
+    s.create_function(C.parse_udf(source_string("examples/cursor_loops.py", "CURSOR_TOTAL")))
+    s.create_function(C.parse_udf(source_string("tests/test_loops.py", "CURSOR_SUM")
+                                  .replace("cursor_total", "cursor_sum")))
+    return s, fk, val
+
+
+def numpy_loop(fk, val, xs, kind: str) -> np.ndarray:
+    """Each calling row's loop written out in numpy: ``cursor_total``'s
+    ordered ``t = t * 0.5 + v`` with its BREAK, or ``cursor_sum``'s sum
+    (in float64)."""
+    out = []
+    for x in xs:
+        rows = val[fk <= x]
+        if kind == "reduce":
+            out.append(np.sum(rows, dtype=np.float64))
+            continue
         t = np.float32(0.0)
-        for v in val[fk <= k]:
+        for v in rows:
             t = np.float32(t * np.float32(0.5) + v)
             if t > 75.0:
                 break
-        expected.append(t)
-    tables, out = {}, {}
+        out.append(t)
+    return np.asarray(out)
+
+
+LOOP_UDF = {"scan": "cursor_total", "reduce": "cursor_sum"}
+
+
+def loop_query(kind: str, scale: float = 1.0):
+    import repro_torch.core as C
+
+    return (C.scan("keys").compute(out=C.udf(LOOP_UDF[kind], C.col("k") * scale))
+            .project("k", "out"))
+
+
+def check_loop_plan(stmt, kind: str, label: str) -> None:
+    """FROID's plan holds one ``LoopScan`` of ``kind`` and no UDF call."""
+    from repro_torch.core import relalg as R
+    from repro_torch.core import scalar as S
+
+    plan = stmt.plan
+    kinds = [n.kind for n in R.walk_plan_deep(plan) if isinstance(n, R.LoopScan)]
+    calls = [e for n in R.walk_plan_deep(plan) for ex in n.exprs() for e in S.walk(ex)
+             if isinstance(e, S.UdfCall)]
+    text = stmt.explain()
+    check(kinds == [kind] and not calls and f"LoopScan[{kind}]" in text,
+          f"{label}: FROID's plan is not one LoopScan[{kind}] without a UDF call:\n{text}")
+    log(f"{label}: FROID plan " + next(line.strip() for line in text.splitlines()
+                                       if "LoopScan[" in line))
+
+
+class LoopSteps:
+    """Rows each scan-kind ``LoopScan`` steps, call by call, while in a
+    ``with`` block."""
+
+    def __enter__(self):
+        from repro_torch.core.executor import Executor
+
+        self.calls: list[int] = []
+        self._orig = orig = Executor._loopscan_scan
+        calls = self.calls
+
+        def recording(ex, node, child, init, ctx):
+            calls.append(child.num_rows)
+            return orig(ex, node, child, init, ctx)
+
+        Executor._loopscan_scan = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.executor import Executor
+
+        Executor._loopscan_scan = self._orig
+        return False
+
+
+def check_loop_rows(result, expected, label: str, tol: float) -> None:
+    check_on_card(result, label)
+    got = result.table.columns["out"].data.cpu().numpy().astype(np.float64)
+    check(got.shape == expected.shape and np.all(np.isfinite(got)),
+          f"{label}: {got.shape} rows, finite {np.all(np.isfinite(got))}")
+    err = np.abs(got - expected)
+    excess = (err - tol).max()
+    check(bool(excess <= 0), f"{label}: {got.tolist()} vs the loop's "
+          f"{expected.tolist()} (max |diff| {err.max():.3g}, {excess:.3g} past its tolerance)")
+
+
+def cursor_phase() -> dict:
+    """Cursor-loop UDFs on the card.  (1) ``examples/cursor_loops.py``'s
+    UDF over the example's 64 ``facts`` rows under FROID (rewritten to a
+    ``LoopScan[scan]``), INTERPRETED and HEKATON, each held to the loop in
+    numpy and to the others.  (2) The mode oracle at 300 ``facts`` rows,
+    four calling rows, both loop kinds, FROID's plans checked; and a
+    grouped query over the loop UDF's output with ``pallas_agg`` on, where
+    relagg must launch and equal ``pallas_agg`` off and INTERPRETED.
+    (3) The Aggify comparison at 3,000 rows, scan kind: FROID steps the
+    cursor once for all calling rows, HEKATON once per calling row; FROID's
+    plan also runs once under ``torch.cuda.set_sync_debug_mode("error")``.
+    (4) The reduce kind over 6,000,000 rows and 16 calling rows, FROID
+    only."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.core as C
+    from repro_torch.core.executor import Executor
+    from repro_torch.kernels.relagg import ops
+
+    out: dict = {}
+    # (1) the example, as the example runs it
+    s = C.Session()
+    fk, val, _ = cursor_facts(64)
+    s.create_table("facts", fk=fk, val=val)
+    s.create_table("keys", k=np.arange(5))
+    s.create_function(C.parse_udf(source_string("examples/cursor_loops.py", "CURSOR_TOTAL")))
+    q = (C.scan("keys").filter(C.col("k") < C.param("cut"))
+         .compute(out=C.udf("cursor_total", C.col("k") * 1.0)).project("k", "out"))
+    cut = 4
+    check_loop_plan(s.prepare(q, C.FROID), "scan", "example")
+    expected = numpy_loop(fk, val, range(cut), "scan")
+    tables, example = {}, {}
     for policy in (C.FROID, C.INTERPRETED, C.HEKATON):
         r = s.execute(q, policy, params={"cut": cut})
-        check_on_card(r, f"cursor_total {policy.name}")
-        got = r.table.columns["out"].data.cpu().numpy()
-        check(np.allclose(got, expected, rtol=1e-5, atol=1e-5),
-              f"cursor_total {policy.name}: {got.tolist()} vs the loop's {expected}")
+        check_loop_rows(r, expected, f"example {policy.name}", 1e-5 * (1 + np.abs(expected)))
         tables[policy.name] = r.table
-        out[policy.name] = {"ms": r.elapsed_s * 1e3, "out": got.tolist()}
+        example[policy.name] = {"ms": r.elapsed_s * 1e3,
+                                "out": r.table.columns["out"].data.cpu().tolist()}
     for name in ("interpreted", "hekaton"):
-        compare_tables(tables["froid"], tables[name], f"cursor_total froid vs {name}",
+        compare_tables(tables["froid"], tables[name], f"example froid vs {name}",
                        rtol=MODE_RTOL, atol=MODE_ATOL)
+    out["example"] = example
+    log(f"cursor loop example: FROID (LoopScan) == INTERPRETED == HEKATON == the loop "
+        f"in numpy, out {example['froid']['out']}; ms " + ", ".join(
+            f"{k} {v['ms']:.1f}" for k, v in example.items()))
+
+    # (2) the mode oracle at 300 rows, both kinds, and relagg over the output
+    rows = CURSOR_ROWS["oracle"]
+    keys = np.arange(4) * 2 + 1
+    s, fk, val = cursor_session(rows, keys)
+    oracle = {}
+    for kind in ("scan", "reduce"):
+        label = f"{kind} kind at {rows} rows"
+        check_loop_plan(s.prepare(loop_query(kind), C.FROID), kind, label)
+        expected = numpy_loop(fk, val, keys, kind)
+        tables = {}
+        for policy in (C.FROID, C.INTERPRETED, C.HEKATON):
+            r = s.execute(loop_query(kind), policy)
+            check_loop_rows(r, expected, f"{label} {policy.name}",
+                            1e-4 * (1 + np.abs(expected)))
+            tables[policy.name] = r.table
+            oracle[f"{kind}/{policy.name}_ms"] = r.elapsed_s * 1e3
+        for name in ("interpreted", "hekaton"):
+            compare_tables(tables["froid"], tables[name], f"{label} froid vs {name}",
+                           rtol=MODE_RTOL, atol=MODE_ATOL)
+        log(f"{label}: FROID == INTERPRETED == HEKATON == the loop in numpy; ms "
+            + ", ".join(f"{p} {oracle[f'{kind}/{p}_ms']:.1f}"
+                        for p in ("froid", "interpreted", "hekaton")))
+    grouped = (C.scan("keys").compute(out=C.udf("cursor_total", C.col("k") * 1.0))
+               .group_by("g", capacity=2, s=C.sum_(C.col("out")), n=C.count_(C.col("out"))))
+    relagg_on = dataclasses.replace(C.FROID, name="froid+relagg", pallas_agg=True)
+    ops.LAUNCHES = 0  # counts this run of the slice's path only
+    on = s.execute(grouped, relagg_on)
+    launches = ops.LAUNCHES
+    check(launches > 0, "grouped loop output: relagg did not launch")
+    check_on_card(on, "grouped loop output")
+    for policy in (C.FROID, C.INTERPRETED):
+        compare_tables(on.table, s.execute(grouped, policy).table,
+                       f"grouped loop output relagg vs {policy.name}",
+                       rtol=MODE_RTOL, atol=MODE_ATOL)
+    out["oracle"] = {**oracle, "rows": rows, "calling_rows": len(keys),
+                     "relagg_launches": launches}
+    out["relagg_launches"] = launches
+    log(f"grouped loop output at {rows} rows: relagg launched {launches} times, "
+        f"== pallas_agg off == INTERPRETED")
+    del s
+
+    # (3) FROID against HEKATON at 3,000 rows, scan kind
+    rows = CURSOR_ROWS["aggify"]
+    s, fk, val = cursor_session(rows, keys)
+    expected = numpy_loop(fk, val, keys, "scan")
+    aggify: dict = {"rows": rows, "calling_rows": len(keys)}
+    results = {}
+    for policy in (C.FROID, C.HEKATON):
+        stmt = s.prepare(loop_query("scan"), policy)
+        if policy is C.FROID:
+            check_loop_plan(stmt, "scan", f"scan kind at {rows} rows")
+        cold = stmt.execute()
+        with LoopSteps() as steps:
+            warm = stmt.execute()
+        for r in (cold, warm):
+            check_loop_rows(r, expected, f"scan kind at {rows} rows {policy.name}",
+                            1e-4 * (1 + np.abs(expected)))
+        results[policy.name] = warm.table
+        stepped = (sum(steps.calls) if policy is C.FROID
+                   else warm.stats["udf_rows"] * rows)
+        aggify[policy.name] = {"cold_ms": cold.elapsed_s * 1e3,
+                               "warm_ms": warm.elapsed_s * 1e3,
+                               "loopscan_calls": len(steps.calls),
+                               "rows_stepped": stepped}
+    check(aggify["froid"]["loopscan_calls"] == 1
+          and aggify["froid"]["rows_stepped"] == rows,
+          f"FROID stepped {aggify['froid']['rows_stepped']} rows in "
+          f"{aggify['froid']['loopscan_calls']} LoopScans, not {rows} in one")
+    compare_tables(results["froid"], results["hekaton"], f"scan kind at {rows} rows",
+                   rtol=MODE_RTOL, atol=MODE_ATOL)
+    plan = s.prepare(loop_query("scan"), C.FROID).plan
+    ex = Executor(s.catalog, device=s.device)
     torch.cuda.synchronize()
-    log(f"cursor loop: FROID == INTERPRETED == HEKATON == the loop in numpy, "
-        f"out {out['froid']['out']}; ms " + ", ".join(
-            f"{k} {v['ms']:.1f}" for k, v in out.items()))
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = ex.execute(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    aggify["sync_check"] = {"host_ms": host_ms,
+                            "total_ms": (time.perf_counter() - t0) * 1e3}
+    got = res.table.columns["out"].data.cpu().numpy()
+    check(np.allclose(got, expected, rtol=1e-4, atol=1e-4),
+          f"scan kind under the sync check: {got.tolist()} vs {expected.tolist()}")
+    f, h = aggify["froid"], aggify["hekaton"]
+    log(f"scan kind at {rows} rows, {len(keys)} calling rows: FROID == HEKATON == the loop "
+        f"in numpy; warm FROID {f['warm_ms']:.1f} ms ({f['rows_stepped']} rows stepped in "
+        f"{f['loopscan_calls']} LoopScan), HEKATON {h['warm_ms']:.1f} ms ({h['rows_stepped']} "
+        f"rows stepped), {h['warm_ms'] / f['warm_ms']:.2f}x; FROID's plan with no host sync: "
+        f"issued in {host_ms:.1f} ms, done in {aggify['sync_check']['total_ms']:.1f} ms")
+    out["aggify"] = aggify
+    del s, ex, res
+
+    # (4) the reduce kind at 6,000,000 rows, FROID only
+    rows = CURSOR_ROWS["reduce"]
+    keys = np.arange(16)
+    s, fk, val = cursor_session(rows, keys)
+    stmt = s.prepare(loop_query("reduce", 0.5), C.FROID)
+    check_loop_plan(stmt, "reduce", f"reduce kind at {rows} rows")
+    expected = numpy_loop(fk, val, keys * 0.5, "reduce")
+    # a float32 sum of up to 6,000,000 terms: held to the float64 sum within
+    # 1e-6 of the sum of |v| the key selects
+    tol = np.array([1e-6 * np.abs(val[fk <= x]).sum(dtype=np.float64) + 1e-3
+                    for x in keys * 0.5])
+    cold = stmt.execute()
+    warm = []
+    for _ in range(WARM_ROUNDS):
+        r = stmt.execute()
+        check_loop_rows(r, expected, f"reduce kind at {rows} rows", tol)
+        warm.append(r.elapsed_s * 1e3)
+    check_loop_rows(cold, expected, f"reduce kind at {rows} rows cold", tol)
+    out["reduce"] = {"rows": rows, "calling_rows": len(keys),
+                     "cold_ms": cold.elapsed_s * 1e3, "warm_ms": float(np.median(warm)),
+                     "warm_ms_all": warm}
+    log(f"reduce kind at {rows} rows, {len(keys)} calling rows: FROID == the float64 sum; "
+        f"cold {out['reduce']['cold_ms']:.1f} ms, warm median {out['reduce']['warm_ms']:.2f} ms "
+        f"({', '.join(f'{w:.2f}' for w in warm)})")
+    del s
+    torch.cuda.synchronize()
     return out
 
 
@@ -2105,7 +2351,9 @@ def main() -> int:
                   for name in QUERY_NAMES}
     iterative = iterative_phase(session, froid_warm)
     scan_sync = scan_mode_sync_check(session)
+    t1 = time.perf_counter()
     cursor = cursor_phase()
+    log(f"cursor-loop phase ok in {time.perf_counter() - t1:.1f} s")
     del session
     gc.collect()
     torch.cuda.empty_cache()
@@ -2164,7 +2412,10 @@ def main() -> int:
          "device_ms": q12["device_ms"], "ok": True,
          # INTERPRETED's and HEKATON's statements on the cut sessions only,
          # the count set to 0 before each statement (FROID's runs not counted)
-         "launches_iterative": iterative["relagg_launches"]},
+         "launches_iterative": iterative["relagg_launches"],
+         # the cursor-loop phase's grouped query over a loop UDF's output
+         # (FROID, pallas_agg on), the count set to 0 just before it
+         "launches_cursor": cursor["relagg_launches"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

@@ -1,5 +1,6 @@
 """Port of ``src/repro/core/algebrizer.py:1-296``:
-a copy with numpy dtype tags; cursor loops are not ported yet.
+a copy with numpy dtype tags.  Rewritable cursor loops become a
+``LoopScan`` through ``repro_torch.loops`` (reference ``:190-227``).
 
 UDF algebrization (paper §4): imperative body -> single relational expr.
 
@@ -191,15 +192,43 @@ class Algebrizer:
         return self.combine(plan, dt), env
 
     def emit_loop(self, st, computed: dict, local: dict, env: dict):
-        """Cursor and WHILE loops: the Aggify rewrite (``repro/loops/`` in
-        the reference, ``algebrizer.py:190-227``) is not ported yet
-        (ROADMAP A3.2).  The binder catches this error and leaves the
-        ``UdfCall`` in the plan, as the reference does for loops it cannot
-        rewrite; the per-row interpreter then runs it."""
-        raise AlgebrizeError(
-            f"{self.udf.name}: cursor and WHILE loops are not rewritten yet "
-            "(ROADMAP A3.2: LoopScan and loops/); the call stays for the "
-            "per-row interpreter")
+        """Cursor-loop rewrite (Aggify / ``repro_torch.loops``): classify the loop,
+        compile it to a LoopScan over the cursor's defining query, and bind
+        each live-out variable to a ScalarSubquery over the shared node.
+        Non-rewritable loops raise AlgebrizeError — the binder then leaves
+        the UdfCall in place and execution falls back to the per-row
+        interpreter (explicit verdict, not a parse error)."""
+        from repro_torch.loops import classify, compile_loop
+
+        verdict = classify(st)
+        if not verdict.rewritable:
+            raise AlgebrizeError(
+                f"{self.udf.name}: non-rewritable loop — {verdict.reason}")
+
+        plan = self._resolve_plan(st.plan, env, local)
+        loop = IR.CursorLoop(st.cursor, plan, st.targets, st.body, st.guard)
+
+        def fix_free(e: S.Scalar, carried: set) -> S.Scalar:
+            def fx(x):
+                if isinstance(x, S.Var) and x.name not in carried:
+                    if x.name in local:
+                        return S.Outer(local[x.name])
+                    if x.name in env:
+                        return S.Outer(env[x.name])
+                    if x.name in self._param_names:
+                        return S.Param(x.name)
+                    raise AlgebrizeError(
+                        f"{self.udf.name}: undeclared variable @{x.name} "
+                        "in loop")
+                return None
+
+            return S.transform(e, fx)
+
+        node = compile_loop(loop, verdict, fix_free, typed_null)
+        for w in node.outputs:
+            c = self.fresh(w)
+            computed[c] = S.ScalarSubquery(node, w)
+            local[w] = c
 
     def emit_cond(self, plan, env, reg: IR.CondRegion):
         # 1. evaluate the predicate ONCE into an implicit column (§4.2.1:

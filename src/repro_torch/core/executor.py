@@ -11,11 +11,15 @@ executor, on torch tensors.
   ``scatter_reduce_`` into a static group capacity, the stats-driven dense
   key path, or the hand-written relagg kernel (``policy.pallas_agg``).
 * **CSE for free** — node results are memoized per execution.
-
-Not in this slice: the correlated vmap paths (the reference's
-``_exec_vmap_apply`` and the correlated branches of
-``eval_scalar_subquery`` / ``eval_exists``) and ``LoopScan``; each raises
-``NotImplementedError`` naming its ROADMAP item.
+* **Rewritten cursor loops** (``LoopScan``, reference ``:673-784``) — the
+  reduce kind is a masked sum/product over the relation; the scan kind
+  steps the relation's rows in order on the host, one predicated step
+  list a row, and makes no host sync.
+* **Correlated scalar subqueries** (reference ``:787-816``) —
+  ``torch.func.vmap`` of the subplan over the outer rows; no loop over
+  them.  An operator that cannot batch raises ``NotImplementedError``
+  naming ROADMAP A3.1, as do the correlated Apply over a general subplan
+  (the reference's ``_exec_vmap_apply``) and the correlated EXISTS.
 """
 from __future__ import annotations
 
@@ -57,6 +61,35 @@ class MaskedTable:
 def _value_to_column(v: S.Value, n: int) -> Column:
     b = v.broadcast(n)
     return Column(b.data, b.valid, b.dictionary)
+
+
+def _scalar_value(v: S.Value) -> S.Value:
+    """Coerce a Value to scalar (shape ``()``) leaves — loop-carry state
+    is rank-0 regardless of how broadcasting shaped the evaluation."""
+    d = v.data
+    if d.dim() > 0:
+        d = d.reshape(-1)[0]
+    val = v.validity()
+    if val.dim() > 0:
+        val = val.reshape(-1)[0]
+    return S.Value(d, val, v.dictionary)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a 0-d index tensor, as a gather on the device (an
+    index of Python's ``[]`` may be read back to the host)."""
+    return x.index_select(0, idx.reshape(1)).reshape(x.shape[1:])
+
+
+def _batched(*tensors: torch.Tensor) -> bool:
+    """True when a tensor carries a ``torch.func.vmap`` batch axis."""
+    return any(torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
+def _a31(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP A3.1: correlated Apply, "
+        "EXISTS and GroupAgg under torch.func.vmap)")
 
 
 def _sort_key_for(col: Column, mask: torch.Tensor) -> torch.Tensor:
@@ -178,6 +211,12 @@ class Executor:
         return S.EvalContext(self, n, ctx.params, ctx.outer, ctx.vars,
                              self.device)
 
+    def _sub_executor(self) -> "Executor":
+        """Executor used for nested plan evaluation (correlated scalar
+        subqueries)."""
+        return Executor(self.catalog, self.udf_column_evaluator,
+                        self.use_pallas_agg, self.device)
+
     # -- public API --------------------------------------------------------
     def execute(self, plan: R.RelNode, params=None, outer=None, vars=None) -> MaskedTable:
         ctx = S.EvalContext(
@@ -247,9 +286,7 @@ class Executor:
             return self._exec_groupagg(node, ctx, memo)
 
         if isinstance(node, R.LoopScan):
-            raise NotImplementedError(
-                "LoopScan (rewritten cursor loops) is not ported yet "
-                "(ROADMAP A3, deferred part: LoopScan and loops/)")
+            return self._exec_loopscan(node, ctx, memo)
 
         if isinstance(node, R.Sort):
             child = self._exec(node.child, ctx, memo)
@@ -344,9 +381,7 @@ class Executor:
         if _is_scalar_region(node.right):
             return self._exec_region_apply(node, left, ctx, memo)
 
-        raise NotImplementedError(
-            "correlated Apply over a general subplan is not ported yet "
-            "(ROADMAP A3, deferred part: correlated vmap apply)")
+        raise _a31("correlated Apply over a general subplan")
 
     def _exec_region_apply(self, node, left: MaskedTable, ctx, memo) -> MaskedTable:
         """Vectorized evaluation of a single-row derived table (an algebrized
@@ -398,6 +433,12 @@ class Executor:
         for name, spec in node.aggs.items():
             if spec.expr is not None:
                 agg_inputs[name] = S.eval_scalar(spec.expr, env, cctx).broadcast(n)
+        if _batched(child.mask,
+                    *(c.data for c in child.table.columns.values()),
+                    *(v.data for v in agg_inputs.values())):
+            # inside a correlated subquery's vmap: the segment sums add in
+            # place into an unbatched buffer and relagg has no batch axis
+            raise _a31("GroupAgg inside a correlated subquery")
 
         if n == 0:
             # zero-row child: pad to one all-invalid row so the reductions
@@ -575,20 +616,149 @@ class Executor:
                 )
         return MaskedTable(Table(out_cols), occupied)
 
+    # -- loop scan (rewritten cursor loops, repro_torch.loops) --------------
+    def _exec_loopscan(self, node: R.LoopScan, ctx, memo) -> MaskedTable:
+        child = self._exec(node.child, ctx, memo)
+        ictx = self._ctx(1, ctx)
+        init = {
+            name: _scalar_value(S.eval_scalar(e, {}, ictx))
+            for name, e in node.carry.items()
+        }
+        if node.kind == "reduce":
+            return self._loopscan_reduce(node, child, init, ctx)
+        return self._loopscan_scan(node, child, init, ctx)
+
+    def _loopscan_reduce(self, node, child, init, ctx) -> MaskedTable:
+        """Commutative fold: masked sum/prod over the whole relation —
+        no sequential dependence, fully vectorized."""
+        n = child.num_rows
+        env = child.env()
+        cctx = self._ctx(n, ctx)
+        cctx.row_mask = child.mask
+        active = child.mask
+        cols: dict[str, Column] = {}
+        for name in node.outputs:
+            mode, op, term, pred = node.reductions[name]
+            iv = init[name]
+            if mode == "last":
+                # final fetch-variable value: the last active row's column
+                # (or the loop-entry value when the cursor is empty)
+                col = child.table.columns[op]
+                if n == 0:
+                    out = iv
+                else:
+                    has = torch.any(active)
+                    flipped = torch.flip(active, (0,)).to(torch.uint8)
+                    idx = (n - 1) - torch.argmax(flipped)
+                    out = S.Value(
+                        torch.where(has, _take(col.data, idx),
+                                    iv.data.to(col.data.dtype)),
+                        torch.where(has, _take(col.validity(), idx),
+                                    iv.validity()),
+                        col.dictionary,
+                    )
+            else:  # fold
+                tv = S.eval_scalar(term, env, cctx).broadcast(max(n, 1))
+                g = active
+                if pred is not None:
+                    pv = S.eval_scalar(pred, env, cctx).broadcast(max(n, 1))
+                    g = g & pv.data.to(torch.bool) & pv.validity()
+                # the loop-entry value widens to the term's type, as
+                # ``jnp.result_type``; the fold sums in that type
+                common = torch.promote_types(iv.data.dtype, tv.data.dtype)
+                td = tv.data.to(common)
+                # NULL is sticky: any accumulated NULL term poisons the
+                # fold, matching per-row +/* NULL propagation
+                valid = iv.validity() & ~torch.any(g & ~tv.validity())
+                if n == 0:
+                    out = iv
+                elif op == "+":
+                    out = S.Value(iv.data.to(common)
+                                  + torch.where(g, td, 0).sum(dtype=common), valid)
+                else:  # "*"
+                    out = S.Value(iv.data.to(common)
+                                  * torch.where(g, td, 1).prod(dtype=common), valid)
+            cols[name] = _value_to_column(_scalar_value(out), 1)
+        return MaskedTable(Table(cols), self._ones(1))
+
+    def _loopscan_scan(self, node, child, init, ctx) -> MaskedTable:
+        """Order-dependent fold: the reference's ``lax.scan`` over the
+        relation's rows, as a host loop over them in order, evaluating the
+        predicated step list on one row at a time.  Masked-out rows are
+        skipped (their steps see ``__live`` false); ``__done`` makes BREAK
+        and failed guards sticky.  Each carry is cast back to its
+        loop-entry dtype after every row, as the scan's invariant carry
+        structure forces.  The rows are never batched or reordered, and
+        nothing is read back to the host: the loop's length is the
+        relation's row count, a shape."""
+        from repro_torch.loops.rewrite import DONE, LIVE
+
+        dicts = {c: col.dictionary for c, col in child.table.columns.items()}
+        col_arrays = {
+            c: (col.data, col.validity())
+            for c, col in child.table.columns.items()
+        }
+        carry = {name: (v.data, v.validity()) for name, v in init.items()}
+        dtypes = {name: d.dtype for name, (d, _) in carry.items()}
+        consts: dict = {}  # the step list's literals, made once
+        for i in range(child.num_rows):
+            vars_env = {name: S.Value(d, v) for name, (d, v) in carry.items()}
+            vars_env[LIVE] = S.Value(child.mask[i] & ~carry[DONE][0])
+            env = {
+                c: S.Value(d[i], v[i], dicts[c])
+                for c, (d, v) in col_arrays.items()
+            }
+            sctx = S.EvalContext(self, 1, ctx.params, ctx.outer, vars_env,
+                                 self.device, consts)
+            for name, expr in node.steps:
+                vars_env[name] = S.eval_scalar(expr, env, sctx)
+            carry = {}
+            for name, dtype in dtypes.items():
+                nv = _scalar_value(vars_env[name])
+                carry[name] = (nv.data.to(dtype), nv.validity())
+        cols = {
+            name: Column(carry[name][0].reshape(1), carry[name][1].reshape(1))
+            for name in node.outputs
+        }
+        return MaskedTable(Table(cols), self._ones(1))
+
     # -- scalar-subquery hooks (called from scalar.eval_scalar) -------------
     def eval_scalar_subquery(self, expr: S.ScalarSubquery, env, ctx) -> S.Value:
-        if _plan_has_outer(expr.plan):
-            raise NotImplementedError(
-                "correlated scalar subqueries are not ported yet "
-                "(ROADMAP A3, deferred part: correlated vmap apply)")
-        res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer, vars=ctx.vars)
-        return _extract_scalar(res, expr.column)
+        if not _plan_has_outer(expr.plan):
+            res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer,
+                               vars=ctx.vars)
+            return _extract_scalar(res, expr.column)
+        # correlated: vmap the whole subplan over the outer rows — one
+        # batched execution, never a loop over them
+        n = ctx.num_rows
+        names = sorted(
+            _plan_outer_refs(expr.plan) & set(env.keys() | ctx.outer.keys())
+        )
+        dicts = {}
+        cols = {}
+        for m in names:
+            v = env.get(m, ctx.outer.get(m))
+            b = v.broadcast(n)
+            cols[m] = (b.data, b.validity())
+            dicts[m] = v.dictionary
+
+        captured: dict = {}
+        sub = self._sub_executor()
+
+        def one(scalars):
+            outer = {m: S.Value(scalars[m][0], scalars[m][1], dicts[m]) for m in names}
+            outer = {**ctx.outer, **outer}
+            res = sub.execute(expr.plan, params=ctx.params, outer=outer, vars=ctx.vars)
+            v = _extract_scalar(res, expr.column)
+            captured["dict"] = v.dictionary  # host metadata
+            return v.data, v.validity()
+
+        data, valid = torch.func.vmap(one)(cols)
+        return S.Value(data, valid, captured.get("dict"))
 
     def eval_exists(self, expr: S.Exists, env, ctx) -> S.Value:
         if _plan_has_outer(expr.plan):
-            raise NotImplementedError(
-                "correlated EXISTS is not ported yet "
-                "(ROADMAP A3, deferred part: correlated vmap apply)")
+            raise _a31("correlated EXISTS")
         res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer, vars=ctx.vars)
         v = torch.any(res.mask)
         return S.Value(~v if expr.negated else v)
@@ -668,7 +838,8 @@ def _extract_scalar(res: MaskedTable, column: str | None) -> S.Value:
     c = res.table.columns[column]
     found = torch.any(res.mask)
     idx = torch.argmax(res.mask.to(torch.uint8))
-    return S.Value(c.data[idx], c.validity()[idx] & found, c.dictionary)
+    return S.Value(_take(c.data, idx), _take(c.validity(), idx) & found,
+                   c.dictionary)
 
 
 def _plan_has_outer(plan: R.RelNode) -> bool:

@@ -268,16 +268,24 @@ def test_tsql_udf_matches_reference(case, policy):
 
 @pytest.mark.parametrize("case", ["CURSOR_SUM", "PLAIN_WHILE", "CURSOR_TOTAL"])
 def test_loop_udf_froid_keeps_the_call_and_matches_reference(case):
-    """Until the loop rewrite is ported, FROID leaves a loop UDF's call in
-    the plan and runs it on the scan-mode hook; the reference rewrites
-    cursor loops to a LoopScan.  Same rows either way."""
+    """FROID rewrites a cursor loop to a LoopScan inside the calling plan,
+    as the reference does: no UdfCall is left and no row goes through the
+    scan-mode hook.  A plain WHILE has no driving relation: the call stays
+    in the plan and the hook runs it on every row of ``keys``.  Same rows
+    as the reference either way."""
     text, tables, query, params = UDF_CASES[case]
     ref, port = _pair(text, tables)
     stmt = port.prepare(query(PC), PC.FROID)
-    assert any(isinstance(e, PS.UdfCall) for n in PR.walk_plan_deep(stmt.plan)
-               for ex in n.exprs() for e in PS.walk(ex))
+    calls = any(isinstance(e, PS.UdfCall) for n in PR.walk_plan_deep(stmt.plan)
+                for ex in n.exprs() for e in PS.walk(ex))
+    loops = [n for n in PR.walk_plan_deep(stmt.plan) if isinstance(n, PR.LoopScan)]
     got = stmt.execute(params=params)
-    assert got.stats["udf_rows"] == 7  # scan mode: every row of ``keys``
+    if case == "PLAIN_WHILE":
+        assert calls and not loops
+        assert got.stats["udf_rows"] == 7  # scan mode: every row of ``keys``
+    else:
+        assert loops and not calls
+        assert "udf_rows" not in got.stats
     assert_rows(ref.execute(query(RC), RC.FROID, params=params), got, case)
 
 

@@ -114,6 +114,7 @@ against the plain version.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import gc
 import hashlib
@@ -953,32 +954,26 @@ def check_loop_plan(stmt, kind: str, label: str) -> None:
                                        if "LoopScan[" in line))
 
 
-class LoopSteps:
-    """Rows each scan-kind ``LoopScan`` steps, call by call, while in a
-    ``with`` block."""
+@contextlib.contextmanager
+def loop_steps():
+    """The rows each scan-kind ``LoopScan`` steps inside the block, call by
+    call."""
+    from repro_torch.core.executor import Executor
 
-    def __enter__(self):
-        from repro_torch.core.executor import Executor
+    orig, calls = Executor._loopscan_scan, []
 
-        self.calls: list[int] = []
-        self._orig = orig = Executor._loopscan_scan
-        calls = self.calls
+    def recording(ex, node, child, init, ctx):
+        calls.append(child.num_rows)
+        return orig(ex, node, child, init, ctx)
 
-        def recording(ex, node, child, init, ctx):
-            calls.append(child.num_rows)
-            return orig(ex, node, child, init, ctx)
-
-        Executor._loopscan_scan = recording
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.core.executor import Executor
-
-        Executor._loopscan_scan = self._orig
-        return False
+    Executor._loopscan_scan = recording
+    try:
+        yield calls
+    finally:
+        Executor._loopscan_scan = orig
 
 
-def check_loop_rows(result, expected, label: str, tol: float) -> None:
+def check_loop_rows(result, expected, label: str, tol) -> None:
     check_on_card(result, label)
     got = result.table.columns["out"].data.cpu().numpy().astype(np.float64)
     check(got.shape == expected.shape and np.all(np.isfinite(got)),
@@ -1073,7 +1068,6 @@ def cursor_phase() -> dict:
                        rtol=MODE_RTOL, atol=MODE_ATOL)
     out["oracle"] = {**oracle, "rows": rows, "calling_rows": len(keys),
                      "relagg_launches": launches}
-    out["relagg_launches"] = launches
     log(f"grouped loop output at {rows} rows: relagg launched {launches} times, "
         f"== pallas_agg off == INTERPRETED")
     del s
@@ -1089,17 +1083,17 @@ def cursor_phase() -> dict:
         if policy is C.FROID:
             check_loop_plan(stmt, "scan", f"scan kind at {rows} rows")
         cold = stmt.execute()
-        with LoopSteps() as steps:
+        with loop_steps() as steps:
             warm = stmt.execute()
         for r in (cold, warm):
             check_loop_rows(r, expected, f"scan kind at {rows} rows {policy.name}",
                             1e-4 * (1 + np.abs(expected)))
         results[policy.name] = warm.table
-        stepped = (sum(steps.calls) if policy is C.FROID
+        stepped = (sum(steps) if policy is C.FROID
                    else warm.stats["udf_rows"] * rows)
         aggify[policy.name] = {"cold_ms": cold.elapsed_s * 1e3,
                                "warm_ms": warm.elapsed_s * 1e3,
-                               "loopscan_calls": len(steps.calls),
+                               "loopscan_calls": len(steps),
                                "rows_stepped": stepped}
     check(aggify["froid"]["loopscan_calls"] == 1
           and aggify["froid"]["rows_stepped"] == rows,
@@ -2415,7 +2409,7 @@ def main() -> int:
          "launches_iterative": iterative["relagg_launches"],
          # the cursor-loop phase's grouped query over a loop UDF's output
          # (FROID, pallas_agg on), the count set to 0 just before it
-         "launches_cursor": cursor["relagg_launches"]},
+         "launches_cursor": cursor["oracle"]["relagg_launches"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

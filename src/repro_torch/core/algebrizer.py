@@ -192,8 +192,8 @@ class Algebrizer:
         return self.combine(plan, dt), env
 
     def emit_loop(self, st, computed: dict, local: dict, env: dict):
-        """Cursor-loop rewrite (Aggify / ``repro_torch.loops``): classify the loop,
-        compile it to a LoopScan over the cursor's defining query, and bind
+        """Cursor-loop rewrite (Aggify / ``repro_torch.loops``): classify the
+        loop, compile it to a LoopScan over the cursor's defining query, and bind
         each live-out variable to a ScalarSubquery over the shared node.
         Non-rewritable loops raise AlgebrizeError — the binder then leaves
         the UdfCall in place and execution falls back to the per-row

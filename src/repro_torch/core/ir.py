@@ -6,8 +6,8 @@ Mirrors the paper's supported constructs (§3.4, Table 1):
 DECLARE / SET / SELECT-assign / IF-ELSE (arbitrary nesting) / RETURN
 (single or multiple) / nested UDF calls / EXISTS / ISNULL — plus the loop
 forms the paper disabled (§4.2.1): WHILE and cursor loops.  Cursor loops
-go through the Aggify-style rewrite in the reference's ``repro/loops/``,
-which this package has not ported yet.
+go through the Aggify-style rewrite in :mod:`repro_torch.loops`; loops the
+rewrite rejects fall back to the per-row interpreter.
 
 Region construction (§4.1): a statement list splits into a hierarchy of
 *sequential* regions (maximal runs of straight-line statements) and

@@ -20,7 +20,7 @@ comparisons (= <> < <= > >=), AND/OR/NOT, parentheses, CASE WHEN ... THEN
 ... ELSE ... END, and function calls (intrinsics).  Types: INT, FLOAT,
 BIT, DATE, VARCHAR/CHAR(n).
 
-Loops (the Aggify surface — see the reference's ``repro/loops/``)::
+Loops (the Aggify surface — see :mod:`repro_torch.loops`)::
 
     WHILE (pred) BEGIN ... END                       [BREAK inside]
     DECLARE c CURSOR FOR SELECT col, ... FROM t [WHERE pred];

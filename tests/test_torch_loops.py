@@ -315,7 +315,7 @@ def test_scan_kind_steps_rows_in_order_without_host_reads(monkeypatch):
     loopscan = PC.Executor._loopscan_scan
 
     def recording(self, node, child, init, ctx):
-        seen.append((child.num_rows, child.table.columns["val"].data.clone()))
+        seen.append(child.num_rows)
         return loopscan(self, node, child, init, ctx)
 
     monkeypatch.setattr(PC.Executor, "_loopscan_scan", recording)
@@ -336,7 +336,7 @@ def test_scan_kind_steps_rows_in_order_without_host_reads(monkeypatch):
         for attr in ("item", "__bool__", "__int__", "__float__", "tolist"):
             m.setattr(torch.Tensor, attr, refuse)
         res = PC.Executor(port.catalog, device="cpu").execute(plan)
-    assert len(seen) == 1 and seen[0][0] == 11  # one scan for all 7 keys
+    assert seen == [11]  # one scan of the 11 rows for all 7 keys
     n_steps = len(next(n for n in PR.walk_plan_deep(plan)
                        if isinstance(n, PR.LoopScan)).steps)
     vals = tables["facts"]["val"]

@@ -20,7 +20,10 @@ script exits non-zero:
    relagg on the shared-memory and the global-atomics path, with an empty
    mask and with out-of-range group ids, its sums also within 1 float32
    ulp of the float64 sum and, on the shared-memory path, bit-identical
-   across launches; flash_attention causal and not,
+   across launches; relagg with a batch axis (B = 1, 3, 16 and 70,000,
+   inputs batched or shared with stride 0) against B unbatched launches
+   (bit-identical on the shared-memory path) and its batched plain
+   version; flash_attention causal and not,
    with windows (1,024 keys at D = 96 and 256), GQA and MHA, a decode
    offset, ragged lengths, rows with no valid key, bf16 (the tensor-core
    kernel) and float32 (the CUDA-core one), head dims 16/64/96/128/256;
@@ -55,7 +58,16 @@ script exits non-zero:
    ``facts`` rows, FROID's plans checked, with relagg launching in a
    grouped query over a loop UDF's output; FROID against HEKATON at 3,000
    rows (scan kind), FROID's plan also with no host sync; and the reduce
-   kind at 6,000,000 rows (FROID);
+   kind at 6,000,000 rows (FROID).  Then correlated subqueries, each one
+   ``torch.func.vmap`` over the outer rows: the decorrelation oracle's
+   shapes (5 kinds x 4 key shapes, the five aggregates, a grouped body
+   with relagg on and off) over 64 ``keys`` and 20,000 ``facts`` rows,
+   FROID == the per-row plan == the CPU; and at SF 1, for 16 ``orders``
+   rows over all of ``lineitem``, a SUM, the same grouped by
+   ``l_shipmode`` (relagg launching batched; also with ``pallas_agg``
+   off) and an EXISTS under a non-equi correlation, each against its
+   float64 answer and once with no host sync, and relagg's batched call
+   at the grouped statement's inputs timed;
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -366,7 +378,117 @@ def kernel_phase() -> dict:
             f"{repeat['max_ulps']} ulps off the float64 sum, repeat bit-identical "
             f"{repeat['bit_identical']})")
     check(paths == {"shared", "global"}, f"kernel paths covered: {sorted(paths)}")
-    return {"cases": len(cases), "max_abs_err": max_err}
+    batched = relagg_batched_cases()
+    return {"cases": len(cases) + batched["cases"],
+            "max_abs_err": max(max_err, batched["max_abs_err"])}
+
+
+def f64_batched_reference(gid, mask, vals, groups: int):
+    """(sums, sums of |v|, counts) per item and group in float64, on the
+    card: gid and mask (B, n), vals (B, n, k)."""
+    import torch
+
+    B, n, k = vals.shape
+    sel = mask & (gid >= 0) & (gid < groups)
+    base = torch.arange(B, device=vals.device).reshape(B, 1) * groups
+    slot = torch.where(sel, gid.to(torch.int64) + base, B * groups).reshape(-1)
+    v = torch.where(sel[..., None], vals.to(torch.float64), 0.0).reshape(B * n, k)
+
+    def add(x):
+        out = torch.zeros((B * groups + 1,) + x.shape[1:], dtype=torch.float64,
+                          device=vals.device).index_add_(0, slot, x)
+        return out[:-1].reshape((B, groups) + x.shape[1:]).cpu().numpy()
+
+    return add(v), add(v.abs()), add(sel.reshape(-1).to(torch.float64))
+
+
+#: the batched cases: (n, G, k, B, whether gid and vals are batched or one
+#: item's expanded with stride 0, as a correlated subquery's inner columns
+#: are).  The unbatched phase's n and G (at 6,000,000 rows G = 7 and
+#: 150,000 only: the float64 reference's atomics on a few groups take
+#: seconds there); B = 70,000 crosses ``gridDim.y``'s 65,535 on both paths,
+#: and G = 150,000 at B = 300 takes the global path's scratch over its
+#: budget (three chunks)
+RELAGG_BATCHED = (
+    [(n, G, 4 if G < 150_000 else 1, B, B == 3)
+     for n in (64, 257, 4096, 6_000_000) for G in (1, 7, 25, 130, 150_000)
+     for B in (1, 3, 16) if n < 6_000_000 or G in (7, 150_000)]
+    + [(64, G, k, 70_000, both) for G, k in ((7, 4), (1000, 1)) for both in (False, True)]
+    + [(1000, 150_000, 1, 300, False)])
+
+
+def relagg_batched_cases() -> dict:
+    """relagg's batched kernel (``relagg_cuda_batched``) on the card, each
+    case against B unbatched launches on the same items' inputs (sums the
+    same bits on the shared path, within 1e-4 x the group's sum of |v|
+    on the global one; counts exact), against the batched plain version
+    (counts exact, sums within that bound) and against the float64 sums
+    (the same bound)."""
+    import torch
+
+    from repro_torch.kernels.relagg.ref import grouped_aggregate_batched_ref
+    from repro_torch.kernels.relagg.relagg import (
+        _device, _lib, batch_chunk, launch_plan, relagg_cuda, relagg_cuda_batched, uses_shared)
+
+    max_err, paths, chunked = 0.0, set(), set()
+    for i, (n, G, k, B, batched_inputs) in enumerate(RELAGG_BATCHED):
+        t0 = time.perf_counter()
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        mask = torch.rand((B, n), generator=g, device="cuda") < 0.6
+        if batched_inputs:
+            gid = torch.randint(-1, G + 1, (B, n), generator=g, device="cuda",
+                                dtype=torch.int32)
+            vals = torch.randn((B, n, k), generator=g, device="cuda")
+        else:
+            gid = torch.randint(-1, G + 1, (n,), generator=g, device="cuda",
+                                dtype=torch.int32).expand(B, n)
+            vals = torch.randn((n, k), generator=g, device="cuda").expand(B, n, k)
+        out = relagg_cuda_batched(gid, mask, vals, G)
+        shared = uses_shared(G, k)
+        path = "shared" if shared else "global"
+        paths.add(path)
+        dev = _device(_lib(), torch.cuda.current_device())
+        chunk = batch_chunk(B, launch_plan(dev.sm_count, dev.smem_budget, n, G, k))
+        if chunk < B:
+            chunked.add(path)
+        label = (f"relagg batched B={B} n={n} G={G} k={k} "
+                 f"{'all batched' if batched_inputs else 'gid, vals stride 0'} [{path}, "
+                 f"{-(-B // chunk)} launches]")
+        one = [relagg_cuda(*item, G) for item in zip(gid.unbind(0), mask.unbind(0),
+                                                      vals.unbind(0))]
+        us = torch.stack([s for s, _ in one]).cpu().numpy()
+        uc = torch.stack([c for _, c in one]).cpu().numpy()
+        del one
+        ks, kc = out[..., :k].cpu().numpy(), out[..., k].cpu().numpy()
+        ps, pc = (t.cpu().numpy() for t in grouped_aggregate_batched_ref(gid, mask, vals, G))
+        ref_sums, absum, ref_counts = f64_batched_reference(gid, mask, vals, G)
+        tol = 1e-4 * absum
+        check(np.array_equal(kc, uc), f"{label}: counts differ from {B} unbatched launches")
+        check(np.array_equal(kc, pc), f"{label}: counts differ from the plain version")
+        check(np.array_equal(kc, ref_counts.astype(np.float32)),
+              f"{label}: counts differ from the float64 count")
+        if shared:
+            check(np.array_equal(ks.view(np.uint32), us.view(np.uint32)),
+                  f"{label}: sums not bit-identical to {B} unbatched launches")
+        else:
+            check((np.abs(ks.astype(np.float64) - us) <= tol).all(),
+                  f"{label}: sums off {B} unbatched launches")
+        err_plain = np.abs(ks.astype(np.float64) - ps)
+        check((err_plain <= tol).all(), f"{label}: sums off the plain version, worst "
+              f"{float((err_plain - tol).max())} over the bound")
+        check((np.abs(ks.astype(np.float64) - ref_sums) <= tol).all(),
+              f"{label}: sums off the float64 sum")
+        max_err = max(max_err, float(err_plain.max(initial=0.0)))
+        log(f"{label}: ok (max |kernel - plain| {float(err_plain.max(initial=0.0)):.3g}"
+            f"{', bit-identical to the unbatched launches' if shared else ''}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+    empty = relagg_cuda_batched(torch.zeros((0, 5), dtype=torch.int32, device="cuda"),
+                                torch.zeros((0, 5), dtype=torch.bool, device="cuda"),
+                                torch.zeros((0, 5, 2), device="cuda"), 7)
+    check(tuple(empty.shape) == (0, 7, 3), f"B = 0: output {tuple(empty.shape)}")
+    check(paths == {"shared", "global"} and chunked == {"shared", "global"},
+          f"batched relagg: paths {sorted(paths)}, chunked {sorted(chunked)}")
+    return {"cases": len(RELAGG_BATCHED) + 1, "max_abs_err": max_err}
 
 
 # ---------------------------------------------------------------------------
@@ -392,13 +514,13 @@ def compare_tables(a, b, label: str, rtol: float, atol: float) -> None:
         check(ok, f"{label}: values of {name}")
 
 
-def run_statement(session, query, policy):
-    """Prepare, execute cold, then warm ``WARM_ROUNDS`` times."""
+def run_statement(session, query, policy, rounds: int = WARM_ROUNDS):
+    """Prepare, execute cold, then warm ``rounds`` times."""
     stmt = session.prepare(query, policy)
     cold = stmt.execute()
     check(not cold.cache_hit, "cold call reported a cache hit")
     warm = []
-    for _ in range(WARM_ROUNDS):
+    for _ in range(rounds):
         r = stmt.execute()
         check(r.cache_hit, "warm call missed the cache")
         warm.append(r.elapsed_s * 1e3)
@@ -1152,6 +1274,417 @@ def cursor_phase() -> dict:
         f"({', '.join(f'{w:.2f}' for w in warm)})")
     del s
     torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# correlated subqueries (torch.func.vmap over the outer rows)
+# ---------------------------------------------------------------------------
+
+#: the decorrelation oracle's shapes (``tests/conformance_util.py:741-775``):
+#: kinds, correlation key shapes and the scalar subquery's aggregates
+DECORR_KINDS = ("agg", "exists", "not_exists", "semi", "anti")
+DECORR_KEYSHAPES = ("direct", "expr", "multi", "nonequi")
+DECORR_AGGS = ("sum", "min", "max", "avg", "count")
+#: the oracle's tables on the card: ``keys`` and ``facts`` rows
+DECORR_ROWS = {"keys": 64, "facts": 20_000}
+#: ``orders`` rows the SF-1 correlated queries run for
+CORRELATED_OUTER_ROWS = 16
+
+
+def decorr_query(kind: str, keyshape: str, agg: str = "sum", grouped: bool = False):
+    """A copy of ``tests/conformance_util.py``'s ``decorr_query``
+    (``:745-775``) on the port: one correlated statement over ``keys`` and
+    ``facts``.  ``grouped`` (kind ``agg``): the subquery sums ``val`` per
+    ``qty`` and returns the largest group sum."""
+    import repro_torch.core as C
+    from repro_torch.core import scalar as S
+
+    outer = C.scan("keys")
+    if keyshape == "direct":
+        pred = C.col("fk") == S.Outer("k")
+    elif keyshape == "expr":
+        pred = C.col("fk") == S.Outer("k") + C.lit(3)
+    elif keyshape == "multi":
+        outer = outer.compute(kk=C.col("k") + C.lit(1))
+        pred = (C.col("fk") == S.Outer("k")) & (C.col("qty") == S.Outer("kk"))
+    else:  # nonequi: not decorrelatable, the per-row apply stays
+        pred = C.col("fk") <= S.Outer("k")
+    inner = C.scan("facts").filter(pred & (C.col("qty") >= C.param("minq")))
+    if kind == "agg":
+        if grouped:
+            body = (inner.group_by("qty", capacity=9, g=C.sum_(C.col("val")))
+                    .agg(s=C.max_(C.col("g"))))
+        else:
+            body = inner.agg(s={"sum": C.sum_, "min": C.min_, "max": C.max_, "avg": C.avg_,
+                                "count": C.count_}[agg](C.col("val")))
+        return outer.compute(out=C.scalar_subquery(body, "s")).project("k", "out")
+    if kind == "exists":
+        return outer.compute(out=C.exists(inner)).project("k", "out")
+    if kind == "not_exists":
+        return outer.compute(out=C.not_exists(inner)).project("k", "out")
+    if kind == "semi":
+        return outer.filter(C.exists(inner)).compute(out=C.col("k") * 2.0).project("k", "out")
+    return outer.filter(C.not_exists(inner)).compute(out=C.col("k") * 2.0).project("k", "out")
+
+
+def has_correlated_subquery(plan) -> bool:
+    """Whether a subquery anywhere in ``plan`` still refers to outer-row
+    columns: a per-row apply the decorrelation left in place."""
+    from repro_torch.core import relalg as R
+    from repro_torch.core import scalar as S
+    from repro_torch.core.executor import _plan_outer_refs
+
+    return any(isinstance(e, (S.ScalarSubquery, S.Exists)) and _plan_outer_refs(e.plan)
+               for n in R.walk_plan_deep(plan) for ex in n.exprs() for e in S.walk(ex))
+
+
+def per_row_plan(session, q):
+    """The statement planned with the decorrelation rules off: the per-row
+    apply (``tests/conformance_util.py``'s ``_per_row_reference``, ``:792``,
+    on the port)."""
+    from repro_torch.core import optimizer as O
+    from repro_torch.core import relalg as R
+
+    wanted = R.output_columns(q.node, session.catalog)
+    rules = tuple(r for r in O.DEFAULT_RULES
+                  if r not in (O.decorrelate_in_computes, O.decorrelate_filters))
+    plan = O.optimize(q.node, session.catalog, required=set(wanted), rules=rules)
+    if R.output_columns(plan, session.catalog) != wanted:
+        plan = R.Project(plan, wanted)
+    check(has_correlated_subquery(plan), "the per-row plan lost its correlated subquery")
+    return plan
+
+
+def run_plan(session, plan, params: dict, pallas_agg: bool):
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.session import _param_value
+
+    pv = {n: _param_value(v, session.device) for n, v in params.items()}
+    return Executor(session.catalog, use_pallas_agg=pallas_agg,
+                    device=session.device).execute(plan, params=pv)
+
+
+def compare_masked(a, b, label: str, atol: float, rtol: float = 2e-3) -> None:
+    """Two MaskedTables equal as the decorrelation oracle holds them
+    (``conformance_util.assert_rows_equal``): masks and, on surviving rows,
+    validity exactly; values where valid within ``rtol``/``atol``."""
+    am, bm = a.mask.cpu().numpy(), b.mask.cpu().numpy()
+    check(np.array_equal(am, bm), f"{label}: masks differ")
+    check(sorted(a.table.names()) == sorted(b.table.names()), f"{label}: columns differ")
+    for name in a.table.names():
+        ca, cb = a.table.columns[name], b.table.columns[name]
+        va, vb = ca.validity().cpu().numpy(), cb.validity().cpu().numpy()
+        check(np.array_equal(va[am], vb[am]), f"{label}: validity of {name}")
+        live = am & va
+        xa = ca.data.cpu().numpy().astype(np.float64)[live]
+        xb = cb.data.cpu().numpy().astype(np.float64)[live]
+        check(np.allclose(xb, xa, rtol=rtol, atol=atol),
+              f"{label}: {name} {xb.tolist()} vs {xa.tolist()}")
+
+
+def decorr_oracle_on_card() -> dict:
+    """The decorrelation oracle's shapes on the card: every kind and key
+    shape with SUM, the five aggregates for ``agg``, and a grouped body,
+    with ``pallas_agg`` off and on, for ``minq`` 0, 4 and 9.  FROID
+    (decorrelated where the rule applies) == the per-row plan on the card
+    == FROID on the CPU.  Floats within rtol 2e-3 (the harness's) and an
+    atol of 1e-3 + 1e-6 x the sum of |val| over ``facts`` (a float32 sum's
+    drift bound, as the reduce kind's)."""
+    import repro_torch.core as C
+    from repro_torch.kernels.relagg import ops
+
+    rng = np.random.default_rng(0)
+    n = DECORR_ROWS["facts"]
+    facts = dict(fk=rng.integers(0, 7, n),
+                 val=np.round(rng.uniform(-10, 10, n), 2).astype(np.float32),
+                 qty=rng.integers(0, 9, n))
+    keys = rng.integers(-2, 9, DECORR_ROWS["keys"])
+    sessions = {}
+    for device in (None, "cpu"):
+        s = sessions[device] = C.Session(device=device)
+        s.create_table("facts", **facts)
+        s.create_table("keys", k=keys)
+    atol = 1e-3 + 1e-6 * float(np.abs(facts["val"]).sum(dtype=np.float64))
+    shapes = [(kind, ks, "sum", False) for kind in DECORR_KINDS for ks in DECORR_KEYSHAPES]
+    shapes += [("agg", ks, agg, False) for ks in ("direct", "nonequi")
+               for agg in DECORR_AGGS if agg != "sum"]
+    shapes += [("agg", ks, "sum", True) for ks in ("direct", "nonequi")]
+    card, cpu = sessions[None], sessions["cpu"]
+    t0 = time.perf_counter()
+    runs = 0
+    ops.BATCHED_LAUNCHES = 0
+    for kind, ks, agg, grouped in shapes:
+        label = f"decorr {kind}/{ks}/{agg}{'/grouped' if grouped else ''}"
+        q = decorr_query(kind, ks, agg, grouped)
+        for pallas in ((False, True) if grouped else (False,)):
+            policy = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True) if pallas \
+                else C.FROID
+            froid, froid_cpu = card.prepare(q, policy), cpu.prepare(q, policy)
+            check(has_correlated_subquery(froid.plan) == (ks == "nonequi" or grouped),
+                  f"{label}: FROID decorrelated {'nothing' if ks != 'nonequi' else 'it'}")
+            plan = per_row_plan(card, q)
+            for minq in (0, 4, 9):
+                p = {"minq": minq}
+                got = froid.execute(params=p)
+                check_on_card(got, label)
+                compare_masked(run_plan(card, plan, p, pallas), got.masked,
+                               f"{label} minq={minq} FROID vs per-row", atol)
+                compare_masked(froid_cpu.execute(params=p).masked, got.masked,
+                               f"{label} minq={minq} card vs CPU", atol)
+                runs += 1
+    check(ops.BATCHED_LAUNCHES > 0, "decorrelation oracle: the grouped body with pallas_agg "
+          "on did not launch relagg batched")
+    out = {"shapes": len(shapes), "runs": runs, "keys": DECORR_ROWS["keys"], "facts": n,
+           "relagg_batched_launches": ops.BATCHED_LAUNCHES,
+           "seconds": time.perf_counter() - t0}
+    log(f"decorrelation oracle on the card: {len(shapes)} shapes x 3 minq ({runs} runs, "
+        f"{n} facts rows, {len(keys)} keys rows): FROID == per-row == CPU; relagg batched "
+        f"launches {ops.BATCHED_LAUNCHES}; {out['seconds']:.1f} s")
+    return out
+
+
+def correlated_queries():
+    """The SF-1 correlated statements over ``lineitem`` for each row of
+    ``orders16``, a non-equi correlation (``l_shipdate <= o_orderdate``)
+    that no rule decorrelates: (a) a full-table SUM of the discounted
+    price, (b) the same grouped by ``l_shipmode`` (7 groups), then the
+    largest group's sum, (c) EXISTS."""
+    import repro_torch.core as C
+    from repro_torch.core import scalar as S
+
+    price = C.col("l_extendedprice") * (C.lit(1.0) - C.col("l_discount"))
+    inner = C.scan("lineitem").filter(C.col("l_shipdate") <= S.Outer("o_orderdate"))
+    outer = C.scan("orders16")
+    return {
+        "full_agg": outer.compute(out=C.scalar_subquery(inner.agg(s=C.sum_(price)), "s")),
+        "grouped": outer.compute(out=C.scalar_subquery(
+            inner.group_by("l_shipmode", g=C.sum_(price)).agg(s=C.max_(C.col("g"))), "s")),
+        "exists": outer.compute(out=C.exists(inner)),
+    }
+
+
+def correlated_expected(session, dates):
+    """Each outer row's answers in float64 on the host: (a)'s sum, (b)'s
+    largest group sum (NaN where no row qualifies), (c)'s EXISTS, and the
+    tolerance 1e-6 x the sum of |v| the row selects + 1e-3 (the reduce
+    kind's)."""
+    li = session.catalog["lineitem"].columns
+    ship = li["l_shipdate"].data.cpu().numpy()
+    v = (li["l_extendedprice"].data.cpu().numpy().astype(np.float64)
+         * (1.0 - li["l_discount"].data.cpu().numpy().astype(np.float64)))
+    mode = li["l_shipmode"].data.cpu().numpy()
+    groups = len(li["l_shipmode"].dictionary)
+    out = {"full_agg": [], "grouped": [], "exists": [], "tol": []}
+    for d in dates:
+        sel = ship <= d
+        out["full_agg"].append(v[sel].sum())
+        present = np.bincount(mode[sel], minlength=groups) > 0
+        sums = np.bincount(mode[sel], weights=v[sel], minlength=groups)
+        out["grouped"].append(sums[present].max() if present.any() else np.nan)
+        out["exists"].append(bool(sel.any()))
+        out["tol"].append(1e-6 * np.abs(v[sel]).sum() + 1e-3)
+    return {k: np.asarray(x) for k, x in out.items()}
+
+
+def check_correlated(masked, name: str, expected, label: str) -> None:
+    """A correlated statement's result (a MaskedTable, every outer row kept)
+    against :func:`correlated_expected`: validity and EXISTS exactly, sums
+    within the tolerance."""
+    check(bool(masked.mask.all()), f"{label}: an outer row was masked out")
+    col = masked.table.columns["out"]
+    data = col.data.cpu().numpy()
+    valid = col.validity().cpu().numpy()
+    want = expected[name]
+    if name == "exists":
+        check(np.array_equal(data, want) and valid.all(), f"{label}: {data.tolist()} vs "
+              f"{want.tolist()}")
+        return
+    has = ~np.isnan(want) if name == "grouped" else expected["exists"]
+    check(np.array_equal(valid, has), f"{label}: validity {valid.tolist()}")
+    err = np.abs(data.astype(np.float64)[has] - want[has])
+    check(bool((err <= expected["tol"][has]).all()) and np.isfinite(data[has]).all(),
+          f"{label}: {data[has].tolist()} vs {want[has].tolist()}")
+
+
+def time_relagg_batched(args, expected_groups: int) -> dict:
+    """relagg's batched kernel at the inputs (b) handed it: checked against
+    the plain batched version and the float64 sums, then timed in turns
+    with it (plain, kernel, kernel, plain) and beside ``index_add_`` on
+    the same inputs.  Two bounds: ``bound_ms`` counts each input byte
+    once (the whole batched mask; gid where any item's mask is set and
+    vals where any item selects a row, since every item reads one stored
+    copy; the output), ``bound_per_item_ms`` what B unbatched calls
+    would read (each item's mask, gid where its mask is set, vals of its
+    selected rows), which a stride-0 input costs unless L2 holds it."""
+    import torch
+
+    from repro_torch.kernels.relagg.ref import grouped_aggregate_batched_ref
+    from repro_torch.kernels.relagg.relagg import relagg_cuda_batched, uses_shared
+
+    gid, mask, vals, G = args
+    B, n, k = vals.shape
+    check(G == expected_groups, f"relagg batched at (b): G = {G}")
+    out = relagg_cuda_batched(gid, mask, vals, G)
+    ps, pc = grouped_aggregate_batched_ref(gid, mask, vals, G)
+    sel = mask & (gid >= 0) & (gid < G)
+    err, worst = 0.0, 0.0
+    for b in range(B):
+        ref_sums, absum, ref_counts = f64_reference(gid[b], mask[b], vals[b], G)
+        kc = out[b, :, k].cpu().numpy()
+        ks = out[b, :, :k].cpu().numpy().astype(np.float64)
+        check(np.array_equal(kc, pc[b].cpu().numpy())
+              and np.array_equal(kc, ref_counts.astype(np.float32)),
+              f"relagg batched at (b), item {b}: counts differ")
+        e = np.abs(ks - ps[b].cpu().numpy())
+        check((e <= 1e-4 * absum).all() and (np.abs(ks - ref_sums) <= 1e-4 * absum).all(),
+              f"relagg batched at (b), item {b}: sums off the plain version or float64")
+        err = max(err, float(e.max(initial=0.0)))
+        worst = max(worst, float(np.max(e / np.maximum(absum, 1e-30), initial=0.0)))
+    slot = torch.where(sel, gid.to(torch.int64)
+                       + torch.arange(B, device=gid.device).reshape(B, 1) * G, 0).reshape(-1)
+    src = torch.cat([torch.where(sel[..., None], vals, 0.0), sel[..., None].float()],
+                    -1).reshape(B * n, k + 1)
+
+    def library():
+        return torch.zeros((B * G, k + 1), device=vals.device).index_add_(0, slot, src)
+
+    def kernel():
+        return relagg_cuda_batched(gid, mask, vals, G)
+
+    def plain():
+        return grouped_aggregate_batched_ref(gid, mask, vals, G)
+
+    p1 = cuda_ms(plain, reps=3, warmup=1)
+    k1, k2 = cuda_ms(kernel), cuda_ms(kernel)
+    p2 = cuda_ms(plain, reps=3, warmup=1)
+    lib_ms = cuda_ms(library, reps=3, warmup=1)
+    split = relagg_split(kernel)
+    set_rows = mask.sum(1)
+    any_set = mask.any(0)
+    any_sel = sel.any(0)
+    out_bytes = B * G * (k + 1) * 4
+    once = B * n + int(any_set.sum()) * 4 + int(any_sel.sum()) * 4 * k + out_bytes
+    per_item = B * n + int(set_rows.sum()) * 4 + int(sel.sum()) * 4 * k + out_bytes
+    ops_count = int(sel.sum()) * (k + 1)
+    bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
+    bound_once_ms = once / HBM_BYTES_PER_S * 1e3
+    return {
+        "B": B, "n": n, "groups": G, "k": k, "path": "shared" if uses_shared(G, k) else "global",
+        "selected": int(sel.sum()), "mask_set": int(set_rows.sum()),
+        "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+        "bound_ms": max(bound_once_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_once_ms >= bound_ops_ms else "operations",
+        "bytes": once, "bytes_per_item": per_item,
+        "bound_per_item_ms": max(per_item / HBM_BYTES_PER_S * 1e3, bound_ops_ms),
+        "max_abs_err": err, "max_err_over_abs_sum": worst,
+        "device_ms": split["device_ms"], "host_ms_per_call": split["host_ms_per_call"],
+        "launches_per_call": split["launches_per_call"],
+    }
+
+
+def correlated_phase(full) -> dict:
+    """Correlated subqueries on the card, each one ``torch.func.vmap`` of
+    its subplan over the outer rows.  (1) The decorrelation oracle's shapes
+    (:func:`decorr_oracle_on_card`).  (2) At SF 1, over ``lineitem``'s
+    6,000,000 rows for 16 ``orders`` rows (dates spread from the earliest
+    to the latest): :func:`correlated_queries` under FROID, (b) with
+    ``pallas_agg`` on (relagg launches batched: ``BATCHED_LAUNCHES`` read
+    before and after) and off, each held to its float64 answer; warm ms;
+    one warm run of each under ``torch.cuda.set_sync_debug_mode("error")``;
+    relagg's batched call at (b)'s inputs timed (:func:`time_relagg_batched`)."""
+    import torch
+
+    import repro_torch.core as C
+    from repro_torch.core.executor import Executor
+    from repro_torch.kernels.relagg import ops
+    from repro_torch.kernels.relagg import relagg as binding
+
+    t0 = time.perf_counter()
+    out = {"oracle": decorr_oracle_on_card()}
+    orders = full.catalog["orders"].columns
+    odate = orders["o_orderdate"].data.cpu().numpy()
+    pick = np.argsort(odate, kind="stable")[
+        np.linspace(0, len(odate) - 1, CORRELATED_OUTER_ROWS).astype(np.int64)]
+    full.create_table("orders16", o_orderkey=orders["o_orderkey"].data.cpu().numpy()[pick],
+                      o_orderdate=odate[pick])
+    expected = correlated_expected(full, odate[pick])
+    check(not expected["exists"].all() and expected["exists"].any(),
+          "the 16 outer rows should hold an EXISTS of each value")
+    relagg_on = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    queries = correlated_queries()
+    sf1: dict = {"outer_rows": CORRELATED_OUTER_ROWS,
+                 "lineitem_rows": full.catalog["lineitem"].num_rows}
+    for name, q in queries.items():
+        for label, policy, rounds in (("on", relagg_on, WARM_ROUNDS), ("off", C.FROID, 2)):
+            if name != "grouped" and label == "off":
+                continue
+            check(has_correlated_subquery(full.prepare(q, policy).plan),
+                  f"{name}: FROID decorrelated the non-equi correlation")
+            before = (ops.LAUNCHES, ops.BATCHED_LAUNCHES)
+            ops.BATCHED_LAUNCHES = 0  # counts this statement's runs only
+            cold, warm_ms = run_statement(full, q, policy, rounds)
+            batched = ops.BATCHED_LAUNCHES
+            key = name if name != "grouped" else f"grouped/relagg_{label}"
+            tag = f"correlated {key} at SF 1"
+            check_on_card(cold, tag)
+            check_correlated(cold.masked, name, expected, tag)
+            sf1[key] = {"cold_ms": cold.elapsed_s * 1e3, "warm_ms": warm_ms,
+                        "relagg_batched_launches": batched,
+                        "relagg_launches": ops.LAUNCHES - before[0]}
+            if name == "grouped":
+                check((batched > 0) == (label == "on") and batched == ops.LAUNCHES - before[0],
+                      f"{tag}: relagg batched launches {batched}, all {ops.LAUNCHES - before[0]}")
+            log(f"{tag}: == float64 per outer row; warm {warm_ms:.2f} ms (cold "
+                f"{cold.elapsed_s * 1e3:.1f}), relagg batched launches {batched}")
+    # the warm runs through the executor alone, under the sync check
+    for name, q in queries.items():
+        pallas = name == "grouped"
+        plan = full.prepare(q, relagg_on if pallas else C.FROID).plan
+        ex = Executor(full.catalog, use_pallas_agg=pallas, device=full.device)
+        ex.execute(plan)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = ex.execute(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host_ms = (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t1) * 1e3
+        check_correlated(res, name, expected, f"correlated {name} under the sync check")
+        sf1[f"{name}/sync_check"] = {"host_ms": host_ms, "total_ms": total_ms}
+        log(f"correlated {name} at SF 1 under set_sync_debug_mode('error'): no host sync; "
+            f"issued in {host_ms:.2f} ms, done in {total_ms:.2f} ms")
+    # relagg's batched call at (b)'s inputs
+    captured = []
+    launch = binding.relagg_cuda_batched
+
+    def recording(gid, mask, vals, num_groups):
+        captured.append((gid, mask, vals, num_groups))
+        return launch(gid, mask, vals, num_groups)
+
+    binding.relagg_cuda_batched = recording
+    try:
+        full.execute(queries["grouped"], relagg_on)
+    finally:
+        binding.relagg_cuda_batched = launch
+    check(len(captured) == 1, f"(b): {len(captured)} batched relagg calls")
+    t = sf1["relagg_batched"] = time_relagg_batched(
+        captured[0], len(full.catalog["lineitem"].columns["l_shipmode"].dictionary))
+    log(f"relagg batched at (b)'s inputs (B={t['B']}, n={t['n']}, G={t['groups']}, "
+        f"k={t['k']}, {t['path']} path, {t['selected']} rows selected over the items): == "
+        f"plain (max abs err {t['max_abs_err']:.3g}, {t['max_err_over_abs_sum']:.3g} of its "
+        f"group's sum of |v|); kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}, host "
+        f"{t['host_ms_per_call']:.4f}), plain {t['plain_ms']:.3f} ms, index_add_ "
+        f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms ({t['bytes'] / 1e6:.1f} MB "
+        f"each byte once; {t['bound_per_item_ms']:.5f} ms, {t['bytes_per_item'] / 1e6:.1f} "
+        f"MB, item by item)")
+    del captured
+    out["sf1"] = sf1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"correlated phase ok in {out['seconds']:.1f} s")
     return out
 
 
@@ -2348,6 +2881,7 @@ def main() -> int:
     t1 = time.perf_counter()
     cursor = cursor_phase()
     log(f"cursor-loop phase ok in {time.perf_counter() - t1:.1f} s")
+    correlated = correlated_phase(session)
     del session
     gc.collect()
     torch.cuda.empty_cache()
@@ -2389,7 +2923,8 @@ def main() -> int:
     log(f"LM cross-device phase ok in {time.perf_counter() - t0:.1f} s")
 
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
-                    "scan_sync": scan_sync, "cursor": cursor, "relagg_q5": q5,
+                    "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
+                    "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2409,7 +2944,14 @@ def main() -> int:
          "launches_iterative": iterative["relagg_launches"],
          # the cursor-loop phase's grouped query over a loop UDF's output
          # (FROID, pallas_agg on), the count set to 0 just before it
-         "launches_cursor": cursor["oracle"]["relagg_launches"]},
+         "launches_cursor": cursor["oracle"]["relagg_launches"],
+         # the correlated phase's (b) at SF 1 (FROID, pallas_agg on): the
+         # batched launches, the count set to 0 just before it, and the
+         # batched call's times at (b)'s inputs
+         "launches_correlated": correlated["sf1"]["grouped/relagg_on"]["relagg_batched_launches"],
+         "correlated": {key: correlated["sf1"]["relagg_batched"][key] for key in (
+             "B", "n", "groups", "k", "path", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "bound_per_item_ms", "library_ms", "max_abs_err")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

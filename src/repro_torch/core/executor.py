@@ -7,19 +7,21 @@ executor, on torch tensors.
   operator reads a device value back to the host (no ``.item()``), so a
   plan's kernels queue on the device without host syncs.
 * **Joins** — sort + ``searchsorted`` on the key-unique build side.
-* **Group-by** — sort-based segmenting with ``index_add_`` /
-  ``scatter_reduce_`` into a static group capacity, the stats-driven dense
+* **Group-by** — sort-based segmenting with ``index_add`` /
+  ``scatter_reduce`` into a static group capacity, the stats-driven dense
   key path, or the hand-written relagg kernel (``policy.pallas_agg``).
 * **CSE for free** — node results are memoized per execution.
 * **Rewritten cursor loops** (``LoopScan``, reference ``:673-784``) — the
   reduce kind is a masked sum/product over the relation; the scan kind
   steps the relation's rows in order on the host, one predicated step
   list a row, and makes no host sync.
-* **Correlated scalar subqueries** (reference ``:787-816``) —
-  ``torch.func.vmap`` of the subplan over the outer rows; no loop over
-  them.  An operator that cannot batch raises ``NotImplementedError``
-  naming ROADMAP A3.1, as do the correlated Apply over a general subplan
-  (the reference's ``_exec_vmap_apply``) and the correlated EXISTS.
+* **Correlated subqueries** — the scalar subquery (reference
+  ``:787-816``), the EXISTS (``:819-845``) and the Apply over a general
+  subplan (``_exec_vmap_apply``, ``:355-404``) are each one
+  ``torch.func.vmap`` of the subplan over the outer rows, never a loop
+  over them.  Every operator inside batches: the segment sums add out of
+  place, and relagg's wrapper launches its batched kernel (its plain
+  batched version on the CPU).
 """
 from __future__ import annotations
 
@@ -81,15 +83,27 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, idx.reshape(1)).reshape(x.shape[1:])
 
 
-def _batched(*tensors: torch.Tensor) -> bool:
-    """True when a tensor carries a ``torch.func.vmap`` batch axis."""
-    return any(torch._C._functorch.is_batchedtensor(t) for t in tensors)
+def _first_selected(res: "MaskedTable", col: Column) -> tuple[torch.Tensor, torch.Tensor]:
+    """``col``'s value and validity at ``res``'s first selected row, NULL
+    where none is selected.  A relation of no rows gives a NULL (the
+    reference's ``argmax`` raises on it)."""
+    if res.num_rows == 0:
+        zero = torch.zeros(col.data.shape[1:], dtype=col.data.dtype, device=col.data.device)
+        return zero, torch.zeros((), dtype=torch.bool, device=col.data.device)
+    idx = torch.argmax(res.mask.to(torch.uint8))  # argmax refuses bool
+    return _take(col.data, idx), _take(col.validity(), idx) & torch.any(res.mask)
 
 
-def _a31(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A3.1: correlated Apply, "
-        "EXISTS and GroupAgg under torch.func.vmap)")
+def _vmap_rows(fn: Callable, args: dict, n: int):
+    """``torch.func.vmap(fn)(args)`` over ``n`` rows.  At ``n = 0`` functorch
+    fails wherever a batched 0-d tensor meets an unbatched one (its
+    scalar-tensor path selects item 0 of the empty batch), so ``fn`` runs
+    on one row of zeros and none of its output is kept."""
+    if n:
+        return torch.func.vmap(fn)(args)
+    row = {m: tuple(torch.zeros((1,) + t.shape[1:], dtype=t.dtype, device=t.device)
+                    for t in v) for m, v in args.items()}
+    return torch.utils._pytree.tree_map(lambda t: t[:0], torch.func.vmap(fn)(row))
 
 
 def _sort_key_for(col: Column, mask: torch.Tensor) -> torch.Tensor:
@@ -161,26 +175,28 @@ def _union_dense_rank(left: "MaskedTable", right: "MaskedTable", on):
 def _segment_sum(vals: torch.Tensor, gid: torch.Tensor, num: int) -> torch.Tensor:
     """``jax.ops.segment_sum``: ``gid`` is in [0, num).  Float sums
     accumulate in float64 and round once to the input's dtype: on CUDA
-    ``index_add_`` adds with atomics in a run-dependent order, and a float32
+    ``index_add`` adds with atomics in a run-dependent order, and a float32
     running sum over a 1.5M-row group (TPC-H Q1 at SF 1) drifts by ~1e-4
-    relative from run to run."""
+    relative from run to run.  Out of place, so that a batched ``vals``
+    under ``torch.func.vmap`` may add into the unbatched zeros."""
     acc = torch.float64 if vals.is_floating_point() else vals.dtype
     out = torch.zeros((num,), dtype=acc, device=vals.device)
-    return out.index_add_(0, gid, vals.to(acc)).to(vals.dtype)
+    return out.index_add(0, gid, vals.to(acc)).to(vals.dtype)
 
 
 def _segment_extreme(vals: torch.Tensor, gid: torch.Tensor, num: int,
                      reduce: str) -> torch.Tensor:
     """``jax.ops.segment_min``/``segment_max``: an empty segment keeps the
-    reference's identity (+-inf for floats, the integer extremes)."""
+    reference's identity (+-inf for floats, the integer extremes).  Out of
+    place, as :func:`_segment_sum`."""
     if vals.is_floating_point():
         fill = float("inf") if reduce == "amin" else float("-inf")
     else:
         info = torch.iinfo(vals.dtype)
         fill = info.max if reduce == "amin" else info.min
     out = torch.full((num,), fill, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, gid.to(torch.int64), vals, reduce=reduce,
-                               include_self=True)
+    return out.scatter_reduce(0, gid.to(torch.int64), vals, reduce=reduce,
+                              include_self=True)
 
 
 class Executor:
@@ -381,7 +397,8 @@ class Executor:
         if _is_scalar_region(node.right):
             return self._exec_region_apply(node, left, ctx, memo)
 
-        raise _a31("correlated Apply over a general subplan")
+        # Generic correlated apply: vmap the right plan over the left rows.
+        return self._exec_vmap_apply(node, left, ctx, memo)
 
     def _exec_region_apply(self, node, left: MaskedTable, ctx, memo) -> MaskedTable:
         """Vectorized evaluation of a single-row derived table (an algebrized
@@ -421,6 +438,46 @@ class Executor:
             cols[name] = Column(b.data, valid, b.dictionary)
         return MaskedTable(Table(cols), left.mask)
 
+    def _exec_vmap_apply(self, node, left: MaskedTable, ctx, memo) -> MaskedTable:
+        """The right plan once per left row, as one ``torch.func.vmap`` over
+        every left column: each row keeps the right side's first selected
+        row (NULL where none) and whether there was one.  As the reference
+        (``:355-404``), this path ignores ``node.passthrough``."""
+        n = left.num_rows
+        lenv = left.env()
+        names = list(lenv)
+        dicts = {m: lenv[m].dictionary for m in names}
+        captured_dicts: dict = {}
+        sub = self._sub_executor()
+
+        def one_row(scalars):
+            outer = {m: S.Value(scalars[m][0], scalars[m][1], dicts[m]) for m in names}
+            outer = {**ctx.outer, **outer}
+            res = sub.execute(node.right, params=ctx.params, outer=outer, vars=ctx.vars)
+            out = {}
+            for cname, c in res.table.columns.items():
+                captured_dicts[cname] = c.dictionary  # host metadata
+                out[cname] = _first_selected(res, c)
+            out["__exists"] = torch.any(res.mask)
+            return out
+
+        args = {}
+        for m in names:
+            b = lenv[m].broadcast(n)
+            args[m] = (b.data, b.validity())
+        mapped = _vmap_rows(one_row, args, n)
+        exists = mapped.pop("__exists")
+
+        if node.kind == "semi":
+            return MaskedTable(left.table, left.mask & exists)
+        if node.kind == "anti":
+            return MaskedTable(left.table, left.mask & ~exists)
+        cols = dict(left.table.columns)
+        for cname, (data, valid) in mapped.items():
+            cols[cname] = Column(data, valid, captured_dicts.get(cname))
+        mask = left.mask & exists if node.kind == "cross" else left.mask
+        return MaskedTable(Table(cols), mask)
+
     # -- group-by ----------------------------------------------------------
     def _exec_groupagg(self, node: R.GroupAgg, ctx, memo) -> MaskedTable:
         child = self._exec(node.child, ctx, memo)
@@ -433,12 +490,6 @@ class Executor:
         for name, spec in node.aggs.items():
             if spec.expr is not None:
                 agg_inputs[name] = S.eval_scalar(spec.expr, env, cctx).broadcast(n)
-        if _batched(child.mask,
-                    *(c.data for c in child.table.columns.values()),
-                    *(v.data for v in agg_inputs.values())):
-            # inside a correlated subquery's vmap: the segment sums add in
-            # place into an unbatched buffer and relagg has no batch axis
-            raise _a31("GroupAgg inside a correlated subquery")
 
         if n == 0:
             # zero-row child: pad to one all-invalid row so the reductions
@@ -723,17 +774,13 @@ class Executor:
         return MaskedTable(Table(cols), self._ones(1))
 
     # -- scalar-subquery hooks (called from scalar.eval_scalar) -------------
-    def eval_scalar_subquery(self, expr: S.ScalarSubquery, env, ctx) -> S.Value:
-        if not _plan_has_outer(expr.plan):
-            res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer,
-                               vars=ctx.vars)
-            return _extract_scalar(res, expr.column)
-        # correlated: vmap the whole subplan over the outer rows — one
-        # batched execution, never a loop over them
+    def _vmap_outer_rows(self, plan: R.RelNode, env, ctx, body: Callable):
+        """``body(res)`` of the subplan's result once per outer row, as one
+        ``torch.func.vmap`` of the whole subplan over the outer rows'
+        values of the columns it references: one batched execution, never
+        a loop over the rows."""
         n = ctx.num_rows
-        names = sorted(
-            _plan_outer_refs(expr.plan) & set(env.keys() | ctx.outer.keys())
-        )
+        names = sorted(_plan_outer_refs(plan) & set(env.keys() | ctx.outer.keys()))
         dicts = {}
         cols = {}
         for m in names:
@@ -741,26 +788,37 @@ class Executor:
             b = v.broadcast(n)
             cols[m] = (b.data, b.validity())
             dicts[m] = v.dictionary
-
-        captured: dict = {}
         sub = self._sub_executor()
 
         def one(scalars):
             outer = {m: S.Value(scalars[m][0], scalars[m][1], dicts[m]) for m in names}
             outer = {**ctx.outer, **outer}
-            res = sub.execute(expr.plan, params=ctx.params, outer=outer, vars=ctx.vars)
+            return body(sub.execute(plan, params=ctx.params, outer=outer, vars=ctx.vars))
+
+        return _vmap_rows(one, cols, n)
+
+    def eval_scalar_subquery(self, expr: S.ScalarSubquery, env, ctx) -> S.Value:
+        if not _plan_has_outer(expr.plan):
+            res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer,
+                               vars=ctx.vars)
+            return _extract_scalar(res, expr.column)
+        captured: dict = {}
+
+        def first(res):
             v = _extract_scalar(res, expr.column)
             captured["dict"] = v.dictionary  # host metadata
             return v.data, v.validity()
 
-        data, valid = torch.func.vmap(one)(cols)
+        data, valid = self._vmap_outer_rows(expr.plan, env, ctx, first)
         return S.Value(data, valid, captured.get("dict"))
 
     def eval_exists(self, expr: S.Exists, env, ctx) -> S.Value:
         if _plan_has_outer(expr.plan):
-            raise _a31("correlated EXISTS")
-        res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer, vars=ctx.vars)
-        v = torch.any(res.mask)
+            v = self._vmap_outer_rows(expr.plan, env, ctx, lambda res: torch.any(res.mask))
+        else:
+            res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer,
+                               vars=ctx.vars)
+            v = torch.any(res.mask)
         return S.Value(~v if expr.negated else v)
 
     def eval_udf_call(self, expr: S.UdfCall, env, ctx) -> S.Value:
@@ -836,10 +894,7 @@ def _extract_scalar(res: MaskedTable, column: str | None) -> S.Value:
             raise ValueError(f"scalar subquery must produce 1 column, got {names}")
         column = names[0]
     c = res.table.columns[column]
-    found = torch.any(res.mask)
-    idx = torch.argmax(res.mask.to(torch.uint8))
-    return S.Value(_take(c.data, idx), _take(c.validity(), idx) & found,
-                   c.dictionary)
+    return S.Value(*_first_selected(res, c), c.dictionary)
 
 
 def _plan_has_outer(plan: R.RelNode) -> bool:

@@ -66,6 +66,19 @@
 // so the last bit of a float32 sum may differ from call to call, as with
 // the executor's float64 segment sums.
 //
+// Batch axis (a GroupAgg inside a correlated subquery, under
+// torch.func.vmap, where the TPU kernel's pallas_call gains a grid axis):
+// B items, each its own (gid, mask, vals) at a batch stride in elements
+// (0 for an input every item shares, as a subquery's inner columns are),
+// are gridDim.y of one launch.  Each item keeps the unbatched launch's row
+// partition of its n rows, its own slice of the float64 scratch and its own
+// tickets, and writes its own (G, k+1) output, so on the shared path its
+// sums are the same bits as an unbatched launch on its inputs.  The binding
+// passes a chunk of items a launch: at most 65,535 (gridDim.y's limit), and
+// few enough that the chunk's scratch stays within its budget; the chunks
+// launch in order on one stream with no host sync and reuse the scratch.
+// A stride-0 input is read again by every item; L2 holds it when it fits.
+//
 // Plain C interface, bound with ctypes: every entry returns the
 // cudaError_t of its launch (0 on success).
 
@@ -93,7 +106,23 @@ struct Args {
   long long per_block;
   int k;
   int groups;
+  long long gid_bs, mask_bs, vals_bs;  // batch strides in elements (0: shared by every item)
+  long long scratch_bs;                // each item's scratch doubles
+  int ticket_bs;                       // and tickets
 };
+
+// The item of blockIdx.y: its inputs, its output, its scratch and tickets.
+__device__ __forceinline__ Args item_args(const Args& all) {
+  const long long b = blockIdx.y;
+  Args a = all;
+  a.gid += b * all.gid_bs;
+  a.mask += b * all.mask_bs;
+  a.vals += b * all.vals_bs;
+  a.out += b * all.groups * (all.k + 1);
+  a.scratch += b * all.scratch_bs;
+  if (all.ticket != nullptr) a.ticket += b * all.ticket_bs;
+  return a;
+}
 
 // Bits 0-3: which of the four bytes of x are non-zero.
 __device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
@@ -272,7 +301,8 @@ __device__ __forceinline__ long long block_lo(const Args& a) {
 }
 
 // One block an SM (the binding's grid), so a thread may take 128 registers.
-__global__ void __launch_bounds__(kThreads, 1) relagg_shared_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) relagg_shared_kernel(Args all) {
+  const Args a = item_args(all);
   extern __shared__ __align__(16) unsigned char smem[];
   const int slots = a.groups * (a.k + 1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -320,7 +350,8 @@ __global__ void __launch_bounds__(kThreads, 1) relagg_shared_kernel(Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) relagg_global_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) relagg_global_kernel(Args all) {
+  const Args a = item_args(all);
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   WarpRows<false> rows{a,       block_lo(a), reinterpret_cast<int*>(smem) + warp * kList,
@@ -368,34 +399,57 @@ const char* relagg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// One launch.  `scratch` holds (grid + ceil(grid / kGroup)) * G * (k+1)
-// doubles, `ticket` 1 + ceil(grid / kGroup) unsigneds that are 0 between
-// calls; `out` needs no fill.
+// One launch a chunk of at most `chunk` items (one launch when unbatched:
+// `batch` 1, strides 0).  `scratch` holds (grid + ceil(grid / kGroup)) *
+// G * (k+1) doubles an item of a chunk, `ticket` 1 + ceil(grid / kGroup)
+// unsigneds an item of a chunk, 0 between calls; `out` (batch, G, k+1)
+// needs no fill.
 int relagg_shared(const void* gid, const void* mask, const void* vals, void* out,
                   void* scratch, void* ticket, long long n, long long per_block, int k,
-                  int groups, int grid, int smem, void* stream) {
-  const Args a{(const int32_t*)gid, (const uint8_t*)mask, (const float*)vals, (float*)out,
-               (double*)scratch, (unsigned*)ticket, n, per_block, k, groups};
-  relagg_shared_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                  int groups, int grid, int smem, long long batch, long long chunk,
+                  long long gid_bs, long long mask_bs, long long vals_bs, void* stream) {
+  const int n_groups = (grid + kGroup - 1) / kGroup;
+  const long long slots = (long long)groups * (k + 1);
+  for (long long b0 = 0; b0 < batch; b0 += chunk) {
+    const long long items = batch - b0 < chunk ? batch - b0 : chunk;
+    const Args a{(const int32_t*)gid + b0 * gid_bs, (const uint8_t*)mask + b0 * mask_bs,
+                 (const float*)vals + b0 * vals_bs, (float*)out + b0 * slots,
+                 (double*)scratch, (unsigned*)ticket, n, per_block, k, groups,
+                 gid_bs, mask_bs, vals_bs, (grid + n_groups) * slots, 1 + n_groups};
+    relagg_shared_kernel<<<dim3(grid, (unsigned)items), kThreads, smem,
+                           (cudaStream_t)stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-// Two launches.  `scratch` holds G * (k+1) doubles that are 0 between
-// calls; `out` needs no fill.
+// Two launches a chunk of at most `chunk` items.  `scratch` holds G * (k+1)
+// doubles an item of a chunk, 0 between calls; `out` (batch, G, k+1) needs
+// no fill.
 int relagg_global(const void* gid, const void* mask, const void* vals, void* out,
                   void* scratch, long long n, long long per_block, int k, int groups,
-                  int grid, int smem, void* stream) {
-  const Args a{(const int32_t*)gid, (const uint8_t*)mask, (const float*)vals, (float*)out,
-               (double*)scratch, nullptr, n, per_block, k, groups};
-  relagg_global_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                  int grid, int smem, long long batch, long long chunk, long long gid_bs,
+                  long long mask_bs, long long vals_bs, void* stream) {
   const long long slots = (long long)groups * (k + 1);
-  const long long need = (slots + 255) / 256;
-  const int round_grid = (int)(need < 4096 ? (need < 1 ? 1 : need) : 4096);
-  relagg_round_kernel<<<round_grid, 256, 0, (cudaStream_t)stream>>>((double*)scratch,
-                                                                   (float*)out, slots);
-  return (int)cudaGetLastError();
+  for (long long b0 = 0; b0 < batch; b0 += chunk) {
+    const long long items = batch - b0 < chunk ? batch - b0 : chunk;
+    const Args a{(const int32_t*)gid + b0 * gid_bs, (const uint8_t*)mask + b0 * mask_bs,
+                 (const float*)vals + b0 * vals_bs, (float*)out + b0 * slots,
+                 (double*)scratch, nullptr, n, per_block, k, groups,
+                 gid_bs, mask_bs, vals_bs, slots, 0};
+    relagg_global_kernel<<<dim3(grid, (unsigned)items), kThreads, smem,
+                           (cudaStream_t)stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long need = (items * slots + 255) / 256;
+    const int round_grid = (int)(need < 4096 ? (need < 1 ? 1 : need) : 4096);
+    relagg_round_kernel<<<round_grid, 256, 0, (cudaStream_t)stream>>>(
+        (double*)scratch, (float*)out + b0 * slots, items * slots);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // extern "C"

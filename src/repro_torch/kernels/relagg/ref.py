@@ -21,6 +21,29 @@ def grouped_aggregate_ref(gid: torch.Tensor, mask: torch.Tensor,
     return sums[:num_groups], counts[:num_groups]
 
 
+def grouped_aggregate_batched_ref(gid: torch.Tensor, mask: torch.Tensor,
+                                  vals: torch.Tensor, num_groups: int):
+    """:func:`grouped_aggregate_ref` of each of ``B`` batch items at once:
+    gid and mask (B, n), vals (B, n, k) to sums (B, G, k) and counts
+    (B, G).  Item b's ids are offset by ``b * G`` into one ``index_add_``
+    over ``B * G + 1`` slots, the last one taking every row that adds
+    nothing; each slot's rows add in row order, as in B unbatched calls.
+    Any input may be a stride-0 expansion of one item's."""
+    B, n, k = vals.shape
+    sel = mask & (gid >= 0) & (gid < num_groups)
+    base = torch.arange(B, device=vals.device).reshape(B, 1) * num_groups
+    slot = torch.where(sel, gid.to(torch.int64) + base, B * num_groups).reshape(-1)
+    v = torch.where(sel[..., None], vals.to(torch.float32), 0.0).reshape(B * n, k)
+    slots = B * num_groups
+    sums = torch.zeros((slots + 1, k), dtype=torch.float32,
+                       device=vals.device).index_add_(0, slot, v)
+    counts = torch.zeros((slots + 1,), dtype=torch.float32,
+                         device=vals.device).index_add_(
+        0, slot, sel.reshape(-1).to(torch.float32))
+    return (sums[:slots].reshape(B, num_groups, k),
+            counts[:slots].reshape(B, num_groups))
+
+
 #: blocks whose float64 partials one block sums before the groups' sums
 #: are added (``kGroup`` in ``csrc/relagg.cu``)
 BLOCK_GROUP = 12

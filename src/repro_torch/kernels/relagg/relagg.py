@@ -12,6 +12,13 @@ memory with atomics, and a second launch rounds it once; the last bit of a
 sum may then differ between calls.  See the source's header for the bound
 and the design.
 
+:func:`relagg_cuda_batched` launches the same kernels over ``B`` items at
+once (a GroupAgg inside a correlated subquery): each item is a ``gridDim.y``
+index with its own inputs at a batch stride (0 for an input every item
+shares), the unbatched launch's row partition, scratch and tickets, in
+chunks of at most :data:`MAX_BATCH_CHUNK` items whose scratch stays within
+:data:`SCRATCH_BUDGET`.
+
 Host work a call is what the call needs: the device's SM count and
 shared-memory budget are read once per device, the shared-memory opt-in
 is set once per device and larger size, and the float64 scratch and the
@@ -38,6 +45,12 @@ LIST = 512
 #: rows for which the grid takes one more block: a 16-byte mask word a
 #: thread
 MIN_ROWS_PER_BLOCK = THREADS * 16
+
+#: items a launch at most: ``gridDim.y``'s limit
+MAX_BATCH_CHUNK = 65_535
+#: float64 scratch slots a batched launch's chunk may take (256 MiB); a
+#: chunk holds one item at least
+SCRATCH_BUDGET = 1 << 25
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,8 +107,10 @@ def launch_plan(sm_count: int, smem_budget: int, n: int, num_groups: int,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("relagg")
     if not getattr(lib, "_typed", False):
-        for fn, args in ((lib.relagg_shared, [_P] * 6 + [_L, _L, _I, _I, _I, _I, _P]),
-                         (lib.relagg_global, [_P] * 5 + [_L, _L, _I, _I, _I, _I, _P]),
+        for fn, args in ((lib.relagg_shared, [_P] * 6 + [_L, _L, _I, _I, _I, _I] + [_L] * 5
+                          + [_P]),
+                         (lib.relagg_global, [_P] * 5 + [_L, _L, _I, _I, _I, _I] + [_L] * 5
+                          + [_P]),
                          (lib.relagg_device_info, [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]),
                          (lib.relagg_reserve_smem, [_I])):
             fn.argtypes = args
@@ -139,13 +154,15 @@ class _Device:
             self.scratch[stream, shared] = buf
         return buf
 
-    def ticket_for(self, stream: int) -> torch.Tensor:
-        """The shared path's tickets, 0 between calls: one for the groups of
-        blocks and one for each group."""
+    def ticket_for(self, stream: int, items: int = 1) -> torch.Tensor:
+        """The shared path's tickets for ``items`` batch items, 0 between
+        calls: each item's one for the groups of blocks and one for each
+        group."""
+        count = items * (1 + groups_of(self.sm_count))
         ticket = self.tickets.get(stream)
-        if ticket is None:
+        if ticket is None or ticket.numel() < count:
             ticket = self.tickets[stream] = torch.zeros(
-                1 + groups_of(self.sm_count), dtype=torch.int32, device=f"cuda:{self.index}")
+                count, dtype=torch.int32, device=f"cuda:{self.index}")
         return ticket
 
 
@@ -200,10 +217,77 @@ def relagg_cuda(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor,
         err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
                                 out.data_ptr(), scratch.data_ptr(),
                                 dev.ticket_for(stream).data_ptr(), n, plan.per_block, k,
-                                num_groups, plan.grid, plan.smem, stream)
+                                num_groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream)
     else:
         err = lib.relagg_global(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
                                 out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
-                                num_groups, plan.grid, plan.smem, stream)
+                                num_groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream)
     _raise(lib, err, "launch")
     return out.narrow(1, 0, k), out.select(1, k)
+
+
+def batch_chunk(batch: int, plan: LaunchPlan) -> int:
+    """Items a launch of a batched call takes: at most
+    :data:`MAX_BATCH_CHUNK`, and as many as keep the chunk's float64
+    scratch within :data:`SCRATCH_BUDGET` (one at least)."""
+    return max(1, min(batch, MAX_BATCH_CHUNK, SCRATCH_BUDGET // plan.scratch_slots))
+
+
+def _item_major(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``t`` with each item (``t[b]``) contiguous, copied only where an
+    item is not, and its batch stride in elements (0 where every item is
+    the same storage, as a stride-0 expansion)."""
+    if t.shape[0] and not t[0].is_contiguous():
+        t = t.contiguous()
+    return t, t.stride(0) if t.shape[0] > 1 else 0
+
+
+def relagg_cuda_batched(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor,
+                        num_groups: int) -> torch.Tensor:
+    """Launch the kernel over ``B`` items on the current stream: gid and
+    mask (B, n), vals (B, n, k), each possibly a stride-0 expansion of one
+    item, to (B, G, k+1), each item's sums and then its count.  Item b's
+    result is :func:`relagg_cuda` of ``(gid[b], mask[b], vals[b])``, the
+    same bits on the shared path.  ``B = 0`` launches nothing.  Does not
+    synchronise."""
+    if not (gid.is_cuda and mask.is_cuda and vals.is_cuda):
+        raise ValueError("relagg_cuda_batched takes CUDA tensors")
+    if gid.dtype != torch.int32 or mask.dtype != torch.bool \
+            or vals.dtype != torch.float32:
+        raise TypeError(f"relagg_cuda_batched takes int32 gid, bool mask, float32 vals; "
+                        f"got {gid.dtype}, {mask.dtype}, {vals.dtype}")
+    if vals.dim() != 3 or gid.shape != vals.shape[:2] \
+            or mask.shape != gid.shape or vals.shape[2] < 1:
+        raise ValueError(f"shapes gid {tuple(gid.shape)}, mask "
+                         f"{tuple(mask.shape)}, vals {tuple(vals.shape)}")
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be positive, got {num_groups}")
+    batch, n, k = vals.shape
+    out = torch.empty((batch, num_groups, k + 1), dtype=torch.float32, device=vals.device)
+    if batch == 0:
+        return out
+    index = vals.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return relagg_cuda_batched(gid, mask, vals, num_groups)
+    (gid, gid_bs), (mask, mask_bs), (vals, vals_bs) = map(_item_major, (gid, mask, vals))
+    lib = _lib()
+    dev = _device(lib, index)
+    plan = launch_plan(dev.sm_count, dev.smem_budget, n, num_groups, k)
+    chunk = batch_chunk(batch, plan)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    scratch = dev.scratch_for(stream, plan.shared, chunk * plan.scratch_slots)
+    if plan.shared:
+        dev.reserve(lib, plan.smem)
+        err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                                out.data_ptr(), scratch.data_ptr(),
+                                dev.ticket_for(stream, chunk).data_ptr(), n, plan.per_block,
+                                k, num_groups, plan.grid, plan.smem, batch, chunk, gid_bs,
+                                mask_bs, vals_bs, stream)
+    else:
+        err = lib.relagg_global(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                                out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
+                                num_groups, plan.grid, plan.smem, batch, chunk, gid_bs,
+                                mask_bs, vals_bs, stream)
+    _raise(lib, err, "batched launch")
+    return out

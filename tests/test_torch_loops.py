@@ -19,11 +19,11 @@ subquery that binds a loop's outputs, against the reference's, on the CPU.
   ``execute_many`` yet (ROADMAP A6).
 * The scan kind keeps each carry at its loop-entry dtype after every row,
   steps the rows in order and reads nothing back to the host.
-* What A3.1 still owns raises and names it: a correlated EXISTS, a
-  correlated Apply over a general subplan, and a GroupAgg inside a
-  correlated scalar subquery (with ``pallas_agg`` on or off, where the
-  relagg wrapper refuses a vmapped input rather than take its plain
-  version).
+* A correlated EXISTS, a correlated Apply over a general subplan and a
+  GroupAgg inside a correlated scalar subquery (``pallas_agg`` on or off)
+  run under the same vmap and equal the reference's; the relagg wrapper
+  batches a vmapped input and never takes its unbatched plain version on
+  it (``tests/test_torch_correlated.py`` holds the rest).
 """
 import numpy as np
 import pytest
@@ -32,6 +32,7 @@ import torch
 import repro.core as RC
 from repro.core import algebrizer as RA
 from repro.core import ir as RIR
+from repro.core import relalg as RR
 from repro.core import scalar as RS
 from repro.core.executor import Executor as RefExecutor
 from repro.core.tsql import parse_udf as ref_parse
@@ -355,7 +356,7 @@ def test_scan_kind_steps_rows_in_order_without_host_reads(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the correlated scalar subquery, and what stays A3.1
+# the correlated scalar subquery, EXISTS, Apply and GroupAgg under vmap
 # ---------------------------------------------------------------------------
 
 
@@ -393,36 +394,67 @@ def test_correlated_scalar_subquery_matches_reference():
     np.testing.assert_allclose(g.data.numpy()[ok], np.asarray(w.data)[ok], rtol=1e-6)
 
 
+def _same_out(want, got):
+    w, g = want.table.columns["out"], got.table.columns["out"]
+    np.testing.assert_array_equal(g.validity().numpy(), np.asarray(w.validity()))
+    ok = np.asarray(w.validity())
+    np.testing.assert_allclose(g.data.numpy()[ok], np.asarray(w.data)[ok], rtol=1e-4,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("pallas_agg", [False, True])
 @pytest.mark.parametrize("kind", ["groupagg", "full_agg", "exists"])
-def test_a31_shapes_raise_without_fallback(kind, pallas_agg, monkeypatch):
-    _, pcat = _catalogs()
-    plain = []
-    monkeypatch.setattr(relagg_ops, "grouped_aggregate_ref",
-                        lambda *a: plain.append(a))
-    ex = PC.Executor(pcat, use_pallas_agg=pallas_agg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3.1"):
-        ex.execute(_corr_sub(PC, PS, kind))
+def test_correlated_shapes_match_reference_on_the_kernel_path(kind, pallas_agg, monkeypatch):
+    """A GroupAgg, a full-table aggregate and an EXISTS inside a correlated
+    subquery, under vmap: the reference's rows.  relagg's unbatched plain
+    version is never called on the batched input; with ``pallas_agg`` on
+    the grouped body takes relagg's batched plain version (the CPU's
+    stand-in for the batched kernel) once."""
+    rcat, pcat = _catalogs()
+    plain, batched = [], []
+    monkeypatch.setattr(relagg_ops, "grouped_aggregate_ref", lambda *a: plain.append(a))
+    many = relagg_ops.grouped_aggregate_batched_ref
+    monkeypatch.setattr(relagg_ops, "grouped_aggregate_batched_ref",
+                        lambda *a: batched.append(a) or many(*a))
+    want = RefExecutor(rcat, use_pallas_agg=pallas_agg).execute(_corr_sub(RC, RS, kind))
+    got = PC.Executor(pcat, use_pallas_agg=pallas_agg, device="cpu").execute(
+        _corr_sub(PC, PS, kind))
+    _same_out(want, got)
     assert not plain
+    assert len(batched) == (kind == "groupagg" and pallas_agg)
 
 
-def test_correlated_apply_over_subplan_raises():
-    _, pcat = _catalogs()
-    inner = PC.scan("facts").filter(PC.col("fk") == PS.Outer("k")).node
-    plan = PR.Apply(PC.scan("keys").node, inner, kind="cross")
-    with pytest.raises(NotImplementedError, match="A3.1"):
-        PC.Executor(pcat, device="cpu").execute(plan)
+def test_correlated_apply_over_subplan_matches_reference():
+    rcat, pcat = _catalogs()
+    plans = {M: R.Apply(M.scan("keys").node,
+                        M.scan("facts").filter(M.col("fk") == S.Outer("k")).node,
+                        kind="cross")
+             for M, R, S in ((RC, RR, RS), (PC, PR, PS))}
+    want = RefExecutor(rcat).execute(plans[RC])
+    got = PC.Executor(pcat, device="cpu").execute(plans[PC])
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    live = got.mask.numpy()
+    for name, c in want.table.columns.items():
+        g = got.table.columns[name]
+        np.testing.assert_array_equal(g.validity().numpy()[live], np.asarray(c.validity())[live])
+        np.testing.assert_allclose(g.data.numpy()[live], np.asarray(c.data)[live], rtol=1e-4)
 
 
-def test_relagg_wrapper_refuses_a_vmapped_input(monkeypatch):
+def test_relagg_wrapper_batches_a_vmapped_input(monkeypatch):
+    """Under vmap the wrapper takes the batched plain version on the CPU,
+    never the unbatched one, and equals it item by item."""
     gid = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
-    vals = torch.ones((4, 1))
+    vals = torch.arange(8, dtype=torch.float32).reshape(4, 2)
+    masks = torch.tensor([[1, 1, 0, 1], [0, 1, 1, 1]], dtype=torch.bool)
+    one = relagg_ops.grouped_aggregate_ref
     plain = []
     monkeypatch.setattr(relagg_ops, "grouped_aggregate_ref",
-                        lambda *a: plain.append(a))
-    with pytest.raises(NotImplementedError, match="A3.1"):
-        torch.func.vmap(lambda m: relagg_ops.grouped_aggregate(gid, m, vals, 3))(
-            torch.ones((2, 4), dtype=torch.bool))
+                        lambda *a: plain.append(a) or one(*a))
+    s, c = torch.func.vmap(lambda m: relagg_ops.grouped_aggregate(gid, m, vals, 3))(masks)
     assert not plain
+    for b in range(2):
+        s1, c1 = one(gid, masks[b], vals, 3)
+        np.testing.assert_array_equal(s[b].numpy(), s1.numpy())
+        np.testing.assert_array_equal(c[b].numpy(), c1.numpy())
     relagg_ops.grouped_aggregate(gid, torch.ones(4, dtype=torch.bool), vals, 3)
     assert len(plain) == 1  # an unbatched CPU tensor takes the plain version

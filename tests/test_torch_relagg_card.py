@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.relagg import ops
-from repro_torch.kernels.relagg.ref import grouped_aggregate_ref
+from repro_torch.kernels.relagg.ref import grouped_aggregate_batched_ref, grouped_aggregate_ref
 
 pytestmark = [
     pytest.mark.gpu,
@@ -163,3 +163,106 @@ def test_relagg_kernel_both_sides_of_the_shared_split(rng, n_aggs, side):
     s, c = ops.grouped_aggregate(*args, groups)
     torch.cuda.synchronize()
     _against_plain(args, groups, s, c)
+
+
+# The batched kernel (a GroupAgg inside a correlated subquery): each item
+# against an unbatched launch on its own inputs, the same bits on the
+# shared-memory path; counts exact everywhere.
+
+
+def _batched_args(rng, B, n, groups, n_aggs, stride0):
+    mask = torch.as_tensor(rng.random((B, n)) > 0.4, device="cuda")
+    if stride0:  # one item's gid and vals for every item, as inner columns
+        gid = torch.as_tensor(rng.integers(-1, groups + 1, n).astype(np.int32),
+                              device="cuda").expand(B, n)
+        vals = torch.as_tensor(rng.normal(size=(n, n_aggs)).astype(np.float32),
+                               device="cuda").expand(B, n, n_aggs)
+    else:
+        gid = torch.as_tensor(rng.integers(-1, groups + 1, (B, n)).astype(np.int32),
+                              device="cuda")
+        vals = torch.as_tensor(rng.normal(size=(B, n, n_aggs)).astype(np.float32),
+                               device="cuda")
+    return gid, mask, vals
+
+
+def _against_unbatched(gid, mask, vals, groups, out):
+    from repro_torch.kernels.relagg.relagg import relagg_cuda, uses_shared
+
+    k = vals.shape[-1]
+    for b, item in enumerate(zip(gid.unbind(0), mask.unbind(0), vals.unbind(0))):
+        s, c = relagg_cuda(*item, groups)
+        np.testing.assert_array_equal(out[b, :, k].cpu().numpy(), c.cpu().numpy())
+        if uses_shared(groups, k):
+            assert np.array_equal(out[b, :, :k].cpu().numpy().view(np.uint32),
+                                  s.cpu().numpy().view(np.uint32)), b
+        else:
+            _against_plain(item, groups, out[b, :, :k], out[b, :, k])
+
+
+@pytest.mark.parametrize("stride0", [False, True], ids=["batched", "stride0"])
+@pytest.mark.parametrize("B,n,groups,n_aggs", [
+    (1, 4096, 7, 4), (3, 100_000, 25, 2), (16, 6_000_000, 7, 2), (5, 50_000, 150_000, 1),
+])
+def test_relagg_batched_matches_unbatched_launches(rng, B, n, groups, n_aggs, stride0):
+    from repro_torch.kernels.relagg.relagg import relagg_cuda_batched
+
+    args = _batched_args(rng, B, n, groups, n_aggs, stride0)
+    out = relagg_cuda_batched(*args, groups)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (B, groups, n_aggs + 1)
+    _against_unbatched(*args, groups, out)
+
+
+def test_relagg_batched_empty_batch():
+    from repro_torch.kernels.relagg.relagg import relagg_cuda_batched
+
+    out = relagg_cuda_batched(torch.zeros((0, 9), dtype=torch.int32, device="cuda"),
+                              torch.zeros((0, 9), dtype=torch.bool, device="cuda"),
+                              torch.zeros((0, 9, 3), device="cuda"), 5)
+    assert tuple(out.shape) == (0, 5, 4)
+
+
+@pytest.mark.parametrize("groups,n_aggs", [(7, 4), (1000, 1)], ids=["shared", "global"])
+def test_relagg_batched_past_the_grid_y_limit(rng, groups, n_aggs):
+    """70,000 items of 64 rows: more than gridDim.y's 65,535, so two
+    launches or more, in order on one stream."""
+    from repro_torch.kernels.relagg.relagg import relagg_cuda_batched
+
+    args = _batched_args(rng, 70_000, 64, groups, n_aggs, stride0=False)
+    out = relagg_cuda_batched(*args, groups)
+    s, c = (t.cpu().numpy() for t in grouped_aggregate_batched_ref(*args, groups))
+    np.testing.assert_array_equal(out[..., n_aggs].cpu().numpy(), c)
+    np.testing.assert_allclose(out[..., :n_aggs].cpu().numpy(), s, rtol=1e-4, atol=1e-4)
+    picks = [0, 65_534, 65_535, 65_536, 69_999]
+    _against_unbatched(*(a[picks] for a in args), groups, out[picks])
+
+
+def test_relagg_batched_global_path_chunks_its_scratch(rng):
+    """G = 150,000 at 300 items: each item's float64 accumulator is
+    300,000 slots, so the scratch budget splits the batch into chunks."""
+    from repro_torch.kernels.relagg.relagg import (
+        SCRATCH_BUDGET, relagg_cuda_batched, uses_shared)
+
+    groups, B = 150_000, 300
+    assert not uses_shared(groups, 1) and B * groups * 2 > SCRATCH_BUDGET
+    args = _batched_args(rng, B, 1000, groups, 1, stride0=True)
+    out = relagg_cuda_batched(*args, groups)
+    s, c = (t.cpu().numpy() for t in grouped_aggregate_batched_ref(*args, groups))
+    np.testing.assert_array_equal(out[..., 1].cpu().numpy(), c)
+    np.testing.assert_allclose(out[..., 0].cpu().numpy(), s, rtol=1e-4, atol=1e-4)
+
+
+def test_relagg_under_vmap_launches_the_batched_kernel(rng, monkeypatch):
+    """``grouped_aggregate`` under ``torch.func.vmap`` on CUDA tensors: one
+    batched launch, and neither plain version called."""
+    def refuse(*a):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(ops, "grouped_aggregate_ref", refuse)
+    monkeypatch.setattr(ops, "grouped_aggregate_batched_ref", refuse)
+    gid, mask, vals = _batched_args(rng, 6, 20_000, 7, 2, stride0=True)
+    before, batched = ops.LAUNCHES, ops.BATCHED_LAUNCHES
+    s, c = torch.func.vmap(lambda m: ops.grouped_aggregate(gid[0], m, vals[0], 7))(mask)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.BATCHED_LAUNCHES) == (before + 1, batched + 1)
+    _against_unbatched(gid, mask, vals, 7, torch.cat([s, c[..., None]], -1))

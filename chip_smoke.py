@@ -21,9 +21,9 @@ script exits non-zero:
    mask and with out-of-range group ids, its sums also within 1 float32
    ulp of the float64 sum and, on the shared-memory path, bit-identical
    across launches; relagg with a batch axis (B = 1, 3, 16 and 70,000,
-   inputs batched or shared with stride 0) against B unbatched launches
-   (bit-identical on the shared-memory path) and its batched plain
-   version; flash_attention causal and not,
+   inputs batched or shared with stride 0) against unbatched launches
+   (bit-identical on the shared-memory path; above 256 items a sample
+   with every chunk boundary) and its batched plain version; flash_attention causal and not,
    with windows (1,024 keys at D = 96 and 256), GQA and MHA, a decode
    offset, ragged lengths, rows with no valid key, bf16 (the tensor-core
    kernel) and float32 (the CUDA-core one), head dims 16/64/96/128/256;
@@ -309,10 +309,11 @@ def relagg_inputs(n: int, groups: int, k: int, seed: int, *, density=0.6,
 
 
 def f64_reference(gid, mask, vals, groups: int):
-    """(sums, sum of |v|, counts) per group in float64 on the host."""
-    g = gid.cpu().numpy()
-    sel = mask.cpu().numpy() & (g >= 0) & (g < groups)
-    v = vals.cpu().numpy().astype(np.float64)[sel]
+    """(sums, sum of |v|, counts) per group in float64 on the host, from
+    tensors or host arrays."""
+    g, m, v = (x.cpu().numpy() if hasattr(x, "cpu") else x for x in (gid, mask, vals))
+    sel = m & (g >= 0) & (g < groups)
+    v = v.astype(np.float64)[sel]
     gs = g[sel]
     counts = np.bincount(gs, minlength=groups)
     sums = np.stack([np.bincount(gs, weights=v[:, j], minlength=groups)
@@ -384,8 +385,8 @@ def kernel_phase() -> dict:
 
 
 def f64_batched_reference(gid, mask, vals, groups: int):
-    """(sums, sums of |v|, counts) per item and group in float64, on the
-    card: gid and mask (B, n), vals (B, n, k)."""
+    """(sums, sums of |v|, counts) per item and group in float64, as
+    tensors on the card: gid and mask (B, n), vals (B, n, k)."""
     import torch
 
     B, n, k = vals.shape
@@ -397,7 +398,7 @@ def f64_batched_reference(gid, mask, vals, groups: int):
     def add(x):
         out = torch.zeros((B * groups + 1,) + x.shape[1:], dtype=torch.float64,
                           device=vals.device).index_add_(0, slot, x)
-        return out[:-1].reshape((B, groups) + x.shape[1:]).cpu().numpy()
+        return out[:-1].reshape((B, groups) + x.shape[1:])
 
     return add(v), add(v.abs()), add(sel.reshape(-1).to(torch.float64))
 
@@ -417,13 +418,19 @@ RELAGG_BATCHED = (
     + [(1000, 150_000, 1, 300, False)])
 
 
+#: items of a batched case held to unbatched launches one by one; above
+#: it, a sample (the host's ~0.03 ms a launch makes 70,000 take seconds)
+UNBATCHED_ALL = 256
+
+
 def relagg_batched_cases() -> dict:
     """relagg's batched kernel (``relagg_cuda_batched``) on the card, each
-    case against B unbatched launches on the same items' inputs (sums the
-    same bits on the shared path, within 1e-4 x the group's sum of |v|
-    on the global one; counts exact), against the batched plain version
-    (counts exact, sums within that bound) and against the float64 sums
-    (the same bound)."""
+    case against unbatched launches on the same items' inputs (every item
+    up to :data:`UNBATCHED_ALL`, a sample with every chunk boundary above:
+    sums the same bits on the shared path, within 1e-4 x the group's sum
+    of |v| on the global one; counts exact), and every item against the
+    batched plain version (counts exact, sums within that bound) and the
+    float64 sums (the same bound)."""
     import torch
 
     from repro_torch.kernels.relagg.ref import grouped_aggregate_batched_ref
@@ -454,34 +461,41 @@ def relagg_batched_cases() -> dict:
         label = (f"relagg batched B={B} n={n} G={G} k={k} "
                  f"{'all batched' if batched_inputs else 'gid, vals stride 0'} [{path}, "
                  f"{-(-B // chunk)} launches]")
-        one = [relagg_cuda(*item, G) for item in zip(gid.unbind(0), mask.unbind(0),
-                                                      vals.unbind(0))]
-        us = torch.stack([s for s, _ in one]).cpu().numpy()
-        uc = torch.stack([c for _, c in one]).cpu().numpy()
+        # every item, or above :data:`UNBATCHED_ALL` items every 97th, the
+        # last, and two on each side of every chunk boundary
+        items = np.arange(B) if B <= UNBATCHED_ALL else np.unique(np.concatenate([
+            np.arange(0, B, 97), [B - 1],
+            *(np.arange(c - 2, c + 2) for c in range(chunk, B, chunk))]))
+        one = [relagg_cuda(gid[b], mask[b], vals[b], G) for b in items.tolist()]
+        us = torch.stack([s for s, _ in one])
+        uc = torch.stack([c for _, c in one])
         del one
-        ks, kc = out[..., :k].cpu().numpy(), out[..., k].cpu().numpy()
-        ps, pc = (t.cpu().numpy() for t in grouped_aggregate_batched_ref(gid, mask, vals, G))
+        # the checks run on the card: the outputs reach 70,000 x 2,000 slots
+        at = torch.as_tensor(items, device="cuda")
+        ks, kc = out[..., :k], out[..., k]
+        ps, pc = grouped_aggregate_batched_ref(gid, mask, vals, G)
         ref_sums, absum, ref_counts = f64_batched_reference(gid, mask, vals, G)
         tol = 1e-4 * absum
-        check(np.array_equal(kc, uc), f"{label}: counts differ from {B} unbatched launches")
-        check(np.array_equal(kc, pc), f"{label}: counts differ from the plain version")
-        check(np.array_equal(kc, ref_counts.astype(np.float32)),
-              f"{label}: counts differ from the float64 count")
+        check(torch.equal(kc[at], uc),
+              f"{label}: counts differ from {len(items)} unbatched launches")
+        check(torch.equal(kc, pc), f"{label}: counts differ from the plain version")
+        check(torch.equal(kc.double(), ref_counts), f"{label}: counts differ from the "
+              "float64 count")
         if shared:
-            check(np.array_equal(ks.view(np.uint32), us.view(np.uint32)),
-                  f"{label}: sums not bit-identical to {B} unbatched launches")
+            check(torch.equal(ks[at].contiguous().view(torch.int32), us.view(torch.int32)),
+                  f"{label}: sums not bit-identical to {len(items)} unbatched launches")
         else:
-            check((np.abs(ks.astype(np.float64) - us) <= tol).all(),
-                  f"{label}: sums off {B} unbatched launches")
-        err_plain = np.abs(ks.astype(np.float64) - ps)
-        check((err_plain <= tol).all(), f"{label}: sums off the plain version, worst "
+            check(bool(((ks[at].double() - us.double()).abs() <= tol[at]).all()),
+                  f"{label}: sums off {len(items)} unbatched launches")
+        err_plain = (ks.double() - ps.double()).abs()
+        check(bool((err_plain <= tol).all()), f"{label}: sums off the plain version, worst "
               f"{float((err_plain - tol).max())} over the bound")
-        check((np.abs(ks.astype(np.float64) - ref_sums) <= tol).all(),
+        check(bool(((ks.double() - ref_sums).abs() <= tol).all()),
               f"{label}: sums off the float64 sum")
-        max_err = max(max_err, float(err_plain.max(initial=0.0)))
-        log(f"{label}: ok (max |kernel - plain| {float(err_plain.max(initial=0.0)):.3g}"
-            f"{', bit-identical to the unbatched launches' if shared else ''}) in "
-            f"{time.perf_counter() - t0:.2f} s")
+        max_err = max(max_err, float(err_plain.max()))
+        log(f"{label}: ok (max |kernel - plain| {float(err_plain.max()):.3g}; "
+            f"{len(items)} items against unbatched launches"
+            f"{', bit-identical' if shared else ''}) in {time.perf_counter() - t0:.2f} s")
     empty = relagg_cuda_batched(torch.zeros((0, 5), dtype=torch.int32, device="cuda"),
                                 torch.zeros((0, 5), dtype=torch.bool, device="cuda"),
                                 torch.zeros((0, 5, 2), device="cuda"), 7)
@@ -1421,8 +1435,10 @@ def decorr_oracle_on_card() -> dict:
             policy = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True) if pallas \
                 else C.FROID
             froid, froid_cpu = card.prepare(q, policy), cpu.prepare(q, policy)
-            check(has_correlated_subquery(froid.plan) == (ks == "nonequi" or grouped),
-                  f"{label}: FROID decorrelated {'nothing' if ks != 'nonequi' else 'it'}")
+            per_row = ks == "nonequi" or grouped  # no rule rewrites these
+            check(has_correlated_subquery(froid.plan) == per_row,
+                  f"{label}: FROID's plan {'lost' if per_row else 'kept'} its correlated "
+                  "subquery")
             plan = per_row_plan(card, q)
             for minq in (0, 4, 9):
                 p = {"minq": minq}
@@ -1525,18 +1541,22 @@ def time_relagg_batched(args, expected_groups: int) -> dict:
     gid, mask, vals, G = args
     B, n, k = vals.shape
     check(G == expected_groups, f"relagg batched at (b): G = {G}")
-    out = relagg_cuda_batched(gid, mask, vals, G)
-    ps, pc = grouped_aggregate_batched_ref(gid, mask, vals, G)
+    out = relagg_cuda_batched(gid, mask, vals, G).cpu().numpy()
+    ps, pc = (t.cpu().numpy() for t in grouped_aggregate_batched_ref(gid, mask, vals, G))
     sel = mask & (gid >= 0) & (gid < G)
+    # on the host, one copy of an input every item shares (stride 0)
+    host = {name: (t[0].cpu().numpy() if t.stride(0) == 0 else None, t)
+            for name, t in (("gid", gid), ("vals", vals))}
+    masks = mask.cpu().numpy()
     err, worst = 0.0, 0.0
     for b in range(B):
-        ref_sums, absum, ref_counts = f64_reference(gid[b], mask[b], vals[b], G)
-        kc = out[b, :, k].cpu().numpy()
-        ks = out[b, :, :k].cpu().numpy().astype(np.float64)
-        check(np.array_equal(kc, pc[b].cpu().numpy())
-              and np.array_equal(kc, ref_counts.astype(np.float32)),
+        g, v = (one if one is not None else t[b].cpu().numpy()
+                for one, t in (host["gid"], host["vals"]))
+        ref_sums, absum, counts = f64_reference(g, masks[b], v, G)
+        kc, ks = out[b, :, k], out[b, :, :k].astype(np.float64)
+        check(np.array_equal(kc, pc[b]) and np.array_equal(kc, counts.astype(np.float32)),
               f"relagg batched at (b), item {b}: counts differ")
-        e = np.abs(ks - ps[b].cpu().numpy())
+        e = np.abs(ks - ps[b])
         check((e <= 1e-4 * absum).all() and (np.abs(ks - ref_sums) <= 1e-4 * absum).all(),
               f"relagg batched at (b), item {b}: sums off the plain version or float64")
         err = max(err, float(e.max(initial=0.0)))
@@ -1621,7 +1641,7 @@ def correlated_phase(full) -> dict:
                 continue
             check(has_correlated_subquery(full.prepare(q, policy).plan),
                   f"{name}: FROID decorrelated the non-equi correlation")
-            before = (ops.LAUNCHES, ops.BATCHED_LAUNCHES)
+            before = ops.LAUNCHES
             ops.BATCHED_LAUNCHES = 0  # counts this statement's runs only
             cold, warm_ms = run_statement(full, q, policy, rounds)
             batched = ops.BATCHED_LAUNCHES
@@ -1631,10 +1651,10 @@ def correlated_phase(full) -> dict:
             check_correlated(cold.masked, name, expected, tag)
             sf1[key] = {"cold_ms": cold.elapsed_s * 1e3, "warm_ms": warm_ms,
                         "relagg_batched_launches": batched,
-                        "relagg_launches": ops.LAUNCHES - before[0]}
+                        "relagg_launches": ops.LAUNCHES - before}
             if name == "grouped":
-                check((batched > 0) == (label == "on") and batched == ops.LAUNCHES - before[0],
-                      f"{tag}: relagg batched launches {batched}, all {ops.LAUNCHES - before[0]}")
+                check((batched > 0) == (label == "on") and batched == ops.LAUNCHES - before,
+                      f"{tag}: relagg batched launches {batched}, all {ops.LAUNCHES - before}")
             log(f"{tag}: == float64 per outer row; warm {warm_ms:.2f} ms (cold "
                 f"{cold.elapsed_s * 1e3:.1f}), relagg batched launches {batched}")
     # the warm runs through the executor alone, under the sync check

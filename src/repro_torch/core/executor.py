@@ -443,17 +443,9 @@ class Executor:
         every left column: each row keeps the right side's first selected
         row (NULL where none) and whether there was one.  As the reference
         (``:355-404``), this path ignores ``node.passthrough``."""
-        n = left.num_rows
-        lenv = left.env()
-        names = list(lenv)
-        dicts = {m: lenv[m].dictionary for m in names}
         captured_dicts: dict = {}
-        sub = self._sub_executor()
 
-        def one_row(scalars):
-            outer = {m: S.Value(scalars[m][0], scalars[m][1], dicts[m]) for m in names}
-            outer = {**ctx.outer, **outer}
-            res = sub.execute(node.right, params=ctx.params, outer=outer, vars=ctx.vars)
+        def first_row(res):
             out = {}
             for cname, c in res.table.columns.items():
                 captured_dicts[cname] = c.dictionary  # host metadata
@@ -461,11 +453,7 @@ class Executor:
             out["__exists"] = torch.any(res.mask)
             return out
 
-        args = {}
-        for m in names:
-            b = lenv[m].broadcast(n)
-            args[m] = (b.data, b.validity())
-        mapped = _vmap_rows(one_row, args, n)
+        mapped = self._vmap_outer_rows(node.right, left.env(), left.num_rows, ctx, first_row)
         exists = mapped.pop("__exists")
 
         if node.kind == "semi":
@@ -774,25 +762,21 @@ class Executor:
         return MaskedTable(Table(cols), self._ones(1))
 
     # -- scalar-subquery hooks (called from scalar.eval_scalar) -------------
-    def _vmap_outer_rows(self, plan: R.RelNode, env, ctx, body: Callable):
+    def _vmap_outer_rows(self, plan: R.RelNode, values: dict[str, S.Value], n: int,
+                         ctx, body: Callable):
         """``body(res)`` of the subplan's result once per outer row, as one
-        ``torch.func.vmap`` of the whole subplan over the outer rows'
-        values of the columns it references: one batched execution, never
-        a loop over the rows."""
-        n = ctx.num_rows
-        names = sorted(_plan_outer_refs(plan) & set(env.keys() | ctx.outer.keys()))
-        dicts = {}
+        ``torch.func.vmap`` of the whole subplan over the ``n`` outer rows'
+        ``values``, each bound as an outer column: one batched execution,
+        never a loop over the rows."""
         cols = {}
-        for m in names:
-            v = env.get(m, ctx.outer.get(m))
+        for m, v in values.items():
             b = v.broadcast(n)
             cols[m] = (b.data, b.validity())
-            dicts[m] = v.dictionary
         sub = self._sub_executor()
 
         def one(scalars):
-            outer = {m: S.Value(scalars[m][0], scalars[m][1], dicts[m]) for m in names}
-            outer = {**ctx.outer, **outer}
+            outer = {**ctx.outer, **{m: S.Value(*scalars[m], values[m].dictionary)
+                                     for m in values}}
             return body(sub.execute(plan, params=ctx.params, outer=outer, vars=ctx.vars))
 
         return _vmap_rows(one, cols, n)
@@ -809,12 +793,14 @@ class Executor:
             captured["dict"] = v.dictionary  # host metadata
             return v.data, v.validity()
 
-        data, valid = self._vmap_outer_rows(expr.plan, env, ctx, first)
+        data, valid = self._vmap_outer_rows(expr.plan, _outer_values(expr.plan, env, ctx),
+                                            ctx.num_rows, ctx, first)
         return S.Value(data, valid, captured.get("dict"))
 
     def eval_exists(self, expr: S.Exists, env, ctx) -> S.Value:
         if _plan_has_outer(expr.plan):
-            v = self._vmap_outer_rows(expr.plan, env, ctx, lambda res: torch.any(res.mask))
+            v = self._vmap_outer_rows(expr.plan, _outer_values(expr.plan, env, ctx),
+                                      ctx.num_rows, ctx, lambda res: torch.any(res.mask))
         else:
             res = self.execute(expr.plan, params=ctx.params, outer=ctx.outer,
                                vars=ctx.vars)
@@ -895,6 +881,13 @@ def _extract_scalar(res: MaskedTable, column: str | None) -> S.Value:
         column = names[0]
     c = res.table.columns[column]
     return S.Value(*_first_selected(res, c), c.dictionary)
+
+
+def _outer_values(plan: R.RelNode, env, ctx) -> dict[str, S.Value]:
+    """The outer values a correlated subplan refers to, from the row's
+    environment or the enclosing outer scope."""
+    names = sorted(_plan_outer_refs(plan) & set(env.keys() | ctx.outer.keys()))
+    return {m: env.get(m, ctx.outer.get(m)) for m in names}
 
 
 def _plan_has_outer(plan: R.RelNode) -> bool:

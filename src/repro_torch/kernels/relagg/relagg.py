@@ -17,7 +17,8 @@ once (a GroupAgg inside a correlated subquery): each item is a ``gridDim.y``
 index with its own inputs at a batch stride (0 for an input every item
 shares), the unbatched launch's row partition, scratch and tickets, in
 chunks of at most :data:`MAX_BATCH_CHUNK` items whose scratch stays within
-:data:`SCRATCH_BUDGET`.
+:data:`SCRATCH_BUDGET`; that scratch is the call's own, allocated with
+the output, and only the tickets are kept per device and stream.
 
 Host work a call is what the call needs: the device's SM count and
 shared-memory budget are read once per device, the shared-memory opt-in
@@ -276,7 +277,10 @@ def relagg_cuda_batched(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tenso
     plan = launch_plan(dev.sm_count, dev.smem_budget, n, num_groups, k)
     chunk = batch_chunk(batch, plan)
     stream = torch._C._cuda_getCurrentRawStream(index)
-    scratch = dev.scratch_for(stream, plan.shared, chunk * plan.scratch_slots)
+    # the call's own scratch, not the device's kept one: a chunk's may
+    # reach SCRATCH_BUDGET; the global path's accumulator starts at 0
+    scratch = (torch.empty if plan.shared else torch.zeros)(
+        chunk * plan.scratch_slots, dtype=torch.float64, device=vals.device)
     if plan.shared:
         dev.reserve(lib, plan.smem)
         err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),

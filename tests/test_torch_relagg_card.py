@@ -249,7 +249,7 @@ def test_relagg_batched_global_path_chunks_its_scratch(rng):
     out = relagg_cuda_batched(*args, groups)
     s, c = (t.cpu().numpy() for t in grouped_aggregate_batched_ref(*args, groups))
     np.testing.assert_array_equal(out[..., 1].cpu().numpy(), c)
-    np.testing.assert_allclose(out[..., 0].cpu().numpy(), s, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out[..., :1].cpu().numpy(), s, rtol=1e-4, atol=1e-4)
 
 
 def test_relagg_under_vmap_launches_the_batched_kernel(rng, monkeypatch):

@@ -67,7 +67,20 @@ script exits non-zero:
    ``l_shipmode`` (relagg launching batched; also with ``pallas_agg``
    off) and an EXISTS under a non-equi correlation, each against its
    float64 answer and once with no host sync, and relagg's batched call
-   at the grouped statement's inputs timed;
+   at the grouped statement's inputs timed.  Then the invocation phase
+   (``execute_many``, ``execute_async``, the scheduler): (a)
+   ``benchmarks/bench_execute_many.py``'s ``key_total`` over a
+   6,000,000-row ``detail`` and 2,000-row ``T`` (relagg on), at N = 1,
+   32 and 1,024 the serial ``execute`` loop, ``execute_many`` and N
+   ``execute_async`` calls, each ticket against float64 and the serial
+   loop, relagg launching once an ``execute_many`` call (the decorrelated
+   build is unbatched) and once a ticket serially; N = 33 (bucket 64)
+   against N = 32; one chunk's and one async dispatch with no host sync;
+   (b) SF 1 ``lineitem`` filtered by ``l_shipdate <= param("d")`` and
+   grouped by ``l_shipmode``, ``execute_many`` over the 16 dates, relagg
+   on (one batched launch a call) and off, against float64 and the serial
+   loop; (c) admission's ``evaluate_coalesced`` against ``evaluate`` and
+   the rules under FROID, INTERPRETED and HEKATON;
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -75,8 +88,9 @@ script exits non-zero:
    8 requests with 512-2048-token prompts plus one 33,000-token prompt
    that the ``admit`` rule rejects, served twice (granite, mamba) or once
    (phi3, gemma3), with the kernel launches counted over the first run,
-   the peak device memory, and a traced prefill's port kernels checked by
-   name and count (the bf16 flash kernel at the model's head dim, the four
+   the peak device memory, granite also through ``submit``/``drain``
+   (equal to ``run``'s completions), and a traced prefill's port kernels
+   checked by name and count (the bf16 flash kernel at the model's head dim, the four
    ssd_scan passes once a layer each);
 8. LM kernel times — flash_attention and ssd_scan on the inputs the
    serving path handed them (gemma3: a global and a local layer), against
@@ -1708,6 +1722,425 @@ def correlated_phase(full) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# invocation phase: execute_many, execute_async and the scheduler
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/bench_execute_many.py:45-75``'s tables, ``detail`` at SF 1
+#: ``lineitem``'s row count
+INVOCATION_ROWS = {"detail": 6_000_000, "T": 2_000, "keys": 400}
+INVOCATION_SWEEP = (1, 32, 1024)
+
+
+def invocation_session():
+    """``bench_execute_many._setup`` at ``detail``'s real scale (numpy,
+    seed 0) on the card, with its ``key_total`` UDF; and ``detail``'s and
+    ``T``'s host arrays for the float64 check."""
+    import repro_torch.core as C
+
+    rows, keys = INVOCATION_ROWS["detail"], INVOCATION_ROWS["keys"]
+    rng = np.random.default_rng(0)
+    d_key = rng.integers(0, keys, rows)
+    d_val = rng.uniform(0, 100, rows).astype(np.float32)
+    a = rng.integers(0, keys, INVOCATION_ROWS["T"])
+    db = C.Session()
+    db.create_table("detail", d_key=d_key, d_val=d_val)
+    db.create_table("T", a=a)
+    u = C.UdfBuilder("key_total", [("k", "int32")], "float32")
+    u.declare("s", "float32")
+    u.select({"s": C.sum_(C.col("d_val"))}, frm=C.scan("detail"),
+             where=C.col("d_key") == C.param("k"))
+    with u.if_(C.var("s").is_null()):
+        u.return_(C.lit(0.0))
+    u.return_(C.var("s"))
+    db.create_function(u.build())
+    sums = np.bincount(d_key, weights=d_val.astype(np.float64), minlength=keys)
+    tol = 1e-6 * np.bincount(d_key, weights=np.abs(d_val.astype(np.float64)),
+                             minlength=keys) + 1e-3
+    return db, a, sums, tol
+
+
+def key_total_query():
+    import repro_torch.core as C
+
+    return (C.scan("T").filter(C.col("a") < C.param("cutoff"))
+            .compute(v=C.udf("key_total", C.col("a"))).project("v"))
+
+
+def stacked(results, column: str):
+    """(masks (N, n), values (N, n)) of N results, on the host."""
+    import torch
+
+    masked = [r.masked for r in results]
+    return (torch.stack([m.mask for m in masked]).cpu().numpy(),
+            torch.stack([m.table.columns[column].data for m in masked]).cpu().numpy())
+
+
+def check_key_totals(results, cutoffs, a, sums, tol, label: str):
+    """Each ticket: its mask is ``a < cutoff`` and ``v`` the float64 sum of
+    ``d_val`` over its key, within ``tol``."""
+    masks, vals = stacked(results, "v")
+    want = a[None, :] < np.asarray(cutoffs)[:, None]
+    check(np.array_equal(masks, want), f"{label}: masks differ from a < cutoff")
+    err = np.abs(vals.astype(np.float64) - sums[a][None, :])
+    check(bool((err <= tol[a][None, :])[want].all()) and np.isfinite(vals[want]).all(),
+          f"{label}: a value off its float64 sum (max err {float(err[want].max()):.3g})")
+    return masks, vals
+
+
+def same_tickets(a_results, b_results, column: str, label: str, exact: bool) -> float:
+    """Two result lists element-wise: masks exactly, ``column`` bit-equal
+    (``exact``) or to rtol 1e-5 where selected; returns the max |diff|."""
+    am, av = stacked(a_results, column)
+    bm, bv = stacked(b_results, column)
+    check(np.array_equal(am, bm), f"{label}: masks differ")
+    diff = np.abs(av.astype(np.float64) - bv.astype(np.float64))[am]
+    if exact:
+        check(np.array_equal(av[am], bv[am]), f"{label}: values not bit-equal "
+              f"(max |diff| {float(diff.max(initial=0.0)):.3g})")
+    else:
+        check(np.allclose(av[am], bv[am], rtol=1e-5), f"{label}: values differ")
+    return float(diff.max(initial=0.0))
+
+
+def arm(fn) -> dict:
+    """``fn()`` once on the host clock (it ends waiting for its device
+    work), with the peak device memory and relagg's launches in it."""
+    import torch
+
+    from repro_torch.kernels.relagg import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES = ops.BATCHED_LAUNCHES = 0  # counts this arm only
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    return {"out": out, "wall_s": wall, "relagg_launches": ops.LAUNCHES,
+            "relagg_batched_launches": ops.BATCHED_LAUNCHES,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serial_split(stmt, params_list) -> tuple[float, float]:
+    """The serial loop's dispatch and sync seconds apart: the raw call
+    (``stmt(params)``, every operator queued) and the wait after it."""
+    import torch
+
+    dispatch = sync = 0.0
+    for p in params_list:
+        t0 = time.perf_counter()
+        stmt(params=p)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        dispatch += t1 - t0
+        sync += time.perf_counter() - t1
+    return dispatch, sync
+
+
+def dispatch_without_sync(stmt, params_list) -> tuple[list, float]:
+    """One ``execute_many`` chunk's dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises),
+    then its barrier outside it: (results, host ms of the dispatch)."""
+    import torch
+
+    from repro_torch.core.session import param_signature
+
+    env = stmt.session._env_token()
+    pending: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stmt._dispatch_batch(list(range(len(params_list))), params_list,
+                             param_signature(params_list[0]), env, pending,
+                             stmt.policy.max_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(len(pending) == 1, f"{len(pending)} chunks for {len(params_list)} tickets")
+    results = [None] * len(params_list)
+    stmt._finalize_batch(pending[0], results, 1)
+    return results, host_ms
+
+
+def key_total_phase() -> dict:
+    """(a): the serial ``execute`` loop, ``execute_many`` and N
+    ``execute_async`` calls then their results, at N = 1, 32 and 1,024
+    (``bench_execute_many``'s cutoffs: numpy seed 7), FROID with relagg
+    on; each ticket against the float64 sums, the batched and async
+    results against the serial loop; then the padding (N = 33 in bucket
+    64 against N = 32) and the sync check of one chunk's and one async
+    dispatch."""
+    import torch
+
+    import repro_torch.core as C
+
+    db, a, sums, tol = invocation_session()
+    policy = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    stmt = db.prepare(key_total_query(), policy)
+    stmt.execute(params={"cutoff": 1})  # the plan and the catalog arguments
+    rng = np.random.default_rng(7)
+    out: dict = {"rows": dict(INVOCATION_ROWS), "sweep": {}}
+    for n in INVOCATION_SWEEP:
+        cutoffs = rng.integers(1, INVOCATION_ROWS["keys"], n)
+        plist = [{"cutoff": int(c)} for c in cutoffs]
+        serial = arm(lambda: [stmt.execute(params=p) for p in plist])
+        check_key_totals(serial["out"], cutoffs, a, sums, tol, f"serial N={n}")
+        s_dispatch, s_sync = serial_split(stmt, plist)
+        stmt.execute_many(plist)  # the first call of this bucket
+        many = arm(lambda: stmt.execute_many(plist))
+        check_key_totals(many["out"], cutoffs, a, sums, tol, f"execute_many N={n}")
+        many_diff = same_tickets(serial["out"], many["out"], "v",
+                                 f"execute_many vs serial N={n}", exact=False)
+        st = many["out"][0].stats
+        check(st["batch_size"] == n and st["batch_bucket"] == C.batch_bucket(n, 1024),
+              f"execute_many N={n}: {st}")
+
+        def run_async():
+            futs = [stmt.execute_async(params=p) for p in plist]
+            return [f.result() for f in futs]
+
+        asyn = arm(run_async)
+        check_key_totals(asyn["out"], cutoffs, a, sums, tol, f"async N={n}")
+        async_diff = same_tickets(serial["out"], asyn["out"], "v",
+                                  f"async vs serial N={n}", exact=True)
+        check(serial["relagg_launches"] == n and asyn["relagg_launches"] == n
+              and many["relagg_launches"] == 1 and many["relagg_batched_launches"] == 0,
+              f"N={n}: relagg launches serial {serial['relagg_launches']}, "
+              f"execute_many {many['relagg_launches']} "
+              f"({many['relagg_batched_launches']} batched), async {asyn['relagg_launches']}")
+        row = {}
+        for name, r, dispatch, sync in (
+                ("serial", serial, s_dispatch, s_sync),
+                ("execute_many", many, st["dispatch_s"], st["sync_s"]),
+                ("async", asyn, sum(x.stats["dispatch_s"] for x in asyn["out"]),
+                 sum(x.stats["sync_s"] for x in asyn["out"]))):
+            row[name] = {"us_per_invocation": r["wall_s"] / n * 1e6, "wall_ms": r["wall_s"] * 1e3,
+                         "dispatch_s": dispatch, "sync_s": sync,
+                         "batch_bucket": r["out"][0].stats.get("batch_bucket"),
+                         "relagg_launches": r["relagg_launches"], "peak_gb": r["peak_gb"]}
+        row["max_abs_diff_vs_serial"] = {"execute_many": many_diff, "async": async_diff}
+        out["sweep"][n] = row
+        log(f"invocation (a) N={n}: µs an invocation serial {row['serial']['us_per_invocation']:.1f}"
+            f", execute_many {row['execute_many']['us_per_invocation']:.1f} (bucket "
+            f"{row['execute_many']['batch_bucket']}, dispatch {st['dispatch_s'] * 1e3:.2f} ms, "
+            f"sync {st['sync_s'] * 1e3:.2f} ms), async {row['async']['us_per_invocation']:.1f}; "
+            f"relagg launches {serial['relagg_launches']} / {many['relagg_launches']} / "
+            f"{asyn['relagg_launches']}; peak GB {serial['peak_gb']:.3f} / "
+            f"{many['peak_gb']:.3f} / {asyn['peak_gb']:.3f}; == float64 and serial")
+        del serial, many, asyn
+    # the padding: N = 32 (bucket 32) and N = 33 (bucket 64), in turns
+    pad: dict = {32: [], 33: []}
+    cutoffs = rng.integers(1, INVOCATION_ROWS["keys"], 33)
+    lists = {n: [{"cutoff": int(c)} for c in cutoffs[:n]] for n in pad}
+    for n in pad:
+        stmt.execute_many(lists[n])
+    for _ in range(3):
+        for n in (32, 33, 33, 32):
+            r = arm(lambda n=n: stmt.execute_many(lists[n]))
+            pad[n].append(r["wall_s"] * 1e3)
+            check(r["out"][0].stats["batch_bucket"] == (32 if n == 32 else 64), "padding")
+    out["padding"] = {f"N{n}_ms": float(np.median(v)) for n, v in pad.items()}
+    out["padding"]["N33_over_N32"] = out["padding"]["N33_ms"] / out["padding"]["N32_ms"]
+    log(f"invocation (a) padding: N=32 in bucket 32 {out['padding']['N32_ms']:.3f} ms, N=33 in "
+        f"bucket 64 {out['padding']['N33_ms']:.3f} ms (x{out['padding']['N33_over_N32']:.3f})")
+    # no host sync in a chunk's dispatch or an async dispatch
+    results, many_host_ms = dispatch_without_sync(stmt, lists[32])
+    check_key_totals(results, cutoffs[:32], a, sums, tol, "execute_many under the sync check")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = stmt.execute_async(params=lists[32][0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    async_host_ms = (time.perf_counter() - t0) * 1e3
+    check_key_totals([fut.result()], cutoffs[:1], a, sums, tol, "execute_async under the sync check")
+    out["sync_check_host_ms"] = {"execute_many_chunk_32": many_host_ms,
+                                 "execute_async": async_host_ms}
+    log(f"invocation (a) under set_sync_debug_mode('error'): no host sync; a 32-ticket "
+        f"chunk dispatched in {many_host_ms:.2f} ms, an async call in {async_host_ms:.2f} ms")
+    del db, stmt, results, fut
+    return out
+
+
+def grouped_param_expected(session, dates):
+    """(b)'s answer per date in float64 on the host: the discounted price
+    summed by ``l_shipmode`` code over ``l_shipdate <= d``, which groups
+    are present, and the tolerance (1e-6 x the group's sum of |v| +
+    1e-3)."""
+    li = session.catalog["lineitem"].columns
+    ship = li["l_shipdate"].data.cpu().numpy()
+    v = (li["l_extendedprice"].data.cpu().numpy().astype(np.float64)
+         * (1.0 - li["l_discount"].data.cpu().numpy().astype(np.float64)))
+    mode = li["l_shipmode"].data.cpu().numpy()
+    groups = len(li["l_shipmode"].dictionary)
+    out = []
+    for d in dates:
+        sel = ship <= d
+        out.append((np.bincount(mode[sel], weights=v[sel], minlength=groups),
+                    np.bincount(mode[sel], minlength=groups) > 0,
+                    1e-6 * np.bincount(mode[sel], weights=np.abs(v[sel]), minlength=groups)
+                    + 1e-3))
+    return out
+
+
+def check_grouped_param(results, expected, label: str) -> None:
+    """Each ticket of (b): the groups present are the float64 answer's, and
+    each group's sum is within its tolerance (rows matched by key)."""
+    for i, (r, (sums, present, tol)) in enumerate(zip(results, expected)):
+        m = r.masked
+        mask = m.mask.cpu().numpy()
+        keys = m.table.columns["l_shipmode"].data.cpu().numpy()[mask]
+        g = m.table.columns["g"].data.cpu().numpy()[mask].astype(np.float64)
+        check(sorted(keys.tolist()) == np.flatnonzero(present).tolist(),
+              f"{label}[{i}]: groups {sorted(keys.tolist())}")
+        err = np.abs(g - sums[keys])
+        check(bool((err <= tol[keys]).all()) and np.isfinite(g).all(),
+              f"{label}[{i}]: sums off float64 by {float(err.max(initial=0.0)):.3g}")
+
+
+def grouped_param_phase(full) -> dict:
+    """(b): ``lineitem`` at SF 1 filtered by ``l_shipdate <= param("d")``,
+    grouped by ``l_shipmode``, the discounted price summed, through
+    ``execute_many`` over the correlated phase's 16 dates: relagg on (the
+    parameter reaches relagg's batch axis: one batched launch a chunk)
+    and off; each ticket against float64 and the serial loop; warm ms;
+    one chunk's dispatch under the sync check."""
+    import repro_torch.core as C
+
+    dates = full.catalog["orders16"].columns["o_orderdate"].data.cpu().numpy()
+    plist = [{"d": int(d)} for d in dates]
+    expected = grouped_param_expected(full, dates)
+    price = C.col("l_extendedprice") * (C.lit(1.0) - C.col("l_discount"))
+    q = (C.scan("lineitem").filter(C.col("l_shipdate") <= C.param("d"))
+         .group_by("l_shipmode", g=C.sum_(price)))
+    out: dict = {"tickets": len(plist), "lineitem_rows": full.catalog["lineitem"].num_rows}
+    for label, pallas, rounds in (("relagg_on", True, WARM_ROUNDS), ("relagg_off", False, 2)):
+        stmt = full.prepare(q, C.ExecutionPolicy(name=f"froid+{label}", pallas_agg=pallas))
+        serial = [stmt.execute(params=p) for p in plist]
+        check_grouped_param(serial, expected, f"(b) serial {label}")
+        first = stmt.execute_many(plist)
+        warm = [arm(lambda: stmt.execute_many(plist)) for _ in range(rounds)]
+        batched = warm[-1]["out"]
+        check_grouped_param(batched, expected, f"(b) execute_many {label}")
+        diff = same_tickets(serial, batched, "g", f"(b) execute_many vs serial {label}",
+                            exact=pallas)
+        chunks = {r.stats["pipelined_chunks"] for r in batched}
+        launches = [w["relagg_batched_launches"] for w in warm]
+        check(launches == ([1] * rounds if pallas else [0] * rounds) and chunks == {1},
+              f"(b) {label}: batched relagg launches a call {launches}, chunks {chunks}")
+        out[label] = {"warm_ms": float(np.median([w["wall_s"] * 1e3 for w in warm])),
+                      "warm_ms_all": [w["wall_s"] * 1e3 for w in warm],
+                      "first_ms": first[0].elapsed_s * 1e3,
+                      "dispatch_ms": batched[0].stats["dispatch_s"] * 1e3,
+                      "sync_ms": batched[0].stats["sync_s"] * 1e3,
+                      "batch_bucket": batched[0].stats["batch_bucket"],
+                      "relagg_batched_launches_per_call": launches[0],
+                      "relagg_launches_per_call": warm[0]["relagg_launches"],
+                      "peak_gb": warm[-1]["peak_gb"], "max_abs_diff_vs_serial": diff}
+        if pallas:
+            results, host_ms = dispatch_without_sync(stmt, plist)
+            check_grouped_param(results, expected, "(b) under the sync check")
+            out[label]["sync_check_host_ms"] = host_ms
+        log(f"invocation (b) {label}: 16 dates x {out['lineitem_rows']} rows, execute_many warm "
+            f"{out[label]['warm_ms']:.2f} ms (first {out[label]['first_ms']:.1f}), bucket "
+            f"{out[label]['batch_bucket']}, relagg batched launches a call {launches[0]}, "
+            f"peak {out[label]['peak_gb']:.3f} GB; == float64 and the serial loop "
+            f"({'bit-equal' if pallas else 'max |diff| %.3g' % diff})"
+            + (f"; a chunk dispatched with no host sync in {host_ms:.2f} ms" if pallas else ""))
+        del serial, first, warm, batched
+    return out
+
+
+def admission_phase() -> dict:
+    """(c): ``AdmissionPolicy.evaluate_coalesced`` (per-request submits,
+    one scheduler drain through ``execute_many``) against ``evaluate``
+    (the tick path) and the rules written out in Python, on the serving
+    phase's 9 requests, under FROID, INTERPRETED and HEKATON on the card;
+    each path's host ms (3 warm calls, median)."""
+    from repro_torch.configs import config_for
+    from repro_torch.serve.admission import AdmissionPolicy
+
+    reqs = serve_requests(config_for("granite3_2b").vocab)
+    fields = {"tier": np.array([r.tier for r in reqs]),
+              "prompt_len": np.array([len(r.prompt) for r in reqs]),
+              "max_new_tokens": np.array([r.max_new_tokens for r in reqs]),
+              "temperature": np.array([r.temperature for r in reqs])}
+    want = [expected_verdict(r.tier, len(r.prompt), r.max_new_tokens, r.temperature, len(reqs))
+            for r in reqs]
+    out = {}
+    for policy in ("froid", "interpreted", "hekaton"):
+        ap = AdmissionPolicy(policy=policy)
+        times: dict = {"tick": [], "coalesced": []}
+        for _ in range(4):
+            for path, fn in (("tick", ap.evaluate), ("coalesced", ap.evaluate_coalesced)):
+                t0 = time.perf_counter()
+                got = fn(fields)
+                times[path].append((time.perf_counter() - t0) * 1e3)
+                check([(bool(a), int(g)) for a, g in zip(got["admit"], got["granted"])]
+                      == [(a, g) for a, g, _ in want]
+                      and np.allclose(got["temp"], [t for _, _, t in want], rtol=1e-6),
+                      f"admission {policy} {path}: {got} vs the rules")
+        stmt = ap.request_statement()
+        check(stmt.policy.compile_plan and ap.scheduler.stats["batches"] == 4
+              and ap.scheduler.stats["drained"] == 4 * len(reqs),
+              f"admission {policy}: {stmt.policy.name}, {ap.scheduler.stats}")
+        out[policy] = {path: {"first_ms": t[0], "warm_ms": float(np.median(t[1:]))}
+                       for path, t in times.items()}
+        log(f"invocation (c) admission {policy}: coalesced == tick == the rules; host ms tick "
+            f"{out[policy]['tick']['warm_ms']:.2f} (first {out[policy]['tick']['first_ms']:.1f}),"
+            f" through the scheduler {out[policy]['coalesced']['warm_ms']:.2f} (first "
+            f"{out[policy]['coalesced']['first_ms']:.1f}; {stmt.policy.name})")
+        del ap
+    return out
+
+
+def invocation_phase(full) -> dict:
+    """``execute_many``, ``execute_async`` and the scheduler on the card:
+    (a) :func:`key_total_phase`, (b) :func:`grouped_param_phase` (on the
+    SF-1 session, after the correlated phase made ``orders16``), (c)
+    :func:`admission_phase` (``ServeEngine.submit``/``drain`` runs in the
+    granite serving phase, :func:`intake_check`)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"key_total": key_total_phase()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["grouped"] = grouped_param_phase(full)
+    out["admission"] = admission_phase()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"invocation phase ok in {out['seconds']:.1f} s")
+    return out
+
+
+def intake_check(model, reqs, want: dict) -> dict:
+    """(c): ``ServeEngine.submit`` each request then ``drain``: the
+    completions (verdicts, greedy and sampled tokens) equal ``run``'s
+    (``want``: rid -> Completed), admission drained as one
+    ``execute_many``."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, slots=SLOTS, max_len=MAX_LEN, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {c.rid: (c.reason, c.tokens) for c in done}
+    check(got == {rid: (c.reason, c.tokens) for rid, c in want.items()},
+          "submit/drain completions differ from run's")
+    stats = engine.admission.scheduler.stats
+    check(stats["batches"] == 1 and stats["drained"] == len(reqs) and not engine.shed,
+          f"submit/drain admission: {stats}")
+    return {"wall_s": wall, "requests": len(reqs), "equal_to_run": True}
+
+
 # source text the variants below replace
 _PAIR_LOOP = ("        // one (group, column) slot a lane: the group's rows in lane order\n"
               "        for (int p = lane; p < __popc(leaders) * width; p += 32) {")
@@ -2365,6 +2798,8 @@ def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCal
 
     first, later = runs[0], runs[1:]
     second = later[0] if later else None
+    # the online intake on the first model only (granite-3-2b)
+    intake = intake_check(model, reqs, first["done"]) if arch == SERVE_ARCHS[0][0] else None
     for rid, (admit, granted, _) in expected.items():
         c = first["done"][rid]
         if not admit:
@@ -2425,7 +2860,7 @@ def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCal
         "wall_s_2nd_run": second and second["wall_s"],
         "tokens_per_s": generated / first["wall_s"],
         "peak_gb": first["peak_bytes"] / 1e9, "launches": first["launches"][kernel],
-        **busy,
+        "intake": intake, **busy,
     }
     for what, wall in (("prefill", timed.prefill_ms[0]),
                        ("decode", summary["decode_ms_per_token"])):
@@ -2443,7 +2878,9 @@ def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCal
         f"decode {summary['decode_ms_per_token']:.2f} ms/token, "
         f"{summary['tokens_per_s']:.1f} tokens/s, peak {summary['peak_gb']:.2f} GB; "
         f"{kernel} launches {first['launches'][kernel]} per run ({capture.counts})"
-        + (f"; greedy and sampled tokens equal across the {n_runs} runs" if later else ""))
+        + (f"; greedy and sampled tokens equal across the {n_runs} runs" if later else "")
+        + (f"; submit/drain == run (admission through the scheduler, {intake['wall_s']:.2f} s)"
+           if intake else ""))
     del model, engine, runs, first, later, second, timed
     gc.collect()
     torch.cuda.empty_cache()
@@ -2902,6 +3339,7 @@ def main() -> int:
     cursor = cursor_phase()
     log(f"cursor-loop phase ok in {time.perf_counter() - t1:.1f} s")
     correlated = correlated_phase(session)
+    invocation = invocation_phase(session)
     del session
     gc.collect()
     torch.cuda.empty_cache()
@@ -2944,6 +3382,7 @@ def main() -> int:
 
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
+                    "invocation": invocation,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
@@ -2971,7 +3410,18 @@ def main() -> int:
          "launches_correlated": correlated["sf1"]["grouped/relagg_on"]["relagg_batched_launches"],
          "correlated": {key: correlated["sf1"]["relagg_batched"][key] for key in (
              "B", "n", "groups", "k", "path", "ms", "device_ms", "plain_ms", "bound_ms",
-             "bound_by", "bound_per_item_ms", "library_ms", "max_abs_err")}},
+             "bound_by", "bound_per_item_ms", "library_ms", "max_abs_err")},
+         # the invocation phase, the counts set to 0 just before each call:
+         # (a) one launch an execute_many call at each N (the decorrelated
+         # build is unbatched; the serial loop launches once a ticket), (b)
+         # one batched launch an execute_many call of 16 dates
+         "launches_invocation": {
+             **{f"key_total/execute_many/N{n}": row["execute_many"]["relagg_launches"]
+                for n, row in invocation["key_total"]["sweep"].items()},
+             **{f"key_total/serial/N{n}": row["serial"]["relagg_launches"]
+                for n, row in invocation["key_total"]["sweep"].items()},
+             "grouped/execute_many_batched":
+                 invocation["grouped"]["relagg_on"]["relagg_batched_launches_per_call"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

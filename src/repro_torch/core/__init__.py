@@ -55,10 +55,12 @@ from repro_torch.core.policy import (
     resolve_policy,
 )
 from repro_torch.core.session import (
+    AsyncResult,
     PreparedStatement,
     QueryResult,
     RunResult,
     Session,
+    batch_bucket,
     param_signature,
     plan_fingerprint,
 )
@@ -74,7 +76,7 @@ __all__ = [
     "Break", "While", "Fetch", "CursorLoop",
     "FETCH_STATUS", "UnsupportedConstructError", "parse_udf",
     "explain", "optimize",
-    "Session", "PreparedStatement", "QueryResult",
+    "Session", "PreparedStatement", "QueryResult", "AsyncResult", "batch_bucket",
     "ExecutionPolicy", "FROID", "INTERPRETED", "HEKATON", "ROUTED", "PRESETS",
     "resolve_policy", "plan_fingerprint", "param_signature",
 ]

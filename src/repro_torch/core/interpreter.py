@@ -18,7 +18,9 @@ Two modes, mirroring the paper's Table 5 quadrants:
   order**, as the reference's ``lax.scan`` drives it.  A loop-free row
   body queues on the device without a host sync; a WHILE reads its
   condition on the host each iteration, as ``lax.while_loop`` would on
-  the device.  Rows are never batched: native compilation removes
+  the device (under a statement's ``execute_many`` once for the whole
+  batch of invocations, as ``lax.while_loop`` batches).  Rows are never
+  batched: native compilation removes
   interpretation overhead but not the iterative execution model, which is
   exactly the paper's point.
 
@@ -532,7 +534,12 @@ class Interpreter:
         def traced_while(st: IR.While, vars, ret, retset, live):
             """``lax.while_loop``'s port: the condition (with
             ``it < max_loop_iters``; past it the loop stops silently) is
-            read on the host each iteration."""
+            read on the host each iteration.  Under ``torch.func.vmap`` (a
+            statement's ``execute_many``) the condition is batched, and the
+            loop takes ``lax.while_loop``'s batching rule: it runs while any
+            item's condition holds (one host read for the whole batch), and
+            the body's writes are predicated on each item's own condition,
+            which stays false once it is (BREAK and RETURN are sticky)."""
             ret, retset, has_ret = seed_frame(st, vars, ret, retset)
             names, dtypes, rdict, base_live, unpack, leaves, rleaf = frame(
                 vars, ret, live)
@@ -544,16 +551,20 @@ class Interpreter:
                       & base_live & ~brk)
                 if has_ret:
                     ok = ok & ~rs
-                if not (it < self.max_loop_iters and bool(ok)):
+                batched = torch._C._functorch.is_batchedtensor(ok)
+                go = _any_item(ok) if batched else bool(ok)
+                if not (it < self.max_loop_iters and go):
                     break
                 vv = unpack(leaves)
                 r = (S.Value(rleaf[0], rleaf[1], rdict)
                      if ret is not None else None)
                 flow = _Flow(false)
-                r2, rs2 = run(st.body, vv, r, rs, live=None, flow=flow)
+                r2, rs2 = run(st.body, vv, r, rs, live=ok if batched else None,
+                              flow=flow)
                 leaves = carry(vv, names, dtypes)
                 rleaf = ret_leaf(r2, rleaf)
-                rs, brk = _sc(rs2), _sc(flow.broken)
+                rs = _sc(rs2)
+                brk = _sc(brk | flow.broken) if batched else _sc(flow.broken)
                 it += 1
             for k, v in unpack(leaves).items():
                 vars[k] = v
@@ -618,6 +629,15 @@ class Interpreter:
 def _sc(x: torch.Tensor) -> torch.Tensor:
     """Rank 0 (a loop carry is one row's scalar)."""
     return x.reshape(())
+
+
+def _any_item(x: torch.Tensor) -> bool:
+    """Whether any item of a bool tensor batched under ``torch.func.vmap``
+    is true, read on the host from its physical tensor (every vmap level
+    unwrapped)."""
+    while torch._C._functorch.is_batchedtensor(x):
+        x = torch._C._functorch.get_unwrapped(x)
+    return bool(x.any())
 
 
 def _loop_declares(stmts):

@@ -1,16 +1,24 @@
-"""Port of ``src/repro/core/session.py:1-2106``, the serial path:
-Session / PreparedStatement, the engine's prepare-once-execute-many API.
+"""Port of ``src/repro/core/session.py:1-2106``: Session /
+PreparedStatement, the engine's prepare-once-execute-many API, with its
+batched and async paths.
 
-* :class:`Session` owns the catalog (on its device) + UDF registry and two
+* :class:`Session` owns the catalog (on its device) + UDF registry and its
   caches — a **plan cache** (bound + optimized plans, keyed by query
-  fingerprint x policy x catalog/registry state) and an **executable
-  cache** (the plan's ``raw`` closure, additionally keyed by the parameter
-  signature), with the reference's cache keys.
+  fingerprint x policy x catalog/registry state), an **executable cache**
+  (the plan's ``raw`` closure, additionally keyed by the parameter
+  signature) and a **batch cache** (``torch.func.vmap`` of ``raw`` over
+  the parameter axis, additionally keyed by the batch bucket), with the
+  reference's cache keys.
 * :class:`PreparedStatement` is the client handle: ``prepare`` plans and
   binds (cold); ``execute(params=…)`` runs warm off the cached executable.
   Where the reference jit-compiles ``raw``, the port runs it eagerly on the
   device: PyTorch needs no trace, and the plan's operators queue without a
   host sync until the one ``torch.cuda.synchronize`` at the end.
+  ``execute_many`` stacks N same-signature parameter sets into one
+  vmapped program (``jax.vmap(raw, in_axes=(None, 0))`` in the reference),
+  chunked at ``policy.max_batch`` and pipelined; ``execute_async``
+  dispatches and returns an :class:`AsyncResult` whose marker is a
+  ``torch.cuda.Event`` recorded after the dispatch.
 * :class:`QueryResult` reports rows lazily plus the plan, explain text,
   engine stats and whether the call was served from cache.
 
@@ -19,15 +27,16 @@ raises where CUDA is absent; only an explicit ``device="cpu"`` runs on the
 host.  A plan that still holds a ``UdfCall`` (INTERPRETED, HEKATON, or
 FROID past its inlining budget) runs it on the per-row interpreter: the
 compiled path with a ``scan``-mode hook, the eager path with the policy's
-``udf_mode``.  Not ported yet: ``execute_many``, ``execute_async``,
-fusion, persistence, cost routing and fault injection.
+``udf_mode``.  ``Session._fault`` is the reference's fault-injection seam
+at its compile, dispatch, sync and interp sites.  Not ported yet: fusion
+(ROADMAP A7), cost routing (A8), persistence (A9) and the mesh (A10).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any
 
 import numpy as np
@@ -53,21 +62,40 @@ from repro_torch.tables.table import (Column, DictEncoding, Table, catalog_from_
 
 class QueryResult:
     """Result of one execution.  ``table`` (compacted host-visible rows)
-    materializes lazily; ``masked`` is the device form.  ``stats`` holds
-    the reference's counters and, where the per-row interpreter ran, the
-    port's ``udf_rows``: the rows it was driven over in this execution."""
+    materializes lazily; ``masked`` is the device form.
 
-    def __init__(self, masked: MaskedTable, plan: R.RelNode,
+    Batched and async executions defer even the masked form: they pass
+    ``materialize`` instead of ``masked``, and the first ``masked`` access
+    slices this call's rows out of the shared device batch (or waits for
+    the in-flight dispatch).
+
+    ``stats`` holds the reference's counters and, where the per-row
+    interpreter ran, the port's ``udf_rows``: the rows it was driven over
+    for this execution.  On a batched result that is the rows each
+    invocation drives (the vmapped row loop runs once for the whole
+    batch), not the batch size times them."""
+
+    def __init__(self, masked: MaskedTable | None, plan: R.RelNode,
                  elapsed_s: float, stats: dict,
                  policy: ExecutionPolicy | None = None,
-                 cache_hit: bool = False):
-        self.masked = masked
+                 cache_hit: bool = False, materialize=None):
+        if masked is None and materialize is None:
+            raise ValueError("QueryResult needs masked or materialize")
+        self._masked = masked
+        self._materialize = materialize
         self.plan = plan
         self.elapsed_s = elapsed_s
         self.stats = stats
         self.policy = policy
         self.cache_hit = cache_hit
         self._table: Table | None = None
+
+    @property
+    def masked(self) -> MaskedTable:
+        if self._masked is None:
+            self._masked = self._materialize()
+            self._materialize = None
+        return self._masked
 
     @property
     def table(self) -> Table:
@@ -83,6 +111,51 @@ class QueryResult:
         pol = self.policy.name if self.policy else "?"
         return (f"QueryResult(rows={self.masked.num_rows}, policy={pol}, "
                 f"cache_hit={self.cache_hit}, elapsed_s={self.elapsed_s:.4f})")
+
+
+class AsyncResult:
+    """Future returned by :meth:`PreparedStatement.execute_async`.
+
+    The device work is already queued; ``result()`` waits for it and
+    returns the :class:`QueryResult`.  The marker is a ``torch.cuda.Event``
+    recorded on the current stream right after the dispatch: ``done()``
+    polls it (``Event.query``) and ``result()`` waits on it alone, never on
+    the whole device.  A CPU session has no marker, and its results are
+    done when returned.
+
+    A truly async result occupies one of the session's bounded in-flight
+    slots (``policy.max_inflight``) until ``result()`` releases it.
+    Degraded (synchronous) results never hold a slot.
+    """
+
+    def __init__(self, result: QueryResult, marker=None, session=None):
+        self._result = result
+        self._marker = marker  # torch.cuda.Event | None
+        self._session = session
+        self._released = session is None
+
+    def done(self) -> bool:
+        m = self._marker
+        if m is None:
+            return True
+        return m.query()
+
+    def _release(self) -> None:
+        if self._released:
+            return
+        self._released = True
+        try:
+            self._session._inflight.remove(self)
+        except ValueError:
+            pass  # already reaped by a later dispatch's admission pass
+
+    def result(self) -> QueryResult:
+        _ = self._result.masked  # waits for the marker + materializes
+        self._release()
+        return self._result
+
+    def __repr__(self):
+        return f"AsyncResult(done={self.done()})"
 
 
 #: backward-compatible alias — the old Database.run result type
@@ -139,17 +212,20 @@ def _param_value(v, device) -> S.Value:
     (int -> int32, float -> float32, strings as one-entry dictionaries)."""
     if isinstance(v, S.Value):
         return v
+    # every copy is queued non-blocking (S.host_tensor): a dispatch never
+    # waits for the device
     if isinstance(v, str):
-        return S.Value(torch.tensor(0, dtype=torch.int32, device=device), None,
+        return S.Value(S.host_tensor(0, torch.int32, device), None,
                        DictEncoding([v]))
     if isinstance(v, bool):
-        return S.Value(torch.tensor(v, dtype=torch.bool, device=device))
+        return S.Value(S.host_tensor(v, torch.bool, device))
     if isinstance(v, (int, np.integer)):
-        return S.Value(torch.tensor(int(v), dtype=torch.int32, device=device))
+        return S.Value(S.host_tensor(int(v), torch.int32, device))
     if isinstance(v, (float, np.floating)):
-        return S.Value(torch.tensor(float(v), dtype=torch.float32, device=device))
+        return S.Value(S.host_tensor(float(v), torch.float32, device))
     arr = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-    arr = arr.to(device=device, dtype=_ARRAY_CASTS.get(arr.dtype, arr.dtype))
+    arr = arr.to(device=device, dtype=_ARRAY_CASTS.get(arr.dtype, arr.dtype),
+                 non_blocking=True)
     return S.Value(arr)
 
 
@@ -188,6 +264,46 @@ def param_signature(params: dict | None) -> tuple:
     return tuple(out)
 
 
+def batch_bucket(n: int, max_batch: int) -> int:
+    """Device batch size for ``n`` same-signature param sets: the next
+    power of two, capped at ``max_batch``.  Bucketing means a statement
+    executed at N = 5, 6, 7 … shares one vmapped executable (padded to 8)
+    instead of one per distinct N."""
+    if n <= 0:
+        raise ValueError("batch of zero parameter sets")
+    b = 1
+    while b < n:
+        b <<= 1
+    return max(1, min(b, max_batch))
+
+
+def _stack_params(params_list: list[dict], device) -> dict:
+    """Stack same-signature param dicts into one batched argument
+    structure: name -> (data (B, …), valid (B, …)).  A scalar parameter is
+    one numpy array at the reference's dtype, copied to ``device`` once
+    and non-blocking (not B device scalars)."""
+    first = params_list[0]
+    out = {}
+    for name in sorted(first):
+        vs = [p[name] for p in params_list]
+        v0 = vs[0]
+        if isinstance(v0, bool):
+            data = S.host_tensor(np.asarray(vs, dtype=bool), torch.bool, device)
+        elif isinstance(v0, (int, np.integer)):
+            data = S.host_tensor(np.asarray(vs), torch.int32, device)
+        elif isinstance(v0, (float, np.floating)):
+            data = S.host_tensor(np.asarray(vs), torch.float32, device)
+        else:
+            vals = [_param_value(v, device) for v in vs]
+            out[name] = (
+                torch.stack([v.data for v in vals]),
+                torch.stack([v.validity() for v in vals]),
+            )
+            continue
+        out[name] = (data, torch.ones((len(vs),), dtype=torch.bool, device=device))
+    return out
+
+
 def _vocab(dictionary) -> tuple | None:
     """Host tuple of a DictEncoding's contents."""
     if dictionary is None:
@@ -222,6 +338,17 @@ class _Executable:
     out_dicts: dict  # column name -> DictEncoding | None
     stats: dict  # logical reads of one execution
     interp: Interpreter | None = None  # the scan-mode hook, if the plan calls UDFs
+    raw: Any = None  # (table_args, param_args) closure (the vmap source)
+
+
+@dataclasses.dataclass
+class _BatchedExecutable:
+    fn: Any  # (batched_pargs, catalog_token) -> (mask (B, n), cols)
+    plan: R.RelNode
+    out_dicts: dict  # shared with the unbatched executable's capture
+    stats: dict
+    bucket: int
+    interp: Interpreter | None = None  # shared with the unbatched executable
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +373,31 @@ class Session:
         cap = self.CACHE_CAP if cache_cap is None else cache_cap
         self._plans: _BoundedCache = _BoundedCache(cap)
         self._execs: _BoundedCache = _BoundedCache(cap)
+        self._batch_execs: _BoundedCache = _BoundedCache(cap)
         self._prepared: _BoundedCache = _BoundedCache(cap)
         self.cache_stats = {
             "plan_hits": 0, "plan_misses": 0,
             "exec_hits": 0, "exec_misses": 0,
+            "batch_hits": 0, "batch_misses": 0,
         }
+        # dispatched-but-unsynced AsyncResults, oldest first (backpressure)
+        self._inflight: deque = deque()
+        self.async_stats = {"inflight_waits": 0, "inflight_peak": 0}
+        # resilience seam: a repro_torch.resilience.faults.FaultInjector (or
+        # any object with .check(site, statements)) installed by chaos
+        # tests; None in production — the seams below are no-ops then
+        self.fault_injector = None
+        # cost routing is not ported (ROADMAP A8): the ladder and the
+        # scheduler read this with getattr and find no router
+        self.cost_router = None
+
+    def _fault(self, site: str, statements: tuple = ()) -> None:
+        """Fault-injection seam: named executor sites call this with the
+        statement fingerprints they serve; an installed injector may raise
+        :class:`~repro_torch.resilience.faults.InjectedFault` here."""
+        fi = self.fault_injector
+        if fi is not None:
+            fi.check(site, statements)
 
     # -- DDL ---------------------------------------------------------------
     # name/table are positional-only so columns may be called "name"/"table"
@@ -301,6 +448,14 @@ class Session:
     def execute(self, query, policy: ExecutionPolicy | str = FROID,
                 params: dict | None = None) -> QueryResult:
         return self.prepare(query, policy).execute(params=params)
+
+    def execute_many(self, query, policy: ExecutionPolicy | str = FROID,
+                     params_list=()) -> list[QueryResult]:
+        return self.prepare(query, policy).execute_many(params_list)
+
+    def execute_async(self, query, policy: ExecutionPolicy | str = FROID,
+                      params: dict | None = None) -> "AsyncResult":
+        return self.prepare(query, policy).execute_async(params=params)
 
     def explain(self, query, policy: ExecutionPolicy | str = FROID) -> str:
         policy = resolve_policy(policy)
@@ -396,6 +551,7 @@ class Session:
             self.cache_stats["exec_hits"] += 1
             return entry, True, True
         self.cache_stats["exec_misses"] += 1
+        self._fault("compile", (query_fp,))
         plan, plan_hit = self._cached_plan(node, query_fp, policy)
 
         # iterative hook for UDF calls left in the plan (froid OFF, or
@@ -454,15 +610,77 @@ class Session:
                 pargs[pname] = (v.data, v.validity())
             return raw(self._catalog_args(catalog_token), pargs)
 
-        entry = _Executable(fn, plan, out_dicts, run_stats, interp)
+        entry = _Executable(fn, plan, out_dicts, run_stats, interp, raw)
         self._execs[key] = entry
         return entry, False, plan_hit
+
+    def _batched_executable(self, node: R.RelNode, query_fp: tuple,
+                            policy: ExecutionPolicy, params0: dict,
+                            sig: tuple, bucket: int,
+                            env_token: tuple | None = None
+                            ) -> tuple[_BatchedExecutable, bool]:
+        """(vmapped executable, batch-cache-hit).  The batched program is
+        ``torch.func.vmap`` of the unbatched ``raw`` closure over the
+        parameter axis (catalog arguments shared, not batched), cached per
+        (plan, policy, signature, batch bucket) as the reference caches its
+        jitted ``jax.vmap``."""
+        if env_token is None:
+            env_token = self._env_token()
+        key = (query_fp, policy.fingerprint(), env_token, sig, bucket)
+        entry = self._batch_execs.get(key)
+        if entry is not None:
+            self.cache_stats["batch_hits"] += 1
+            return entry, True
+        self.cache_stats["batch_misses"] += 1
+        self._fault("compile", (query_fp,))
+        # share the unbatched executable's raw closure and capture dicts so
+        # execute() and execute_many() agree on output dictionaries/stats
+        base, _, _ = self._executable(node, query_fp, policy, params0, env_token)
+        target = torch.func.vmap(base.raw, in_dims=(None, 0))
+
+        def fn(batched_pargs: dict, catalog_token: tuple | None = None):
+            return target(self._catalog_args(catalog_token), batched_pargs)
+
+        entry = _BatchedExecutable(fn, base.plan, base.out_dicts, base.stats,
+                                   bucket, base.interp)
+        self._batch_execs[key] = entry
+        return entry, False
 
     def synchronize(self) -> None:
         """Wait for the session's device (the reference's
         ``jax.block_until_ready``)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _marker(self):
+        """A ``torch.cuda.Event`` recorded on the current stream after the
+        work queued so far (None on the CPU, where the work is done)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    # -- async backpressure --------------------------------------------------
+    @property
+    def inflight(self) -> int:
+        """Dispatched-but-unsynced ``execute_async`` calls right now."""
+        return len(self._inflight)
+
+    def _admit_async(self, bound: int) -> None:
+        """Make room for one more in-flight dispatch: reap already-done
+        results for free, then wait on the oldest in-flight dispatch's
+        event while the session is at the bound (the producer stalls
+        here)."""
+        dq = self._inflight
+        while dq and dq[0].done():
+            dq.popleft()._released = True
+        while len(dq) >= max(1, bound):
+            self.async_stats["inflight_waits"] += 1
+            oldest = dq.popleft()
+            oldest._released = True
+            if oldest._marker is not None:
+                oldest._marker.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -471,11 +689,15 @@ class Session:
 
 
 class PreparedStatement:
-    """A query bound to a session + policy.
+    """A query bound to a session + policy.  Calling conventions:
 
-    ``execute(params=…) -> QueryResult`` is the client path: the cold
-    call plans + binds; warm calls reuse the session caches and set
-    ``QueryResult.cache_hit``.
+    * ``execute(params=…) -> QueryResult`` — the client path.  The cold
+      call plans + binds; warm calls reuse the session caches and set
+      ``QueryResult.cache_hit``.
+    * ``stmt(params=…)`` — the raw device-level call of the compiled
+      executable (mask + columns, nothing materialized).
+    * ``execute_many(params_list)`` and ``execute_async(params)`` — the
+      batched and async paths.
     """
 
     def __init__(self, session: Session, node: R.RelNode,
@@ -517,10 +739,215 @@ class PreparedStatement:
             )
         return interp
 
+    # -- execution ---------------------------------------------------------
+    def __call__(self, params: dict | None = None):
+        """Raw call: the device outputs ``(mask, {col: (data, valid)})``,
+        nothing materialized and no wait (an eager policy returns its
+        result's mask)."""
+        if not self.policy.compile_plan:
+            return self.execute(params=params).masked.mask
+        env_token = self.session._env_token()
+        entry, _, _ = self.session._executable(
+            self.node, self._query_fp, self.policy, params, env_token
+        )
+        return entry.fn(params, env_token[0])
+
     def execute(self, params: dict | None = None) -> QueryResult:
         if self.policy.compile_plan:
             return self._execute_compiled(params)
         return self._execute_eager(params)
+
+    # -- batched execution -------------------------------------------------
+    def execute_many(self, params_list) -> list[QueryResult]:
+        """Execute once per parameter set, set-oriented: same-signature
+        sets are stacked into one device program (``torch.func.vmap`` of
+        the plan over the parameter axis; tables shared) instead of N
+        dispatch+sync round trips.  Mixed-signature lists split into
+        per-signature sub-batches; batches larger than ``policy.max_batch``
+        split into chunks.  Returns one :class:`QueryResult` per input, in
+        input order, element-wise equal to the serial ``execute`` loop.
+
+        Chunked dispatches are **pipelined**: every chunk is dispatched
+        before any chunk is waited for (bounded by ``policy.max_inflight``
+        unsynced dispatches — past the bound a new dispatch first waits for
+        the oldest chunk's event), then one barrier at the end collects
+        them all.  ``stats['pipelined_chunks']`` reports how many chunks
+        the call dispatched before that barrier.
+
+        A compiled policy whose plan cannot run under vmap raises: it never
+        turns into a loop over the tickets.  Only an eager policy (no
+        device program to batch) runs the serial loop, as the reference's
+        does.  Results materialize lazily from the shared device batch."""
+        params_list = [dict(p) if p else {} for p in params_list]
+        if not params_list:
+            return []
+        if not self.policy.compile_plan:
+            # eager policies have no device program to batch; stay serial
+            return [self.execute(params=p) for p in params_list]
+        env_token = self.session._env_token()
+        groups: dict[tuple, list[int]] = {}
+        for i, p in enumerate(params_list):
+            groups.setdefault(param_signature(p), []).append(i)
+        results: list[QueryResult | None] = [None] * len(params_list)
+        pending: list[dict] = []  # dispatched-but-unsynced chunk records
+        cap = max(1, self.policy.max_batch)
+        for sig, idxs in groups.items():
+            if not sig:
+                # parameter-free: every invocation is the same program run —
+                # one execution serves the whole group, surfaced as distinct
+                # QueryResult shells (per-result stats stay independent)
+                r = self._execute_compiled(None)
+                for i in idxs:
+                    results[i] = QueryResult(
+                        r.masked, r.plan, r.elapsed_s, dict(r.stats),
+                        policy=r.policy, cache_hit=r.cache_hit,
+                    )
+                continue
+            for s in range(0, len(idxs), cap):
+                chunk = idxs[s:s + cap]
+                self._dispatch_batch(chunk, [params_list[i] for i in chunk],
+                                     sig, env_token, pending, cap)
+        # the barrier: all chunks are in flight; wait in dispatch order
+        npend = len(pending)
+        for rec in pending:
+            self._finalize_batch(rec, results, npend)
+        return results  # type: ignore[return-value]
+
+    def _dispatch_batch(self, idxs: list[int], plist: list[dict], sig: tuple,
+                        env_token: tuple, pending: list, cap: int) -> None:
+        """Dispatch one chunk (no wait) and append its record, with the
+        event recorded after it, to ``pending`` for the caller's
+        end-of-call barrier."""
+        k = len(plist)
+        bucket = batch_bucket(k, cap)
+        entry, hit = self.session._batched_executable(
+            self.node, self._query_fp, self.policy, plist[0], sig, bucket,
+            env_token,
+        )
+        # runahead bound: past max_inflight unsynced chunks, wait for the
+        # oldest before issuing another dispatch (the same backpressure rule
+        # as execute_async — the host cannot queue unbounded device work)
+        bound = max(1, self.policy.max_inflight)
+        unsynced = [r for r in pending if not r["synced"]]
+        while len(unsynced) >= bound:
+            oldest = unsynced.pop(0)
+            if oldest["event"] is not None:
+                oldest["event"].synchronize()
+            oldest["synced"] = True
+        # pad to the bucket by repeating the last param set; padding rows
+        # are computed and discarded (never surfaced in results)
+        padded = plist + [plist[-1]] * (bucket - k)
+        rows_before = entry.interp.rows_driven if entry.interp else 0
+        t0 = time.perf_counter()
+        pargs = _stack_params(padded, self.session.device)
+        self.session._fault("dispatch", (self._query_fp,))
+        mask, cols = entry.fn(pargs, env_token[0])
+        event = self.session._marker()
+        t_dispatch = time.perf_counter() - t0
+        pending.append({
+            "idxs": idxs, "entry": entry, "hit": hit, "mask": mask,
+            "cols": cols, "k": k, "bucket": bucket, "t0": t0,
+            "dispatch_s": t_dispatch, "event": event, "synced": False,
+            "udf_rows": (entry.interp.rows_driven - rows_before
+                         if entry.interp else None),
+        })
+
+    def _finalize_batch(self, rec: dict, results: list,
+                        pipelined: int) -> None:
+        """Wait for one dispatched chunk's event and build its
+        QueryResults.  ``sync_s`` is the wait from dispatch end to this
+        chunk's barrier arrival — under pipelining that wait overlaps the
+        later chunks' host-side stacking, which is the point."""
+        entry, mask, cols = rec["entry"], rec["mask"], rec["cols"]
+        self.session._fault("sync", (self._query_fp,))
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        rec["synced"] = True
+        elapsed = time.perf_counter() - rec["t0"]
+        stats = {
+            **entry.stats, "compiled": True, "batched": True,
+            "batch_size": rec["k"], "batch_bucket": rec["bucket"],
+            "dispatch_s": rec["dispatch_s"],
+            "sync_s": elapsed - rec["dispatch_s"],
+            "pipelined_chunks": pipelined,
+            # chunk-level timings are copied into every ticket's result in
+            # this chunk; aggregators summing across results must divide
+            # by wave_tickets or they double-count the chunk
+            "wave_tickets": rec["k"],
+        }
+        if rec["udf_rows"] is not None:
+            stats["udf_rows"] = rec["udf_rows"]
+
+        def materialize(j: int) -> MaskedTable:
+            table = Table(
+                {n: Column(data[j], valid[j], entry.out_dicts.get(n))
+                 for n, (data, valid) in cols.items()}
+            )
+            return MaskedTable(table, mask[j])
+
+        for j, i in enumerate(rec["idxs"]):
+            results[i] = QueryResult(
+                None, entry.plan, elapsed, dict(stats), policy=self.policy,
+                cache_hit=rec["hit"],
+                materialize=(lambda j=j: materialize(j)),
+            )
+
+    # -- async execution ---------------------------------------------------
+    def execute_async(self, params: dict | None = None) -> AsyncResult:
+        """Dispatch without waiting: the device work is queued, an event
+        recorded after it, and a future returned at once; the wait is
+        deferred to result access.  Policies with ``allow_async=False`` (or
+        no compiled plan) degrade to synchronous execution behind the same
+        interface.
+
+        In-flight dispatches are bounded per session by
+        ``policy.max_inflight``: at the bound, a new dispatch first waits
+        for the oldest unsynced one (and ``AsyncResult.result()`` releases
+        its slot), so a producer outrunning the device stalls instead of
+        queueing unbounded work."""
+        if not (self.policy.compile_plan and self.policy.allow_async):
+            return AsyncResult(self.execute(params=params))
+        self.session._admit_async(self.policy.max_inflight)
+        env_token = self.session._env_token()
+        entry, exec_hit, plan_hit = self.session._executable(
+            self.node, self._query_fp, self.policy, params, env_token
+        )
+        rows_before = entry.interp.rows_driven if entry.interp else 0
+        t0 = time.perf_counter()
+        self.session._fault("dispatch", (self._query_fp,))
+        mask, cols = entry.fn(params, env_token[0])
+        marker = self.session._marker()
+        dispatch_s = time.perf_counter() - t0
+        stats = {**entry.stats, "compiled": True, "async": True,
+                 "dispatch_s": dispatch_s}
+        if entry.interp is not None:
+            stats["udf_rows"] = entry.interp.rows_driven - rows_before
+        result: QueryResult
+
+        def materialize() -> MaskedTable:
+            t1 = time.perf_counter()
+            if marker is not None:
+                marker.synchronize()
+            sync_s = time.perf_counter() - t1
+            result.stats["sync_s"] = sync_s
+            result.elapsed_s = dispatch_s + sync_s
+            table = Table(
+                {n: Column(data, valid, entry.out_dicts.get(n))
+                 for n, (data, valid) in cols.items()}
+            )
+            return MaskedTable(table, mask)
+
+        result = QueryResult(None, entry.plan, dispatch_s, stats,
+                             policy=self.policy,
+                             cache_hit=exec_hit and plan_hit,
+                             materialize=materialize)
+        ar = AsyncResult(result, marker=marker, session=self.session)
+        self.session._inflight.append(ar)
+        self.session.async_stats["inflight_peak"] = max(
+            self.session.async_stats["inflight_peak"],
+            len(self.session._inflight),
+        )
+        return ar
 
     def _execute_compiled(self, params) -> QueryResult:
         env_token = self.session._env_token()
@@ -529,7 +956,9 @@ class PreparedStatement:
         )
         rows_before = entry.interp.rows_driven if entry.interp else 0
         t0 = time.perf_counter()
+        self.session._fault("dispatch", (self._query_fp,))
         mask, cols = entry.fn(params, env_token[0])
+        self.session._fault("sync", (self._query_fp,))
         self.session.synchronize()
         elapsed = time.perf_counter() - t0
         table = Table(
@@ -557,6 +986,7 @@ class PreparedStatement:
         pvals = {n: _param_value(v, device) for n, v in (params or {}).items()}
         before, rows_before = dict(interp.stats), interp.rows_driven
         t0 = time.perf_counter()
+        self.session._fault("interp", (self._query_fp,))
         masked = executor.execute(plan, params=pvals)
         self.session.synchronize()
         elapsed = time.perf_counter() - t0

@@ -1,30 +1,35 @@
 """Request admission rules as Froid-compiled UDFs: a port of
-``src/repro/serve/admission.py`` (``default_rules``, ``_tick_query`` and
-``AdmissionPolicy.evaluate``, ``:42-193``).
+``src/repro/serve/admission.py``.
 
 The paper's technique inside the serving scheduler: each tick evaluates
 imperative per-request business rules (token budgeting, tier routing,
 temperature selection) over the whole queued-request table as one
 set-oriented plan.  The rules are authored imperatively (``UdfBuilder``)
 and inlined by the port's binder like any other UDF.  The queue table is
-re-created every tick on the session's device, and the policy runs
-eagerly.
+re-created every tick on the session's device, and the tick path runs the
+policy eagerly.
 
-Not in this slice: the per-request coalescing path (``request_statement``,
-``submit``, ``verdict``, ``evaluate_coalesced`` and the ``scheduler``,
-``mesh``, ``fuse``, ``adaptive`` and ``timeout_s`` arguments) waits for
-``execute_many`` and the scheduler (ROADMAP A6), ``store`` for
-persistence (A9).  Under INTERPRETED and HEKATON the rules run on the
-port's per-row interpreter (``python`` and ``scan`` mode), on the same
-device.
+The per-request path (``request_statement``, ``submit``, ``verdict``,
+``evaluate_coalesced``) prepares the same rules as one parameterized
+statement over a ``ConstantScan``, under the closest compiling policy,
+and coalesces concurrent submits on a
+:class:`~repro_torch.serve.scheduler.CoalescingScheduler` into
+``execute_many`` batches, each one ``torch.func.vmap`` on the device.
+Under INTERPRETED and HEKATON the rules run on the port's per-row
+interpreter, on the same device.  Not ported yet: ``mesh`` (ROADMAP A10),
+``fuse`` (A7) and ``store`` (A9).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from repro_torch.core import (FROID, INTERPRETED, ExecutionPolicy, Session,
+from repro_torch.core import (FROID, INTERPRETED, ExecutionPolicy, Q, Session,
                               UdfBuilder, case, col, lit, param, resolve_policy,
                               scan, udf, var)
+from repro_torch.core import relalg as R
+from repro_torch.serve.scheduler import CoalescingScheduler, Ticket
 
 
 def default_rules(db) -> None:
@@ -83,6 +88,39 @@ def _tick_query():
     )
 
 
+def _request_query():
+    """The same rules as a *parameterized* one-row statement: each request's
+    fields arrive as params over a ConstantScan, so many individual
+    requests ride one prepared plan and coalesce into ``execute_many``
+    batches — no per-tick table reload, no plan-cache churn."""
+    return (
+        Q(R.ConstantScan())
+        .compute(
+            admit=udf("admit", param("plen"), param("depth")),
+            granted=udf("token_budget", param("tier"), param("plen"),
+                        param("req")),
+            temp_eff=udf("temp_for", param("tier"), param("temp")),
+        )
+        .project("admit", "granted", "temp_eff")
+    )
+
+
+def _compiled_variant(policy: ExecutionPolicy) -> ExecutionPolicy:
+    """The closest whole-plan policy: batched per-request admission needs a
+    device program to vmap.  Python-mode interpretation cannot live inside
+    the vmapped plan, so non-inlined python policies hop to the 'scan'
+    interpreter (same results, batchable)."""
+    if policy.compile_plan:
+        return policy
+    udf_mode = policy.udf_mode
+    if not policy.inline_udfs and udf_mode == "python":
+        udf_mode = "scan"
+    return dataclasses.replace(
+        policy, name=policy.name + "+compiled", compile_plan=True,
+        udf_mode=udf_mode,
+    )
+
+
 def _waits(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
@@ -93,17 +131,20 @@ class AdmissionPolicy:
 
     ``policy`` is an :class:`ExecutionPolicy` or preset name; the legacy
     ``froid`` flag maps True -> FROID, False -> INTERPRETED.
+    ``scheduler``, ``adaptive`` and ``timeout_s`` configure the per-request
+    coalescing path (``timeout_s``: the default per-ticket deadline; an
+    expired ticket sheds with a typed ``DeadlineExceeded``).
     """
 
     def __init__(self, froid: bool = True,
                  policy: ExecutionPolicy | str | None = None, *, device=None,
-                 scheduler=None, mesh=None, fuse: bool = False,
-                 adaptive: bool = False, timeout_s: float | None = None,
-                 store=None):
-        if scheduler is not None or mesh is not None or fuse or adaptive \
-                or timeout_s is not None:
-            _waits("the per-request admission path (scheduler, mesh, fuse, "
-                   "adaptive, timeout_s)", "A6")
+                 scheduler: CoalescingScheduler | None = None, mesh=None,
+                 fuse: bool = False, adaptive: bool = False,
+                 timeout_s: float | None = None, store=None):
+        if mesh is not None:
+            _waits("sharded admission (mesh)", "A10")
+        if fuse:
+            _waits("fused admission drains (fuse)", "A7")
         if store is not None:
             _waits("the persistent plan store", "A9")
         self.session = Session(device=device)
@@ -113,6 +154,16 @@ class AdmissionPolicy:
         # the queue table is re-loaded every tick: run the policy eagerly
         self.policy = resolve_policy(policy).eager()
         self._query = _tick_query()
+        # per-request path: a second session sharing the rule registry but
+        # with an empty catalog, so the request statement's cache key is
+        # immune to the tick path's queue-table reloads
+        self._request_session = Session(device=self.session.device)
+        self._request_session.registry = self.session.registry
+        self._request_stmt = None
+        self.timeout_s = timeout_s
+        self.scheduler = scheduler or CoalescingScheduler(
+            adaptive=adaptive, default_timeout_s=timeout_s,
+        )
 
     def evaluate(self, requests: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """requests: columns tier, prompt_len, max_new_tokens, temperature.
@@ -133,11 +184,57 @@ class AdmissionPolicy:
             "temp": cols["temp_eff"].data.cpu().numpy().astype(np.float32),
         }
 
+    # -- per-request coalescing path ----------------------------------------
     def request_statement(self):
-        _waits("the per-request admission statement", "A6")
+        """The rules as one prepared parameterized statement (lazy)."""
+        if self._request_stmt is None:
+            self._request_stmt = self._request_session.prepare(
+                _request_query(), _compiled_variant(self.policy)
+            )
+        return self._request_stmt
 
-    def submit(self, **kwargs):
-        _waits("per-request admission (submit)", "A6")
+    def submit(self, *, tier: int, prompt_len: int, max_new_tokens: int,
+               temperature: float, depth: int = 0,
+               timeout_s: float | None = None) -> Ticket:
+        """Queue one request's admission evaluation; concurrent submits for
+        the same statement coalesce into ``execute_many`` batches.
+        ``timeout_s`` overrides the policy-wide ticket deadline."""
+        return self.scheduler.submit(
+            self.request_statement(),
+            {"tier": int(tier), "plen": int(prompt_len),
+             "req": int(max_new_tokens), "temp": float(temperature),
+             "depth": int(depth)},
+            timeout_s=timeout_s,
+        )
 
-    def evaluate_coalesced(self, requests):
-        _waits("coalesced admission", "A6")
+    @staticmethod
+    def verdict(result) -> dict:
+        """Decode one per-request QueryResult into the evaluate() schema."""
+        cols = result.table.columns
+        return {
+            "admit": bool(cols["admit"].data.cpu().numpy()[0]),
+            "granted": int(cols["granted"].data.cpu().numpy()[0]),
+            "temp": float(cols["temp_eff"].data.cpu().numpy()[0]),
+        }
+
+    def evaluate_coalesced(self, requests: dict[str, np.ndarray]) -> dict:
+        """``evaluate``, but through per-request submits + one scheduler
+        drain — the serving path's shape, returning the tick-path schema."""
+        n = len(requests["tier"])
+        tickets = [
+            self.submit(
+                tier=int(requests["tier"][i]),
+                prompt_len=int(requests["prompt_len"][i]),
+                max_new_tokens=int(requests["max_new_tokens"][i]),
+                temperature=float(requests["temperature"][i]),
+                depth=n,
+            )
+            for i in range(n)
+        ]
+        self.scheduler.flush()
+        out = [self.verdict(t.result()) for t in tickets]
+        return {
+            "admit": np.array([v["admit"] for v in out], bool),
+            "granted": np.array([v["granted"] for v in out], np.int32),
+            "temp": np.array([v["temp"] for v in out], np.float32),
+        }

@@ -11,9 +11,18 @@ from an explicit ``torch.Generator`` seeded from ``seed``: greedy is
 ``argmax``, temperature ``t`` samples ``softmax(logits / max(t, 1e-4))``.
 It draws other tokens than ``jax.random.categorical`` from the same seed.
 
-The online intake (``submit`` / ``drain``) and the admission scheduler
-arguments wait for ``execute_many`` (ROADMAP A6); ``admission_store``
-for persistence (A9).
+Two intake shapes, as in the reference:
+
+* ``run(requests)`` — the whole wave arrives at once; admission evaluates
+  it as one queue table (the tick path).
+* ``submit(request)`` + ``drain()`` — requests arrive one at a time;
+  ``drain`` tickets the queued wave on the coalescing scheduler, so
+  admission runs as ``execute_many`` batches with the same queue depth
+  (and therefore verdicts) as ``run``.  A ticket whose deadline passed, or
+  whose degradation ladder ran out, completes as ``"shed"``.
+
+``admission_mesh`` waits for the mesh (ROADMAP A10), ``admission_fuse``
+for fusion (A7) and ``admission_store`` for persistence (A9).
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.resilience.faults import ResilienceError
 from repro_torch.serve.admission import AdmissionPolicy
 
 
@@ -38,7 +48,7 @@ class Request:
 class Completed:
     rid: int
     tokens: list
-    reason: str  # length | eos | rejected
+    reason: str  # length | eos | rejected | shed
 
 
 class ServeEngine:
@@ -60,7 +70,10 @@ class ServeEngine:
             fuse=admission_fuse, adaptive=admission_adaptive,
             timeout_s=admission_timeout_s, store=admission_store,
         )
+        self.shed: list[Completed] = []  # resilience-shed completions
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        # online intake: requests awaiting the next drain()
+        self._submitted: list[Request] = []
 
     # ------------------------------------------------------------------
     def run(self, requests: list[Request]) -> list[Completed]:
@@ -88,13 +101,51 @@ class ServeEngine:
             done.extend(self._serve_batch(batch))
         return done
 
+    # ------------------------------------------------------------------
     def submit(self, request: Request) -> None:
-        raise NotImplementedError("online intake (submit/drain) is not ported "
-                                  "yet: ROADMAP A6")
+        """Online intake: queue one request for the next ``drain()``."""
+        self._submitted.append(request)
 
     def drain(self) -> list[Completed]:
-        raise NotImplementedError("online intake (submit/drain) is not ported "
-                                  "yet: ROADMAP A6")
+        """Admit the queued wave set-oriented (per-request tickets on the
+        coalescing scheduler, drained through ``execute_many``), then
+        serve every admitted request to completion.  Admission happens at
+        drain time so every ticket sees the same queue depth the tick path
+        (``run``) would — identical verdicts, including load-shedding."""
+        submitted, self._submitted = self._submitted, []
+        depth = len(submitted)
+        tickets = [
+            self.admission.submit(
+                tier=r.tier,
+                prompt_len=len(r.prompt),
+                max_new_tokens=r.max_new_tokens,
+                temperature=r.temperature,
+                depth=depth,
+            )
+            for r in submitted
+        ]
+        self.admission.scheduler.flush()
+        queue = []
+        done: list[Completed] = []
+        for r, ticket in zip(submitted, tickets):
+            try:
+                v = AdmissionPolicy.verdict(ticket.result())
+            except ResilienceError:
+                # deadline shed / exhausted ladder: the request completes
+                # explicitly instead of crashing the whole drain
+                c = Completed(r.rid, [], "shed")
+                self.shed.append(c)
+                done.append(c)
+                continue
+            if not v["admit"]:
+                done.append(Completed(r.rid, [], "rejected"))
+            else:
+                queue.append((r, v["granted"], v["temp"]))
+        while queue:
+            batch = queue[: self.slots]
+            queue = queue[self.slots :]
+            done.extend(self._serve_batch(batch))
+        return done
 
     # ------------------------------------------------------------------
     def _serve_batch(self, batch) -> list[Completed]:

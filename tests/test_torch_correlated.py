@@ -7,9 +7,9 @@ reference (its ``jax.vmap``), on the CPU.
   an empty and a 23-row ``facts``, ``minq`` 0, 4 and 9.  The port's FROID
   and its per-row plan (the decorrelation rules off) each equal the
   reference's per-row answer (``_per_row_reference``) and its FROID; the
-  port's INTERPRETED and HEKATON equal its FROID.  The oracle's
-  ``execute_many`` and sharded legs wait for the port's ``execute_many``
-  (ROADMAP A6).
+  port's INTERPRETED and HEKATON equal its FROID, and so does its
+  ``execute_many`` under FROID (the oracle's unsharded leg).  The sharded
+  leg waits for the mesh (ROADMAP A10).
 * ``_exec_vmap_apply`` (semi, anti, cross, outer; ``passthrough`` set or
   not, which this path ignores in both packages), the correlated EXISTS,
   a GroupAgg under vmap on the sort, dense and relagg paths with
@@ -178,6 +178,8 @@ def test_decorrelation_oracle_on_the_port(spec, n_rows):
     # side (ROADMAP C1); its per-row answer stands for it there
     ref_froid = not (n_rows == 0 and kind in ("semi", "anti") and keyshape != "nonequi")
     iterative = [port.prepare(pq, p) for p in (PC.INTERPRETED, PC.HEKATON)]
+    with no_vmap_fallback():
+        many = pstmt.execute_many(PARAMS)
     for i, p in enumerate(PARAMS):
         per_row = _per_row_reference(ref, rq, p).masked
         with no_vmap_fallback():
@@ -191,6 +193,10 @@ def test_decorrelation_oracle_on_the_port(spec, n_rows):
                           f"[{i}] port FROID vs reference FROID")
         for policy, got in zip(("interpreted", "hekaton"), others):
             assert_masked(froid, got, f"[{i}] port {policy} vs port FROID")
+        # the oracle's unsharded execute_many leg (the sharded one waits
+        # for the mesh, ROADMAP A10)
+        assert many[i].stats["batched"]
+        assert_masked(froid, many[i].masked, f"[{i}] port execute_many vs port FROID")
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,10 @@ subquery that binds a loop's outputs, against the reference's, on the CPU.
   the port's INTERPRETED and HEKATON, which equal the reference's: counts,
   keys and validity exactly, floats to rtol 1e-4.  Fixed replays of
   ``tests/test_loops.py``, an empty cursor (``x < 0``) and an empty
-  ``facts``.  The loop oracle's ``execute_many`` leg
-  (``conformance_util.check_loop_oracle``) is left out: the port has no
-  ``execute_many`` yet (ROADMAP A6).
+  ``facts``.  The loop oracle's unsharded ``execute_many`` leg
+  (``conformance_util.check_loop_oracle``): the port's ``execute_many``
+  under FROID equals its serial loop and the reference's; the sharded leg
+  waits for the mesh (ROADMAP A10).
 * The scan kind keeps each carry at its loop-entry dtype after every row,
   steps the rows in order and reads nothing back to the host.
 * A correlated EXISTS, a correlated Apply over a general subplan and a
@@ -58,6 +59,7 @@ from test_torch_interpreter import (
     _policy,
     assert_rows,
 )
+from test_torch_correlated import no_vmap_fallback
 from test_torch_session_tpch import _norm_explain
 
 #: every body of ``conformance_util.LOOP_BODIES`` with and without an
@@ -215,9 +217,27 @@ PARAMS = [{"cut": 5, "shift": 0.5}, {"cut": 7, "shift": -1.0},
           {"cut": 6, "shift": -20.0}]
 
 
+def _many_leg(spec, seed, n_rows, params_list):
+    """``check_loop_oracle``'s unsharded ``execute_many`` leg: the port's
+    FROID batch == its serial loop == the reference's serial loop (the
+    scan kind steps its rows once for the whole batch)."""
+    ref, port = _sessions(_facts_tables(n_rows, seed), lambda M: _loop_udf(M, *spec))
+    q = lambda M: _keys_query(M, "floop")
+    stmt = port.prepare(q(PC), PC.FROID)
+    with no_vmap_fallback():
+        serial = [stmt.execute(params=p) for p in params_list]
+        batched = stmt.execute_many(params_list)
+    rstmt = ref.prepare(q(RC), RC.FROID)
+    for i, p in enumerate(params_list):
+        assert batched[i].stats["batched"]
+        assert_rows(serial[i], batched[i], f"execute_many[{i}] vs serial")
+        assert_rows(rstmt.execute(params=p), batched[i], f"reference[{i}] vs execute_many")
+
+
 @pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
 def test_loop_rows_match_reference_and_iterative(spec):
     _oracle(lambda M: _loop_udf(M, *spec), "floop", 2, 29, PARAMS)
+    _many_leg(spec, 2, 29, PARAMS)
 
 
 #: ``tests/test_loops.py::test_loop_oracle_fixed_replay``'s samples
@@ -230,11 +250,13 @@ REPLAYS = [(("sum_if", None, None), 0, 23, [{"cut": 5, "shift": 0.5}]),
 def test_loop_oracle_fixed_replay(replay):
     spec, seed, n_rows, params = replay
     _oracle(lambda M: _loop_udf(M, *spec), "floop", seed, n_rows, params)
+    _many_leg(spec, seed, n_rows, params)
 
 
 @pytest.mark.parametrize("body", ["sum", "running"])
 def test_loop_rows_empty_facts(body):
     _oracle(lambda M: _loop_udf(M, body), "floop", 0, 0, PARAMS[:1])
+    _many_leg((body, None, None), 0, 0, PARAMS)
 
 
 @pytest.mark.parametrize("name", ["CURSOR_SUM", "CURSOR_GUARD_BREAK", "CURSOR_TOTAL"])

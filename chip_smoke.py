@@ -80,7 +80,18 @@ script exits non-zero:
    grouped by ``l_shipmode``, ``execute_many`` over the 16 dates, relagg
    on (one batched launch a call) and off, against float64 and the serial
    loop; (c) admission's ``evaluate_coalesced`` against ``evaluate`` and
-   the rules under FROID, INTERPRETED and HEKATON;
+   the rules under FROID, INTERPRETED and HEKATON.  Then the fused phase
+   (``Session.execute_fused``, ``CoalescingScheduler(fuse=True)``): (a)
+   ``benchmarks/bench_fused.py``'s mixed queue of six statements, 64
+   tickets each, over the invocation phase's tables (relagg on), drained
+   per statement and fused: every ticket == float64, the first 48 == the
+   serial loop, relagg's shared build over ``detail`` launched once a
+   fused wave against once a ``key_total`` statement, one fused wave's
+   dispatch with no host sync; (b) its overlap queue (one template over an
+   8-value cutoff pool), both drains; (c) the fusion oracle's queue over
+   20,000 ``facts`` rows under FROID and HEKATON, fused == serial == the
+   CPU; (d) admission's ``evaluate_coalesced`` with ``fuse=True`` against
+   ``evaluate``;
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -1732,18 +1743,19 @@ INVOCATION_ROWS = {"detail": 6_000_000, "T": 2_000, "keys": 400}
 INVOCATION_SWEEP = (1, 32, 1024)
 
 
-def invocation_session():
+def invocation_session(detail_rows: int = INVOCATION_ROWS["detail"], device=None):
     """``bench_execute_many._setup`` at ``detail``'s real scale (numpy,
-    seed 0) on the card, with its ``key_total`` UDF; and ``detail``'s and
-    ``T``'s host arrays for the float64 check."""
+    seed 0) on the card (or ``device``), with its ``key_total`` UDF; and
+    ``T``'s host array, the float64 sums of ``d_val`` by key and their
+    tolerance for the float64 check."""
     import repro_torch.core as C
 
-    rows, keys = INVOCATION_ROWS["detail"], INVOCATION_ROWS["keys"]
+    rows, keys = detail_rows, INVOCATION_ROWS["keys"]
     rng = np.random.default_rng(0)
     d_key = rng.integers(0, keys, rows)
     d_val = rng.uniform(0, 100, rows).astype(np.float32)
     a = rng.integers(0, keys, INVOCATION_ROWS["T"])
-    db = C.Session()
+    db = C.Session(device=device)
     db.create_table("detail", d_key=d_key, d_val=d_val)
     db.create_table("T", a=a)
     u = C.UdfBuilder("key_total", [("k", "int32")], "float32")
@@ -2112,6 +2124,419 @@ def invocation_phase(full) -> dict:
     out["admission"] = admission_phase()
     out["seconds"] = time.perf_counter() - t0
     log(f"invocation phase ok in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused phase: execute_fused, the scheduler's fused drains
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/bench_fused.py``'s tickets a statement and serial prefix
+FUSED_PER_STMT = 64
+FUSED_SERIAL_N = 48
+#: warm drains timed per arm
+FUSED_DRAINS = 5
+#: the overlap queue's fused wave: its pool evaluations (the four shared
+#: constant subtrees — the scans of ``T`` and ``detail``, the ``detail``
+#: build's GroupAgg and its Project — and the unified template once at each
+#: distinct cutoff) and its distinct cutoffs, as ``tests/test_torch_fused.py``
+#: finds them on the CPU
+OVERLAP_POOL_EVALS = 12
+OVERLAP_BINDINGS = 8
+#: the fusion oracle's tables at the card's size: ``facts`` rows
+FUSION_FACTS_ROWS = 20_000
+
+
+def fused_queries():
+    """``benchmarks/bench_fused.py:89-106``'s ``_queries`` on
+    ``repro_torch.core``: six different statements over ``T`` (and
+    ``detail`` through ``key_total``), one parameter-free."""
+    import repro_torch.core as C
+
+    col, param, udf = C.col, C.param, C.udf
+    return [
+        C.scan("T").filter(col("a") < param("cutoff"))
+                   .compute(v=udf("key_total", col("a"))).project("v"),
+        C.scan("T").filter(col("a") >= param("lo"))
+                   .compute(w=col("a") * param("scale")).project("a", "w"),
+        C.scan("T").compute(v=udf("key_total", col("a")) / param("div"))
+                   .project("v"),
+        C.scan("T").filter((col("a") > param("lo")) & (col("a") < param("hi")))
+                   .compute(z=col("a") + param("off")).project("z"),
+        C.scan("T").compute(b=col("a") * 2).project("b"),  # parameter-free
+        C.scan("T").filter(col("a") % param("mod") == C.lit(0))
+                   .compute(v=udf("key_total", col("a"))).project("a", "v"),
+    ]
+
+
+def overlap_queries():
+    """``bench_fused.py:109-122``'s ``_overlap_queries``: six statements
+    calling ``key_total`` under ``a < Param(c_i)``, one template across
+    all six."""
+    import repro_torch.core as C
+
+    def q(i):
+        return (C.scan("T").filter(C.col("a") < C.param(f"c{i}"))
+                .compute(**{f"v{i}": C.udf("key_total", C.col("a"))}).project(f"v{i}"))
+
+    return [q(i) for i in range(6)]
+
+
+def overlap_queue(stmts, per_stmt: int, seed: int = 11):
+    """``bench_fused.py:125-133``'s ``_overlap_queue``: round-robin, the
+    cutoffs drawn from a pool of 8 values."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 400, 8)
+    return [(s, {f"c{i}": int(rng.choice(pool))})
+            for _ in range(per_stmt) for i, s in enumerate(stmts)]
+
+
+def mixed_queue(stmts, per_stmt: int, seed: int = 7):
+    """``bench_fused.py:136-146``'s ``_mixed_queue``: round-robin over the
+    six statements of :func:`fused_queries`."""
+    rng = np.random.default_rng(seed)
+    waves = []
+    for _ in range(per_stmt):
+        waves.append((stmts[0], {"cutoff": int(rng.integers(1, 400))}))
+        waves.append((stmts[1], {"lo": int(rng.integers(0, 200)),
+                                 "scale": float(round(rng.uniform(0.5, 2), 2))}))
+        waves.append((stmts[2], {"div": float(round(rng.uniform(1, 4), 2))}))
+        waves.append((stmts[3], {"lo": int(rng.integers(0, 100)),
+                                 "hi": int(rng.integers(200, 400)),
+                                 "off": int(rng.integers(0, 10))}))
+        waves.append((stmts[4], None))
+        waves.append((stmts[5], {"mod": int(rng.integers(2, 6))}))
+    return waves
+
+
+def mixed_expected(i: int, p: dict | None, a, sums, tol):
+    """Statement ``i`` of :func:`fused_queries` under ``p``, in float64 on
+    the host: (mask, {column: (values, tolerance)})."""
+    a64 = a.astype(np.float64)
+    ones = np.ones(len(a), bool)
+    if i == 0:
+        return a < p["cutoff"], {"v": (sums[a], tol[a])}
+    if i == 1:
+        w = a64 * np.float32(p["scale"])
+        return a >= p["lo"], {"a": (a64, 0.0), "w": (w, 1e-6 * np.abs(w))}
+    if i == 2:
+        v = sums[a] / np.float32(p["div"])
+        return ones, {"v": (v, tol[a] / p["div"] + 1e-6 * np.abs(v))}
+    if i == 3:
+        return (a > p["lo"]) & (a < p["hi"]), {"z": (a64 + p["off"], 0.0)}
+    if i == 4:
+        return ones, {"b": (a64 * 2, 0.0)}
+    return a % p["mod"] == 0, {"a": (a64, 0.0), "v": (sums[a], tol[a])}
+
+
+def check_fused_tickets(results, queue, stmts, a, sums, tol, label: str) -> None:
+    """Every ticket of a :func:`mixed_queue` drain against its float64
+    answer: the mask exactly, each column within its tolerance."""
+    for j, (r, (s, p)) in enumerate(zip(results, queue)):
+        want_mask, cols = mixed_expected(stmts.index(s), p, a, sums, tol)
+        m = r.masked
+        mask = m.mask.cpu().numpy()
+        check(np.array_equal(mask, want_mask), f"{label}[{j}]: mask differs")
+        for name, (want, t) in cols.items():
+            got = m.table.columns[name].data.cpu().numpy().astype(np.float64)
+            err = np.abs(got - want)[mask]
+            t = np.broadcast_to(t, want.shape)[mask]
+            check(bool((err <= t).all()) and np.isfinite(got[mask]).all(),
+                  f"{label}[{j}]: {name} off float64 by {float(err.max(initial=0.0)):.3g}")
+
+
+def same_results(want, got, label: str) -> None:
+    """``bench_fused._check_identical``: masks exactly, every column to
+    rtol 1e-5 on the selected rows."""
+    for j, (s, b) in enumerate(zip(want, got)):
+        m = s.masked.mask.cpu().numpy()
+        check(np.array_equal(m, b.masked.mask.cpu().numpy()), f"{label}[{j}]: masks differ")
+        for n, c in s.masked.table.columns.items():
+            check(np.allclose(b.masked.table.columns[n].data.cpu().numpy()[m],
+                              c.data.cpu().numpy()[m], rtol=1e-5),
+                  f"{label}[{j}]: {n} differs")
+
+
+def drain(queue, fuse: bool):
+    """``bench_fused._drain_time``'s body: every ticket submitted to a
+    ``CoalescingScheduler(max_batch=1024, fuse=fuse)``, one flush, every
+    ticket's rows delivered."""
+    from repro_torch.serve.scheduler import CoalescingScheduler
+
+    sched = CoalescingScheduler(max_batch=1024, window_s=10.0, fuse=fuse)
+    tickets = [sched.submit(s, p) for s, p in queue]
+    sched.flush()
+    results = [t.result() for t in tickets]
+    for r in results:
+        r.masked  # deliver every row (both arms slice)
+    return results, sched.stats
+
+
+def drain_arms(queue, rounds: int, timed: bool) -> dict:
+    """Both drains of ``queue``, ``rounds`` warm times each in turns (after
+    one untimed drain each), with relagg's launches, the peak memory and
+    the wall time of each drain."""
+    import torch
+
+    from repro_torch.kernels.relagg import ops
+
+    cuda = torch.cuda.is_available() and timed
+    out = {}
+    for fuse in (False, True):
+        drain(queue, fuse)  # the cold drain: plans and programs
+    runs = {False: [], True: []}
+    for _ in range(rounds):
+        for fuse in (False, True):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            ops.LAUNCHES = ops.BATCHED_LAUNCHES = 0
+            t0 = time.perf_counter()
+            results, stats = drain(queue, fuse)
+            wall = time.perf_counter() - t0
+            runs[fuse].append({"results": results, "stats": dict(stats), "wall_s": wall,
+                               "relagg_launches": ops.LAUNCHES,
+                               "relagg_batched_launches": ops.BATCHED_LAUNCHES,
+                               "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                           if cuda else None)})
+    for fuse, name in ((False, "perstmt"), (True, "fused")):
+        rs = runs[fuse]
+        launches = {(r["relagg_launches"], r["relagg_batched_launches"]) for r in rs}
+        check(len(launches) == 1, f"{name}: relagg launches vary between drains {launches}")
+        st = rs[-1]["results"][0].stats
+        out[name] = {"warm_ms": float(np.median([r["wall_s"] * 1e3 for r in rs])),
+                     "warm_ms_all": [r["wall_s"] * 1e3 for r in rs],
+                     "relagg_launches": rs[-1]["relagg_launches"],
+                     "relagg_batched_launches": rs[-1]["relagg_batched_launches"],
+                     "peak_gb": rs[-1]["peak_gb"], "batches": rs[-1]["stats"]["batches"],
+                     "fused_batches": rs[-1]["stats"]["fused_batches"],
+                     "results": rs[-1]["results"]}
+        for key in ("fused_programs", "fused_statements", "fused_members", "shared_subtrees",
+                    "cse_templates", "cse_template_refs", "cse_shared_nodes", "cse_pool_evals",
+                    "cse_bindings", "cse_pool_slots", "dispatch_s", "sync_s", "wave_tickets"):
+            if key in st:
+                out[name][key] = st[key]
+    return out
+
+
+def fused_dispatch_without_sync(session, queue) -> tuple[list, float]:
+    """One warm fused wave of ``queue``: its dispatch
+    (``Session._dispatch_fused``) under
+    ``torch.cuda.set_sync_debug_mode("error")``, then its wait outside
+    it: (results, host ms of the dispatch)."""
+    import torch
+
+    from repro_torch.fuse import partition_calls
+
+    calls = [(s, dict(p) if p else {}) for s, p in queue]
+    groups, fallbacks = partition_calls(session, calls)
+    check(len(groups) == 1 and not fallbacks, f"{len(groups)} fused groups")
+    results = [None] * len(calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec = session._dispatch_fused(groups[0], results)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    session._finalize_fused(rec, results)
+    return results, host_ms
+
+
+def fusion_tables(rows: int, seed: int = 3) -> dict:
+    """``tests/conformance_util.py::facts_data`` and ``keys``: ``facts``
+    at ``rows`` rows (numpy, ``seed``) and 7 keys."""
+    rng = np.random.default_rng(seed)
+    return {"facts": dict(fk=rng.integers(0, 7, rows),
+                          val=np.round(rng.uniform(-10, 10, rows), 2).astype(np.float32),
+                          qty=rng.integers(0, 9, rows)),
+            "keys": dict(k=np.arange(7))}
+
+
+def fusion_oracle_session(rows: int, device=None):
+    """The fusion oracle's session (``conformance_util.make_session`` and
+    ``FIXED_PROGRAMS["uncorrelated_sum_case"]``'s UDF ``f``) on ``device``."""
+    import repro_torch.core as C
+
+    db = C.Session(device=device)
+    for name, arrays in fusion_tables(rows).items():
+        db.create_table(name, **arrays)
+    u = C.UdfBuilder("f", [("p", "float32")], "float32")
+    u.declare("v0", "float32", C.param("p") * 1.0)
+    u.select({"v0": C.sum_(C.col("val"))}, frm=C.scan("facts"), where=C.col("qty") >= C.lit(4))
+    u.set("v0", C.case([(C.var("v0") > C.param("p"), C.var("v0"))], C.lit(0.5)))
+    u.return_(C.coalesce(C.var("v0"), C.lit(0.0)))
+    db.create_function(u.build())
+    return db
+
+
+def fusion_oracle_queries():
+    """``conformance_util.fusion_queries``: the UDF-bearing parameterized
+    query, an arithmetic filter over ``facts`` and a parameter-free
+    projection of ``keys``."""
+    import repro_torch.core as C
+
+    col, param = C.col, C.param
+    return [
+        C.scan("keys").filter(col("k") < param("cut"))
+         .compute(out=C.udf("f", col("k") * 1.0 + param("shift"))).project("k", "out"),
+        C.scan("facts").filter(col("qty") >= param("minq"))
+         .compute(w=col("val") * param("scale")).project("fk", "w"),
+        C.scan("keys").compute(z=col("k") * 2.0).project("k", "z"),
+    ]
+
+
+#: ``conformance_util.fusion_calls_spec``: [(statement index, params)]
+FUSION_CALLS = [(0, {"cut": 5, "shift": 0.5}), (1, {"minq": 4, "scale": 2.0}), (2, None),
+                (0, {"cut": 3, "shift": 1.5}), (1, {"minq": 1, "scale": 0.5}),
+                (0, {"cut": 6.5, "shift": 2.0}), (2, {})]
+
+
+def fusion_oracle_run(rows: int, policy_name: str, device=None):
+    """The oracle's queue through a fusion-mode scheduler and the serial
+    loop: (fused results, serial results, the first fused stats)."""
+    import repro_torch.core as C
+    from repro_torch.serve.scheduler import CoalescingScheduler
+
+    db = fusion_oracle_session(rows, device)
+    stmts = [db.prepare(q, getattr(C, policy_name)) for q in fusion_oracle_queries()]
+    sched = CoalescingScheduler(max_batch=256, window_s=10.0, fuse=True)
+    tickets = [sched.submit(stmts[i], p) for i, p in FUSION_CALLS]
+    sched.flush()
+    fused = [t.result() for t in tickets]
+    serial = [stmts[i].execute(params=p) for i, p in FUSION_CALLS]
+    st = next(r.stats for r in fused if r.stats.get("fused"))
+    return fused, serial, st
+
+
+def same_masked(want, got, label: str, rtol: float = 2e-3, atol: float = 1e-3) -> None:
+    """``conformance_util.assert_rows_equal`` on two results of either
+    device: masks and surviving validity exactly, values within tolerance."""
+    wm, gm = want.masked, got.masked
+    em, hm = wm.mask.cpu().numpy(), gm.mask.cpu().numpy()
+    check(np.array_equal(em, hm), f"{label}: mask")
+    check(sorted(wm.table.columns) == sorted(gm.table.columns), f"{label}: schema")
+    for n, c in wm.table.columns.items():
+        g = gm.table.columns[n]
+        ev, gv = c.validity().cpu().numpy(), g.validity().cpu().numpy()
+        check(np.array_equal(ev[em], gv[em]), f"{label}: validity({n})")
+        live = em & ev & gv
+        check(np.allclose(c.data.cpu().numpy().astype(np.float64)[live],
+                          g.data.cpu().numpy().astype(np.float64)[live], rtol=rtol, atol=atol),
+              f"{label}: values({n})")
+
+
+def fused_mixed(device, detail_rows: int, per_stmt: int, rounds: int, timed: bool) -> dict:
+    """(a) and (b) on a ``key_total`` session of ``detail_rows`` rows on
+    ``device``: the mixed queue (``per_stmt`` tickets a statement) and the
+    overlap queue, each drained per statement and fused; every ticket of
+    the mixed queue against float64, the first ``FUSED_SERIAL_N`` against
+    the serial loop; relagg's launches per drain."""
+    import repro_torch.core as C
+
+    db, a, sums, tol = invocation_session(detail_rows, device)
+    policy = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    out: dict = {"detail_rows": detail_rows, "T_rows": len(a), "per_stmt": per_stmt}
+    for name, build, make_queue in (("mixed", fused_queries, mixed_queue),
+                                    ("overlap", overlap_queries, overlap_queue)):
+        stmts = [db.prepare(q, policy) for q in build()]
+        queue = make_queue(stmts, per_stmt)
+        arms = drain_arms(queue, rounds, timed)
+        serial = [s.execute(params=p) for s, p in queue[:FUSED_SERIAL_N]]
+        for arm_name in ("perstmt", "fused"):
+            results = arms[arm_name].pop("results")
+            same_results(serial, results[:FUSED_SERIAL_N], f"{name} {arm_name} vs serial")
+            if name == "mixed":
+                check_fused_tickets(results, queue, stmts, a, sums, tol,
+                                    f"{name} {arm_name} vs float64")
+        if name == "mixed":
+            check_fused_tickets(serial, queue, stmts, a, sums, tol, "mixed serial vs float64")
+        fused, per = arms["fused"], arms["perstmt"]
+        n_udf = 3 if name == "mixed" else 6  # statements calling key_total
+        check(fused["fused_batches"] == 1 and fused["batches"] == 1
+              and per["fused_batches"] == 0 and per["batches"] == len(stmts),
+              f"{name}: drains {fused['batches']} fused, {per['batches']} per statement")
+        check(fused["relagg_launches"] == 1 and per["relagg_launches"] == n_udf
+              and fused["relagg_batched_launches"] == per["relagg_batched_launches"] == 0,
+              f"{name}: relagg launches a drain, fused {fused['relagg_launches']}, per statement "
+              f"{per['relagg_launches']} (batched {fused['relagg_batched_launches']}, "
+              f"{per['relagg_batched_launches']})")
+        check(fused["fused_statements"] == 6 and fused["shared_subtrees"] >= 1,
+              f"{name}: {fused}")
+        out[name] = arms
+    ov = out["overlap"]["fused"]
+    check(ov["cse_bindings"] == OVERLAP_BINDINGS and ov["cse_pool_evals"] == OVERLAP_POOL_EVALS,
+          f"overlap: cse_bindings {ov['cse_bindings']}, cse_pool_evals {ov['cse_pool_evals']}")
+    if timed:
+        stmts = [db.prepare(q, policy) for q in fused_queries()]
+        queue = mixed_queue(stmts, per_stmt)
+        results, host_ms = fused_dispatch_without_sync(db, queue)
+        check_fused_tickets(results, queue, stmts, a, sums, tol, "fused wave under the sync check")
+        out["sync_check_host_ms"] = host_ms
+    del db
+    return out
+
+
+def fused_phase() -> dict:
+    """Multi-statement fusion on the card: (a) the mixed queue and (b) the
+    overlap queue of ``benchmarks/bench_fused.py`` over the invocation
+    phase's tables (``detail`` at 6,000,000 rows, relagg on), drained per
+    statement and fused, 64 tickets a statement, 5 warm drains an arm;
+    (c) the fusion oracle's queue over 20,000 ``facts`` rows under FROID
+    and HEKATON, fused == serial == the same on the CPU; (d) admission's
+    ``evaluate_coalesced`` with ``fuse=True`` against ``evaluate``."""
+    import torch
+
+    from repro_torch.configs import config_for
+    from repro_torch.serve.admission import AdmissionPolicy
+
+    t0 = time.perf_counter()
+    out = fused_mixed(None, INVOCATION_ROWS["detail"], FUSED_PER_STMT, FUSED_DRAINS, timed=True)
+    for name in ("mixed", "overlap"):
+        f, p = out[name]["fused"], out[name]["perstmt"]
+        log(f"fused ({'a' if name == 'mixed' else 'b'}) {name} queue, {6 * FUSED_PER_STMT} "
+            f"tickets: warm ms a drain per statement {p['warm_ms']:.2f} ({p['batches']} drains, "
+            f"relagg {p['relagg_launches']}), fused {f['warm_ms']:.2f} (1 wave: "
+            f"{f['fused_members']} members, shared_subtrees {f['shared_subtrees']}, "
+            f"cse_templates {f['cse_templates']}, cse_bindings {f['cse_bindings']}, "
+            f"cse_pool_evals {f['cse_pool_evals']}, dispatch {f['dispatch_s'] * 1e3:.2f} ms, "
+            f"sync {f['sync_s'] * 1e3:.2f} ms, relagg {f['relagg_launches']}); peak GB "
+            f"{p['peak_gb']:.3f} / {f['peak_gb']:.3f}; == serial (first {FUSED_SERIAL_N})"
+            + (" == float64" if name == "mixed" else ""))
+    log(f"fused (a) one warm wave dispatched with no host sync in "
+        f"{out['sync_check_host_ms']:.2f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["oracle"] = {}
+    for policy in ("FROID", "HEKATON"):
+        fused, serial, st = fusion_oracle_run(FUSION_FACTS_ROWS, policy)
+        cpu_fused, _, cpu_st = fusion_oracle_run(FUSION_FACTS_ROWS, policy, "cpu")
+        for j, (s, f, c) in enumerate(zip(serial, fused, cpu_fused)):
+            same_masked(s, f, f"(c) {policy} fused[{j}] vs serial")
+            same_masked(c, f, f"(c) {policy} fused[{j}] card vs CPU")
+        keys = ("fused_programs", "fused_statements", "fused_members", "shared_subtrees",
+                "cse_templates", "cse_pool_evals")
+        check(all(st[k] == cpu_st[k] for k in keys) and st["fused_programs"] < st["fused_statements"],
+              f"(c) {policy}: card {st} vs CPU {cpu_st}")
+        out["oracle"][policy] = {k: st[k] for k in keys}
+        log(f"fused (c) fusion oracle {policy}, {FUSION_FACTS_ROWS} facts rows: fused == serial "
+            f"== CPU; {out['oracle'][policy]}")
+    reqs = serve_requests(config_for("granite3_2b").vocab)
+    fields = {"tier": np.array([r.tier for r in reqs]),
+              "prompt_len": np.array([len(r.prompt) for r in reqs]),
+              "max_new_tokens": np.array([r.max_new_tokens for r in reqs]),
+              "temperature": np.array([r.temperature for r in reqs])}
+    ap = AdmissionPolicy(fuse=True)
+    check(ap.scheduler.fuse, "admission: fuse did not reach the scheduler")
+    tick, co = ap.evaluate(fields), ap.evaluate_coalesced(fields)
+    check(all(np.array_equal(tick[k], co[k]) for k in ("admit", "granted"))
+          and np.allclose(tick["temp"], co["temp"], rtol=1e-6),
+          f"(d) admission fuse=True: coalesced {co} vs tick {tick}")
+    log(f"fused (d) AdmissionPolicy(fuse=True): evaluate_coalesced == evaluate "
+        f"({len(reqs)} requests)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"fused phase ok in {out['seconds']:.1f} s")
     return out
 
 
@@ -3343,6 +3768,9 @@ def main() -> int:
     del session
     gc.collect()
     torch.cuda.empty_cache()
+    fused = fused_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"iterative phase ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3382,7 +3810,7 @@ def main() -> int:
 
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
-                    "invocation": invocation,
+                    "invocation": invocation, "fused": fused,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
@@ -3421,7 +3849,13 @@ def main() -> int:
              **{f"key_total/serial/N{n}": row["serial"]["relagg_launches"]
                 for n, row in invocation["key_total"]["sweep"].items()},
              "grouped/execute_many_batched":
-                 invocation["grouped"]["relagg_on"]["relagg_batched_launches_per_call"]}},
+                 invocation["grouped"]["relagg_on"]["relagg_batched_launches_per_call"]},
+         # the fused phase, the counts set to 0 just before each drain: the
+         # decorrelated build over detail once a fused wave, once a
+         # key_total statement when each statement drains on its own
+         "launches_fused": {
+             f"{queue}/{arm}_per_drain": fused[queue][arm]["relagg_launches"]
+             for queue in ("mixed", "overlap") for arm in ("fused", "perstmt")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

@@ -62,6 +62,11 @@ def _norm(v, special=None) -> Any:
         )
     if isinstance(v, (str, int, float, bool, type(None))):
         return v
+    if isinstance(v, type):
+        # a dtype tag such as ``np.int32`` (a Cast's target): its name — the
+        # class has ``shape``/``dtype`` attributes, and read as an array it
+        # would digest the object's address
+        return ("type", v.__module__, v.__qualname__)
     if hasattr(v, "shape") and hasattr(v, "dtype"):
         # array-valued constants: content digest, never repr (repr elides
         # the middle of large arrays, collapsing distinct values)

@@ -19,6 +19,10 @@ batched and async paths.
   chunked at ``policy.max_batch`` and pipelined; ``execute_async``
   dispatches and returns an :class:`AsyncResult` whose marker is a
   ``torch.cuda.Event`` recorded after the dispatch.
+* ``execute_fused`` runs a mixed queue of *different* prepared statements
+  as one fused wave (:mod:`repro_torch.fuse`): the subtrees they share run
+  once, each member's plan is one ``torch.func.vmap`` over its tickets,
+  and the host waits on one event for the whole wave.
 * :class:`QueryResult` reports rows lazily plus the plan, explain text,
   engine stats and whether the call was served from cache.
 
@@ -28,8 +32,8 @@ host.  A plan that still holds a ``UdfCall`` (INTERPRETED, HEKATON, or
 FROID past its inlining budget) runs it on the per-row interpreter: the
 compiled path with a ``scan``-mode hook, the eager path with the policy's
 ``udf_mode``.  ``Session._fault`` is the reference's fault-injection seam
-at its compile, dispatch, sync and interp sites.  Not ported yet: fusion
-(ROADMAP A7), cost routing (A8), persistence (A9) and the mesh (A10).
+at its compile, dispatch, sync and interp sites.  Not ported yet: cost
+routing (ROADMAP A8), persistence (A9) and the mesh (A10).
 """
 from __future__ import annotations
 
@@ -326,6 +330,211 @@ def _check_supported(policy: ExecutionPolicy) -> None:
             "cost routing is not ported yet (ROADMAP A8)")
 
 
+def _param_dictionary(v) -> DictEncoding | None:
+    """The dictionary ``_param_value(v, device)`` would carry, without
+    making a device tensor (host-side planning)."""
+    if isinstance(v, S.Value):
+        return v.dictionary
+    if isinstance(v, str):
+        return DictEncoding([v])
+    return None
+
+
+#: distinct-binding counts at or below this threshold keep exact template
+#: pools; above it the pool pads to the next power of two.  Small pools
+#: re-specialize rarely and padding them is pure waste; large growing
+#: binding populations would otherwise re-specialize the fused program once
+#: per distinct d — bucketing bounds that to O(log d).  Tests monkeypatch
+#: this to measure both arms.
+CSE_EXACT_D = 8
+
+
+def _pool_pad(d: int) -> int:
+    """Template-pool slot count for ``d`` distinct bindings: exact at or
+    below :data:`CSE_EXACT_D`, the next power of two above it.  Padded
+    slots repeat the last real binding and are computed-then-ignored,
+    exactly like batch-bucket padding rows — no ticket's slot index ever
+    references one."""
+    if d <= CSE_EXACT_D:
+        return d
+    b = 1
+    while b < d:
+        b <<= 1
+    return b
+
+
+def _value_bytes(v: S.Value) -> bytes:
+    """A Value's data bytes, then its validity's, read to the host in one
+    copy."""
+    data = v.data.contiguous()
+    parts = [data.reshape(-1).view(torch.uint8)]
+    if v.valid is not None:
+        parts.append(torch.broadcast_to(v.valid, data.shape).reshape(-1)
+                     .to(torch.uint8))
+    return torch.cat(parts).cpu().numpy().tobytes()
+
+
+def _binding_key(v) -> tuple:
+    """Hashable identity of one parameter value — the dedup key of the
+    template binding pools (value-level, unlike :func:`param_signature`
+    which deliberately erases values for numeric params).  ``S.Value``
+    bindings cost a device→host read, so their key is memoized on the
+    instance — repeated tickets carrying the same Value object read it
+    once, not once per ticket."""
+    if isinstance(v, S.Value):
+        cached = getattr(v, "_binding_key_cache", None)
+        if cached is not None:
+            return cached
+        key = ("value", str(v.data.dtype), tuple(v.data.shape), _value_bytes(v),
+               v.valid is not None, _vocab(v.dictionary))
+        v._binding_key_cache = key
+        return key
+    if isinstance(v, str):
+        return ("str", v)
+    if isinstance(v, bool):
+        return ("bool", v)
+    if isinstance(v, (int, np.integer)):
+        return ("int", int(v))
+    if isinstance(v, (float, np.floating)):
+        # bit-pattern identity at the executed precision: -0.0 must not
+        # dedup against 0.0 (sign-sensitive templates would answer with
+        # the wrong sign of infinity), and NaN must dedup against itself
+        # (value equality would mint a fresh pool slot per NaN ticket)
+        return ("float", np.float32(float(v)).tobytes())
+    arr = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return ("array", str(arr.dtype), arr.shape, arr.tobytes())
+
+
+def _maximal_cse_occurrences(merged, plan) -> list:
+    """Template occurrences of ``plan`` that actually execute in a member's
+    run: top-down, stopping at the first marked node (a shared-constant
+    or template mark) — everything beneath it is answered from a pool and
+    never runs, so nested occurrences must not open pool groups of their
+    own.  Memoized on the (cached, immutable) FusedPlan per member plan —
+    warm drains must not re-walk plans they have already planned."""
+    cache = getattr(merged, "_occ_cache", None)
+    if cache is None:
+        cache = merged._occ_cache = {}
+    # entries hold the plan itself, so a hit is identity-verified — an
+    # id() recycled onto a different plan object can never match
+    hit = cache.get(id(plan))
+    if hit is not None and hit[0] is plan:
+        return hit[1]
+    out = []
+
+    def visit(n):
+        nid = n.node_id
+        if nid in merged.template_ids:
+            out.append(n)
+            return
+        if nid in merged.shared_ids:
+            return  # answered from the constant pool; nothing below runs
+        for p in R.embedded_plans(n):
+            visit(p)
+        for c in n.children():
+            visit(c)
+
+    visit(plan)
+    cache[id(plan)] = (plan, out)
+    return out
+
+
+def _plan_template_groups(merged, members, params_by_member):
+    """Host-side binding planning for a fused wave.
+
+    For every maximal template occurrence of every member, group by
+    (template fingerprint, binding signature) into a :class:`_PoolGroup`,
+    dedup the tickets' hole-value tuples into the group's distinct-binding
+    list, and record each ticket's pool slot.  Returns ``(groups,
+    member_tmaps, slot_maps, slot_names, template_token)`` where
+    ``member_tmaps[i]`` maps occurrence ``node_id -> group index`` for
+    member ``i``, ``slot_maps[i]`` maps ``node_id -> [slot per ticket]``,
+    ``slot_names[i]`` maps ``node_id -> reserved slot-parameter name``
+    (the occurrence's *ordinal* within this walk — deterministic from the
+    plan structure), and ``template_token`` — ``((fp, sig, pool_pad(d)),
+    ...)`` in group order — is the template identity the fused cache key
+    incorporates (members arrive canonically sorted, so the token is
+    arrival-order independent; ``d`` is bucketed by :func:`_pool_pad` so a
+    growing distinct-binding population re-specializes O(log d) times, not
+    per distinct d)."""
+    from repro_torch.fuse.merge import CONST_BIND, slot_param
+
+    def hole_value(bind_h, pdict):
+        """``(supplied, value)`` of one hole: const-bind markers carry the
+        literal value; param binds look up the ticket's params."""
+        if isinstance(bind_h, tuple) and bind_h[0] == CONST_BIND:
+            return True, bind_h[1]
+        if bind_h not in pdict:
+            return False, None
+        return True, pdict[bind_h]
+
+    by_fp = {t.fp: t for t in merged.templates}
+    groups: list[_PoolGroup] = []
+    gindex: dict[tuple, int] = {}
+    member_tmaps: list[dict] = []
+    slot_maps: list[dict] = []
+    slot_names: list[dict] = []
+    for m, plist in zip(members, params_by_member):
+        tmap: dict[int, int] = {}
+        smap: dict[int, list] = {}
+        names: dict[int, str] = {}
+        # parameter-free members still pool occurrences whose holes are all
+        # const-bound (lifted templates) — their slot rides as an unbatched
+        # reserved parameter
+        if plist:
+            pdict0 = plist[0] or {}
+            for n in _maximal_cse_occurrences(merged, m.plan):
+                fp = merged.template_ids[n.node_id]
+                bind = merged.template_binds[n.node_id]
+                tmpl = by_fp[fp]
+                # an occurrence whose actual parameters are not all
+                # supplied cannot be pooled; the member run will raise
+                # (or not reach it) exactly as the per-statement path would
+                vals0 = {}
+                for h in tmpl.holes:
+                    ok, v = hole_value(bind[h], pdict0)
+                    if not ok:
+                        vals0 = None
+                        break
+                    vals0[h] = v
+                if vals0 is None:
+                    continue
+                sig = param_signature(vals0)
+                gk = (fp, sig)
+                gi = gindex.get(gk)
+                if gi is None:
+                    gi = gindex[gk] = len(groups)
+                    groups.append(_PoolGroup(
+                        fp, sig, tmpl.node, tmpl.holes,
+                        {h: _param_dictionary(vals0[h]) for h in tmpl.holes},
+                        [], {},
+                    ))
+                g = groups[gi]
+                slots = []
+                for p in plist:
+                    pd = p or {}
+                    b = {h: hole_value(bind[h], pd)[1] for h in tmpl.holes}
+                    key = tuple(_binding_key(b[h]) for h in tmpl.holes)
+                    slot = g.index.get(key)
+                    if slot is None:
+                        slot = g.index[key] = len(g.bindings)
+                        g.bindings.append(b)
+                    slots.append(slot)
+                tmap[n.node_id] = gi
+                smap[n.node_id] = slots
+                # canonical spelling: the ordinal among this member's
+                # pooled occurrences
+                names[n.node_id] = slot_param(len(names))
+        member_tmaps.append(tmap)
+        slot_maps.append(smap)
+        slot_names.append(names)
+    # the cache token carries the *padded* pool size: binding counts that
+    # land in the same d-bucket share one fused specialization (the exact
+    # count still rides per-wave as cse_bindings in the stats)
+    token = tuple((g.fp, g.sig, _pool_pad(len(g.bindings))) for g in groups)
+    return groups, member_tmaps, slot_maps, slot_names, token
+
+
 # ---------------------------------------------------------------------------
 # executables
 # ---------------------------------------------------------------------------
@@ -351,6 +560,53 @@ class _BatchedExecutable:
     interp: Interpreter | None = None  # shared with the unbatched executable
 
 
+@dataclasses.dataclass
+class _FuseMember:
+    """One member of a fused program: a (statement plan, parameter
+    signature) pair stacked over its own batch bucket."""
+
+    plan: R.RelNode
+    sig: tuple
+    bucket: int
+    pdicts: dict  # param name -> DictEncoding | None (host metadata)
+    key: tuple  # (query fingerprint, signature, bucket) — cache identity
+
+
+@dataclasses.dataclass
+class _FusedExecutable:
+    fn: Any  # (pargs_tuple, targs_tuple, catalog_token) -> ((mask, cols), ...)
+    plans: list  # member plans, fusion order
+    out_dicts: list  # per-member {column -> DictEncoding | None} capture
+    stats: dict  # the last run's scan stats + merge stats (shared_subtrees, cse_*, ...)
+    members: list  # _FuseMember descriptors, fusion order
+    merged: Any = None  # repro_torch.fuse.merge.FusedPlan (sharing maps + explain)
+    eval_counts: dict | None = None  # pool key -> the last run's evaluations
+
+
+@dataclasses.dataclass
+class _PoolGroup:
+    """One template pool of a fused program: a parameter-unified shared
+    subtree × one binding signature, evaluated once per distinct binding.
+    Two members binding the same template with the same value *signature*
+    land in the same group and share its distinct-binding pool — the
+    cross-statement unification the CSE engine exists for."""
+
+    fp: tuple  # canonical parametric fingerprint (template identity)
+    sig: tuple  # binding signature (param_signature over hole values)
+    node: R.RelNode  # canonical template subtree (holes as params)
+    holes: tuple  # canonical hole parameter names, slot order
+    hole_dicts: dict  # hole -> DictEncoding | None (host metadata)
+    bindings: list  # [{hole: value}] distinct, slot order
+    index: dict  # binding key -> slot
+
+    def spec(self) -> "_PoolGroup":
+        """Structure-only copy for the fused closure: it reads
+        fp/sig/node/holes/hole_dicts; holding a wave's binding values (and
+        their byte keys) in a long-lived cache entry would pin them for
+        the entry's lifetime."""
+        return dataclasses.replace(self, bindings=[], index={})
+
+
 # ---------------------------------------------------------------------------
 # Session
 # ---------------------------------------------------------------------------
@@ -374,11 +630,19 @@ class Session:
         self._plans: _BoundedCache = _BoundedCache(cap)
         self._execs: _BoundedCache = _BoundedCache(cap)
         self._batch_execs: _BoundedCache = _BoundedCache(cap)
+        self._fuse_execs: _BoundedCache = _BoundedCache(cap)
+        self._merge_cache: _BoundedCache = _BoundedCache(64)
         self._prepared: _BoundedCache = _BoundedCache(cap)
         self.cache_stats = {
             "plan_hits": 0, "plan_misses": 0,
             "exec_hits": 0, "exec_misses": 0,
             "batch_hits": 0, "batch_misses": 0,
+            "fuse_hits": 0, "fuse_misses": 0,
+            # cross-statement CSE: evaluations avoided by sharing (constant
+            # refs beyond the first + template ticket-refs beyond their
+            # distinct bindings), and total plan nodes covered by a shared
+            # evaluation, both accumulated per fused wave
+            "cse_hits": 0, "cse_shared_nodes": 0,
         }
         # dispatched-but-unsynced AsyncResults, oldest first (backpressure)
         self._inflight: deque = deque()
@@ -660,6 +924,312 @@ class Session:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         return ev
+
+    # -- multi-statement fusion ----------------------------------------------
+    def _merged_for(self, members: list, env_token: tuple):
+        """The merge pass's :class:`~repro_torch.fuse.merge.FusedPlan` for
+        this member set, cached — the host consults the sharing maps on
+        every wave (warm or cold) to plan template bindings, and the walk
+        must not re-run per drain.
+
+        The key includes the member plans' identities: the sharing maps
+        are ``node_id``-keyed, so a plan rebuilt after a ``_plans``-cache
+        eviction (same env token, fresh node ids) must get a fresh merge,
+        not a stale FusedPlan whose marks match nothing.  Plan identity is
+        the session stamp (monotonic, never recycled)."""
+        key = (tuple(m.key for m in members), env_token,
+               tuple(_stamp(m.plan) for m in members))
+        merged = self._merge_cache.get(key)
+        if merged is None:
+            from repro_torch.fuse.merge import merge_plans
+
+            merged = merge_plans([m.plan for m in members])
+            self._merge_cache[key] = merged
+        return merged
+
+    def _fused_executable(self, members: list, policy: ExecutionPolicy,
+                          env_token: tuple, merged, groups: list,
+                          member_tmaps: list, slot_names: list,
+                          template_token: tuple
+                          ) -> tuple[_FusedExecutable, bool]:
+        """(fused executable, fuse-cache-hit).  One closure carrying every
+        member: the merge pass's shared subtrees execute once, each
+        template pool once per distinct binding, then each member's plan
+        vmaps over its own stacked parameter axis (see
+        ``repro_torch.fuse.program``).  Keyed as the reference keys its
+        jitted program: the member tuple in canonical (sorted) order ×
+        the plans' stamps × policy × env token × **template identity**
+        (``(fingerprint, binding signature, padded distinct-binding
+        count)`` per pool group), so a mixed queue arriving in any order
+        warm-hits, a changed distinct-binding count re-specializes, and
+        any DDL/catalog poke invalidates every member at once via the env
+        token.  The reference's persistent tier (ROADMAP A9) and sharded
+        placement (A10) are not ported."""
+        key = (tuple(m.key for m in members),
+               tuple(_stamp(m.plan) for m in members), policy.fingerprint(),
+               env_token, template_token)
+        entry = self._fuse_execs.get(key)
+        if entry is not None:
+            self.cache_stats["fuse_hits"] += 1
+            return entry, True
+        self.cache_stats["fuse_misses"] += 1
+        # the reference loads a persisted program here (ROADMAP A9)
+        self._fault("compile", tuple(m.key[0] for m in members))
+        from repro_torch.fuse.program import build_fused_raw
+
+        raw, out_dicts, run_stats, merged, eval_counts = build_fused_raw(
+            self, members, policy, merged, [g.spec() for g in groups],
+            member_tmaps, slot_names)
+
+        def fn(pargs_tuple, targs_tuple, catalog_token: tuple | None = None):
+            return raw(self._catalog_args(catalog_token), pargs_tuple,
+                       targs_tuple)
+
+        entry = _FusedExecutable(fn, [m.plan for m in members], out_dicts,
+                                 run_stats, members, merged, eval_counts)
+        self._fuse_execs[key] = entry
+        return entry, False
+
+    def execute_fused(self, calls) -> list[QueryResult]:
+        """Execute a mixed-statement call list — ``[(stmt, params), ...]``
+        — through as few fused device programs as fusability allows.
+
+        Calls whose statements may share a program (same session and
+        policy fingerprint; ``policy.fuse`` on; pure plans — see
+        ``repro_torch.fuse.analysis``) coalesce into fused programs of at
+        most ``policy.max_fused_statements`` distinct statements;
+        everything else (eager policies, foreign sessions, singleton
+        groups) falls back to the per-statement ``execute_many`` path.
+
+        Returns one :class:`QueryResult` per call, in input order,
+        element-wise equal to the per-statement serial loop.  Fused
+        results carry ``stats['fused'] / fused_statements /
+        fused_programs / shared_subtrees`` — the shared-scan evidence."""
+        from repro_torch.fuse.analysis import partition_calls
+
+        calls = [(stmt, dict(p) if p else {}) for stmt, p in calls]
+        if not calls:
+            return []
+        results: list[QueryResult | None] = [None] * len(calls)
+        groups, fallbacks = partition_calls(self, calls)
+        for stmt, items in fallbacks:
+            rs = stmt.execute_many([p for _, p in items])
+            for (i, _), r in zip(items, rs):
+                results[i] = r
+        for group in groups:
+            self._run_fused(group, results)
+        return results  # type: ignore[return-value]
+
+    def _run_fused(self, group: list, results: list) -> None:
+        """Run one fused group — ``[(index, stmt, params), ...]`` with ≥ 2
+        distinct statements and compatible policies — and scatter its
+        QueryResults into ``results``: the dispatch, then the wait on its
+        event."""
+        self._finalize_fused(self._dispatch_fused(group, results), results)
+
+    def _dispatch_fused(self, group: list, results: list) -> dict:
+        """Plan and dispatch one fused wave without waiting for it (no host
+        sync past the tickets that spill to the per-statement path, which
+        are filled into ``results`` here); returns the wave's record, with
+        the event recorded after the dispatch, for
+        :meth:`_finalize_fused`."""
+        env_token = self._env_token()
+        policy = group[0][1].policy  # fingerprint-equal across the group
+        # member = one (statement, signature) pair stacked over its tickets
+        order: list[tuple] = []
+        by_key: dict[tuple, dict] = {}
+        for idx, stmt, params in group:
+            sig = param_signature(params)
+            k = (stmt._query_fp, sig)
+            ent = by_key.get(k)
+            if ent is None:
+                ent = by_key[k] = {"stmt": stmt, "sig": sig,
+                                   "idxs": [], "params": []}
+                order.append(k)
+            ent["idxs"].append(idx)
+            ent["params"].append(params)
+        # one fused wave per drain: tickets beyond the batch bound ride the
+        # per-statement path (already batched + pipelined).  max_batch is a
+        # non-identity knob, so fingerprint-equal members may disagree —
+        # honor the strictest bound (and keep the cap, and therefore the
+        # buckets and cache keys, arrival-order independent).  The
+        # reference multiplies the cap by the mesh's devices (ROADMAP A10).
+        cap = max(1, min(s.policy.max_batch for _, s, _ in group))
+        for k in order:
+            ent = by_key[k]
+            if len(ent["params"]) > cap:
+                extra_i, extra_p = ent["idxs"][cap:], ent["params"][cap:]
+                ent["idxs"], ent["params"] = ent["idxs"][:cap], ent["params"][:cap]
+                for i, r in zip(extra_i, ent["stmt"].execute_many(extra_p)):
+                    results[i] = r
+        # canonical member order: fused cache keys are insensitive to the
+        # queue's arrival order (repr: fingerprints are not comparable)
+        order.sort(key=repr)
+        members: list[_FuseMember] = []
+        for k in order:
+            ent = by_key[k]
+            stmt = ent["stmt"]
+            plan, _ = self._cached_plan(stmt.node, stmt._query_fp, stmt.policy)
+            # parameter-free members execute once, unbatched — every ticket
+            # shares the single result (mirrors execute_many's group path)
+            bucket = 1 if not ent["sig"] else batch_bucket(len(ent["params"]), cap)
+            pdicts = {name: _param_dictionary(v)
+                      for name, v in ent["params"][0].items()}
+            members.append(_FuseMember(plan, ent["sig"], bucket, pdicts,
+                                       (stmt._query_fp, ent["sig"], bucket)))
+        # the reference places the wave over a mesh here (ROADMAP A10)
+        # cross-statement CSE: plan the template binding pools from the
+        # wave's actual ticket values (the merge maps are cached; only the
+        # binding dedup runs per wave)
+        merged = self._merged_for(members, env_token)
+        groups, member_tmaps, slot_maps, slot_names, template_token = \
+            _plan_template_groups(merged, members,
+                                  [by_key[k]["params"] for k in order])
+        device = self.device
+        pargs_tuple = []
+        t0 = time.perf_counter()
+        for m, k, smap, names in zip(members, order, slot_maps, slot_names):
+            plist = by_key[k]["params"]
+            if m.sig:
+                padded = plist + [plist[-1]] * (m.bucket - len(plist))
+                pargs = _stack_params(padded, device)
+                for nid, slots in smap.items():
+                    # each occurrence's pool-slot index rides the stacked
+                    # axis as a reserved parameter (padding repeats the
+                    # last ticket's slot, matching the padded params)
+                    s = slots + [slots[-1]] * (m.bucket - len(slots))
+                    pargs[names[nid]] = (
+                        S.host_tensor(np.asarray(s, np.int32), torch.int32, device),
+                        torch.ones((m.bucket,), dtype=torch.bool, device=device),
+                    )
+                pargs_tuple.append(pargs)
+            else:
+                # parameter-free member: unbatched, no stacked args — but
+                # const-bound template occurrences (lifted templates) still
+                # gather their pool slot through the reserved parameter
+                pargs = {}
+                for nid, slots in smap.items():
+                    pargs[names[nid]] = (
+                        S.host_tensor(slots[0], torch.int32, device),
+                        torch.ones((), dtype=torch.bool, device=device))
+                pargs_tuple.append(pargs)
+        # binding pools pad to their d-bucket (repeat the last binding):
+        # the stacked leading axis is what the fused closure specializes
+        # on; padded slots are evaluated and never referenced by any
+        # ticket's slot
+        targs_tuple = tuple(
+            _stack_params(
+                g.bindings
+                + [g.bindings[-1]] * (_pool_pad(len(g.bindings))
+                                      - len(g.bindings)), device)
+            for g in groups)
+        stack_s = time.perf_counter() - t0
+        entry, hit = self._fused_executable(
+            members, policy, env_token, merged, groups, member_tmaps,
+            slot_names, template_token)
+        t0 = time.perf_counter() - stack_s
+        wave_fps = tuple(m.key[0] for m in members)
+        self._fault("dispatch", wave_fps)
+        outs = entry.fn(tuple(pargs_tuple), targs_tuple, env_token[0])
+        event = self._marker()
+        return {"members": members, "order": order, "by_key": by_key,
+                "merged": merged, "groups": groups, "slot_maps": slot_maps,
+                "entry": entry, "hit": hit, "outs": outs, "event": event,
+                "t0": t0, "dispatch_s": time.perf_counter() - t0,
+                "wave_fps": wave_fps}
+
+    def _finalize_fused(self, rec: dict, results: list) -> None:
+        """Wait for a dispatched fused wave's event (never the whole
+        device) and build its QueryResults."""
+        members, order, by_key = rec["members"], rec["order"], rec["by_key"]
+        merged, groups, entry = rec["merged"], rec["groups"], rec["entry"]
+        self._fault("sync", rec["wave_fps"])
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        elapsed = time.perf_counter() - rec["t0"]
+        t_dispatch = rec["dispatch_s"]
+        n_stmts = len({m.key[0] for m in members})
+        # sharing evidence: evaluations avoided this wave (constant refs
+        # beyond the first evaluation + template ticket-refs beyond their
+        # distinct bindings) and the covered-node total
+        t_refs = sum(len(s) for smap in rec["slot_maps"] for s in smap.values())
+        t_evals = sum(len(g.bindings) for g in groups)
+        t_slots = sum(_pool_pad(len(g.bindings)) for g in groups)
+        m_stats = merged.stats
+        # subtrahend is the distinct *maximal* fingerprint count — the pool
+        # also holds nested entries, which are not separate evaluations the
+        # per-statement path would have paid.  Template savings subtract
+        # the *padded* slot count: padded pool slots are real device
+        # evaluations, so counting them as avoided would overstate sharing
+        self.cache_stats["cse_hits"] += (
+            max(0, m_stats["shared_refs"] - m_stats["shared_maximal_subtrees"])
+            + max(0, t_refs - t_slots)
+        )
+        self.cache_stats["cse_shared_nodes"] += m_stats["cse_shared_nodes"]
+        n_tickets = sum(len(by_key[k]["idxs"]) for k in order)
+        # the reference's cost router samples the wave here (ROADMAP A8)
+        fused_explain = merged.explain()
+        for j, (m, k) in enumerate(zip(members, order)):
+            ent = by_key[k]
+            mask, cols = rec["outs"][j]
+            stats = {
+                **entry.stats, "compiled": True, "batched": True,
+                "fused": True, "fused_programs": 1,
+                "fused_statements": n_stmts, "fused_members": len(members),
+                "batch_size": len(ent["params"]), "batch_bucket": m.bucket,
+                "dispatch_s": t_dispatch, "sync_s": elapsed - t_dispatch,
+                # this wave's template pooling (the merge-level cse_*
+                # counters ride in from entry.stats)
+                "cse_template_groups": len(groups),
+                "cse_bindings": t_evals,
+                "cse_pool_slots": t_slots,
+                "cse_template_ticket_refs": t_refs,
+                # wave-level figures (dispatch_s/sync_s/cse_*) are COPIED
+                # into every ticket's result in this wave; aggregators
+                # summing across results must divide by wave_tickets or
+                # they double-count the wave
+                "wave_tickets": n_tickets,
+                "fused_explain": fused_explain,
+            }
+            out_dicts = entry.out_dicts[j]
+
+            if not m.sig:
+                # unbatched member: one shared materialization serves
+                # every ticket (distinct QueryResult shells, like
+                # execute_many's parameter-free group)
+                cell: dict = {}
+
+                def mat_shared(mask=mask, cols=cols, out_dicts=out_dicts,
+                               cell=cell):
+                    if "v" not in cell:
+                        cell["v"] = MaskedTable(
+                            Table({n: Column(data, valid, out_dicts.get(n))
+                                   for n, (data, valid) in cols.items()}),
+                            mask,
+                        )
+                    return cell["v"]
+
+                for i in ent["idxs"]:
+                    results[i] = QueryResult(
+                        None, m.plan, elapsed, dict(stats),
+                        policy=ent["stmt"].policy, cache_hit=rec["hit"],
+                        materialize=mat_shared,
+                    )
+                continue
+
+            def materialize(row, mask=mask, cols=cols, out_dicts=out_dicts):
+                table = Table(
+                    {n: Column(data[row], valid[row], out_dicts.get(n))
+                     for n, (data, valid) in cols.items()}
+                )
+                return MaskedTable(table, mask[row])
+
+            for row, i in enumerate(ent["idxs"]):
+                results[i] = QueryResult(
+                    None, m.plan, elapsed, dict(stats),
+                    policy=ent["stmt"].policy, cache_hit=rec["hit"],
+                    materialize=(lambda row=row, mat=materialize: mat(row)),
+                )
 
     # -- async backpressure --------------------------------------------------
     @property

@@ -1,7 +1,4 @@
-"""Copy of ``src/repro/resilience/ladder.py`` (device-free), with one
-difference: the fused tier (the one path that calls ``execute_fused``)
-raises ``NotImplementedError`` until fusion is ported (ROADMAP A7), and
-the port's scheduler refuses ``fuse=True`` before it gets here.
+"""Copy of ``src/repro/resilience/ladder.py`` (device-free).
 
 Graceful-degradation execution ladder for scheduler drains.
 
@@ -204,11 +201,7 @@ class DegradationLadder:
         serializes session access (Session caches are not thread-safe)."""
         lock = lock if lock is not None else _NullLock()
         if fuse and len(groups) >= 2:
-            # _tier_fused(groups, lock) in the reference: it waits for
-            # Session.execute_fused
-            raise NotImplementedError(
-                "fused drains (Session.execute_fused) are not ported yet: "
-                "ROADMAP A7")
+            self._tier_fused(groups, lock)
         for g in groups:
             self._run_group(g, lock)
             if g.from_fused and any(it.error is not None for it in g.items):

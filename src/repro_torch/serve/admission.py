@@ -14,10 +14,11 @@ The per-request path (``request_statement``, ``submit``, ``verdict``,
 statement over a ``ConstantScan``, under the closest compiling policy,
 and coalesces concurrent submits on a
 :class:`~repro_torch.serve.scheduler.CoalescingScheduler` into
-``execute_many`` batches, each one ``torch.func.vmap`` on the device.
-Under INTERPRETED and HEKATON the rules run on the port's per-row
-interpreter, on the same device.  Not ported yet: ``mesh`` (ROADMAP A10),
-``fuse`` (A7) and ``store`` (A9).
+``execute_many`` batches, each one ``torch.func.vmap`` on the device
+(``fuse=True`` drains mixed-statement waves as one fused wave).  Under
+INTERPRETED and HEKATON the rules run on the port's per-row interpreter,
+on the same device.  Not ported yet: ``mesh`` (ROADMAP A10) and ``store``
+(A9).
 """
 from __future__ import annotations
 
@@ -131,9 +132,11 @@ class AdmissionPolicy:
 
     ``policy`` is an :class:`ExecutionPolicy` or preset name; the legacy
     ``froid`` flag maps True -> FROID, False -> INTERPRETED.
-    ``scheduler``, ``adaptive`` and ``timeout_s`` configure the per-request
-    coalescing path (``timeout_s``: the default per-ticket deadline; an
-    expired ticket sheds with a typed ``DeadlineExceeded``).
+    ``scheduler``, ``fuse``, ``adaptive`` and ``timeout_s`` configure the
+    per-request coalescing path (``fuse``: mixed-statement waves, e.g.
+    custom rule statements sharing the request session, drain as one fused
+    wave; ``timeout_s``: the default per-ticket deadline; an expired ticket
+    sheds with a typed ``DeadlineExceeded``).
     """
 
     def __init__(self, froid: bool = True,
@@ -143,8 +146,6 @@ class AdmissionPolicy:
                  timeout_s: float | None = None, store=None):
         if mesh is not None:
             _waits("sharded admission (mesh)", "A10")
-        if fuse:
-            _waits("fused admission drains (fuse)", "A7")
         if store is not None:
             _waits("the persistent plan store", "A9")
         self.session = Session(device=device)
@@ -162,7 +163,7 @@ class AdmissionPolicy:
         self._request_stmt = None
         self.timeout_s = timeout_s
         self.scheduler = scheduler or CoalescingScheduler(
-            adaptive=adaptive, default_timeout_s=timeout_s,
+            fuse=fuse, adaptive=adaptive, default_timeout_s=timeout_s,
         )
 
     def evaluate(self, requests: dict[str, np.ndarray]) -> dict[str, np.ndarray]:

@@ -21,8 +21,9 @@ Two intake shapes, as in the reference:
   (and therefore verdicts) as ``run``.  A ticket whose deadline passed, or
   whose degradation ladder ran out, completes as ``"shed"``.
 
-``admission_mesh`` waits for the mesh (ROADMAP A10), ``admission_fuse``
-for fusion (A7) and ``admission_store`` for persistence (A9).
+``admission_fuse`` drains mixed-statement admission waves as one fused
+wave; ``admission_mesh`` waits for the mesh (ROADMAP A10) and
+``admission_store`` for persistence (A9).
 """
 from __future__ import annotations
 

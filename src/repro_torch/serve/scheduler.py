@@ -1,7 +1,6 @@
-"""Copy of ``src/repro/serve/scheduler.py``, with two differences:
-``fuse=True`` raises ``NotImplementedError`` until fusion is ported
-(ROADMAP A7), and ``_max_batch`` has no mesh multiplier, since the port's
-policy has no mesh (A10).
+"""Copy of ``src/repro/serve/scheduler.py``, with one difference:
+``_max_batch`` has no mesh multiplier, since the port's policy has no mesh
+(ROADMAP A10).
 
 Coalescing microbatch scheduler: per-request submits, set-oriented drains.
 
@@ -172,10 +171,6 @@ class CoalescingScheduler:
                  resilience: "ResilienceConfig | bool" = True,
                  default_timeout_s: float | None = None,
                  sleep: Callable[[float], None] = time.sleep):
-        if fuse:
-            raise NotImplementedError(
-                "the scheduler's fused drains (fuse=True) are not ported yet: "
-                "ROADMAP A7")
         self.max_batch = max_batch
         self.window_s = window_s
         self.clock = clock

@@ -3,7 +3,8 @@ and the coalescing scheduler, against the reference and against the port's
 own serial loop, on the CPU.
 
 Ports every case of ``tests/test_execute_many.py`` that needs no mesh,
-fusion, routing or store: element-wise identity with the serial loop and
+routing or store (fusion has its own file, ``test_torch_fused.py``; the
+scheduler's ``fuse=True`` drain is checked here once): element-wise identity with the serial loop and
 input order, empty and parameter-free inputs, an eager policy run
 serially, HEKATON (its scan-mode row loop under the parameter vmap),
 bucket shape and reuse, mixed signatures, ``max_batch`` chunks, pipelining
@@ -364,9 +365,26 @@ def test_adaptive_window_is_per_statement(db):
     assert sched.stats["batches"] == 3 and sched.stats["flush_window"] == 0
 
 
-def test_scheduler_refuses_fused_drains():
-    with pytest.raises(NotImplementedError, match="A7"):
-        CoalescingScheduler(fuse=True)
+def test_scheduler_refuses_fused_drains(db, ref):
+    """``fuse=True`` was refused until fusion was ported (ROADMAP A7); it
+    now drains a mixed queue as one fused wave, equal to the serial loop
+    and to the reference's fused drain."""
+    from repro.serve.scheduler import CoalescingScheduler as RefScheduler
+
+    arith = lambda M: M.scan("T").compute(b=M.col("a") * M.param("m")).project("b")  # noqa: E731
+    out = {}
+    for M, session, cls in ((PC, db, CoalescingScheduler), (RC, ref, RefScheduler)):
+        s1, s2 = session.prepare(_q(M), M.FROID), session.prepare(arith(M), M.FROID)
+        calls = [(s1, {"cutoff": 9}), (s2, {"m": 3}), (s1, {"cutoff": 40})]
+        sched = cls(max_batch=64, window_s=10.0, clock=lambda: 0.0, fuse=True)
+        tickets = [sched.submit(s, p) for s, p in calls]
+        sched.flush()
+        out[M] = ([t.result() for t in tickets], dict(sched.stats), calls)
+    got, stats, calls = out[PC]
+    assert stats == out[RC][1] and stats["fused_batches"] == 1 and stats["batches"] == 1
+    assert all(r.stats["fused"] and r.stats["fused_statements"] == 2 for r in got)
+    _assert_ref(out[RC][0], got, "reference fused drain vs port fused drain")
+    _assert_ref([s.execute(params=p) for s, p in calls], got, "serial vs fused drain")
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ laddered ``execute_many`` result-count mismatch, demotion to serial and to
 interp at each fault site, the typed interp error, in-tier retry backoff,
 the breaker's open / half-open / reopen cycle on the ladder, deadlines
 (shed before drain, none without a timeout, admission's timeout) and
-``ServeEngine.drain`` shedding expired admission tickets.  The fused and
-chaos cases wait for fusion and routing (ROADMAP A7, A8).
+``ServeEngine.drain`` shedding expired admission tickets; and the ladder's
+fused tier with its breaker skipping wave membership.  The other fused
+cases and the chaos oracle's FROID legs are in ``test_torch_fused.py``.
 
 Beside each case's own assertions, the fault-site cases run the same
 schedule through the reference's ``Session`` and scheduler and hold the
@@ -390,14 +391,48 @@ def test_breaker_half_open_probe_failure_reopens_on_ladder():
 
 
 def test_ladder_refuses_a_fused_wave():
-    """The fused tier waits for ``Session.execute_fused`` (ROADMAP A7)."""
+    """The fused tier refused waves until ``Session.execute_fused`` was
+    ported (ROADMAP A7).  Now it drains them: a wave of two statements
+    resolves in one fused tier run; and, beside the reference
+    (``tests/test_resilience.py::test_fused_tier_breaker_skips_wave_membership``),
+    an open fused-tier breaker drops its statement out of the next wave,
+    which then drains per statement with no new fused wave."""
     from repro_torch.resilience import DegradationLadder, WaveGroup, WorkItem
 
     s, stmt1, stmt2 = _mk()
     wave = [WaveGroup(stmt1, [WorkItem({"cutoff": 3})]),
             WaveGroup(stmt2, [WorkItem({"m": 2})])]
-    with pytest.raises(NotImplementedError, match="A7"):
-        DegradationLadder().drain(wave, fuse=True)
+    ladder = DegradationLadder()
+    ladder.drain(wave, fuse=True)
+    assert _xs(wave[0].items[0].result) == [0, 1, 2]
+    assert len(_xs(wave[1].items[0].result)) == 8
+    assert wave[0].items[0].result.stats["fused"]
+    assert ladder.counters["tier_fused_ok"] == 1 and ladder.counters["fused_batches"] == 1
+
+    def skips(M, Injector, Spec, Sched):
+        import repro.resilience as ref_resilience
+        import repro_torch.resilience as port_resilience
+
+        res = port_resilience if M is PC else ref_resilience
+        s, stmt1, stmt2 = _mk(M)
+        fi = Injector([Spec(site="dispatch", times=None)]).install(s)
+        cfg = res.ResilienceConfig(breaker=res.BreakerConfig(
+            failure_threshold=1, window_s=100.0, cooldown_s=1e9))
+        sched = _sched(cls=Sched, fuse=True, resilience=cfg)
+        t1, t2 = sched.submit(stmt1, {"cutoff": 3}), sched.submit(stmt2, {"m": 2})
+        sched.flush()  # the wave fails; both fused breakers open
+        t1.result(), t2.result()
+        fb = sched.stats["fused_batches"]
+        fi.specs.clear()
+        t1, t2 = sched.submit(stmt1, {"cutoff": 3}), sched.submit(stmt2, {"m": 2})
+        sched.flush()
+        return _xs(t1.result()), fb, dict(sched.stats)
+
+    got = skips(PC, FaultInjector, FaultSpec, CoalescingScheduler)
+    assert got == skips(RC, RefInjector, RefSpec, RefScheduler)
+    xs, fb, stats = got
+    assert xs == [0, 1, 2] and stats["fused_batches"] == fb
+    assert stats["breaker_open_skips"] >= 2
 
 
 # ---------------------------------------------------------------------------

@@ -135,14 +135,22 @@ def test_engine_sampling_is_reproducible():
 
 def test_unported_intake_raises():
     """The online intake itself is ported (ROADMAP A6; held to ``run`` in
-    ``tests/test_torch_execute_many.py``).  What it still lacks raises,
-    naming its item: fused drains (A7), the mesh (A10), the store (A9)."""
+    ``tests/test_torch_execute_many.py``), and so are its fused drains
+    (A7): ``fuse`` passes through to the scheduler, as in
+    ``tests/test_fused.py:459-488``, and coalesced verdicts equal the
+    tick's.  What it still lacks raises, naming its item: the mesh (A10)
+    and the store (A9)."""
     cfg = tconfigs.smoke_config_for("granite3_2b")
     model = build_model(cfg, "cpu").init()
-    with pytest.raises(NotImplementedError, match="A7"):
-        ServeEngine(model, slots=2, max_len=32, admission_fuse=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        AdmissionPolicy(device="cpu", fuse=True)
+    eng = ServeEngine(model, slots=2, max_len=32, admission_fuse=True,
+                      admission_adaptive=True)
+    assert eng.admission.scheduler.fuse and eng.admission.scheduler.adaptive
+    ap = AdmissionPolicy(device="cpu", fuse=True)
+    assert ap.scheduler.fuse
+    reqs = _edge_requests(9, np.random.default_rng(0))
+    tick, co = ap.evaluate(reqs), ap.evaluate_coalesced(reqs)
+    for name in ("admit", "granted", "temp"):
+        np.testing.assert_array_equal(co[name], tick[name], err_msg=name)
     with pytest.raises(NotImplementedError, match="A10"):
         AdmissionPolicy(device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="A9"):

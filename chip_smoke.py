@@ -91,7 +91,19 @@ script exits non-zero:
    8-value cutoff pool), both drains; (c) the fusion oracle's queue over
    20,000 ``facts`` rows under FROID and HEKATON, fused == serial == the
    CPU; (d) admission's ``evaluate_coalesced`` with ``fuse=True`` against
-   ``evaluate``;
+   ``evaluate``.  Then the routed phase (``ROUTED``, the cost router):
+   (a) ``benchmarks/bench_cost_routing.py``'s queue (3 statements x 48
+   tickets) and (b) the fused phase's overlap queue, each drained 6 times
+   under ``ROUTED`` (explore fused, explore per statement, then the
+   measured winner, checked against the router's own EMAs) in turns with
+   the static FROID arms, every ticket == the serial loop == float64; (c)
+   routed against static ``execute_many`` of ``key_total`` (k = 128,
+   cache-resident); (d) the bucket axis at N = 100 with bucket 1,024
+   warm; (e) on the SF-1 session, Q6 and Q12 in UDF form under
+   ``ROUTED``: the router's verdict, and a FROID verdict's rows == FROID
+   unrouted; (f) the routing oracle at 20,000 ``facts`` rows, fused and
+   not, card == CPU == FROID serial; one routed dispatch with no host
+   sync;
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -1822,15 +1834,17 @@ def arm(fn) -> dict:
 
     from repro_torch.kernels.relagg import ops
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    cuda = torch.cuda.is_available()  # off the card: a CPU rehearsal
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     ops.LAUNCHES = ops.BATCHED_LAUNCHES = 0  # counts this arm only
     t0 = time.perf_counter()
     out = fn()
     wall = time.perf_counter() - t0
     return {"out": out, "wall_s": wall, "relagg_launches": ops.LAUNCHES,
             "relagg_batched_launches": ops.BATCHED_LAUNCHES,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
 
 
 def serial_split(stmt, params_list) -> tuple[float, float]:
@@ -2229,11 +2243,14 @@ def mixed_expected(i: int, p: dict | None, a, sums, tol):
     return a % p["mod"] == 0, {"a": (a64, 0.0), "v": (sums[a], tol[a])}
 
 
-def check_fused_tickets(results, queue, stmts, a, sums, tol, label: str) -> None:
-    """Every ticket of a :func:`mixed_queue` drain against its float64
-    answer: the mask exactly, each column within its tolerance."""
+def check_fused_tickets(results, queue, stmts, a, sums, tol, label: str,
+                        expected=None) -> None:
+    """Every ticket of a :func:`mixed_queue` drain (or another queue, with
+    its ``expected``) against its float64 answer: the mask exactly, each
+    column within its tolerance."""
+    expected = expected or mixed_expected
     for j, (r, (s, p)) in enumerate(zip(results, queue)):
-        want_mask, cols = mixed_expected(stmts.index(s), p, a, sums, tol)
+        want_mask, cols = expected(stmts.index(s), p, a, sums, tol)
         m = r.masked
         mask = m.mask.cpu().numpy()
         check(np.array_equal(mask, want_mask), f"{label}[{j}]: mask differs")
@@ -2537,6 +2554,485 @@ def fused_phase() -> dict:
         f"({len(reqs)} requests)")
     out["seconds"] = time.perf_counter() - t0
     log(f"fused phase ok in {out['seconds']:.1f} s")
+    return out
+
+
+#: the routed phase: waves a queue is drained under ``ROUTED`` (the first
+#: two explore the fused and the per-statement arm, the rest are measured),
+#: ``benchmarks/bench_cost_routing.py``'s tickets a statement, its overhead
+#: row's k, the bucket axis's N, and the routing oracle's waves
+ROUTED_WAVES = 6
+ROUTING_PER_STMT = 48
+ROUTING_MANY_K = 128
+BUCKET_N = (1024, 100)
+ROUTING_ORACLE_WAVES = 3
+#: (c)'s interleaved pairs of warm calls
+ROUTED_REPEATS = 15
+
+
+def routing_queries():
+    """``benchmarks/bench_cost_routing.py:76-86``'s ``_queries``: the
+    ``key_total`` statement and two arithmetic filters over ``T`` —
+    :func:`fused_queries`' statements 0, 1 and 3."""
+    qs = fused_queries()
+    return [qs[0], qs[1], qs[3]]
+
+
+def routing_queue(stmts, per_stmt: int, seed: int = 7):
+    """``bench_cost_routing.py:89-101``'s ``_queue``: round-robin over the
+    three statements of :func:`routing_queries`."""
+    rng = np.random.default_rng(seed)
+    waves = []
+    for _ in range(per_stmt):
+        waves.append((stmts[0], {"cutoff": int(rng.integers(1, 400))}))
+        waves.append((stmts[1], {"lo": int(rng.integers(0, 200)),
+                                 "scale": float(round(rng.uniform(0.5, 2), 2))}))
+        waves.append((stmts[2], {"lo": int(rng.integers(0, 100)),
+                                 "hi": int(rng.integers(200, 400)),
+                                 "off": int(rng.integers(0, 10))}))
+    return waves
+
+
+def routing_expected(i: int, p: dict, a, sums, tol):
+    """Statement ``i`` of :func:`routing_queries` in float64 on the host."""
+    return mixed_expected((0, 1, 3)[i], p, a, sums, tol)
+
+
+def overlap_expected(i: int, p: dict, a, sums, tol):
+    """Statement ``i`` of :func:`overlap_queries` in float64 on the host."""
+    return a < p[f"c{i}"], {f"v{i}": (sums[a], tol[a])}
+
+
+def routed_policies():
+    """(static FROID, ROUTED), both with relagg on: one fingerprint, so
+    they share plans, executables and the router's cost keys, as the
+    benchmark's statements do on its one session."""
+    import dataclasses
+
+    import repro_torch.core as C
+
+    return (C.ExecutionPolicy(name="froid+relagg", pallas_agg=True),
+            dataclasses.replace(C.ROUTED, name="routed+relagg", pallas_agg=True))
+
+
+def fuse_rule_holds(decisions) -> bool:
+    """Every measured fuse decision is the arm the router's own EMAs (the
+    ``fused_s`` and ``unfused_s`` it logged) favour under ``FUSE_MARGIN``,
+    given its previous measured choice for that wave (sticky)."""
+    from repro_torch.cost.router import FUSE_MARGIN
+
+    last: dict = {}
+    for d in decisions:
+        if d["axis"] != "fuse" or d["why"] != "measured":
+            continue
+        f, u, prev = d["fused_s"], d["unfused_s"], last.get(d["wave"])
+        if prev is None:
+            want = f <= u
+        elif prev:
+            want = not (u < f * FUSE_MARGIN)
+        else:
+            want = f < u * FUSE_MARGIN
+        if d["choice"] != want:
+            return False
+        last[d["wave"]] = d["choice"]
+    return True
+
+
+def new_decisions(router, before: int) -> list:
+    """The decisions ``router`` logged since its counter read ``before``."""
+    n = router.stats["decisions"] - before
+    return list(router.decisions)[-n:] if n else []
+
+
+def static_queue(db, name: str, build, make_queue, expected, per_stmt: int, a, sums,
+                 tol) -> dict:
+    """A queue's static FROID statements (relagg on), its serial loop
+    against float64, and both static drains once (the cold drains: plans
+    and programs).  Run before the session's first ``ROUTED`` prepare, as
+    ``bench_cost_routing.py`` warms its static arms, so that no router
+    learns from the cold drains."""
+    static, _ = routed_policies()
+    stmts = [db.prepare(q, static) for q in build()]
+    queue = make_queue(stmts, per_stmt)
+    serial = [s.execute(params=p) for s, p in queue]
+    check_fused_tickets(serial, queue, stmts, a, sums, tol, f"{name} serial vs float64",
+                        expected)
+    for fuse in (True, False):
+        drain(queue, fuse)
+    return {"name": name, "build": build, "expected": expected, "stmts": stmts,
+            "queue": queue, "serial": serial}
+
+
+def routed_queue(db, sq: dict, a, sums, tol, waves: int, timed: bool) -> dict:
+    """(a) or (b): the queue of :func:`static_queue` under ``ROUTED``
+    drained ``waves`` times through ``CoalescingScheduler(max_batch=1024,
+    fuse=True)``, the router picking the arm each wave, and the two static
+    FROID arms (``fuse=True``, ``fuse=False``) drained in turns with its
+    measured waves, as ``bench_cost_routing.py``'s ``_static_time`` rounds
+    are.  Every ticket of every drain == the static FROID serial loop ==
+    float64; relagg's launches a drain by arm."""
+    from repro_torch.kernels.relagg import ops
+
+    _, routed = routed_policies()
+    name, expected, serial = sq["name"], sq["expected"], sq["serial"]
+    s_stmts, queue = sq["stmts"], sq["queue"]
+    r_stmts = [db.prepare(q, routed) for q in sq["build"]()]
+    r_queue = [(r_stmts[s_stmts.index(s)], p) for s, p in queue]
+    router = db.cost_router
+
+    def timed_drain(q, fuse: bool, label: str) -> tuple[float, list, int]:
+        ops.LAUNCHES = ops.BATCHED_LAUNCHES = 0
+        t0 = time.perf_counter()
+        results, _ = drain(q, fuse)
+        wall = time.perf_counter() - t0
+        same_results(serial, results, f"{name} {label} vs serial")
+        check_fused_tickets(results, queue, s_stmts, a, sums, tol,
+                            f"{name} {label} vs float64", expected)
+        return wall, results, ops.LAUNCHES
+
+    rows: list[dict] = []
+    launches: dict = {}
+
+    def routed_wave() -> float:
+        before = router.stats["decisions"]
+        wall, results, n = timed_drain(r_queue, True, f"routed wave {len(rows)}")
+        logged = new_decisions(router, before)
+        fuse = [d for d in logged if d["axis"] == "fuse"]
+        check(len(fuse) == 1, f"{name}: {len(fuse)} fuse decisions in one routed wave")
+        d = fuse[0]
+        arm = "fused" if d["choice"] else "perstmt"
+        check(results[0].stats.get("fused", False) == d["choice"],
+              f"{name}: the wave ran {results[0].stats.get('fused')} against choice {d}")
+        # the policy each ticket ran under: the router may send a statement
+        # of a per-statement drain to HEKATON (the policy axis), whose
+        # per-row interpreter launches no relagg
+        policies = sorted({r.policy.name for r in results})
+        key = f"{arm}/{'+'.join(policies)}"
+        check(launches.setdefault(key, n) == n,
+              f"{name}: relagg launches a {key} drain vary ({launches[key]}, {n})")
+        rows.append({"choice": d["choice"], "why": d["why"], "wall_ms": wall * 1e3,
+                     "policies": policies, "relagg_launches": n,
+                     "policy_decisions": [(p["choice"], p["why"]) for p in logged
+                                          if p["axis"] == "policy"],
+                     "fused_s": d.get("fused_s"), "unfused_s": d.get("unfused_s")})
+        if timed:
+            log(f"routed ({'a' if name == 'routing' else 'b'}) {name} wave {len(rows)}: "
+                f"{arm} ({d['why']}) under {', '.join(policies)}, {wall * 1e3:.2f} ms, "
+                f"relagg {n}"
+                + (f"; EMAs fused {d['fused_s'] * 1e3:.2f} ms, per statement "
+                   f"{d['unfused_s'] * 1e3:.2f} ms" if d["why"] == "measured" else "")
+                + "".join(f"; policy -> {c} ({w})" for c, w in rows[-1]["policy_decisions"]))
+        return wall
+
+    routed_wave()  # explores the fused arm
+    routed_wave()  # explores the per-statement arm
+    ts_f, ts_u, ts_r = [], [], []
+    for _ in range(waves - 2):
+        ts_f.append(timed_drain(queue, True, "static fused")[0])
+        ts_u.append(timed_drain(queue, False, "static per statement")[0])
+        ts_r.append(routed_wave())
+    whys = [r["why"] for r in rows]
+    check(whys[:2] == ["explore-fused", "explore-unfused"]
+          and all(w == "measured" for w in whys[2:]), f"{name}: decisions {whys}")
+    check(fuse_rule_holds(router.decisions), f"{name}: a measured fuse choice is not the "
+          f"one the EMAs favour under FUSE_MARGIN: {list(router.decisions)}")
+    out = {"tickets": len(queue), "waves": rows, "settled": rows[-1]["choice"],
+           "relagg_launches": launches,
+           "static_fused_ms": [t * 1e3 for t in ts_f],
+           "static_perstmt_ms": [t * 1e3 for t in ts_u],
+           "routed_ms": [t * 1e3 for t in ts_r],
+           "routed_vs_best": float(np.median([r / min(f, u) for f, u, r
+                                              in zip(ts_f, ts_u, ts_r)])),
+           "routed_vs_worst": float(np.median([r / max(f, u) for f, u, r
+                                               in zip(ts_f, ts_u, ts_r)]))}
+    if timed:
+        log(f"routed ({'a' if name == 'routing' else 'b'}) {name} queue, {len(queue)} tickets: "
+            f"settles on {'fused' if out['settled'] else 'per statement'}; ms a drain static "
+            f"fused {np.median(ts_f) * 1e3:.2f}, static per statement "
+            f"{np.median(ts_u) * 1e3:.2f}, routed {np.median(ts_r) * 1e3:.2f}; routed_vs_best "
+            f"{out['routed_vs_best']:.4f}, routed_vs_worst {out['routed_vs_worst']:.4f}; "
+            f"every ticket == static FROID serial == float64")
+    return out
+
+
+def bucket_axis(db, a, sums, tol, timed: bool) -> dict:
+    """(d): ``key_total``'s ``execute_many`` under ``ROUTED`` at N = 1,024
+    (cold, then warm), then at N = 100, whose natural bucket (128) is cold:
+    the router rides the warm 1,024 or pays the cold 128.  Both arms'
+    ms, in turns where both are warm, and the cold bucket's real cost
+    beside the model's ``estimate_compile_s``."""
+    import repro_torch.core as C
+    from repro_torch.core import relalg as R
+    from repro_torch.cost import estimate_compile_s
+
+    static, routed = routed_policies()
+    r_stmt = db.prepare(key_total_query(), routed)
+    s_stmt = db.prepare(key_total_query(), static)
+    router = db.cost_router
+    rng = np.random.default_rng(17)
+    big, small = (rng.integers(1, INVOCATION_ROWS["keys"], n) for n in BUCKET_N)
+    big_p, small_p = ([{"cutoff": int(c)} for c in x] for x in (big, small))
+    for _ in range(5):  # cold, then warm: the bucket's wave EMA settles
+        got = r_stmt.execute_many(big_p)
+    check_key_totals(got, big, a, sums, tol, "(d) N=1024")
+    natural = C.batch_bucket(BUCKET_N[1], 1024)
+
+    def routed_call() -> tuple[dict, int, list]:
+        """One routed N = 100 call: (its arm, the bucket it ran in, the
+        bucket decisions it logged) — a ride is logged, the natural bucket
+        is not."""
+        before = router.stats["decisions"]
+        r = arm(lambda: r_stmt.execute_many(small_p))
+        check_key_totals(r["out"], small, a, sums, tol, "(d) routed N=100")
+        b = r["out"][0].stats["batch_bucket"]
+        logged = [d for d in new_decisions(router, before) if d["axis"] == "bucket"]
+        check(b in (natural, BUCKET_N[0]) and (b == BUCKET_N[0]) == bool(logged)
+              and all(d["warm_wave_s"] < d["cold_est_s"] for d in logged),
+              f"(d) routed N=100 ran in bucket {b}, decisions {logged}")
+        return r, b, logged
+
+    ride, bucket, log_b = routed_call()
+    routed_ms: dict = {}
+    for _ in range(3):  # the same choice while the natural bucket stays cold
+        r, b, _ = routed_call()
+        routed_ms.setdefault(b, []).append(r["wall_s"] * 1e3)
+    # the natural arm: the static statement's bucket 128, cold then warm
+    cold = arm(lambda: s_stmt.execute_many(small_p))
+    check(cold["out"][0].stats["batch_bucket"] == natural, "(d) static N=100 bucket")
+    check_key_totals(cold["out"], small, a, sums, tol, "(d) static N=100")
+    natural_ms = [arm(lambda: s_stmt.execute_many(small_p))["wall_s"] * 1e3 for _ in range(3)]
+    plan = s_stmt.plan
+    out = {"natural": natural, "bucket": bucket, "rode": bucket != natural,
+           "decision": log_b[0] if log_b else None,
+           "routed_ms": {int(b): v for b, v in routed_ms.items()},
+           "routed_first_ms": ride["wall_s"] * 1e3,
+           "natural_cold_ms": cold["wall_s"] * 1e3, "natural_warm_ms": natural_ms,
+           "cold_bucket_ms": cold["wall_s"] * 1e3 - float(np.median(natural_ms)),
+           "estimate_compile_ms": estimate_compile_s(plan) * 1e3,
+           "plan_nodes": R.plan_size(plan)}
+    if timed:
+        d = out["decision"]
+        log(f"routed (d) bucket axis, key_total N=100 (natural bucket {natural}): the router "
+            f"{'rides ' + str(bucket) if out['rode'] else 'keeps ' + str(natural)}"
+            + (f" (warm wave {d['warm_wave_s'] * 1e3:.2f} ms < cold estimate "
+               f"{d['cold_est_s'] * 1e3:.2f} ms)" if d else "")
+            + "; ms routed " + ", ".join(f"in {b} {np.median(v):.2f}" for b, v in routed_ms.items())
+            + f" (first {out['routed_first_ms']:.2f}), "
+            f"bucket {natural} warm {np.median(natural_ms):.2f}, cold "
+            f"{out['natural_cold_ms']:.2f}: a cold bucket costs {out['cold_bucket_ms']:.2f} ms "
+            f"on the card against the model's {out['estimate_compile_ms']:.1f} "
+            f"(COMPILE_S_PER_NODE x {out['plan_nodes']} nodes)")
+    return out
+
+
+def routing_overhead(db, timed: bool) -> dict:
+    """(c): ``bench_cost_routing.py``'s overhead row on ``key_total``:
+    ``execute_many`` of k = 128 cache-resident tickets under static FROID
+    and under ``ROUTED``, in interleaved pairs; the median ratio
+    (routed / static) and each arm's best ms.  The results are equal
+    bit for bit."""
+    static, routed = routed_policies()
+    s_stmt = db.prepare(key_total_query(), static)
+    r_stmt = db.prepare(key_total_query(), routed)
+    rng = np.random.default_rng(19)
+    params = [{"cutoff": int(c)} for c in rng.integers(1, INVOCATION_ROWS["keys"],
+                                                         ROUTING_MANY_K)]
+    s_stmt.execute_many(params)
+    r_stmt.execute_many(params)
+    ts_s, ts_r = [], []
+    for _ in range(ROUTED_REPEATS):
+        t0 = time.perf_counter()
+        rs_s = s_stmt.execute_many(params)
+        ts_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rs_r = r_stmt.execute_many(params)
+        ts_r.append(time.perf_counter() - t0)
+    same_tickets(rs_s, rs_r, "v", "(c) ROUTED vs FROID execute_many", exact=True)
+    out = {"k": ROUTING_MANY_K, "static_ms": min(ts_s) * 1e3, "routed_ms": min(ts_r) * 1e3,
+           "overhead": float(np.median([r / s for s, r in zip(ts_s, ts_r)]))}
+    if timed:
+        log(f"routed (c) overhead, key_total execute_many k={ROUTING_MANY_K} cache-resident: "
+            f"static {out['static_ms']:.3f} ms, routed {out['routed_ms']:.3f} ms (best of "
+            f"{ROUTED_REPEATS}); overhead {out['overhead']:.4f} (median of the pairs' ratios)")
+    return out
+
+
+def routed_sync_check(db, a, sums, tol) -> float:
+    """One routed ``execute_many`` dispatch (the policy choice, the bucket
+    choice, the stacking and the launch) under
+    ``torch.cuda.set_sync_debug_mode("error")``; its wait and the
+    router's sample outside it.  Returns the host ms of the dispatch."""
+    import torch
+
+    from repro_torch.core.session import param_signature
+
+    _, routed = routed_policies()
+    stmt = db.prepare(key_total_query(), routed)
+    cutoffs = np.random.default_rng(23).integers(1, INVOCATION_ROWS["keys"], 32)
+    plist = [{"cutoff": int(c)} for c in cutoffs]
+    stmt.execute_many(plist)
+    env = db._env_token()
+    pending: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        target = stmt._route_target()
+        target._dispatch_batch(list(range(len(plist))), plist, param_signature(plist[0]),
+                               env, pending, target.policy.max_batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(len(pending) == 1, f"{len(pending)} chunks for {len(plist)} tickets")
+    samples = db.cost_router.stats["samples"]
+    results = [None] * len(plist)
+    target._finalize_batch(pending[0], results, 1)
+    check(db.cost_router.stats["samples"] == samples + 1, "the routed chunk was not sampled")
+    check_key_totals(results, cutoffs, a, sums, tol, "routed execute_many under the sync check")
+    return host_ms
+
+
+def routing_oracle_run(rows: int, fuse: bool, device=None):
+    """``conformance_util.check_routing_oracle`` (unsharded) on ``device``:
+    the fusion oracle's queue (:data:`FUSION_CALLS`) under ``ROUTED``
+    through a scheduler in ``fuse`` drain mode, ``ROUTING_ORACLE_WAVES``
+    waves, then a serial pass, each ticket against the FROID serial loop
+    of a second session.  Returns (the last wave's results, the serial
+    oracle's, ``cost_stats``)."""
+    import repro_torch.core as C
+    from repro_torch.serve.scheduler import CoalescingScheduler
+
+    oracle = fusion_oracle_session(rows, device)
+    o_stmts = [oracle.prepare(q, C.FROID) for q in fusion_oracle_queries()]
+    expected = [o_stmts[i].execute(params=p) for i, p in FUSION_CALLS]
+    db = fusion_oracle_session(rows, device)
+    stmts = [db.prepare(q, C.ROUTED) for q in fusion_oracle_queries()]
+    sched = CoalescingScheduler(max_batch=256, window_s=10.0, fuse=fuse)
+    for w in range(ROUTING_ORACLE_WAVES):
+        tickets = [sched.submit(stmts[i], p) for i, p in FUSION_CALLS]
+        sched.flush()
+        results = [t.result() for t in tickets]
+        for j, r in enumerate(results):
+            same_masked(expected[j], r, f"(f) fuse={fuse} wave {w}[{j}] vs FROID serial")
+    for j, (i, p) in enumerate(FUSION_CALLS):
+        same_masked(expected[j], stmts[i].execute(params=p), f"(f) fuse={fuse} serial[{j}]")
+    cs = db.cost_stats
+    check(cs["enabled"] and cs["samples"] >= 1, f"(f) fuse={fuse}: router {cs}")
+    return results, expected, cs
+
+
+def routed_run(device, detail_rows: int, per_stmt: tuple[int, int], waves: int,
+               timed: bool) -> dict:
+    """(a)-(d) on a fresh ``key_total`` session of ``detail_rows`` rows on
+    ``device``: (a) the routing queue and (b) the overlap queue
+    (``per_stmt`` tickets a statement in each) under
+    ``ROUTED``, then (d) the bucket axis (before (c), whose k = 128 warms
+    the bucket (d) needs cold), (c) the overhead and, on the card, one
+    routed dispatch under the sync check."""
+    db, a, sums, tol = invocation_session(detail_rows, device)
+    out = {"detail_rows": detail_rows}
+    queues = [static_queue(db, "routing", routing_queries, routing_queue, routing_expected,
+                           per_stmt[0], a, sums, tol),
+              static_queue(db, "overlap", overlap_queries, overlap_queue, overlap_expected,
+                           per_stmt[1], a, sums, tol)]
+    check(db.cost_router is None, "a router before the first ROUTED prepare")
+    for sq in queues:
+        out[sq["name"]] = routed_queue(db, sq, a, sums, tol, waves, timed)
+    out["bucket"] = bucket_axis(db, a, sums, tol, timed)
+    out["overhead"] = routing_overhead(db, timed)
+    if timed:
+        out["sync_check_host_ms"] = routed_sync_check(db, a, sums, tol)
+        log(f"routed one execute_many dispatch (policy and bucket chosen, 32 tickets) with no "
+            f"host sync in {out['sync_check_host_ms']:.2f} ms; sampled after its wait")
+    cs = db.cost_stats
+    check(cs["samples"] >= 1, f"router: {cs}")
+    out["cost_stats"] = {k: cs[k] for k in ("samples", "samples_excluded", "decisions",
+                                            "policy_reroutes", "bucket_rides",
+                                            "waves_fused", "waves_unfused")}
+    del db
+    return out
+
+
+def routed_policy_axis(full) -> dict:
+    """(e), on the SF-1 session: Q6 and Q12 in their UDF form under
+    ``ROUTED`` (relagg on).  The router's verdict is asked first (the
+    choice ``execute`` makes), from its estimates of the FROID and HEKATON
+    candidates.  A verdict that keeps FROID runs serially, cold then warm,
+    and equals FROID unrouted; a verdict that explores HEKATON is recorded
+    and not run at SF 1, where the per-row interpreter over 6,000,000
+    ``lineitem`` rows takes hours (PERF.md §5, the cut cells): the check is
+    then that the verdict is the one the estimates give under
+    ``EXPLORE_MARGIN``."""
+    from repro_torch.cost.router import EXPLORE_MARGIN
+    from repro_torch.data.tpch_udfs import QUERIES
+
+    static, routed = routed_policies()
+    out = {}
+    for name in ("Q6", "Q12"):
+        stmt = full.prepare(QUERIES[name][0](), routed)
+        router = full.cost_router
+        before = router.stats["decisions"]
+        verdict = router.choose_policy(stmt)
+        ests = {c.name: router.estimate_policy_s(stmt, c)
+                for c, _ in router._policy_candidates(stmt)}
+        log_p = [d for d in new_decisions(router, before) if d["axis"] == "policy"]
+        inc = ests[routed.name]
+        best = min(ests, key=ests.get)
+        want = best if ests[best] < inc * EXPLORE_MARGIN else routed.name
+        check(verdict.name == want, f"(e) {name}: verdict {verdict.name}, estimates {ests}")
+        row = {"verdict": verdict.name, "why": log_p[0]["why"] if log_p else "incumbent",
+               "estimates_ms": {k: v * 1e3 for k, v in ests.items()}, "ran": False}
+        if verdict.fingerprint() == stmt.policy.fingerprint():
+            s_stmt = full.prepare(QUERIES[name][0](), static)
+            want_t = s_stmt.execute().table
+            cold = stmt.execute()
+            warm, s_warm = [], []
+            for order in ((stmt, s_stmt), (s_stmt, stmt)) * (WARM_ROUNDS // 2):  # in turns
+                for st in order:
+                    r = st.execute()
+                    (warm if st is stmt else s_warm).append(r)
+            for label, r in (("cold", cold), ("warm", warm[-1])):
+                compare_tables(want_t, r.table, f"(e) {name} ROUTED {label} vs FROID", 1e-5, 1e-5)
+                if full.device.type == "cuda":
+                    check_on_card(r, f"(e) {name}")
+            row.update(ran=True, warm_ms=float(np.median([r.elapsed_s * 1e3 for r in warm])),
+                       froid_warm_ms=float(np.median([r.elapsed_s * 1e3 for r in s_warm])))
+        out[name] = row
+        log(f"routed (e) {name} UDF form at SF 1: verdict {row['verdict']} ({row['why']}; "
+            f"estimates " + ", ".join(f"{k} {v:.4f} ms" for k, v in row["estimates_ms"].items())
+            + ("); == FROID unrouted, warm ms routed "
+               f"{row['warm_ms']:.2f}, FROID {row['froid_warm_ms']:.2f}" if row["ran"] else
+               "); HEKATON over 6,000,000 rows not run"))
+    return out
+
+
+def routed_phase(policy_axis: dict) -> dict:
+    """Cost routing on the card (``ROUTED``, ``Session.cost_stats``): (a)
+    ``bench_cost_routing.py``'s queue (3 statements x 48 tickets) and (b)
+    ``bench_fused.py``'s overlap queue (6 x 64) over the invocation
+    phase's tables (``detail`` 6,000,000 rows, relagg on), 6 routed waves
+    each beside the static FROID arms; (c) the overhead of routing
+    ``execute_many``; (d) the bucket axis; (e) (run earlier, on the SF-1
+    session, passed in) the policy axis; (f) the routing oracle at 20,000
+    ``facts`` rows, fused and not, card == CPU == FROID serial."""
+    t0 = time.perf_counter()
+    out = routed_run(None, INVOCATION_ROWS["detail"], (ROUTING_PER_STMT, FUSED_PER_STMT),
+                     ROUTED_WAVES, timed=True)
+    out["policy"] = policy_axis
+    gc.collect()
+    out["oracle"] = {}
+    for fuse in (True, False):
+        card, _, cs = routing_oracle_run(FUSION_FACTS_ROWS, fuse)
+        cpu, _, _ = routing_oracle_run(FUSION_FACTS_ROWS, fuse, "cpu")
+        for j, (c, g) in enumerate(zip(cpu, card)):
+            same_masked(c, g, f"(f) fuse={fuse}[{j}] card vs CPU")
+        out["oracle"][f"fuse={fuse}"] = {k: cs[k] for k in ("samples", "waves_fused",
+                                                            "waves_unfused", "decisions")}
+        log(f"routed (f) routing oracle fuse={fuse}, {FUSION_FACTS_ROWS} facts rows, "
+            f"{ROUTING_ORACLE_WAVES} waves: card == CPU == FROID serial; "
+            f"{out['oracle'][f'fuse={fuse}']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"routed phase ok in {out['seconds']:.1f} s; router {out['cost_stats']}")
     return out
 
 
@@ -2854,8 +3350,52 @@ def flash_kernel_phase(digest_only: bool = False) -> dict:
     for case in wide:
         run(case, g)
     n_empty += empties((96, 256), g)
-    return {"cases": len(cases) + len(wide) + n_empty, "max_abs_err_f32": max_err[f32],
-            "max_abs_err_bf16": max_err[bf16]}
+    n_padded = padded_head_dim_cases(max_err)
+    return {"cases": len(cases) + len(wide) + n_empty + n_padded,
+            "max_abs_err_f32": max_err[f32], "max_abs_err_bf16": max_err[bf16]}
+
+
+def padded_head_dim_cases(max_err: dict) -> int:
+    """flash_attention's wrapper at a head dim between the compiled
+    instances (24: MLA's in minicpm3-4b's smoke config), which it runs on
+    the next instance (64) over zero-padded q, k and v: against the plain
+    version at 24, bf16 and float32, causal and windowed; and a head dim
+    above every instance raises.  ``max_err`` gains the errors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for kw in ({"causal": True}, {"causal": True, "window": 64},
+                   {"causal": True, "q_offset": 511}):
+            Sq = 1 if "q_offset" in kw else 200
+            q = torch.randn((2, 4, Sq, 24), generator=g, device="cuda").to(dt)
+            k = torch.randn((2, 2, 512, 24), generator=g, device="cuda").to(dt)
+            v = torch.randn((2, 2, 512, 24), generator=g, device="cuda").to(dt)
+            before = ops.LAUNCHES
+            a = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            b = flash_attention_ref(q, k, v, **kw)
+            ok, err = allclose(a, b, flash_tol(dt))
+            label = f"flash_attention D=24 (padded to 64) Sq={Sq} {dt} {kw}"
+            check(ops.LAUNCHES == before + 1 and a.dtype == dt and a.shape == q.shape,
+                  f"{label}: {ops.LAUNCHES - before} launches, output {tuple(a.shape)}")
+            check(ok, f"{label}: max |kernel - plain| {err} over tolerance {flash_tol(dt)}")
+            max_err[dt] = max(max_err[dt], err)
+            log(f"{label}: ok (max |kernel - plain| {err:.3g})")
+            n += 1
+    q = torch.zeros((1, 2, 8, 288), device="cuda")
+    try:
+        ops.flash_attention(q, q, q)
+    except ValueError as e:
+        check("256" in str(e), f"flash_attention D=288: {e}")
+    else:
+        check(False, "flash_attention D=288 did not raise")
+    log("flash_attention D=288: raises, naming the instances")
+    return n + 1
 
 
 #: edits of ``csrc/flash_attention.cu`` that ``--flash-variants`` builds and
@@ -3765,10 +4305,14 @@ def main() -> int:
     log(f"cursor-loop phase ok in {time.perf_counter() - t1:.1f} s")
     correlated = correlated_phase(session)
     invocation = invocation_phase(session)
+    policy_axis = routed_policy_axis(session)
     del session
     gc.collect()
     torch.cuda.empty_cache()
     fused = fused_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    routed = routed_phase(policy_axis)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"iterative phase ok in {time.perf_counter() - t0:.1f} s")
@@ -3810,7 +4354,7 @@ def main() -> int:
 
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
-                    "invocation": invocation, "fused": fused,
+                    "invocation": invocation, "fused": fused, "routed": routed,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
@@ -3855,7 +4399,14 @@ def main() -> int:
          # key_total statement when each statement drains on its own
          "launches_fused": {
              f"{queue}/{arm}_per_drain": fused[queue][arm]["relagg_launches"]
-             for queue in ("mixed", "overlap") for arm in ("fused", "perstmt")}},
+             for queue in ("mixed", "overlap") for arm in ("fused", "perstmt")},
+         # the routed phase, the count set to 0 just before each routed
+         # drain: relagg's launches a drain by the arm the router picked
+         # (the routing queue holds one key_total statement, the overlap
+         # queue six)
+         "launches_routed": {
+             f"{queue}/{arm}_per_drain": n for queue in ("routing", "overlap")
+             for arm, n in routed[queue]["relagg_launches"].items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

@@ -1,5 +1,6 @@
 """Port of ``src/repro/core/fingerprint.py:1-159``:
-a copy with numpy dtype tags.
+a copy with numpy dtype tags, which fingerprint as the reference's
+``jax.numpy`` tags do.
 
 Structural plan fingerprints — the engine's cache-key vocabulary.
 
@@ -34,6 +35,15 @@ __all__ = [
 ]
 
 
+#: the port's dtype tags, normalized to the reference's ``repr`` of its own
+#: (``jax.numpy``) tags for the same dtypes
+_DTYPE_TAGS = {
+    np.int32: "<class 'jax.numpy.int32'>",
+    np.float32: "<class 'jax.numpy.float32'>",
+    np.bool_: "<class 'jax.numpy.bool'>",
+}
+
+
 def _norm(v, special=None) -> Any:
     """Normalize an attribute value into a hashable structure.
 
@@ -63,10 +73,13 @@ def _norm(v, special=None) -> Any:
     if isinstance(v, (str, int, float, bool, type(None))):
         return v
     if isinstance(v, type):
-        # a dtype tag such as ``np.int32`` (a Cast's target): its name — the
-        # class has ``shape``/``dtype`` attributes, and read as an array it
+        # a dtype tag such as ``np.int32`` (a Cast's target): the text the
+        # reference's tag gives there (its ``repr``), so digests of the plan
+        # (decorrelated column names, the router's keys) are the
+        # reference's; any other class by its name — read as an array it
         # would digest the object's address
-        return ("type", v.__module__, v.__qualname__)
+        tag = _DTYPE_TAGS.get(v)
+        return tag if tag is not None else ("type", v.__module__, v.__qualname__)
     if hasattr(v, "shape") and hasattr(v, "dtype"):
         # array-valued constants: content digest, never repr (repr elides
         # the middle of large arrays, collapsing distinct values)

@@ -32,8 +32,13 @@ host.  A plan that still holds a ``UdfCall`` (INTERPRETED, HEKATON, or
 FROID past its inlining budget) runs it on the per-row interpreter: the
 compiled path with a ``scan``-mode hook, the eager path with the policy's
 ``udf_mode``.  ``Session._fault`` is the reference's fault-injection seam
-at its compile, dispatch, sync and interp sites.  Not ported yet: cost
-routing (ROADMAP A8), persistence (A9) and the mesh (A10).
+at its compile, dispatch, sync and interp sites.  A ``ROUTED`` statement
+(``policy.route``) attaches the session's cost router
+(:mod:`repro_torch.cost.router`), which picks its policy, its batch
+bucket and, through the scheduler, fuse-or-not from wave times sampled
+here (host clock around work already waited on).  Not ported yet:
+persistence (ROADMAP A9: ``save_costs``, ``_load_costs``) and the mesh
+(A10).
 """
 from __future__ import annotations
 
@@ -322,12 +327,6 @@ def _has_udf_calls(plan: R.RelNode) -> bool:
         for ex in n.exprs()
         for e in S.walk(ex)
     )
-
-
-def _check_supported(policy: ExecutionPolicy) -> None:
-    if policy.route:
-        raise NotImplementedError(
-            "cost routing is not ported yet (ROADMAP A8)")
 
 
 def _param_dictionary(v) -> DictEncoding | None:
@@ -651,9 +650,30 @@ class Session:
         # any object with .check(site, statements)) installed by chaos
         # tests; None in production — the seams below are no-ops then
         self.fault_injector = None
-        # cost routing is not ported (ROADMAP A8): the ladder and the
-        # scheduler read this with getattr and find no router
+        # cost-routing seam: a repro_torch.cost.CostRouter, created lazily
+        # the first time a routed statement is prepared (None until then —
+        # the sampling seams below are no-ops and unrouted sessions pay
+        # nothing)
         self.cost_router = None
+
+    def _ensure_router(self):
+        """The session's cost router, made on first use.  The reference
+        also warm-starts it from its store here (``_load_costs``): that is
+        ROADMAP A9."""
+        if self.cost_router is None:
+            from repro_torch.cost.router import CostRouter
+
+            self.cost_router = CostRouter(self)
+        return self.cost_router
+
+    @property
+    def cost_stats(self) -> dict:
+        """The cost router's view: counters, measured per-configuration
+        wave costs (EMA), and the recent decision log.  ``{"enabled":
+        False}`` until a routed statement has been prepared."""
+        if self.cost_router is None:
+            return {"enabled": False}
+        return self.cost_router.snapshot()
 
     def _fault(self, site: str, statements: tuple = ()) -> None:
         """Fault-injection seam: named executor sites call this with the
@@ -695,17 +715,20 @@ class Session:
     def prepare(self, query, policy: ExecutionPolicy | str = FROID
                 ) -> "PreparedStatement":
         policy = resolve_policy(policy)
-        _check_supported(policy)
         node = query.node if isinstance(query, Q) else query
         # the handle cache additionally keys on the non-identity knobs, so
-        # two prepares with different knobs do not alias
+        # two prepares with different knobs do not alias (a routed and an
+        # unrouted FROID share plans and executables, not handles)
         key = (plan_fingerprint(node), policy.fingerprint(),
                policy.max_batch, policy.coalesce_window_s, policy.allow_async,
-               policy.max_inflight, policy.fuse, policy.max_fused_statements)
+               policy.max_inflight, policy.fuse, policy.max_fused_statements,
+               policy.route)
         ps = self._prepared.get(key)
         if ps is None:
             ps = PreparedStatement(self, node, policy)
             self._prepared[key] = ps
+        if policy.route:
+            self._ensure_router()
         ps._ensure_plan()  # cold: bind + optimize now
         return ps
 
@@ -1167,7 +1190,12 @@ class Session:
         )
         self.cache_stats["cse_shared_nodes"] += m_stats["cse_shared_nodes"]
         n_tickets = sum(len(by_key[k]["idxs"]) for k in order)
-        # the reference's cost router samples the wave here (ROADMAP A8)
+        router = self.cost_router
+        if router is not None:
+            router.observe_fused(
+                rec["wave_fps"], elapsed, n_tickets,
+                meta={"cse_bindings": t_evals, "cse_pool_slots": t_slots,
+                      "cse_ticket_refs": t_refs})
         fused_explain = merged.explain()
         for j, (m, k) in enumerate(zip(members, order)):
             ent = by_key[k]
@@ -1309,6 +1337,21 @@ class PreparedStatement:
             )
         return interp
 
+    # -- cost routing ------------------------------------------------------
+    def _route_target(self) -> "PreparedStatement":
+        """The statement the cost router currently picks for this routed
+        statement — ``self`` when the incumbent policy wins, else a
+        delegate prepared under the chosen policy on the same session (so
+        on its device).  The delegate's policy has ``route=False`` (one
+        routing decision per call, never a chain), but its samples still
+        train the router — it is the session's router, keyed by policy
+        fingerprint."""
+        router = self.session._ensure_router()
+        pol = router.choose_policy(self)
+        if pol.fingerprint() == self.policy.fingerprint():
+            return self
+        return self.session.prepare(self.node, pol.routed(False))
+
     # -- execution ---------------------------------------------------------
     def __call__(self, params: dict | None = None):
         """Raw call: the device outputs ``(mask, {col: (data, valid)})``,
@@ -1323,6 +1366,10 @@ class PreparedStatement:
         return entry.fn(params, env_token[0])
 
     def execute(self, params: dict | None = None) -> QueryResult:
+        if self.policy.route and self.policy.compile_plan:
+            target = self._route_target()
+            if target is not self:
+                return target.execute(params=params)
         if self.policy.compile_plan:
             return self._execute_compiled(params)
         return self._execute_eager(params)
@@ -1351,6 +1398,10 @@ class PreparedStatement:
         params_list = [dict(p) if p else {} for p in params_list]
         if not params_list:
             return []
+        if self.policy.route and self.policy.compile_plan:
+            target = self._route_target()
+            if target is not self:
+                return target.execute_many(params_list)
         if not self.policy.compile_plan:
             # eager policies have no device program to batch; stay serial
             return [self.execute(params=p) for p in params_list]
@@ -1390,6 +1441,13 @@ class PreparedStatement:
         end-of-call barrier."""
         k = len(plist)
         bucket = batch_bucket(k, cap)
+        router = self.session.cost_router
+        if router is not None and self.policy.route:
+            # bucket routing: ride an already-measured larger bucket when
+            # that beats the natural one's estimated first-run cost (bucket
+            # >= k always holds — rides only go up, and padding repeats the
+            # last set); the bucket picks the executable
+            bucket = router.choose_bucket(self, sig, k, bucket, cap, shard=False)
         entry, hit = self.session._batched_executable(
             self.node, self._query_fp, self.policy, plist[0], sig, bucket,
             env_token,
@@ -1418,6 +1476,7 @@ class PreparedStatement:
             "idxs": idxs, "entry": entry, "hit": hit, "mask": mask,
             "cols": cols, "k": k, "bucket": bucket, "t0": t0,
             "dispatch_s": t_dispatch, "event": event, "synced": False,
+            "sig": sig,
             "udf_rows": (entry.interp.rows_driven - rows_before
                          if entry.interp else None),
         })
@@ -1447,6 +1506,10 @@ class PreparedStatement:
         }
         if rec["udf_rows"] is not None:
             stats["udf_rows"] = rec["udf_rows"]
+        router = self.session.cost_router
+        if router is not None:
+            router.observe_many(self._query_fp, self.policy, rec["sig"],
+                                rec["bucket"], elapsed, rec["k"], shard=False)
 
         def materialize(j: int) -> MaskedTable:
             table = Table(
@@ -1475,6 +1538,10 @@ class PreparedStatement:
         for the oldest unsynced one (and ``AsyncResult.result()`` releases
         its slot), so a producer outrunning the device stalls instead of
         queueing unbounded work."""
+        if self.policy.route and self.policy.compile_plan:
+            target = self._route_target()
+            if target is not self:
+                return target.execute_async(params=params)
         if not (self.policy.compile_plan and self.policy.allow_async):
             return AsyncResult(self.execute(params=params))
         self.session._admit_async(self.policy.max_inflight)
@@ -1531,6 +1598,9 @@ class PreparedStatement:
         self.session._fault("sync", (self._query_fp,))
         self.session.synchronize()
         elapsed = time.perf_counter() - t0
+        router = self.session.cost_router
+        if router is not None:
+            router.observe_serial(self._query_fp, self.policy, elapsed)
         table = Table(
             {n: Column(data, valid, entry.out_dicts.get(n))
              for n, (data, valid) in cols.items()}

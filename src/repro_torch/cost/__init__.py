@@ -1,7 +1,9 @@
 """Port of ``src/repro/cost/``: the static cost model
-(:mod:`repro_torch.cost.model`), which the fusion splitter reads.  The
-online router (``cost/router.py``) and the ``ROUTED`` preset are ROADMAP
-A8.
+(:mod:`repro_torch.cost.model`, at the H100's peaks), which the fusion
+splitter and the router read, and the online router
+(:mod:`repro_torch.cost.router`), which steers ``ROUTED`` statements and
+drain waves through the cheapest configuration — FROID/HEKATON choice,
+fuse-or-not, batch bucket — without changing results.
 """
 from repro_torch.cost.model import (
     COMPILE_S_PER_NODE,
@@ -14,10 +16,12 @@ from repro_torch.cost.model import (
     estimate_plan,
     estimate_statement_s,
 )
+from repro_torch.cost.router import CostRouter
 
 __all__ = [
     "COMPILE_S_PER_NODE",
     "DISPATCH_OVERHEAD_S",
+    "CostRouter",
     "HBM_BW",
     "PEAK_FLOPS",
     "PlanProfile",

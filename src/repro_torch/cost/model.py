@@ -21,10 +21,10 @@ estimates against each other, so the *ratios* are what matter:
 * every dispatched program pays a fixed launch overhead — the
   fuse-or-not axis (one fused program saves per-statement dispatches).
 
-Estimates are intentionally cheap (one plan walk, no device work).  The
-fusion splitter (:func:`repro_torch.fuse.analysis.shareable_fingerprint_costs`)
-is their one user in the port; the router that also reads them is ROADMAP
-A8.
+Estimates are intentionally cheap (one plan walk, no device work).  Their
+users in the port are the fusion splitter
+(:func:`repro_torch.fuse.analysis.shareable_fingerprint_costs`) and the
+cost router (:mod:`repro_torch.cost.router`).
 """
 from __future__ import annotations
 

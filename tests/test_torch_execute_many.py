@@ -2,9 +2,11 @@
 and the coalescing scheduler, against the reference and against the port's
 own serial loop, on the CPU.
 
-Ports every case of ``tests/test_execute_many.py`` that needs no mesh,
-routing or store (fusion has its own file, ``test_torch_fused.py``; the
-scheduler's ``fuse=True`` drain is checked here once): element-wise identity with the serial loop and
+Ports every case of ``tests/test_execute_many.py`` that needs no mesh
+or store (fusion has its own file, ``test_torch_fused.py``, routing
+``test_torch_routing.py``; the scheduler's ``fuse=True`` drain and a
+routed ``execute_many``, beside the reference's router, are checked here
+once): element-wise identity with the serial loop and
 input order, empty and parameter-free inputs, an eager policy run
 serially, HEKATON (its scan-mode row loop under the parameter vmap),
 bucket shape and reuse, mixed signatures, ``max_batch`` chunks, pipelining
@@ -385,6 +387,64 @@ def test_scheduler_refuses_fused_drains(db, ref):
     assert all(r.stats["fused"] and r.stats["fused_statements"] == 2 for r in got)
     _assert_ref(out[RC][0], got, "reference fused drain vs port fused drain")
     _assert_ref([s.execute(params=p) for s, p in calls], got, "serial vs fused drain")
+
+
+def test_routed_execute_many_beside_the_reference(db, ref):
+    """A ``ROUTED`` statement's ``execute_many`` (chunks of ``max_batch``
+    8, a bucket ridden or not as the router picks) equals the reference's
+    FROID serial loop; both routers sample every chunk under the same keys,
+    and a bucket ride, forced by a near-free warm bucket, runs the warm
+    executable and still answers as the serial loop."""
+    params = [{"cutoff": k} for k in (3, 17, 42, 50, 1, 29, 8, 11, 23, 5, 37)]
+    want = [ref.prepare(_q(RC), RC.FROID).execute(params=p) for p in params]
+    keys = {}
+    for M, session in ((RC, ref), (PC, db)):
+        stmt = session.prepare(_q(M), M.ROUTED.batched(max_batch=8))
+        got = stmt.execute_many(params)
+        if M is PC:
+            _assert_ref(want, got, "ROUTED execute_many vs reference serial")
+            _assert_ref(want, stmt.execute_many(params), "ROUTED execute_many, warm")
+        else:
+            stmt.execute_many(params)
+        cs = session.cost_stats
+        keys[M] = (cs["samples"], sorted(cs["measured"]), cs["bucket_rides"])
+    assert keys[PC] == keys[RC] and keys[PC][0] == 4  # 2 calls x (8 + 3 in bucket 4)
+    r = db.cost_router
+    for k in r.measured:
+        r.measured[k].wave_s = 1e-9
+    misses = db.cache_stats["batch_misses"]
+    stmt = db.prepare(_q(), PC.ROUTED.batched(max_batch=8))
+    got = stmt.execute_many(params[:2])  # natural bucket 2, cold: rides 4 or 8
+    _assert_ref(want[:2], got, "ridden bucket vs reference serial")
+    assert got[0].stats["batch_bucket"] in (4, 8) and db.cache_stats["batch_misses"] == misses
+    assert db.cost_stats["bucket_rides"] == 1
+
+
+def test_routed_ladder_excludes_fault_window_samples(db, ref):
+    """A routed statement drained through the resilience ladder while its
+    dispatch fails twice: the retries' samples are excluded, the clean
+    first attempts' kept, and the counts and the answers are the
+    reference's."""
+    from repro.resilience import FaultInjector as RefFI
+    from repro.resilience import FaultSpec as RefFS
+    from repro.serve.scheduler import CoalescingScheduler as RefScheduler
+    from repro_torch.resilience import FaultInjector, FaultSpec
+
+    params = [{"cutoff": k} for k in (3, 17, 42, 50)]
+    out = {}
+    for M, session, cls, fi, fs in ((RC, ref, RefScheduler, RefFI, RefFS),
+                                    (PC, db, CoalescingScheduler, FaultInjector, FaultSpec)):
+        stmt = session.prepare(_q(M), M.ROUTED)
+        fi([fs(site="dispatch", times=2)]).install(session)
+        sched = cls(max_batch=64, window_s=10.0, clock=lambda: 0.0, sleep=lambda s: None)
+        tickets = [sched.submit(stmt, p) for p in params]
+        sched.flush()
+        cs = session.cost_stats
+        out[M] = ([t.result() for t in tickets], dict(sched.stats),
+                  {k: cs[k] for k in ("samples", "samples_excluded", "decisions")})
+    assert out[PC][2] == out[RC][2] and out[PC][2]["samples_excluded"] >= 1
+    assert out[PC][1] == out[RC][1]
+    _assert_ref(out[RC][0], out[PC][0], "faulted routed drain vs reference")
 
 
 # ---------------------------------------------------------------------------

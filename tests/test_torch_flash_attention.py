@@ -116,3 +116,39 @@ def test_binding_head_dims_are_the_compiled_instances():
     cases = [int(c) for c in re.findall(r"case (\d+): return launch", src)]
     assert sorted(c for c in cases if c < 1000) == list(HEAD_DIMS) == [16, 64, 96, 128, 256]
     assert sorted(c - 1000 for c in cases if c >= 1000) == list(HEAD_DIMS)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32), (False, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_head_dim_matches_pallas_at_24(rng, causal, window, dtype):
+    """A head dim between the compiled instances (24, MLA's in minicpm3-4b's
+    smoke config): the card pads q, k and v with zeros to the next instance
+    (64), scales by 24 ** -0.5 and slices the output back. That arithmetic,
+    here through the plain version, equals the reference's Pallas kernel
+    run at D = 24."""
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    (jq, jk, jv), (q, k, v) = _inputs(rng, 1, 4, 2, 96, 160, 24, dtype)
+    Dp = ops.padded_head_dim(24, HEAD_DIMS)
+    assert Dp == 64
+    out = ops.pad_head_dim(flash_attention_ref, q, k, v, Dp, None, causal=causal,
+                           window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                    interpret=True, bq=64, bk=64)
+    _close(out, pallas, DTYPES[dtype][2])
+    # a caller's own scale is kept
+    scaled = ops.pad_head_dim(flash_attention_ref, q, k, v, Dp, 0.3, causal=causal,
+                              window=window)
+    _close(scaled, flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                          sm_scale=0.3, interpret=True, bq=64, bk=64),
+           DTYPES[dtype][2])
+
+
+def test_padded_head_dim_picks_the_next_instance():
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    assert [ops.padded_head_dim(d, HEAD_DIMS) for d in (1, 16, 17, 24, 64, 80, 96, 200, 256)] \
+        == [16, 16, 64, 64, 64, 96, 96, 256, 256]
+    with pytest.raises(ValueError, match=r"head dim 257 .*\(16, 64, 96, 128, 256\)"):
+        ops.padded_head_dim(257, HEAD_DIMS)

@@ -7,7 +7,8 @@ elsewhere; on the card they run with
 Tolerances are the reference's own (``tests/test_kernels.py``):
 flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
 outputs compared in float32; bf16 runs the tensor-core kernel, float32 the
-CUDA-core one; head dims 16, 64, 96, 128 and 256); ssd_scan a max error
+CUDA-core one; head dims 16, 64, 96, 128 and 256, and 24, 32 and 80
+zero-padded to the next of them); ssd_scan a max error
 below 3e-4 of max|y| in float32, and
 the states its state pass leaves within 1e-5 of the plain version of its
 passes.  The kernels sum in another order than the plain versions (tiles
@@ -103,16 +104,33 @@ def test_flash_kernel_window_1024(rng, D, n_rep, dtype):
                                atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
-@pytest.mark.parametrize("D", [32, 80])
+@pytest.mark.parametrize("D", [288, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_other_head_dims_raise(D, dtype):
-    """A head dim without a compiled instance raises on a CUDA tensor;
-    nothing falls back to the plain version."""
+    """A head dim above every compiled instance raises on a CUDA tensor,
+    naming the instances; nothing falls back to the plain version."""
     q = torch.zeros((1, 2, 8, D), device="cuda", dtype=dtype)
     before = fa_ops.LAUNCHES
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim .*256"):
         fa_ops.flash_attention(q, q, q)
     assert fa_ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("D", [24, 32, 80])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_pads_between_instances(D, window, dtype):
+    """A head dim between the compiled instances runs the next instance on
+    zero-padded q, k and v and equals the plain version at D."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).to("cuda", dtype)
+               for s in ((1, 4, 200, D), (1, 2, 333, D), (1, 2, 333, D)))
+    before = fa_ops.LAUNCHES
+    a = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    assert fa_ops.LAUNCHES == before + 1 and a.shape == q.shape
+    b = flash_attention_ref(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
 def _ssd_inputs(rng, BH, BG, L, P, N):

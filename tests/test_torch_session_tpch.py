@@ -131,17 +131,17 @@ def test_create_table_rejects_another_device():
 @pytest.mark.parametrize("policy", [PC.INTERPRETED, PC.HEKATON, PC.ROUTED],
                          ids=lambda p: p.name)
 def test_unported_policies_raise(sessions, policy):
-    """ROUTED still raises, naming its ROADMAP item; INTERPRETED and
-    HEKATON, which the per-row interpreter now runs, give the reference's
-    answer to the same call (Q6 in its UDF form, the whole catalog)."""
+    """Every preset now runs: INTERPRETED and HEKATON on the per-row
+    interpreter, ROUTED through the cost router (which attaches to the
+    session and samples the call); each gives the reference's answer to
+    the same call (Q6 in its UDF form, the whole catalog)."""
     ref, port = sessions
-    if policy is PC.ROUTED:
-        with pytest.raises(NotImplementedError, match="A8"):
-            port.prepare(PORT_QUERIES["Q6"][0](), policy)
-        return
     got = port.prepare(PORT_QUERIES["Q6"][0](), policy).execute()
     want = ref.execute(REF_QUERIES["Q6"][0](), RC.PRESETS[policy.name])
     assert_rows_equal(want.table, got.table, policy.name)
+    if policy is PC.ROUTED:
+        assert port.cost_stats["enabled"] and port.cost_stats["samples"] >= 1
+        return
     assert got.stats["udf_rows"] == ref.catalog["lineitem"].num_rows
 
 

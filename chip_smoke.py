@@ -103,7 +103,19 @@ script exits non-zero:
    ``ROUTED``: the router's verdict, and a FROID verdict's rows == FROID
    unrouted; (f) the routing oracle at 20,000 ``facts`` rows, fused and
    not, card == CPU == FROID serial; one routed dispatch with no host
-   sync;
+   sync.  Then the fleet phase (``Session(store=...)``, ``FleetEngine``):
+   (a) the six TPC-H UDF queries at SF 1 (relagg on) in a session over an
+   empty store, then in a second session over the same data, each first
+   call a store hit with the first session's rows bit for bit and its
+   explain; (b) one entry cut in half: a ``PlanCacheWarning``, a rebuild,
+   the same rows; (c) ``benchmarks/bench_fleet.py``'s 12 statements over
+   6,000,000 ``T`` rows, first calls cold and warm, its 96-request trace
+   drained by one session and by one- and two-worker fleets, every ticket
+   == the serial oracle, and relagg launched from two host threads at
+   once; (d) a two-worker ``ROUTED`` fleet over the routing queue drained
+   until it has measured, its costs saved, and a fresh fleet that loads
+   them and explores nothing; (e) ``AdmissionPolicy(store=...)`` cold and
+   warm;
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -1762,12 +1774,20 @@ def invocation_session(detail_rows: int = INVOCATION_ROWS["detail"], device=None
     tolerance for the float64 check."""
     import repro_torch.core as C
 
+    db = C.Session(device=device)
+    return (db, *load_invocation(db, detail_rows))
+
+
+def load_invocation(db, detail_rows: int = INVOCATION_ROWS["detail"]):
+    """:func:`invocation_session`'s tables and UDF loaded into ``db``; returns
+    ``T``'s host array, the float64 sums and their tolerance."""
+    import repro_torch.core as C
+
     rows, keys = detail_rows, INVOCATION_ROWS["keys"]
     rng = np.random.default_rng(0)
     d_key = rng.integers(0, keys, rows)
     d_val = rng.uniform(0, 100, rows).astype(np.float32)
     a = rng.integers(0, keys, INVOCATION_ROWS["T"])
-    db = C.Session(device=device)
     db.create_table("detail", d_key=d_key, d_val=d_val)
     db.create_table("T", a=a)
     u = C.UdfBuilder("key_total", [("k", "int32")], "float32")
@@ -1781,7 +1801,7 @@ def invocation_session(detail_rows: int = INVOCATION_ROWS["detail"], device=None
     sums = np.bincount(d_key, weights=d_val.astype(np.float64), minlength=keys)
     tol = 1e-6 * np.bincount(d_key, weights=np.abs(d_val.astype(np.float64)),
                              minlength=keys) + 1e-3
-    return db, a, sums, tol
+    return a, sums, tol
 
 
 def key_total_query():
@@ -3033,6 +3053,527 @@ def routed_phase(policy_axis: dict) -> dict:
             f"{out['oracle'][f'fuse={fuse}']}")
     out["seconds"] = time.perf_counter() - t0
     log(f"routed phase ok in {out['seconds']:.1f} s; router {out['cost_stats']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fleet phase: the persistent plan store, cost tables and the fleet
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/bench_fleet.py``'s population and trace, ``T`` at the
+#: invocation phase's real ``detail`` scale
+FLEET_STATEMENTS = 12
+FLEET_TRACE_K = 96
+FLEET_T_ROWS = 6_000_000
+FLEET_TIMED_DRAINS = 3
+#: drains the first routed fleet may take to measure both fuse arms
+FLEET_MEASURE_DRAINS = 6
+#: drains of the routed fleets set side by side
+FLEET_ROUTED_SHOWN = 3
+FLEET_ADMISSION_REQUESTS = 64
+#: relagg launches from each of two host threads, and their shapes
+RELAGG_THREAD_CALLS = 40
+RELAGG_THREAD_SHAPES = ((100_000, 7, 4), (100_000, 25, 2), (100_000, 130, 4),
+                        (100_000, 150_000, 2))
+
+
+def address_free(text: str) -> str:
+    """Explain text with object addresses left out."""
+    return re.sub(r" object at 0x[0-9a-f]+", "", text)
+
+
+def bit_equal_tables(a, b, label: str) -> None:
+    """Rows equal in order, every column's validity and valid bytes."""
+    check(a.names() == b.names() and a.num_rows == b.num_rows,
+          f"{label}: {a.names()} x {a.num_rows} vs {b.names()} x {b.num_rows}")
+    for name in a.names():
+        ca, cb = a.columns[name], b.columns[name]
+        va, vb = ca.validity().cpu().numpy(), cb.validity().cpu().numpy()
+        xa, xb = ca.data.cpu().numpy(), cb.data.cpu().numpy()
+        check(np.array_equal(va, vb) and xa.dtype == xb.dtype
+              and xa[va].tobytes() == xb[vb].tobytes(), f"{label}: {name} not bit-equal")
+
+
+def fleet_tpch_session(store, sf: float, device=None):
+    """A fresh session over ``store`` holding TPC-H at ``sf`` (seed 0, as
+    each worker generates it) and the UDFs of its queries."""
+    import repro_torch.core as C
+    from repro_torch.data.tpch import generate_tpch
+    from repro_torch.data.tpch_udfs import register_udfs
+
+    session = C.Session(device=device, store=store)
+    generate_tpch(session, sf=sf)
+    register_udfs(session)
+    return session
+
+
+def first_call(session, query, policy) -> dict:
+    """``prepare`` and the first ``execute`` of ``query`` on the host clock
+    (the execute ends waiting for the device), with relagg's launches and
+    the store counters it moved."""
+    from repro_torch.kernels.relagg import ops
+
+    keys = ("persist_hits", "persist_misses", "persist_rejects")
+    before = {k: session.cache_stats[k] for k in keys}
+    ops.LAUNCHES = 0  # counts this call only
+    t0 = time.perf_counter()
+    stmt = session.prepare(query, policy)
+    result = stmt.execute()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"stmt": stmt, "result": result, "ms": ms, "relagg_launches": ops.LAUNCHES,
+            **{k: session.cache_stats[k] - before[k] for k in keys}}
+
+
+def fleet_tpch(store, sf: float, device, timed: bool) -> dict:
+    """(a) and (b): the six TPC-H UDF queries (relagg on) in session A over
+    an empty store, then in session B over the same data, each first call
+    a store hit whose rows are A's bit for bit, whose explain is A's and
+    whose loaded plan explains as A's plan; then A's Q12 entry cut in half
+    and a third session over it: a ``PlanCacheWarning``, a rebuild, A's
+    rows and the entry saved again."""
+    import warnings
+
+    from repro_torch.core import optimizer as O
+    from repro_torch.data.tpch_udfs import QUERIES
+    from repro_torch.persist import PlanCacheWarning, codec
+
+    policy = routed_policies()[0]  # FROID, relagg on
+    a = fleet_tpch_session(store, sf, device)
+    t0 = time.perf_counter()
+    token = a._content_env_token()
+    digest_s = time.perf_counter() - t0
+    calls_a = {name: first_call(a, QUERIES[name][0](), policy) for name in QUERY_NAMES}
+    for name, f in calls_a.items():
+        check(f["persist_misses"] == 1 and f["persist_hits"] == 0, f"(a) A {name}: {f}")
+    check(a.persist_stats["saves"] == len(QUERY_NAMES) and not a.persist_stats["save_errors"],
+          f"(a) A saves: {a.persist_stats}")
+    store_bytes, entries = a.store.nbytes(), len(a.store.entries())
+    b = fleet_tpch_session(store, sf, device)
+    t0 = time.perf_counter()
+    check(b._content_env_token() == token, "(a) B's content token is not A's")
+    digest_b_s = time.perf_counter() - t0
+    calls_b = {}
+    for name in QUERY_NAMES:
+        fa, fb = calls_a[name], first_call(b, QUERIES[name][0](), policy)
+        calls_b[name] = fb
+        check(fb["persist_hits"] == 1 and fb["persist_misses"] == 0
+              and fb["persist_rejects"] == 0, f"(a) B {name} not a store hit: {fb}")
+        bit_equal_tables(fa["result"].table, fb["result"].table, f"(a) {name} B vs A")
+        check(address_free(fb["result"].explain) == address_free(fa["result"].explain),
+              f"(a) {name}: B's explain is not A's")
+        _, blob = b.store.get(b._persist_key("exec", fb["stmt"]._query_fp, policy))
+        check(address_free(O.explain(codec.load_plan(blob)))
+              == address_free(fa["result"].explain), f"(a) {name}: the loaded plan differs")
+        if b.device.type == "cuda":  # off the card relagg takes its plain version
+            check(fb["relagg_launches"] > 0 or name not in ("Q5", "Q12"),
+                  f"(a) B {name}: relagg did not launch")
+            check_on_card(fb["result"], f"(a) B {name}")
+    check(b.persist_stats["saves"] == 0, f"(a) B saved: {b.persist_stats}")
+    # (b) a damaged entry
+    victim = "Q12"
+    path = a.store.path_for(a._persist_key("exec", calls_a[victim]["stmt"]._query_fp, policy))
+    with open(path, "r+b") as f:
+        f.truncate(path.stat().st_size // 2)
+    c = fleet_tpch_session(store, sf, device)
+    c._content_env_token()  # the digest, apart from the rebuild's time
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fc = first_call(c, QUERIES[victim][0](), policy)
+    warned = [w for w in caught if issubclass(w.category, PlanCacheWarning)]
+    check(len(warned) == 1 and fc["persist_rejects"] == 1 and fc["persist_hits"] == 0
+          and c.persist_stats["saves"] == 1, f"(b) damaged {victim}: {fc}, {c.persist_stats}")
+    bit_equal_tables(calls_a[victim]["result"].table, fc["result"].table, f"(b) {victim} vs A")
+    check(c.store.get(c._persist_key("exec", fc["stmt"]._query_fp, policy)) is not None,
+          f"(b) {victim}: the entry was not saved again")
+    out = {"sf": sf, "digest_s": digest_s, "digest_b_s": digest_b_s,
+           "store_bytes": store_bytes, "entries": entries,
+           "A_first_ms": {n: f["ms"] for n, f in calls_a.items()},
+           "B_first_ms": {n: f["ms"] for n, f in calls_b.items()},
+           "B_relagg_launches": {n: f["relagg_launches"] for n, f in calls_b.items()},
+           "damaged": {"query": victim, "warning": str(warned[0].message)[:120],
+                       "first_ms": fc["ms"]}}
+    if timed:
+        log(f"fleet (a) TPC-H SF {sf}, relagg on: content digest of the catalog "
+            f"{digest_s:.3f} s (B {digest_b_s:.3f} s); store {entries} entries, "
+            f"{store_bytes} bytes; first call ms A (cold, saves) / B (store hit): "
+            + ", ".join(f"{n} {calls_a[n]['ms']:.2f}/{calls_b[n]['ms']:.2f}"
+                        for n in QUERY_NAMES)
+            + f"; B == A bit for bit, explain and loaded plan == A's; relagg in B: "
+            + ", ".join(f"{n} {calls_b[n]['relagg_launches']}" for n in QUERY_NAMES))
+        log(f"fleet (b) {victim}'s entry cut to half: PlanCacheWarning, rebuilt in "
+            f"{fc['ms']:.2f} ms, == A bit for bit, saved again")
+    del a, b, c, calls_a, calls_b
+    return out
+
+
+def fleet_query(i: int):
+    """``benchmarks/bench_fleet.py:53-65``'s ``_query``: statement ``i`` of
+    the population, each with its own plan fingerprint."""
+    import repro_torch.core as C
+
+    col, param = C.col, C.param
+    q = C.scan("T")
+    q = q.filter(col("a") < param("lo")) if i % 2 == 0 else q.filter(col("a") >= param("lo"))
+    if i % 3 == 0:
+        q = q.compute(**{f"w{i}": col("a") * param("scale")})
+    elif i % 3 == 1:
+        q = q.compute(**{f"w{i}": col("a") + param("scale") * float(i + 1)})
+    else:
+        q = q.compute(**{f"w{i}": col("a") * 1.0 - param("scale") / float(i)})
+    return q.project("a", f"w{i}")
+
+
+def fleet_setup(rows: int):
+    """``bench_fleet._setup_factory``: ``T`` of ``rows`` rows (seed 0) and the
+    population prepared under FROID, as a ``FleetEngine`` setup."""
+    import repro_torch.core as C
+
+    def setup(session) -> dict:
+        rng = np.random.default_rng(0)
+        session.create_table("T", a=rng.integers(0, 400, rows))
+        return {f"s{i}": session.prepare(fleet_query(i), C.FROID)
+                for i in range(FLEET_STATEMENTS)}
+
+    return setup
+
+
+def fleet_trace(k: int) -> list:
+    """``bench_fleet._trace``: ``k`` requests over the population (seed 5)."""
+    rng = np.random.default_rng(5)
+    return [(f"s{int(rng.integers(0, FLEET_STATEMENTS))}",
+             {"lo": int(rng.integers(0, 400)),
+              "scale": float(round(rng.uniform(0.5, 2.0), 2))}) for _ in range(k)]
+
+
+def same_on_device(want, got, label: str) -> None:
+    """``bench_fleet._check_identical`` on the results' device: masks
+    exactly, every column to rtol 1e-5 on the selected rows."""
+    import torch
+
+    check(len(want) == len(got), f"{label}: {len(got)} results for {len(want)}")
+    for j, (w, g) in enumerate(zip(want, got)):
+        wm, gm = w.masked, g.masked
+        check(torch.equal(wm.mask, gm.mask), f"{label}[{j}]: masks differ")
+        for n, c in wm.table.columns.items():
+            check(torch.allclose(gm.table.columns[n].data[wm.mask], c.data[wm.mask],
+                                 rtol=1e-5), f"{label}[{j}]: {n} differs")
+
+
+def fleet_population(store, rows: int, k: int, device, timed: bool) -> dict:
+    """(c): ``bench_fleet.py``'s rows with ``T`` at ``rows`` rows: the
+    first call of each of the 12 statements in a fresh session over an
+    empty store and again over the filled one (the per-statement ratio the
+    benchmark printed, not gated), then its ``k``-request trace drained by
+    one session's scheduler and by ``FleetEngine`` with one worker and with
+    two (``parallel=True``: two host threads issuing on one stream), one
+    warm-up drain and :data:`FLEET_TIMED_DRAINS` timed drains each, every
+    ticket == the serial oracle, p50/p99 from ``latencies_s``."""
+    import repro_torch.core as C
+    from repro_torch.serve import CoalescingScheduler, FleetEngine
+
+    params = {"lo": 200, "scale": 1.5}
+
+    def first_calls():
+        s = C.Session(device=device, store=store)
+        stmts = fleet_setup(rows)(s)
+        s.synchronize()
+        t0 = time.perf_counter()
+        rs = [stmts[f"s{i}"].execute(params=params) for i in range(FLEET_STATEMENTS)]
+        return time.perf_counter() - t0, rs, s
+
+    t_cold, rs_cold, s_cold = first_calls()
+    check(s_cold.persist_stats["saves"] >= FLEET_STATEMENTS, f"(c) cold: {s_cold.persist_stats}")
+    t_warm, rs_warm, s_warm = first_calls()
+    check(s_warm.cache_stats["persist_hits"] >= FLEET_STATEMENTS
+          and s_warm.cache_stats["persist_misses"] == 0, f"(c) warm: {s_warm.cache_stats}")
+    same_on_device(rs_cold, rs_warm, "(c) warm vs cold first calls")
+    del rs_cold, rs_warm, s_cold, s_warm
+    trace = fleet_trace(k)
+    oracle = C.Session(device=device)
+    o_stmts = fleet_setup(rows)(oracle)
+    expected = [o_stmts[name].execute(params=p) for name, p in trace]
+    arms = {}
+    single = C.Session(device=device, store=store)
+    stmts = fleet_setup(rows)(single)
+    sched = CoalescingScheduler(max_batch=1024, window_s=10.0)
+    ts = []
+    for _ in range(FLEET_TIMED_DRAINS):
+        t0 = time.perf_counter()
+        tickets = [sched.submit(stmts[name], p) for name, p in trace]
+        sched.flush()
+        got = [t.result() for t in tickets]
+        ts.append(time.perf_counter() - t0)
+        same_on_device(expected, got, "(c) single engine vs serial")
+        del got, tickets
+    arms["single"] = {"ms": [t * 1e3 for t in ts]}
+    del single, stmts, sched
+    for workers in (1, 2):
+        fleet = FleetEngine(fleet_setup(rows), workers=workers, store=store,
+                            parallel=workers > 1, device=device)
+        for name, p in trace:
+            fleet.submit(name, p)
+        same_on_device(expected, fleet.drain(), f"(c) {workers}w warm-up vs serial")
+        n0 = len(fleet.latencies_s)
+        ts = []
+        for _ in range(FLEET_TIMED_DRAINS):
+            t0 = time.perf_counter()
+            for name, p in trace:
+                fleet.submit(name, p)
+            got = fleet.drain()
+            ts.append(time.perf_counter() - t0)
+            same_on_device(expected, got, f"(c) {workers}w vs serial")
+            del got
+        lat = np.asarray(fleet.latencies_s[n0:]) * 1e3
+        st = fleet.stats["fleet"]
+        check(st["persist_hits"] >= 1, f"(c) {workers}w: {st}")
+        arms[f"{workers}w"] = {"ms": [t * 1e3 for t in ts],
+                               "p50_ms": float(np.percentile(lat, 50)),
+                               "p99_ms": float(np.percentile(lat, 99)),
+                               "persist_hits": st["persist_hits"]}
+        del fleet
+    best = {n: min(v["ms"]) for n, v in arms.items()}
+    out = {"rows": rows, "trace": k, "cold_first_ms": t_cold * 1e3,
+           "warm_first_ms": t_warm * 1e3, "warm_speedup": t_cold / t_warm, "arms": arms,
+           "vs_single": {n: best["single"] / best[n] for n in ("1w", "2w")}}
+    if timed:
+        log(f"fleet (c) bench_fleet population, {FLEET_STATEMENTS} statements over {rows} T "
+            f"rows: first calls cold {t_cold * 1e3:.2f} ms, warm (store hits) "
+            f"{t_warm * 1e3:.2f} ms, ratio {out['warm_speedup']:.3f} (printed, not gated); "
+            f"trace of {k}, best of {FLEET_TIMED_DRAINS} drains: single engine "
+            f"{best['single']:.2f} ms, "
+            + ", ".join(f"{n} {best[n]:.2f} ms (p50 {arms[n]['p50_ms']:.2f}, p99 "
+                        f"{arms[n]['p99_ms']:.2f} ms; vs_single {out['vs_single'][n]:.3f})"
+                        for n in ("1w", "2w"))
+            + "; every ticket == the serial oracle")
+    return out
+
+
+def relagg_threads() -> dict:
+    """Two host threads launching relagg at once on the card's current
+    stream, :data:`RELAGG_THREAD_CALLS` calls each over
+    :data:`RELAGG_THREAD_SHAPES` (both paths): every result against its
+    float64 sums and counts, and the launch count exact.  The binding fills
+    its per-device record (opt-in, scratch, tickets) under one lock, and
+    its count under another; two threads on one stream share the scratch
+    and tickets safely, as every launch leaves them as it found them and
+    the stream runs the launches in turn."""
+    import threading
+
+    from repro_torch.kernels.relagg import ops
+
+    inputs = [relagg_inputs(n, G, k, seed=900 + i)
+              for i, (n, G, k) in enumerate(RELAGG_THREAD_SHAPES)]
+    outs: list[list] = [[], []]
+    errors: list = []
+
+    def work(t: int) -> None:
+        try:
+            for j in range(RELAGG_THREAD_CALLS):
+                i = (j + t) % len(inputs)
+                gid, mask, vals = inputs[i]
+                outs[t].append((i, ops.grouped_aggregate(gid, mask, vals,
+                                                         RELAGG_THREAD_SHAPES[i][1])))
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    ops.LAUNCHES = 0
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not errors and not any(th.is_alive() for th in threads), f"relagg threads: {errors}")
+    launches = ops.LAUNCHES
+    check(launches == 2 * RELAGG_THREAD_CALLS, f"relagg threads: {launches} launches counted")
+    refs = [f64_reference(*inp, RELAGG_THREAD_SHAPES[i][1]) for i, inp in enumerate(inputs)]
+    for t in range(2):
+        for i, (sums, counts) in outs[t]:
+            ref_sums, absum, ref_counts = refs[i]
+            check(np.array_equal(counts.cpu().numpy(), ref_counts.astype(np.float32))
+                  and (np.abs(sums.cpu().numpy().astype(np.float64) - ref_sums)
+                       <= 1e-4 * absum).all(), f"relagg thread {t} shape {i} is wrong")
+    return {"threads": 2, "launches": launches}
+
+
+def fleet_routing(store, detail_rows: int, per_stmt: int, device, timed: bool) -> dict:
+    """(d): the routed phase's queue (``bench_cost_routing.py``'s, 3
+    statements x ``per_stmt``) over the invocation tables, drained by a
+    two-worker ``ROUTED`` fleet (relagg on, fused drains, ``parallel=True``)
+    as the routed phase drains it: two routed drains (the router explores
+    the fused arm, then the per-statement one), then, until each worker's
+    router has measured both fuse arms, each worker's static FROID arms
+    (fused, per statement; the same fingerprint, so they train its
+    router) in turns with a routed drain; then ``save_costs``.  The static
+    arms are what supply the per-statement arm's evidence: the exploring
+    drain sends ``key_total`` to HEKATON on its estimate, and its samples
+    land under HEKATON's fingerprint, not under the one the fuse axis
+    reads.  Then a fresh two-worker fleet over the same store, routed
+    drains only: each worker loads the costs, and its routers explore no
+    arm.  Every ticket == the static serial loop == float64."""
+    import repro_torch.core as C
+    from repro_torch.kernels.relagg import ops
+    from repro_torch.serve import CoalescingScheduler, FleetEngine
+
+    static, routed = routed_policies()
+    db = C.Session(device=device)
+    a, sums, tol = load_invocation(db, detail_rows)
+    s_stmts = [db.prepare(q, static) for q in routing_queries()]
+    queue = routing_queue(s_stmts, per_stmt)
+    serial = [s.execute(params=p) for s, p in queue]
+    check_fused_tickets(serial, queue, s_stmts, a, sums, tol, "(d) serial vs float64",
+                        routing_expected)
+    names = [f"s{s_stmts.index(s)}" for s, _ in queue]
+
+    def setup(session) -> dict:
+        load_invocation(session, detail_rows)
+        return {**{f"s{i}": session.prepare(q, routed) for i, q in enumerate(routing_queries())},
+                **{f"f{i}": session.prepare(q, static) for i, q in enumerate(routing_queries())}}
+
+    def fleet():
+        return FleetEngine(setup, workers=2, store=store, parallel=True, device=device,
+                           scheduler_factory=lambda: CoalescingScheduler(
+                               max_batch=1024, window_s=10.0, fuse=True))
+
+    def run(fl, label: str) -> dict:
+        routers = [w.session.cost_router for w in fl.workers]
+        before = [r.stats["decisions"] for r in routers]
+        ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for name, (_, p) in zip(names, queue):
+            fl.submit(name, p)
+        got = fl.drain()
+        ms = (time.perf_counter() - t0) * 1e3
+        same_results(serial, got, f"(d) {label} vs serial")
+        check_fused_tickets(got, queue, s_stmts, a, sums, tol, f"(d) {label} vs float64",
+                            routing_expected)
+        logged = [new_decisions(r, b) for r, b in zip(routers, before)]
+        return {"ms": ms, "relagg_launches": ops.LAUNCHES,
+                "fuse": [[d["why"] for d in w if d["axis"] == "fuse"] for w in logged],
+                "policy": [[(d["choice"], d["why"]) for d in w if d["axis"] == "policy"]
+                           for w in logged]}
+
+    def measured(d: dict) -> bool:
+        return all(w and all(why == "measured" for why in w) for w in d["fuse"])
+
+    first = fleet()
+    drains = [run(first, "first fleet drain 0"), run(first, "first fleet drain 1")]
+    while not measured(drains[-1]) and len(drains) < FLEET_MEASURE_DRAINS:
+        for w in first.workers:  # the static arms, on each worker's session
+            static_q = [(w.statements[name.replace("s", "f")], p)
+                        for name, (_, p) in zip(names, queue)]
+            for fuse in (True, False):
+                same_results(serial, drain(static_q, fuse)[0],
+                             f"(d) worker {w.wid} static fuse={fuse} vs serial")
+        drains.append(run(first, f"first fleet drain {len(drains)}"))
+    check(measured(drains[-1]), f"(d) the first fleet did not measure: "
+          f"{[d['fuse'] for d in drains]}")
+    saved = first.save_costs()
+    check(saved == 2, f"(d) {saved} workers saved costs")
+    del first
+    fresh = fleet()
+    loaded = [w.session.persist_stats["costs_loaded"] for w in fresh.workers]
+    check(all(n > 0 for n in loaded), f"(d) costs loaded per worker: {loaded}")
+    fresh_drains = [run(fresh, f"fresh fleet drain {i}") for i in range(FLEET_ROUTED_SHOWN)]
+    explored = [why for d in fresh_drains for w in d["fuse"] for why in w
+                if why.startswith("explore")]
+    check(not explored and all(w for d in fresh_drains for w in d["fuse"]),
+          f"(d) the warm-started fleet explored: {[d['fuse'] for d in fresh_drains]}")
+    out = {"detail_rows": detail_rows, "tickets": len(queue), "costs_loaded": loaded,
+           "first_fleet": drains, "fresh_fleet": fresh_drains}
+    if timed:
+        log(f"fleet (d) routed fleets, 2 workers (parallel), {len(queue)} tickets over "
+            f"{detail_rows} detail rows: first fleet measured in {len(drains)} drains, saved; "
+            f"fresh fleet loaded {loaded} cost records, fuse decisions "
+            f"{[d['fuse'] for d in fresh_drains]}; drain ms first fleet "
+            + ", ".join(f"{d['ms']:.2f} ({'/'.join(sorted({why for w in d['fuse'] for why in w}))}"
+                        f"; policy {sorted({c for w in d['policy'] for c, _ in w})})"
+                        for d in drains[:FLEET_ROUTED_SHOWN])
+            + " against fresh fleet " + ", ".join(f"{d['ms']:.2f}" for d in fresh_drains)
+            + f"; relagg launches a fresh drain {[d['relagg_launches'] for d in fresh_drains]}"
+            "; every ticket == serial == float64")
+    del fresh, db, serial
+    return out
+
+
+def fleet_admission(store, device) -> dict:
+    """(e): ``AdmissionPolicy(store=...)`` cold, then a second policy over
+    the same store: its request statement is a store hit, its verdicts the
+    cold ones and the rules written out in Python."""
+    from repro_torch.serve.admission import AdmissionPolicy
+
+    n = FLEET_ADMISSION_REQUESTS
+    rng = np.random.default_rng(3)
+    fields = {"tier": rng.integers(0, 3, n), "prompt_len": rng.integers(1, 40_000, n),
+              "max_new_tokens": rng.integers(1, 5_000, n),
+              "temperature": rng.uniform(-0.5, 2.5, n).astype(np.float32)}
+    want = [expected_verdict(int(fields["tier"][i]), int(fields["prompt_len"][i]),
+                             int(fields["max_new_tokens"][i]),
+                             float(fields["temperature"][i]), n) for i in range(n)]
+    out, verdicts = {}, {}
+    for phase in ("cold", "warm"):
+        ap = AdmissionPolicy(device=device, store=store)
+        t0 = time.perf_counter()
+        got = ap.evaluate_coalesced(fields)
+        ms = (time.perf_counter() - t0) * 1e3
+        check([(bool(x), int(g)) for x, g in zip(got["admit"], got["granted"])]
+              == [(x, g) for x, g, _ in want]
+              and np.allclose(got["temp"], [t for _, _, t in want], rtol=1e-6),
+              f"(e) admission {phase}: the verdicts are not the rules'")
+        rs = ap._request_session
+        out[phase] = {"ms": ms, "persist_hits": rs.cache_stats["persist_hits"],
+                      "saves": rs.persist_stats["saves"]}
+        verdicts[phase] = got
+    check(out["cold"]["saves"] >= 1 and out["warm"]["persist_hits"] >= 1
+          and out["warm"]["saves"] == 0, f"(e) admission store: {out}")
+    for k in verdicts["cold"]:
+        check(np.array_equal(verdicts["cold"][k], verdicts["warm"][k]),
+              f"(e) admission: warm {k} differs from cold")
+    return out
+
+
+def fleet_run(device, sf: float, t_rows: int, k: int, detail_rows: int, per_stmt: int,
+              timed: bool) -> dict:
+    """(a)-(e) on ``device``, each over its own store directory in a
+    temporary directory removed at the end."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="fleet_store_") as root:
+        root = pathlib.Path(root)
+        out = {"tpch": fleet_tpch(root / "tpch", sf, device, timed)}
+        gc.collect()
+        out["population"] = fleet_population(root / "population", t_rows, k, device, timed)
+        gc.collect()
+        if timed:
+            out["relagg_threads"] = relagg_threads()
+            log(f"fleet (c) relagg from two host threads on one stream: "
+                f"{out['relagg_threads']['launches']} launches counted, every result == its "
+                "float64 sums and counts")
+        out["routing"] = fleet_routing(root / "routing", detail_rows, per_stmt, device, timed)
+        gc.collect()
+        out["admission"] = fleet_admission(root / "admission", device)
+        if timed:
+            e = out["admission"]
+            log(f"fleet (e) AdmissionPolicy(store=...): cold {e['cold']['ms']:.2f} ms "
+                f"({e['cold']['saves']} saves), warm {e['warm']['ms']:.2f} ms "
+                f"({e['warm']['persist_hits']} store hits); verdicts == cold == the rules")
+    return out
+
+
+def fleet_phase() -> dict:
+    """The persistent plan store and the fleet on the card: (a) TPC-H at SF 1
+    from an empty store and then from A's entries, (b) a damaged entry,
+    (c) ``bench_fleet.py``'s population at 6,000,000 ``T`` rows and its
+    fleet drains, with relagg from two host threads, (d) routing warm
+    start over the invocation tables, (e) admission over a store."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fleet_run(None, 1.0, FLEET_T_ROWS, FLEET_TRACE_K, INVOCATION_ROWS["detail"],
+                    ROUTING_PER_STMT, timed=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"fleet phase ok in {out['seconds']:.1f} s")
     return out
 
 
@@ -4315,6 +4856,7 @@ def main() -> int:
     routed = routed_phase(policy_axis)
     gc.collect()
     torch.cuda.empty_cache()
+    fleet = fleet_phase()
     log(f"iterative phase ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4355,6 +4897,7 @@ def main() -> int:
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
                     "invocation": invocation, "fused": fused, "routed": routed,
+                    "fleet": fleet,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
@@ -4406,7 +4949,17 @@ def main() -> int:
          # queue six)
          "launches_routed": {
              f"{queue}/{arm}_per_drain": n for queue in ("routing", "overlap")
-             for arm, n in routed[queue]["relagg_launches"].items()}},
+             for arm, n in routed[queue]["relagg_launches"].items()},
+         # the fleet phase, the count set to 0 just before each: (a) session
+         # B's first call of Q5 and Q12, each a store hit; (d) each drain of
+         # the warm-started routed fleet (two workers, two host threads);
+         # (c) the two-thread check's launches
+         "launches_fleet": {
+             **{f"tpch_store_hit/{n}": fleet["tpch"]["B_relagg_launches"][n]
+                for n in ("Q5", "Q12")},
+             **{f"routed_fresh_fleet/drain{i}": d["relagg_launches"]
+                for i, d in enumerate(fleet["routing"]["fresh_fleet"])},
+             "two_threads": fleet["relagg_threads"]["launches"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

@@ -1,6 +1,10 @@
 """Port of ``src/repro/core/fingerprint.py:1-159``:
 a copy with numpy dtype tags, which fingerprint as the reference's
-``jax.numpy`` tags do.
+``jax.numpy`` tags do, and with a plan node's ``_session_stamp`` left out
+as its ``node_id`` is (both are process-local: the session hangs the stamp
+on a plan it caches a fused wave or a handle by, and a template
+fingerprint of such a plan must mean the same thing in every process that
+opens a plan store).
 
 Structural plan fingerprints — the engine's cache-key vocabulary.
 
@@ -44,6 +48,10 @@ _DTYPE_TAGS = {
 }
 
 
+#: plan-node attributes that name objects of this process only
+_PROCESS_LOCAL = ("node_id", "_session_stamp")
+
+
 def _norm(v, special=None) -> Any:
     """Normalize an attribute value into a hashable structure.
 
@@ -59,7 +67,8 @@ def _norm(v, special=None) -> Any:
         return _expr_key(v, special)
     if isinstance(v, R.RelNode):
         return ("Rel:" + type(v).__name__,) + tuple(
-            (k, _norm(x, special)) for k, x in vars(v).items() if k != "node_id"
+            (k, _norm(x, special)) for k, x in vars(v).items()
+            if k not in _PROCESS_LOCAL
         )
     if isinstance(v, dict):
         return ("dict",) + tuple((k, _norm(x, special)) for k, x in v.items())

@@ -36,15 +36,26 @@ at its compile, dispatch, sync and interp sites.  A ``ROUTED`` statement
 (``policy.route``) attaches the session's cost router
 (:mod:`repro_torch.cost.router`), which picks its policy, its batch
 bucket and, through the scheduler, fuse-or-not from wave times sampled
-here (host clock around work already waited on).  Not ported yet:
-persistence (ROADMAP A9: ``save_costs``, ``_load_costs``) and the mesh
-(A10).
+here (host clock around work already waited on).
+
+``Session(store=...)`` attaches the persistent plan tier
+(:mod:`repro_torch.persist`): an executable-tier miss looks its key up in
+the store before building, and a built executable writes its entry behind
+its first run (when the run has filled its output dictionaries and
+stats).  The keys are the reference's, content-derived
+(:meth:`Session._content_env_token`); the blob is the optimized plan,
+pickled, and a hit runs the loaded plan.  Every store failure degrades to
+a rebuild, as in the reference.  The cost router warm-starts from the
+store (``_load_costs``) and ``save_costs`` writes its measured tables.
+Not ported yet: the mesh (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import time
+import warnings
 from collections import OrderedDict, deque
 from typing import Any
 
@@ -186,6 +197,59 @@ def _stamp(obj) -> int:
         except AttributeError:  # frozen dataclass
             object.__setattr__(obj, "_session_stamp", s)
     return s
+
+
+def _table_content_digest(t: Table) -> str:
+    """Value digest of one table: per-column name/dtype/shape/vocab plus the
+    raw data and validity bytes.  Cached on the table object — the same
+    invalidation model as :func:`_stamp` (replace the Table, get a fresh
+    digest), but the digest is *content-derived*, so two processes loading
+    identical data agree on it, and it hashes the reference's bytes in the
+    reference's order: equal data gives the reference's digest.  A column
+    on the card is copied to the host once, here."""
+    d = getattr(t, "_content_digest", None)
+    if d is None:
+        h = hashlib.sha1()
+        for name, col in sorted(t.columns.items()):
+            arr = col.data.cpu().numpy()
+            h.update(repr((name, str(arr.dtype), arr.shape,
+                           _vocab(col.dictionary))).encode())
+            h.update(arr.tobytes())
+            valid = (np.ones(arr.shape, bool) if col.valid is None
+                     else col.valid.cpu().numpy())
+            h.update(valid.tobytes())
+        d = h.hexdigest()
+        t._content_digest = d
+    return d
+
+
+def _udf_content_digest(u: UdfDef) -> str:
+    """Structural digest of a UDF definition (via :func:`_norm`), cached on
+    the object; the registry half of the content-derived env token."""
+    d = getattr(u, "_content_digest", None)
+    if d is None:
+        d = hashlib.sha1(repr(_norm(u)).encode()).hexdigest()
+        try:
+            u._content_digest = d
+        except AttributeError:
+            object.__setattr__(u, "_content_digest", d)
+    return d
+
+
+def _save_after_first_run(run, save):
+    """``run``, calling ``save()`` once, behind its first successful call:
+    the port's executables fill their output dictionaries and stats when
+    they first run (the reference's, at trace), and an entry saved before
+    that would decode a warm hit's string columns without them."""
+    pending = [save]
+
+    def first_run_saves(*args):
+        out = run(*args)
+        if pending:
+            pending.pop()()
+        return out
+
+    return first_run_saves
 
 
 class _BoundedCache(OrderedDict):
@@ -547,6 +611,7 @@ class _Executable:
     stats: dict  # logical reads of one execution
     interp: Interpreter | None = None  # the scan-mode hook, if the plan calls UDFs
     raw: Any = None  # (table_args, param_args) closure (the vmap source)
+    raw_of: Any = None  # plan -> such a closure over another plan (a loaded one)
 
 
 @dataclasses.dataclass
@@ -620,7 +685,7 @@ class Session:
     CACHE_CAP = 256
 
     def __init__(self, constraints: InlineConstraints | None = None,
-                 cache_cap: int | None = None, device=None):
+                 cache_cap: int | None = None, device=None, store=None):
         self.device = resolve_device(device)
         self.catalog: dict[str, Table] = {}
         self.registry: dict[str, UdfDef] = {}
@@ -632,6 +697,19 @@ class Session:
         self._fuse_execs: _BoundedCache = _BoundedCache(cap)
         self._merge_cache: _BoundedCache = _BoundedCache(64)
         self._prepared: _BoundedCache = _BoundedCache(cap)
+        # persistent plan tier: a repro_torch.persist.PlanStore (or a
+        # directory path — made into one, stamped for this session's
+        # device).  None = in-process caches only.  The store is consulted
+        # on in-memory misses and written behind an executable's first
+        # run; every store failure degrades to a rebuild (_persist_load)
+        if store is not None and not hasattr(store, "get"):
+            from repro_torch.persist.store import PlanStore
+
+            store = PlanStore(store, device=self.device)
+        self.store = store
+        self._persist_extra = {
+            "saves": 0, "save_errors": 0, "costs_loaded": 0, "costs_saved": 0,
+        }
         self.cache_stats = {
             "plan_hits": 0, "plan_misses": 0,
             "exec_hits": 0, "exec_misses": 0,
@@ -642,6 +720,11 @@ class Session:
             # distinct bindings), and total plan nodes covered by a shared
             # evaluation, both accumulated per fused wave
             "cse_hits": 0, "cse_shared_nodes": 0,
+            # persistent tier: hits (loaded a plan from the store), misses
+            # (no entry), rejects (entry present but stale/corrupt/
+            # unloadable — rebuilt).  Monotone like every other tier's
+            # counters
+            "persist_hits": 0, "persist_misses": 0, "persist_rejects": 0,
         }
         # dispatched-but-unsynced AsyncResults, oldest first (backpressure)
         self._inflight: deque = deque()
@@ -657,14 +740,66 @@ class Session:
         self.cost_router = None
 
     def _ensure_router(self):
-        """The session's cost router, made on first use.  The reference
-        also warm-starts it from its store here (``_load_costs``): that is
-        ROADMAP A9."""
+        """The session's cost router, made on first use and warm-started
+        from the store's cost table when a store is attached."""
         if self.cost_router is None:
             from repro_torch.cost.router import CostRouter
 
             self.cost_router = CostRouter(self)
+            if self.store is not None:
+                self._load_costs()
         return self.cost_router
+
+    def _load_costs(self) -> int:
+        """Warm-start the router's measured cost model from the store (no-op
+        on a clean miss; stale/corrupt tables degrade to an empty model)."""
+        from repro_torch.persist import costs as _costs
+        from repro_torch.persist.store import PlanCacheError
+
+        try:
+            n = _costs.load_costs(self.store, self._content_env_token(),
+                                  self.cost_router)
+        except PlanCacheError:
+            self.cache_stats["persist_rejects"] += 1
+            return 0
+        if n:
+            self._persist_extra["costs_loaded"] += n
+        return n
+
+    def save_costs(self) -> bool:
+        """Persist the cost router's measured wave-cost EMAs so a fresh
+        worker routes warm.  Fault-window samples were excluded at intake
+        (``CostRouter.suppress``), so the saved table is clean by
+        construction.  Returns True when a table was written."""
+        if self.store is None or self.cost_router is None:
+            return False
+        from repro_torch.persist import costs as _costs
+
+        try:
+            ok = _costs.save_costs(self.store, self._content_env_token(),
+                                   self.cost_router)
+        except Exception:
+            self._persist_extra["save_errors"] += 1
+            return False
+        if ok:
+            self._persist_extra["costs_saved"] += 1
+        return ok
+
+    @property
+    def persist_stats(self) -> dict:
+        """The persistent tier's view: hit/miss/reject counters, write
+        counts, cost-table traffic, and the store's on-disk footprint.
+        ``{"enabled": False}`` when no store is attached."""
+        if self.store is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "hits": self.cache_stats["persist_hits"],
+            "misses": self.cache_stats["persist_misses"],
+            "rejects": self.cache_stats["persist_rejects"],
+            **self._persist_extra,
+            "store": self.store.stats(),
+        }
 
     @property
     def cost_stats(self) -> dict:
@@ -769,6 +904,118 @@ class Session:
         return (self._catalog_token(), self._registry_token(),
                 self._constraints_token())
 
+    def _content_env_token(self) -> tuple:
+        """The cross-process rendering of :meth:`_env_token`: stamps (valid
+        only in this process) are replaced by content digests, so two
+        workers that loaded identical catalogs/registries produce identical
+        persistent cache keys (and the reference's, for the same data).
+        Memoized against the stamp-based token — the digests are recomputed
+        only when DDL actually changed something, not per lookup."""
+        env = self._env_token()
+        cached = getattr(self, "_content_env_cache", None)
+        if cached is not None and cached[0] == env:
+            return cached[1]
+        token = (
+            tuple((name, t.num_rows, tuple(t.columns),
+                   _table_content_digest(t))
+                  for name, t in sorted(self.catalog.items())),
+            tuple((name, _udf_content_digest(u))
+                  for name, u in sorted(self.registry.items())),
+            self._constraints_token(),
+        )
+        self._content_env_cache = (env, token)
+        return token
+
+    # -- persistent plan tier ----------------------------------------------
+    def _persist_store(self, policy: ExecutionPolicy):
+        """The store an executable-tier miss should consult, or None (no
+        store attached / the policy opted out via ``persist=False``)."""
+        s = self.store
+        return s if (s is not None and policy.persist) else None
+
+    def _persist_key(self, kind: str, query_fp, policy: ExecutionPolicy,
+                     sig: tuple = (), bucket: int = 0,
+                     shard_token: tuple = (), template: tuple = ()) -> tuple:
+        """The cache identity as one self-describing stable tuple, the
+        reference's: plan fingerprint x policy fingerprint x param
+        signature x batch bucket x shard token (always ``()`` here: no
+        mesh yet) x fused/CSE template tuple, plus the content env token.
+        ``assert_stable_key`` is the enforcement point — any process-local
+        value (an ``id()``, a stamp, a live object) smuggled into a
+        component raises here instead of silently degrading the
+        cross-worker hit rate."""
+        from repro_torch.persist.keys import assert_stable_key
+
+        key = ("plan", kind, query_fp, policy.fingerprint(), sig, bucket,
+               shard_token, template, self._content_env_token())
+        assert_stable_key(key)
+        return key
+
+    def _persist_load(self, store, key: tuple):
+        """``(loaded_plan, meta) | None`` — the reference's typed
+        degradation ladder: a version-stamp mismatch and a load failure
+        count as rejects, a damaged entry additionally warns
+        (:class:`~repro_torch.persist.PlanCacheWarning`) and is evicted.
+        Every failure path returns None: the caller rebuilds, and results
+        are never wrong."""
+        from repro_torch.persist import codec
+        from repro_torch.persist.store import (
+            PlanCacheCorruptError,
+            PlanCacheVersionError,
+            PlanCacheWarning,
+        )
+
+        try:
+            got = store.get(key)
+        except PlanCacheVersionError:
+            self.cache_stats["persist_rejects"] += 1
+            return None
+        except PlanCacheCorruptError as e:
+            self.cache_stats["persist_rejects"] += 1
+            warnings.warn(
+                f"dropping damaged persistent plan entry ({e}); rebuilding",
+                PlanCacheWarning, stacklevel=3)
+            store.delete(key)
+            return None
+        if got is None:
+            self.cache_stats["persist_misses"] += 1
+            return None
+        meta, blob = got
+        try:
+            loaded = codec.load_plan(blob)
+        except Exception as e:  # unpickling: anything can surface
+            self.cache_stats["persist_rejects"] += 1
+            warnings.warn(
+                f"persistent plan entry failed to load "
+                f"({type(e).__name__}: {e}); rebuilding",
+                PlanCacheWarning, stacklevel=3)
+            store.delete(key)
+            return None
+        self.cache_stats["persist_hits"] += 1
+        return loaded, meta
+
+    def _persist_save(self, store, key: tuple, plan, *, out_dicts,
+                      stats, extra: dict | None = None) -> bool:
+        """Write-behind save of a freshly-run executable's plan; failures
+        are counted, never raised (persistence is an optimization, not a
+        correctness dependency)."""
+        from repro_torch.persist import codec
+
+        try:
+            blob = codec.pack_plan(plan)
+            meta = {
+                "out_dicts": codec.encode_dicts(out_dicts),
+                "stats": codec.jsonable_stats(stats),
+            }
+            if extra:
+                meta.update(extra)
+            store.put(key, meta, blob)
+        except Exception:
+            self._persist_extra["save_errors"] += 1
+            return False
+        self._persist_extra["saves"] += 1
+        return True
+
     # -- planning ----------------------------------------------------------
     def _build_plan(self, node: R.RelNode, policy: ExecutionPolicy) -> R.RelNode:
         plan = node
@@ -866,28 +1113,57 @@ class Session:
         run_stats: dict = {}
         device = self.device
 
-        def raw(table_args, param_args):
-            catalog = {
-                tname: Table(
-                    {
-                        c: Column(data, valid, meta[tname][c])
-                        for c, (data, valid) in cols.items()
-                    }
-                )
-                for tname, cols in table_args.items()
-            }
-            pvals = {
-                name: S.Value(data, valid, pdicts[name])
-                for name, (data, valid) in param_args.items()
-            }
-            ex = Executor(catalog, udf_column_evaluator=hook,
-                          use_pallas_agg=policy.pallas_agg, device=device)
-            out = ex.execute(plan, params=pvals)
-            for n, c in out.table.columns.items():
-                out_dicts[n] = c.dictionary
-            run_stats.update(ex.stats)
-            cols = {n: (c.data, c.validity()) for n, c in out.table.columns.items()}
-            return out.mask, cols
+        def raw_of(run_plan: R.RelNode):
+            """The closure that runs ``run_plan``: the session's own plan,
+            or one loaded from the store."""
+
+            def raw(table_args, param_args):
+                catalog = {
+                    tname: Table(
+                        {
+                            c: Column(data, valid, meta[tname][c])
+                            for c, (data, valid) in cols.items()
+                        }
+                    )
+                    for tname, cols in table_args.items()
+                }
+                pvals = {
+                    name: S.Value(data, valid, pdicts[name])
+                    for name, (data, valid) in param_args.items()
+                }
+                ex = Executor(catalog, udf_column_evaluator=hook,
+                              use_pallas_agg=policy.pallas_agg, device=device)
+                out = ex.execute(run_plan, params=pvals)
+                for n, c in out.table.columns.items():
+                    out_dicts[n] = c.dictionary
+                run_stats.update(ex.stats)
+                cols = {n: (c.data, c.validity())
+                        for n, c in out.table.columns.items()}
+                return out.mask, cols
+
+            return raw
+
+        # persistent tier: on an in-memory miss, try the store before
+        # building; a hit runs the loaded plan (the entry's dictionaries
+        # and stats stand until its first run refreshes them), a miss
+        # writes its entry behind the first run.  Either way ``raw`` takes
+        # the same arguments — content-env-token keying guarantees the
+        # catalog matches
+        from repro_torch.persist import codec as _codec
+
+        raw = raw_of(plan)
+        store = self._persist_store(policy)
+        if store is not None:
+            pkey = self._persist_key("exec", query_fp, policy, sig=sig)
+            loaded = self._persist_load(store, pkey)
+            if loaded is not None:
+                loaded_plan, pmeta = loaded
+                out_dicts.update(_codec.decode_dicts(pmeta.get("out_dicts")) or {})
+                run_stats.update(pmeta.get("stats") or {})
+                raw = raw_of(loaded_plan)
+            else:
+                raw = _save_after_first_run(raw, lambda: self._persist_save(
+                    store, pkey, plan, out_dicts=out_dicts, stats=run_stats))
 
         def fn(param_values: dict | None = None,
                catalog_token: tuple | None = None):
@@ -897,7 +1173,7 @@ class Session:
                 pargs[pname] = (v.data, v.validity())
             return raw(self._catalog_args(catalog_token), pargs)
 
-        entry = _Executable(fn, plan, out_dicts, run_stats, interp, raw)
+        entry = _Executable(fn, plan, out_dicts, run_stats, interp, raw, raw_of)
         self._execs[key] = entry
         return entry, False, plan_hit
 
@@ -923,7 +1199,24 @@ class Session:
         # share the unbatched executable's raw closure and capture dicts so
         # execute() and execute_many() agree on output dictionaries/stats
         base, _, _ = self._executable(node, query_fp, policy, params0, env_token)
-        target = torch.func.vmap(base.raw, in_dims=(None, 0))
+
+        # persistent tier: the batched program persists independently of the
+        # base executable (its own bucket-keyed entry); a hit vmaps the
+        # loaded plan's closure, a miss writes its entry behind its first
+        # batched run
+        raw = base.raw
+        store = self._persist_store(policy)
+        if store is not None:
+            pkey = self._persist_key("batch", query_fp, policy, sig=sig,
+                                     bucket=bucket)
+            loaded = self._persist_load(store, pkey)
+            if loaded is not None:
+                raw = base.raw_of(loaded[0])
+        target = torch.func.vmap(raw, in_dims=(None, 0))
+        if store is not None and raw is base.raw:
+            target = _save_after_first_run(target, lambda: self._persist_save(
+                store, pkey, base.plan, out_dicts=base.out_dicts,
+                stats=base.stats))
 
         def fn(batched_pargs: dict, catalog_token: tuple | None = None):
             return target(self._catalog_args(catalog_token), batched_pargs)
@@ -986,8 +1279,12 @@ class Session:
         count)`` per pool group), so a mixed queue arriving in any order
         warm-hits, a changed distinct-binding count re-specializes, and
         any DDL/catalog poke invalidates every member at once via the env
-        token.  The reference's persistent tier (ROADMAP A9) and sharded
-        placement (A10) are not ported."""
+        token.  With a store, a miss first looks the wave up there (its key
+        is the reference's: member keys x template token, no stamps, no
+        ids); a hit runs the loaded member plans (:meth:`_loaded_fused`),
+        and the compile fault seam fires only on a store miss, as in the
+        reference.  The reference's sharded placement (ROADMAP A10) is not
+        ported."""
         key = (tuple(m.key for m in members),
                tuple(_stamp(m.plan) for m in members), policy.fingerprint(),
                env_token, template_token)
@@ -996,13 +1293,36 @@ class Session:
             self.cache_stats["fuse_hits"] += 1
             return entry, True
         self.cache_stats["fuse_misses"] += 1
-        # the reference loads a persisted program here (ROADMAP A9)
-        self._fault("compile", tuple(m.key[0] for m in members))
         from repro_torch.fuse.program import build_fused_raw
+        from repro_torch.persist import codec as _codec
 
-        raw, out_dicts, run_stats, merged, eval_counts = build_fused_raw(
-            self, members, policy, merged, [g.spec() for g in groups],
-            member_tmaps, slot_names)
+        store = self._persist_store(policy)
+        loaded = None
+        if store is not None:
+            pkey = self._persist_key(
+                "fused", tuple(m.key for m in members), policy,
+                template=template_token)
+            loaded = self._persist_load(store, pkey)
+        if loaded is not None:
+            plans, pmeta = loaded
+            lmembers, lmerged, lgroups, ltmaps, lnames = self._loaded_fused(
+                members, plans, groups, member_tmaps, slot_names)
+            raw, out_dicts, run_stats, _, eval_counts = build_fused_raw(
+                self, lmembers, policy, lmerged, lgroups, ltmaps, lnames)
+            for d, enc in zip(out_dicts, pmeta.get("out_dicts_list") or ()):
+                d.update(_codec.decode_dicts(enc) or {})
+            run_stats.update(pmeta.get("stats") or {})
+        else:
+            self._fault("compile", tuple(m.key[0] for m in members))
+            raw, out_dicts, run_stats, merged, eval_counts = build_fused_raw(
+                self, members, policy, merged, [g.spec() for g in groups],
+                member_tmaps, slot_names)
+            if store is not None:
+                raw = _save_after_first_run(raw, lambda: self._persist_save(
+                    store, pkey, tuple(m.plan for m in members), out_dicts=None,
+                    stats=run_stats,
+                    extra={"out_dicts_list":
+                           [_codec.encode_dicts(d) for d in out_dicts]}))
 
         def fn(pargs_tuple, targs_tuple, catalog_token: tuple | None = None):
             return raw(self._catalog_args(catalog_token), pargs_tuple,
@@ -1012,6 +1332,30 @@ class Session:
                                  run_stats, members, merged, eval_counts)
         self._fuse_execs[key] = entry
         return entry, False
+
+    @staticmethod
+    def _loaded_fused(members: list, plans: tuple, groups: list,
+                      member_tmaps: list, slot_names: list) -> tuple:
+        """``build_fused_raw``'s structure over member plans loaded from the
+        store: the members with their loaded plans, the merge pass over
+        those, the pool groups' canonical nodes from it, and the wave's
+        occurrence maps carried across to the loaded nodes' ids.  The
+        loaded plans are copies of the members' (a walk of one pairs node
+        for node with a walk of the other), and the merge pass is a
+        function of plan structure, so the fused program is the one the
+        session's own plans make; only its node ids are this load's."""
+        from repro_torch.fuse.merge import merge_plans
+
+        loaded = [dataclasses.replace(m, plan=p) for m, p in zip(members, plans)]
+        ids = {a.node_id: b.node_id
+               for m, p in zip(members, plans)
+               for a, b in zip(R.walk_plan_deep(m.plan), R.walk_plan_deep(p))}
+        merged = merge_plans(list(plans))
+        nodes = {t.fp: t.node for t in merged.templates}
+        specs = [dataclasses.replace(g.spec(), node=nodes[g.fp]) for g in groups]
+        tmaps = [{ids[n]: gi for n, gi in t.items()} for t in member_tmaps]
+        names = [{ids[n]: name for n, name in t.items()} for t in slot_names]
+        return loaded, merged, specs, tmaps, names
 
     def execute_fused(self, calls) -> list[QueryResult]:
         """Execute a mixed-statement call list — ``[(stmt, params), ...]``

@@ -404,8 +404,7 @@ class CostRouter:
     # -- persistence ---------------------------------------------------------
     def export_state(self) -> dict:
         """JSON-safe snapshot of the measured cost model for the persistent
-        tier (the reference's ``repro/persist/costs.py``; the port's is
-        ROADMAP A9).  Fault-window samples were
+        tier (``repro_torch/persist/costs.py``).  Fault-window samples were
         already excluded at intake — :meth:`suppress` drops them before
         they can reach ``measured``/``per_ticket`` — so a save can never
         leak degraded-wave costs into a fresh worker's warm start."""

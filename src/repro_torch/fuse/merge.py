@@ -77,7 +77,7 @@ CSE_HOLE = "__cse_s{}"
 #: by the occurrence's *ordinal* within its member's canonical occurrence
 #: walk — a content-derived name, identical in every process, so fused
 #: programs carrying slot parameters round-trip through the persistent
-#: plan tier (ROADMAP A9 in the port).
+#: plan tier.
 SLOT_PARAM = "__cse_slot_o{}"
 
 

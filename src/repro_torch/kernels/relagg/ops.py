@@ -16,6 +16,8 @@ the direct path, with no dispatcher op in its way.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels.relagg.ref import (
@@ -29,6 +31,8 @@ from repro_torch.kernels.relagg.ref import (
 LAUNCHES = 0
 #: the batched launches among them (correlated subqueries)
 BATCHED_LAUNCHES = 0
+#: host threads may launch at once (a fleet's parallel drains): no count is lost
+_COUNT_LOCK = threading.Lock()
 
 
 def grouped_aggregate(gid: torch.Tensor, mask: torch.Tensor,
@@ -47,7 +51,8 @@ def grouped_aggregate(gid: torch.Tensor, mask: torch.Tensor,
     from repro_torch.kernels.relagg.relagg import relagg_cuda
 
     out = relagg_cuda(gid, mask, vals, num_groups)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -64,8 +69,9 @@ def _batched(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor,
     from repro_torch.kernels.relagg.relagg import relagg_cuda_batched
 
     out = relagg_cuda_batched(gid, mask, vals, num_groups)
-    LAUNCHES += 1
-    BATCHED_LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        BATCHED_LAUNCHES += 1
     return out
 
 

@@ -26,12 +26,20 @@ is set once per device and larger size, and the float64 scratch and the
 tickets of the cross-block sum are kept per device and stream, the scratch
 grown when a larger ``G * (k+1)`` comes.  The output is allocated with
 ``torch.empty``: the kernel writes every slot.
+
+Host threads may launch at once (a fleet's parallel drains): that state is
+filled under one lock.  Without it two threads could make two records of a
+device, and one could set the shared-memory opt-in back below a size the
+other has just launched with.  Threads that issue on one stream share its
+scratch and tickets safely, as every launch leaves them as it found them
+and the stream runs the launches one after another.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -142,39 +150,45 @@ class _Device:
         self.tickets: dict[int, torch.Tensor] = {}
 
     def reserve(self, lib: ctypes.CDLL, smem: int) -> None:
-        if smem > self.reserved:
-            _raise(lib, lib.relagg_reserve_smem(smem), "shared-memory opt-in")
-            self.reserved = smem
+        with _lock:
+            if smem > self.reserved:
+                _raise(lib, lib.relagg_reserve_smem(smem), "shared-memory opt-in")
+                self.reserved = smem
 
     def scratch_for(self, stream: int, shared: bool, slots: int) -> torch.Tensor:
         """float64 scratch of at least ``slots``; the global path's is zero
         between calls (its second launch zeroes it again)."""
-        buf = self.scratch.get((stream, shared))
-        if buf is None or buf.numel() < slots:
-            buf = torch.zeros(slots, dtype=torch.float64, device=f"cuda:{self.index}")
-            self.scratch[stream, shared] = buf
-        return buf
+        with _lock:
+            buf = self.scratch.get((stream, shared))
+            if buf is None or buf.numel() < slots:
+                buf = torch.zeros(slots, dtype=torch.float64, device=f"cuda:{self.index}")
+                self.scratch[stream, shared] = buf
+            return buf
 
     def ticket_for(self, stream: int, items: int = 1) -> torch.Tensor:
         """The shared path's tickets for ``items`` batch items, 0 between
         calls: each item's one for the groups of blocks and one for each
         group."""
         count = items * (1 + groups_of(self.sm_count))
-        ticket = self.tickets.get(stream)
-        if ticket is None or ticket.numel() < count:
-            ticket = self.tickets[stream] = torch.zeros(
-                count, dtype=torch.int32, device=f"cuda:{self.index}")
-        return ticket
+        with _lock:
+            ticket = self.tickets.get(stream)
+            if ticket is None or ticket.numel() < count:
+                ticket = self.tickets[stream] = torch.zeros(
+                    count, dtype=torch.int32, device=f"cuda:{self.index}")
+            return ticket
 
 
 _devices: dict[int, _Device] = {}
+#: guards ``_devices`` and each record's opt-in, scratch and tickets
+_lock = threading.Lock()
 
 
 def _device(lib: ctypes.CDLL, index: int) -> _Device:
-    dev = _devices.get(index)
-    if dev is None:
-        dev = _devices[index] = _Device(lib, index)
-    return dev
+    with _lock:
+        dev = _devices.get(index)
+        if dev is None:
+            dev = _devices[index] = _Device(lib, index)
+        return dev
 
 
 def uses_shared(num_groups: int, n_aggs: int) -> bool:

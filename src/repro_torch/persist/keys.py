@@ -1,6 +1,4 @@
-"""Port of ``src/repro/persist/keys.py``: a copy.  The cost router's
-``import_state`` parses its keys here; the rest of the persistent tier
-(the store, cost tables, codec) is ROADMAP A9.
+"""Port of ``src/repro/persist/keys.py``: a copy.
 
 Stable cache-key machinery for the persistent plan tier.
 

@@ -17,8 +17,10 @@ and coalesces concurrent submits on a
 ``execute_many`` batches, each one ``torch.func.vmap`` on the device
 (``fuse=True`` drains mixed-statement waves as one fused wave).  Under
 INTERPRETED and HEKATON the rules run on the port's per-row interpreter,
-on the same device.  Not ported yet: ``mesh`` (ROADMAP A10) and ``store``
-(A9).
+on the same device.  ``store`` (a ``PlanStore`` or a directory) is
+shared by the tick session and the request session, so the request
+statement warm-starts from it across engine restarts.  Not ported yet:
+``mesh`` (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -136,7 +138,8 @@ class AdmissionPolicy:
     per-request coalescing path (``fuse``: mixed-statement waves, e.g.
     custom rule statements sharing the request session, drain as one fused
     wave; ``timeout_s``: the default per-ticket deadline; an expired ticket
-    sheds with a typed ``DeadlineExceeded``).
+    sheds with a typed ``DeadlineExceeded``).  ``store``: the persistent
+    plan store (a ``PlanStore`` or a path) both sessions share.
     """
 
     def __init__(self, froid: bool = True,
@@ -146,9 +149,7 @@ class AdmissionPolicy:
                  timeout_s: float | None = None, store=None):
         if mesh is not None:
             _waits("sharded admission (mesh)", "A10")
-        if store is not None:
-            _waits("the persistent plan store", "A9")
-        self.session = Session(device=device)
+        self.session = Session(device=device, store=store)
         default_rules(self.session)
         if policy is None:
             policy = FROID if froid else INTERPRETED
@@ -158,7 +159,8 @@ class AdmissionPolicy:
         # per-request path: a second session sharing the rule registry but
         # with an empty catalog, so the request statement's cache key is
         # immune to the tick path's queue-table reloads
-        self._request_session = Session(device=self.session.device)
+        self._request_session = Session(device=self.session.device,
+                                        store=self.session.store)
         self._request_session.registry = self.session.registry
         self._request_stmt = None
         self.timeout_s = timeout_s

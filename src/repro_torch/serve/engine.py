@@ -22,8 +22,9 @@ Two intake shapes, as in the reference:
   whose degradation ladder ran out, completes as ``"shed"``.
 
 ``admission_fuse`` drains mixed-statement admission waves as one fused
-wave; ``admission_mesh`` waits for the mesh (ROADMAP A10) and
-``admission_store`` for persistence (A9).
+wave; ``admission_store`` (a ``PlanStore`` or a path) warm-starts the
+admission statement across engine restarts; ``admission_mesh`` waits for
+the mesh (ROADMAP A10).
 """
 from __future__ import annotations
 

@@ -28,8 +28,8 @@ The sharded cases wait for the mesh (ROADMAP A10):
 ``test_routing_oracle_matrix``'s two ``sharded`` cases,
 ``test_routed_sharded_many_matches_serial``, and the ``shard=True`` legs
 of ``test_routing_oracle_random_queues``; the port's router raises
-``NotImplementedError`` naming A10 for ``shard=True``.  The store
-counters of the stats audit (``persist_*``) wait for A9.
+``NotImplementedError`` naming A10 for ``shard=True``.  The stats audit
+reads the store counters (``persist_*``) too.
 
 Every port run is under ``no_vmap_fallback``.
 """
@@ -53,6 +53,7 @@ from repro_torch.cost import (
 )
 from repro_torch.cost import model as port_model
 from repro_torch.cost.router import DECISION_LOG, _Ema
+from repro_torch.persist import PlanStore
 from repro_torch.resilience import FaultInjector, FaultSpec
 from repro_torch.serve.scheduler import CoalescingScheduler
 
@@ -421,14 +422,16 @@ def test_routing_oracle_random_queues(specs, values, seed, n_rows, fuse, waves):
 # ---------------------------------------------------------------------------
 
 
-def test_stats_audit_monotone_and_consistent():
+def test_stats_audit_monotone_and_consistent(tmp_path):
     db = _routed_session()
+    db.store = PlanStore(str(tmp_path), device="cpu")  # the persist_* counters move
     stmts = [db.prepare(q, PC.ROUTED) for q in PCU.fusion_queries()]
     spec = PCU.fusion_calls_spec()
     sched = _sched(True)
     mono_keys = ("samples", "samples_excluded", "decisions", "policy_reroutes",
                  "bucket_rides", "waves_fused", "waves_unfused")
-    cache_keys = ("fuse_hits", "fuse_misses", "cse_hits", "cse_shared_nodes")
+    cache_keys = ("fuse_hits", "fuse_misses", "cse_hits", "cse_shared_nodes",
+                  "persist_hits", "persist_misses", "persist_rejects")
     prev_cost = {k: 0 for k in mono_keys}
     prev_cache = {k: 0 for k in cache_keys}
     prev_sched = {"demote_fused_to_many": 0, "demote_many_to_serial": 0,
@@ -458,6 +461,8 @@ def test_stats_audit_monotone_and_consistent():
                 assert 1 <= st_["wave_tickets"] <= len(spec)
     n_emas = sum(e.n for e in db.cost_router.measured.values())
     assert n_emas == cs["samples"]
+    assert db.cache_stats["persist_misses"] >= 1
+    assert db.persist_stats["saves"] >= 1 and db.persist_stats["save_errors"] == 0
 
 
 def test_cost_stats_snapshot_printable():

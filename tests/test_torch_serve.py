@@ -138,8 +138,8 @@ def test_unported_intake_raises():
     ``tests/test_torch_execute_many.py``), and so are its fused drains
     (A7): ``fuse`` passes through to the scheduler, as in
     ``tests/test_fused.py:459-488``, and coalesced verdicts equal the
-    tick's.  What it still lacks raises, naming its item: the mesh (A10)
-    and the store (A9)."""
+    tick's.  What it still lacks raises, naming its item: the mesh (A10).
+    The store is ported (``test_admission_store_warm_start``)."""
     cfg = tconfigs.smoke_config_for("granite3_2b")
     model = build_model(cfg, "cpu").init()
     eng = ServeEngine(model, slots=2, max_len=32, admission_fuse=True,
@@ -153,8 +153,36 @@ def test_unported_intake_raises():
         np.testing.assert_array_equal(co[name], tick[name], err_msg=name)
     with pytest.raises(NotImplementedError, match="A10"):
         AdmissionPolicy(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        AdmissionPolicy(device="cpu", store="plans")
+
+
+def test_admission_store_warm_start(tmp_path):
+    """``tests/test_fleet.py::test_admission_store_warm_start`` on the port:
+    a second policy over the first one's store serves the request
+    statement from it, with the cold verdicts (and the reference's); the
+    tick session and the request session share one store, and the
+    engine's ``admission_store`` reaches it."""
+    reqs = dict(
+        tier=np.array([0, 1, 2]),
+        prompt_len=np.array([10, 100, 3000]),
+        max_new_tokens=np.array([50, 2000, 500]),
+        temperature=np.array([0.5, 3.0, 0.9], dtype="float32"),
+    )
+    cold = AdmissionPolicy(device="cpu", store=str(tmp_path))
+    assert cold._request_session.store is cold.session.store
+    v_cold = cold.evaluate_coalesced(reqs)
+    assert cold._request_session.persist_stats["saves"] >= 1
+
+    warm = AdmissionPolicy(device="cpu", store=str(tmp_path))
+    v_warm = warm.evaluate_coalesced(reqs)
+    assert warm._request_session.cache_stats["persist_hits"] >= 1
+    assert warm._request_session.persist_stats["saves"] == 0
+    want = RefAdmission(store=str(tmp_path / "ref")).evaluate_coalesced(reqs)
+    for k in v_cold:
+        assert (v_cold[k] == v_warm[k]).all(), k
+        np.testing.assert_array_equal(v_warm[k], want[k], err_msg=k)
+    eng = ServeEngine(build_model(tconfigs.smoke_config_for("granite3_2b"), "cpu").init(),
+                      slots=2, max_len=32, admission_store=str(tmp_path))
+    assert eng.admission.session.store.root == tmp_path
 
 
 def test_interpreted_admission_raises():

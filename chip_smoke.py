@@ -3075,6 +3075,9 @@ FLEET_ADMISSION_REQUESTS = 64
 RELAGG_THREAD_CALLS = 40
 RELAGG_THREAD_SHAPES = ((100_000, 7, 4), (100_000, 25, 2), (100_000, 130, 4),
                         (100_000, 150_000, 2))
+#: calls each of two threads makes at once on the global path's shape (the
+#: last of ``RELAGG_THREAD_SHAPES``), with the launch lock and without it
+RELAGG_THREAD_GLOBAL_CALLS = 400
 
 
 def address_free(text: str) -> str:
@@ -3348,51 +3351,121 @@ def fleet_population(store, rows: int, k: int, device, timed: bool) -> dict:
     return out
 
 
-def relagg_threads() -> dict:
-    """Two host threads launching relagg at once on the card's current
-    stream, :data:`RELAGG_THREAD_CALLS` calls each over
-    :data:`RELAGG_THREAD_SHAPES` (both paths): every result against its
-    float64 sums and counts, and the launch count exact.  The binding fills
-    its per-device record (opt-in, scratch, tickets) under one lock, and
-    its count under another; two threads on one stream share the scratch
-    and tickets safely, as every launch leaves them as it found them and
-    the stream runs the launches in turn."""
+def _two_threads(call, calls: int, what: str) -> list[list]:
+    """``call(t, j)`` for ``j < calls`` in each of two host threads ``t``,
+    released together from a barrier: each thread's results in order.
+    Fails on an exception or a thread that does not end."""
     import threading
 
-    from repro_torch.kernels.relagg import ops
-
-    inputs = [relagg_inputs(n, G, k, seed=900 + i)
-              for i, (n, G, k) in enumerate(RELAGG_THREAD_SHAPES)]
+    barrier = threading.Barrier(2)
     outs: list[list] = [[], []]
     errors: list = []
 
     def work(t: int) -> None:
         try:
-            for j in range(RELAGG_THREAD_CALLS):
-                i = (j + t) % len(inputs)
-                gid, mask, vals = inputs[i]
-                outs[t].append((i, ops.grouped_aggregate(gid, mask, vals,
-                                                         RELAGG_THREAD_SHAPES[i][1])))
+            barrier.wait(timeout=60)
+            for j in range(calls):
+                outs[t].append(call(t, j))
         except Exception as e:  # reported below
             errors.append(repr(e))
 
-    ops.LAUNCHES = 0
     threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
     for th in threads:
         th.start()
     for th in threads:
         th.join(timeout=300)
-    check(not errors and not any(th.is_alive() for th in threads), f"relagg threads: {errors}")
-    launches = ops.LAUNCHES
-    check(launches == 2 * RELAGG_THREAD_CALLS, f"relagg threads: {launches} launches counted")
+    check(not errors and not any(th.is_alive() for th in threads), f"{what}: {errors}")
+    return outs
+
+
+def _relagg_global_unlocked(gid, mask, vals, groups: int):
+    """The control of :func:`relagg_threads`: ``relagg_cuda``'s global path
+    on the stream's kept accumulator, as the binding launched it before it
+    took the stream's launch lock (not counted in ``ops.LAUNCHES``)."""
+    import torch
+
+    from repro_torch.kernels.relagg import relagg as binding
+
+    (n, k), index = vals.shape, vals.device.index
+    lib = binding._lib()
+    dev = binding._device(lib, index)
+    plan = binding.launch_plan(dev.sm_count, dev.smem_budget, n, groups, k)
+    check(not plan.shared, "relagg threads: the control's shape takes the shared path")
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    out = torch.empty((groups, k + 1), dtype=torch.float32, device=vals.device)
+    scratch = dev.scratch_for(stream, False, plan.scratch_slots)
+    binding._raise(lib, lib.relagg_global(
+        gid.data_ptr(), mask.data_ptr(), vals.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        n, plan.per_block, k, groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream), "launch")
+    return out.narrow(1, 0, k), out.select(1, k)
+
+
+def relagg_threads() -> dict:
+    """Two host threads launching relagg at once on the card's current
+    stream.  (1) :data:`RELAGG_THREAD_CALLS` calls each over
+    :data:`RELAGG_THREAD_SHAPES` (both paths, the threads' shapes offset).
+    (2) :data:`RELAGG_THREAD_GLOBAL_CALLS` calls each, both threads on the
+    global path's shape (150,000 groups) at once: its two kernels share the
+    stream's kept accumulator, which the binding's launch lock keeps
+    together on the stream.  Every result against its float64 sums and
+    counts, and the launch count exact.  (3) The control: (2) through
+    :func:`_relagg_global_unlocked`, the binding without that lock, whose
+    wrong results are counted and printed, not gated (the race is a matter
+    of timing); it shows whether (2) could see the fault in this run."""
+    import torch
+
+    from repro_torch.kernels.relagg import ops
+    from repro_torch.kernels.relagg.relagg import uses_shared
+
+    inputs = [relagg_inputs(n, G, k, seed=900 + i)
+              for i, (n, G, k) in enumerate(RELAGG_THREAD_SHAPES)]
     refs = [f64_reference(*inp, RELAGG_THREAD_SHAPES[i][1]) for i, inp in enumerate(inputs)]
+    _, G, k = RELAGG_THREAD_SHAPES[-1]
+    check(not uses_shared(G, k), "relagg threads: the last shape takes the shared path")
+
+    def mixed(t: int, j: int):
+        i = (j + t) % len(inputs)
+        gid, mask, vals = inputs[i]
+        return i, ops.grouped_aggregate(gid, mask, vals, RELAGG_THREAD_SHAPES[i][1])
+
+    ops.LAUNCHES = 0
+    outs = _two_threads(mixed, RELAGG_THREAD_CALLS, "relagg threads, mixed shapes")
+    mixed_launches = ops.LAUNCHES
+    check(mixed_launches == 2 * RELAGG_THREAD_CALLS,
+          f"relagg threads: {mixed_launches} launches counted")
     for t in range(2):
         for i, (sums, counts) in outs[t]:
             ref_sums, absum, ref_counts = refs[i]
             check(np.array_equal(counts.cpu().numpy(), ref_counts.astype(np.float32))
                   and (np.abs(sums.cpu().numpy().astype(np.float64) - ref_sums)
                        <= 1e-4 * absum).all(), f"relagg thread {t} shape {i} is wrong")
-    return {"threads": 2, "launches": launches}
+
+    ref_sums, absum, ref_counts = (torch.from_numpy(np.asarray(x)).cuda() for x in refs[-1])
+    ref_counts, tol = ref_counts.float(), 1e-4 * absum
+
+    def wrong(results) -> int:
+        return sum(not (torch.equal(counts, ref_counts)
+                        and bool(((sums.double() - ref_sums).abs() <= tol).all()))
+                   for t in range(2) for sums, counts in results[t])
+
+    gid, mask, vals = inputs[-1]
+    control = _two_threads(lambda t, j: _relagg_global_unlocked(gid, mask, vals, G),
+                           RELAGG_THREAD_GLOBAL_CALLS, "relagg threads, control")
+    control_wrong = wrong(control)
+    del control
+    ops.LAUNCHES = 0
+    locked = _two_threads(lambda t, j: ops.grouped_aggregate(gid, mask, vals, G),
+                          RELAGG_THREAD_GLOBAL_CALLS, "relagg threads, global path")
+    global_launches = ops.LAUNCHES
+    check(global_launches == 2 * RELAGG_THREAD_GLOBAL_CALLS,
+          f"relagg threads: {global_launches} global-path launches counted")
+    global_wrong = wrong(locked)
+    check(global_wrong == 0, f"relagg threads: {global_wrong} of "
+          f"{2 * RELAGG_THREAD_GLOBAL_CALLS} global-path results wrong from two threads")
+    return {"threads": 2, "launches": mixed_launches + global_launches,
+            "mixed_launches": mixed_launches, "global_launches": global_launches,
+            "global_wrong": global_wrong, "control_calls": 2 * RELAGG_THREAD_GLOBAL_CALLS,
+            "control_wrong": control_wrong}
 
 
 def fleet_routing(store, detail_rows: int, per_stmt: int, device, timed: bool) -> dict:
@@ -3545,9 +3618,13 @@ def fleet_run(device, sf: float, t_rows: int, k: int, detail_rows: int, per_stmt
         gc.collect()
         if timed:
             out["relagg_threads"] = relagg_threads()
+            r = out["relagg_threads"]
             log(f"fleet (c) relagg from two host threads on one stream: "
-                f"{out['relagg_threads']['launches']} launches counted, every result == its "
-                "float64 sums and counts")
+                f"{r['mixed_launches']} launches over mixed shapes and "
+                f"{r['global_launches']} both on the global path (150,000 groups) at once "
+                f"counted, every result == its float64 sums and counts; control without "
+                f"the launch lock: {r['control_wrong']} of {r['control_calls']} results "
+                "wrong (not gated)")
         out["routing"] = fleet_routing(root / "routing", detail_rows, per_stmt, device, timed)
         gc.collect()
         out["admission"] = fleet_admission(root / "admission", device)

@@ -30,9 +30,14 @@ grown when a larger ``G * (k+1)`` comes.  The output is allocated with
 Host threads may launch at once (a fleet's parallel drains): that state is
 filled under one lock.  Without it two threads could make two records of a
 device, and one could set the shared-memory opt-in back below a size the
-other has just launched with.  Threads that issue on one stream share its
-scratch and tickets safely, as every launch leaves them as it found them
-and the stream runs the launches one after another.
+other has just launched with.  A call also holds its stream's launch lock
+from taking the kept scratch and tickets to its last launch, so the
+kernels of one call sit together on the stream.  The global path needs
+that: its accumulator is the stream's kept scratch, and its first kernel
+adds into it while its second reads and zeroes it, so another call's
+first kernel queued between the two would hand both calls' sums to one
+and zeros to the other.  The ctypes call releases the interpreter lock,
+so without the launch lock two threads can interleave exactly so.
 """
 from __future__ import annotations
 
@@ -148,6 +153,13 @@ class _Device:
         self.reserved = 0
         self.scratch: dict[tuple[int, bool], torch.Tensor] = {}
         self.tickets: dict[int, torch.Tensor] = {}
+        self.launching: dict[int, threading.Lock] = {}
+
+    def launch_lock(self, stream: int) -> threading.Lock:
+        """The lock a call on ``stream`` holds across its launches (see the
+        module's docstring)."""
+        with _lock:
+            return self.launching.setdefault(stream, threading.Lock())
 
     def reserve(self, lib: ctypes.CDLL, smem: int) -> None:
         with _lock:
@@ -179,7 +191,8 @@ class _Device:
 
 
 _devices: dict[int, _Device] = {}
-#: guards ``_devices`` and each record's opt-in, scratch and tickets
+#: guards ``_devices`` and each record's opt-in, scratch, tickets and
+#: launch locks
 _lock = threading.Lock()
 
 
@@ -226,17 +239,18 @@ def relagg_cuda(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor,
     plan = launch_plan(dev.sm_count, dev.smem_budget, n, num_groups, k)
     stream = torch._C._cuda_getCurrentRawStream(index)
     out = torch.empty((num_groups, k + 1), dtype=torch.float32, device=vals.device)
-    scratch = dev.scratch_for(stream, plan.shared, plan.scratch_slots)
-    if plan.shared:
-        dev.reserve(lib, plan.smem)
-        err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
-                                out.data_ptr(), scratch.data_ptr(),
-                                dev.ticket_for(stream).data_ptr(), n, plan.per_block, k,
-                                num_groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream)
-    else:
-        err = lib.relagg_global(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
-                                out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
-                                num_groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream)
+    with dev.launch_lock(stream):
+        scratch = dev.scratch_for(stream, plan.shared, plan.scratch_slots)
+        if plan.shared:
+            dev.reserve(lib, plan.smem)
+            err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                                    out.data_ptr(), scratch.data_ptr(),
+                                    dev.ticket_for(stream).data_ptr(), n, plan.per_block, k,
+                                    num_groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream)
+        else:
+            err = lib.relagg_global(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                                    out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
+                                    num_groups, plan.grid, plan.smem, 1, 1, 0, 0, 0, stream)
     _raise(lib, err, "launch")
     return out.narrow(1, 0, k), out.select(1, k)
 
@@ -295,17 +309,18 @@ def relagg_cuda_batched(gid: torch.Tensor, mask: torch.Tensor, vals: torch.Tenso
     # reach SCRATCH_BUDGET; the global path's accumulator starts at 0
     scratch = (torch.empty if plan.shared else torch.zeros)(
         chunk * plan.scratch_slots, dtype=torch.float64, device=vals.device)
-    if plan.shared:
-        dev.reserve(lib, plan.smem)
-        err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
-                                out.data_ptr(), scratch.data_ptr(),
-                                dev.ticket_for(stream, chunk).data_ptr(), n, plan.per_block,
-                                k, num_groups, plan.grid, plan.smem, batch, chunk, gid_bs,
-                                mask_bs, vals_bs, stream)
-    else:
-        err = lib.relagg_global(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
-                                out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
-                                num_groups, plan.grid, plan.smem, batch, chunk, gid_bs,
-                                mask_bs, vals_bs, stream)
+    with dev.launch_lock(stream):
+        if plan.shared:
+            dev.reserve(lib, plan.smem)
+            err = lib.relagg_shared(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                                    out.data_ptr(), scratch.data_ptr(),
+                                    dev.ticket_for(stream, chunk).data_ptr(), n,
+                                    plan.per_block, k, num_groups, plan.grid, plan.smem, batch,
+                                    chunk, gid_bs, mask_bs, vals_bs, stream)
+        else:
+            err = lib.relagg_global(gid.data_ptr(), mask.data_ptr(), vals.data_ptr(),
+                                    out.data_ptr(), scratch.data_ptr(), n, plan.per_block, k,
+                                    num_groups, plan.grid, plan.smem, batch, chunk, gid_bs,
+                                    mask_bs, vals_bs, stream)
     _raise(lib, err, "batched launch")
     return out

@@ -25,7 +25,9 @@ element-wise comparable against a single-worker serial drain of the same
 queue (``conformance_util.check_fleet_oracle``'s logic).  ``parallel=True``
 drains workers on threads (safe: workers share no mutable state — the
 PlanStore is append-only files behind atomic renames, and the one kernel
-on the path, relagg, takes a lock where it fills its per-device state).
+on the path, relagg, fills its per-device state under a lock and holds its
+stream's launch lock across a call's launches, whose global path shares a
+kept accumulator between two kernels).
 On the card every worker's work goes to the device's current stream.
 
 DDL does not replicate automatically: ``broadcast(fn)`` applies a catalog

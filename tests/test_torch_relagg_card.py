@@ -266,3 +266,37 @@ def test_relagg_under_vmap_launches_the_batched_kernel(rng, monkeypatch):
     torch.cuda.synchronize()
     assert (ops.LAUNCHES, ops.BATCHED_LAUNCHES) == (before + 1, batched + 1)
     _against_unbatched(gid, mask, vals, 7, torch.cat([s, c[..., None]], -1))
+
+
+def test_relagg_global_path_from_two_threads(rng):
+    """Two host threads on one stream, both on the global path (150,000
+    groups) at once, 200 calls each: every result equals one thread's
+    alone (the stream's launch lock keeps a call's two kernels, which share
+    the stream's kept accumulator, together on the stream)."""
+    import threading
+
+    from repro_torch.kernels.relagg.relagg import uses_shared
+
+    groups = 150_000
+    assert not uses_shared(groups, 2)
+    gid = torch.as_tensor(rng.integers(-2, groups + 2, 100_000).astype(np.int32), device="cuda")
+    mask = torch.as_tensor(rng.random(100_000) > 0.3, device="cuda")
+    vals = torch.as_tensor(rng.normal(size=(100_000, 2)).astype(np.float32), device="cuda")
+    s2, c2 = grouped_aggregate_ref(gid, mask, vals, groups)
+    barrier = threading.Barrier(2)
+    outs: list[list] = [[], []]
+
+    def work(t: int) -> None:
+        barrier.wait(timeout=60)
+        for _ in range(200):
+            outs[t].append(ops.grouped_aggregate(gid, mask, vals, groups))
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert [len(o) for o in outs] == [200, 200]
+    for s, c in outs[0] + outs[1]:
+        assert torch.equal(c, c2)
+        torch.testing.assert_close(s, s2, rtol=1e-4, atol=1e-4)

@@ -115,7 +115,19 @@ script exits non-zero:
    once; (d) a two-worker ``ROUTED`` fleet over the routing queue drained
    until it has measured, its costs saved, and a fresh fleet that loads
    them and explores nothing; (e) ``AdmissionPolicy(store=...)`` cold and
-   warm;
+   warm.  Then the mesh phase (``policy.sharded(mesh)``, meshes naming
+   ``cuda:0`` 2 and 4 times): (a) ``key_total`` over the invocation
+   tables at N = 32 and 1,024 through ``execute_many`` unsharded and
+   sharded, in turns, every ticket == float64 and the serial loop, relagg
+   once a shard a call, the sharded sums against the unsharded bit for
+   bit, the shard cache's hits; (b) the fusion oracle's session drained as
+   one sharded wave with mixed divisibility (8 + 3 and 8 + 2 tickets and a
+   parameter-free member; buckets 8, 4, 1), every ticket == serial; (c)
+   ``AdmissionPolicy(mesh=...)`` == tick == the rules, and a scheduler
+   flushing at ``max_batch × 4``; (d) a second session over a store hits
+   the first's ``"shard"`` entry, rows bit for bit; (e) ``ROUTED`` sharded
+   ``execute_many`` == FROID serial, the router keyed by the shard token;
+   (f) where there are several cards, (a)-(e) again over all of them;
 7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
    and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
    layers) at their published widths and depths, one after the other,
@@ -164,6 +176,11 @@ builds the edits of ``csrc/relagg.cu`` in :data:`RELAGG_VARIANTS` (designs
 the source chose against, and probes that leave part of the work out) and
 reads each one's device time in turns with the shipped kernel at Q12's
 and Q5's inputs.
+
+    python3 chip_smoke.py --mesh
+
+builds relagg alone and runs the mesh phase alone; on a machine with
+several cards its (f) leg runs it again over a mesh of every card.
 
     python3 chip_smoke.py --flash-variants
 
@@ -1812,12 +1829,14 @@ def key_total_query():
 
 
 def stacked(results, column: str):
-    """(masks (N, n), values (N, n)) of N results, on the host."""
+    """(masks (N, n), values (N, n)) of N results, on the host (the results
+    of a mesh over several cards gathered onto the first's device)."""
     import torch
 
     masked = [r.masked for r in results]
-    return (torch.stack([m.mask for m in masked]).cpu().numpy(),
-            torch.stack([m.table.columns[column].data for m in masked]).cpu().numpy())
+    dev = masked[0].mask.device
+    return (torch.stack([m.mask.to(dev) for m in masked]).cpu().numpy(),
+            torch.stack([m.table.columns[column].data.to(dev) for m in masked]).cpu().numpy())
 
 
 def check_key_totals(results, cutoffs, a, sums, tol, label: str):
@@ -3654,6 +3673,336 @@ def fleet_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh phase: policy.sharded(mesh), the sharded execute_many, fused wave,
+# scheduler, admission, store and router tiers
+# ---------------------------------------------------------------------------
+
+#: the sharded legs' mesh positions, every one over the same device
+MESH_SHARDS = (2, 4)
+MESH_SWEEP = (32, 1024)
+MESH_ROUNDS = 5
+
+
+def same_device_mesh(device, k: int):
+    """A ``k``-position data mesh naming ``device`` ``k`` times."""
+    from repro_torch.launch.mesh import make_small_mesh
+
+    return make_small_mesh(data=k, devices=[device] * k)
+
+
+def mesh_key_total(db, a, sums, tol, meshes: dict, sweep, rounds: int, timed: bool) -> dict:
+    """(a): ``key_total`` through ``execute_many`` at each N of ``sweep``,
+    unsharded and sharded over each mesh of ``meshes`` (label -> mesh), in
+    turns for ``rounds`` timed calls after a warm call of each; every
+    ticket against float64 and the serial loop, the sharded sums against
+    the unsharded bit for bit, relagg once a shard a call, and the shard
+    cache's hits over the warm calls."""
+    import repro_torch.core as C
+
+    base = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    stmts = {"unsharded": db.prepare(key_total_query(), base)}
+    shards = {"unsharded": 1}
+    for label, mesh in meshes.items():
+        stmts[label] = db.prepare(key_total_query(), base.sharded(mesh))
+        shards[label] = stmts[label].policy.shard_devices()
+    rng = np.random.default_rng(13)
+    out: dict = {}
+    for n in sweep:
+        cutoffs = rng.integers(1, INVOCATION_ROWS["keys"], n)
+        plist = [{"cutoff": int(c)} for c in cutoffs]
+        serial = [stmts["unsharded"].execute(params=p) for p in plist]
+        check_key_totals(serial, cutoffs, a, sums, tol, f"(a) serial N={n}")
+        row: dict = {}
+        warm = {}
+        for label, stmt in stmts.items():
+            before = db.cache_stats["shard_misses"]
+            warm[label] = stmt.execute_many(plist)  # the first call of this bucket
+            row[label] = {"shard_misses_first_call": db.cache_stats["shard_misses"] - before,
+                          "runs": []}
+        hits0 = db.cache_stats["shard_hits"]
+        for _ in range(rounds):
+            for label, stmt in stmts.items():
+                r = arm(lambda stmt=stmt: stmt.execute_many(plist))
+                row[label]["runs"].append(r)
+        for label, stmt in stmts.items():
+            runs = row[label].pop("runs")
+            res = runs[-1]["out"]
+            check_key_totals(res, cutoffs, a, sums, tol, f"(a) {label} N={n}")
+            same_tickets(serial, res, "v", f"(a) {label} vs serial N={n}", exact=False)
+            st = res[0].stats
+            sharded = shards[label] > 1
+            check(st.get("sharded", False) == sharded
+                  and st.get("shard_devices", 1) == shards[label]
+                  and st["batch_size"] == n and st["batch_bucket"] == C.batch_bucket(n, 1024),
+                  f"(a) {label} N={n}: {st}")
+            # the kernel launches on the card only (the CPU runs its plain version)
+            want = shards[label] if db.device.type == "cuda" else 0
+            launches = [r["relagg_launches"] for r in runs]
+            check(all(x == want for x in launches)
+                  and all(r["relagg_batched_launches"] == 0 for r in runs),
+                  f"(a) {label} N={n}: relagg launches {launches}, want {want} a call")
+            walls = sorted(r["wall_s"] for r in runs)
+            row[label].update({
+                "shard_devices": shards[label],
+                "us_per_invocation": walls[len(walls) // 2] / n * 1e6,
+                "dispatch_s": st["dispatch_s"], "sync_s": st["sync_s"],
+                "relagg_launches_per_call": launches[-1],
+                "batch_bucket": st["batch_bucket"],
+                "peak_gb": runs[-1]["peak_gb"]})
+            if sharded:
+                row[label]["max_abs_diff_vs_unsharded"] = same_tickets(
+                    warm["unsharded"], res, "v", f"(a) {label} vs unsharded N={n}",
+                    exact=False)
+                um, uv = stacked(warm["unsharded"], "v")
+                sm, sv = stacked(res, "v")
+                row[label]["bit_equal_to_unsharded"] = bool(np.array_equal(uv[um], sv[sm]))
+        row["shard_hits_warm_calls"] = db.cache_stats["shard_hits"] - hits0
+        sharded_labels = [x for x in stmts if shards[x] > 1]
+        check(row["shard_hits_warm_calls"] == rounds * len(sharded_labels)
+              and all(row[x]["shard_misses_first_call"] == 1 for x in sharded_labels),
+              f"(a) N={n}: shard cache {row}")
+        out[n] = row
+        if timed:
+            u = row["unsharded"]["us_per_invocation"]
+            parts = []
+            for label in stmts:
+                r = row[label]
+                parts.append(
+                    f"{label} {r['us_per_invocation']:.1f} µs an invocation "
+                    f"(x{r['us_per_invocation'] / u:.2f}; {r['shard_devices']} shard(s), "
+                    f"dispatch {r['dispatch_s'] * 1e3:.2f} ms, sync {r['sync_s'] * 1e3:.2f} ms, "
+                    f"relagg {r['relagg_launches_per_call']} a call"
+                    + (f", bit-equal to unsharded {r['bit_equal_to_unsharded']}"
+                       + ("" if r["bit_equal_to_unsharded"] else
+                          f" (max |diff| {r['max_abs_diff_vs_unsharded']:.3g})")
+                       if r["shard_devices"] > 1 else "") + ")")
+            log(f"mesh (a) key_total N={n}: " + "; ".join(parts)
+                + f"; shard hits over the {rounds} warm rounds {row['shard_hits_warm_calls']}"
+                "; every ticket == float64 and serial")
+    return out
+
+
+#: ``tests/test_fused.py:434-457``'s mixed-divisibility spec (8 + 3 tickets
+#: and a parameter-free member), and 8 + 2 tickets, whose 2-ticket member
+#: pads its bucket up to the 4 positions
+MESH_FUSED_SPECS = {
+    "mixed_divisibility": ([(0, {"cut": int(k % 6), "shift": 0.5}) for k in range(8)]
+                           + [(1, {"minq": int(k % 4), "scale": 2.0}) for k in range(3)]
+                           + [(2, None) for _ in range(2)]),
+    "padded": ([(0, {"cut": int(k % 6), "shift": 0.5}) for k in range(8)]
+               + [(1, {"minq": int(k % 4), "scale": 2.0}) for k in range(2)]
+               + [(2, None) for _ in range(2)]),
+}
+
+
+def mesh_fused(device, rows: int, mesh) -> dict:
+    """(b): each spec of :data:`MESH_FUSED_SPECS` through a fusion-mode
+    scheduler over ``mesh`` on the fusion oracle's session: one sharded
+    wave, member buckets 8, 4 and 1, every ticket == the serial loop."""
+    import repro_torch.core as C
+    from repro_torch.serve.scheduler import CoalescingScheduler
+
+    db = fusion_oracle_session(rows, device)
+    policy = C.FROID.sharded(mesh)
+    stmts = [db.prepare(q, policy) for q in fusion_oracle_queries()]
+    out = {}
+    for name, spec in MESH_FUSED_SPECS.items():
+        sched = CoalescingScheduler(max_batch=256, window_s=10.0, fuse=True)
+        tickets = [sched.submit(stmts[i], p) for i, p in spec]
+        sched.flush()
+        fused = [t.result() for t in tickets]
+        for j, ((i, p), r) in enumerate(zip(spec, fused)):
+            same_masked(stmts[i].execute(params=p), r, f"(b) {name}[{j}] vs serial")
+        buckets = [r.stats.get("batch_bucket") for r in fused]
+        check(all(r.stats.get("fused") and r.stats.get("sharded")
+                  and r.stats.get("shard_devices") == mesh.shape["data"] for r in fused),
+              f"(b) {name}: not one sharded wave: {fused[0].stats}")
+        check(buckets == [8] * 8 + [4] * (len(spec) - 10) + [1, 1],
+              f"(b) {name}: buckets {buckets}")
+        check(sched.stats["fused_batches"] == 1, f"(b) {name}: {sched.stats}")
+        out[name] = {"tickets": len(spec), "buckets": sorted(set(buckets)),
+                     "sizes": [sum(1 for i, _ in spec if i == s) for s in range(3)]}
+    return out
+
+
+def mesh_intake(device, db, a, sums, tol, mesh) -> dict:
+    """(c): ``AdmissionPolicy(mesh=...)``'s coalesced verdicts == its tick
+    verdicts == the rules, its request statement sharded; and a
+    ``CoalescingScheduler`` flushing a sharded ``key_total`` statement
+    (``max_batch=2``) at ``max_batch × devices`` tickets."""
+    import repro_torch.core as C
+    from repro_torch.serve.admission import AdmissionPolicy
+    from repro_torch.serve.scheduler import CoalescingScheduler
+
+    k = mesh.shape["data"]
+    ap = AdmissionPolicy(device=device, mesh=mesh)
+    rng = np.random.default_rng(5)
+    n = 8 * k
+    reqs = {"tier": rng.integers(0, 3, n), "prompt_len": rng.integers(10, 40000, n),
+            "max_new_tokens": rng.integers(1, 9000, n),
+            "temperature": rng.uniform(-1, 3, n).astype(np.float32)}
+    tick, co = ap.evaluate(reqs), ap.evaluate_coalesced(reqs)
+    for name in ("admit", "granted", "temp"):
+        check(np.array_equal(tick[name], co[name]), f"(c) admission {name}: coalesced != tick")
+    for i in range(n):
+        want = expected_verdict(int(reqs["tier"][i]), int(reqs["prompt_len"][i]),
+                                int(reqs["max_new_tokens"][i]),
+                                float(reqs["temperature"][i]), n)
+        got = (bool(co["admit"][i]), int(co["granted"][i]), float(co["temp"][i]))
+        check(got[:2] == want[:2] and abs(got[2] - want[2]) <= 1e-6 * max(1.0, abs(want[2])),
+              f"(c) admission request {i}: {got} != the rules' {want}")
+    stmt = ap.request_statement()
+    check(stmt.policy.shard_devices() == k and ap.scheduler.stats["batches"] == 1,
+          f"(c) admission: {stmt.policy.shard_devices()} shards, {ap.scheduler.stats}")
+    policy = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True)
+    kt = db.prepare(key_total_query(), policy.sharded(mesh).batched(max_batch=2))
+    sched = CoalescingScheduler(window_s=10.0, clock=lambda: 0.0)
+    cutoffs = np.random.default_rng(17).integers(1, INVOCATION_ROWS["keys"], 2 * k)
+    tickets = [sched.submit(kt, {"cutoff": int(c)}) for c in cutoffs[:-1]]
+    pending = sched.pending
+    tickets.append(sched.submit(kt, {"cutoff": int(cutoffs[-1])}))
+    check(pending == 2 * k - 1 and sched.pending == 0 and sched.stats["flush_full"] == 1,
+          f"(c) scheduler: pending {pending} then {sched.pending}, {sched.stats}")
+    res = [t.result() for t in tickets]
+    check_key_totals(res, cutoffs, a, sums, tol, "(c) scheduler flush")
+    st = res[0].stats
+    check(st["sharded"] and st["batch_size"] == 2 * k, f"(c) scheduler: {st}")
+    return {"admission_requests": n, "admission_shards": k, "flush_size": st["batch_size"]}
+
+
+def mesh_store(device, detail_rows: int, mesh, root) -> dict:
+    """(d): session A over an empty store runs ``key_total`` sharded over
+    ``mesh`` (N = 32) and writes its ``"shard"`` entry; session B over the
+    same data and store hits it on its first call, and its rows equal A's
+    bit for bit."""
+    import repro_torch.core as C
+
+    policy = C.ExecutionPolicy(name="froid+relagg", pallas_agg=True).sharded(mesh)
+    plist = [{"cutoff": int(c)} for c in
+             np.random.default_rng(19).integers(1, INVOCATION_ROWS["keys"], 32)]
+    out = {}
+    results = {}
+    for name in ("A", "B"):
+        db = C.Session(device=device, store=root)
+        a, sums, tol = load_invocation(db, detail_rows)
+        stmt = db.prepare(key_total_query(), policy)
+        results[name] = stmt.execute_many(plist)
+        check_key_totals(results[name], [p["cutoff"] for p in plist], a, sums, tol,
+                         f"(d) session {name}")
+        key = db._persist_key("shard", stmt._query_fp, stmt.policy,
+                              sig=C.param_signature(plist[0]), bucket=32,
+                              shard_token=stmt.policy.shard_token())
+        out[name] = {**{k: db.cache_stats[k] for k in
+                        ("persist_hits", "persist_misses", "shard_misses")},
+                     "saves": db.persist_stats["saves"],
+                     "shard_entry": db.store.get(key) is not None}
+        del db, stmt
+        gc.collect()
+    check(out["A"]["persist_hits"] == 0 and out["A"]["saves"] == 2
+          and out["A"]["shard_entry"], f"(d) A: {out['A']}")
+    check(out["B"]["persist_hits"] == 2 and out["B"]["persist_misses"] == 0
+          and out["B"]["saves"] == 0, f"(d) B did not hit the store: {out['B']}")
+    same_tickets(results["A"], results["B"], "v", "(d) B vs A", exact=True)
+    return out
+
+
+def mesh_routed(device, rows: int, mesh) -> dict:
+    """(e): ``ROUTED.sharded(mesh)`` ``execute_many`` of the fusion oracle's
+    parameterized query (8 tickets, twice) == the serial FROID loop; the
+    router's samples keyed by the policy's shard token.  And HEKATON
+    sharded (its scan-mode hook on each shard's device) == the same."""
+    import repro_torch.core as C
+
+    db = fusion_oracle_session(rows, device)
+    q = fusion_oracle_queries()[0]
+    stmt = db.prepare(q, C.ROUTED.sharded(mesh))
+    oracle = db.prepare(q, C.FROID)
+    params = [{"cut": int(k % 6), "shift": 0.5} for k in range(8)]
+    want = [oracle.execute(params=p) for p in params]
+    for w in range(2):
+        got = stmt.execute_many(params)
+        for i, (o, g) in enumerate(zip(want, got)):
+            same_masked(o, g, f"(e) routed sharded[{w}][{i}]")
+    token = stmt.policy.shard_token()
+    keys = [k for k in db.cost_router.measured if k[0] == "many"]
+    check(keys and all(k[4] == token for k in keys), f"(e) router keys {keys}")
+    hek = db.prepare(q, C.HEKATON.sharded(mesh)).execute_many(params)
+    for i, (o, g) in enumerate(zip(want, hek)):
+        same_masked(o, g, f"(e) HEKATON sharded[{i}]")
+    check(all(r.stats.get("sharded") for r in got + hek), "(e) not sharded")
+    return {"samples": db.cost_stats["samples"], "many_keys": len(keys),
+            "sharded": True, "result_devices": sorted({str(r.masked.mask.device) for r in hek})}
+
+
+def mesh_run(device, detail_rows: int, fusion_rows: int, sweep, rounds: int,
+             timed: bool, meshes: dict | None = None) -> dict:
+    """(a)-(e) over ``meshes`` (label -> mesh; by default meshes naming
+    ``device`` 2 and 4 times), (b)-(e) over the last of them, the store in
+    a temporary directory removed at the end."""
+    import tempfile
+
+    db, a, sums, tol = invocation_session(detail_rows, device)
+    if meshes is None:
+        meshes = {f"x{k}": same_device_mesh(str(db.device), k) for k in MESH_SHARDS}
+    out = {"device": str(db.device),
+           "key_total": mesh_key_total(db, a, sums, tol, meshes, sweep, rounds, timed)}
+    mesh4 = list(meshes.values())[-1]
+    out["fused"] = mesh_fused(device, fusion_rows, mesh4)
+    out["intake"] = mesh_intake(device, db, a, sums, tol, mesh4)
+    del db
+    gc.collect()
+    with tempfile.TemporaryDirectory(prefix="mesh_store_") as root:
+        out["store"] = mesh_store(device, detail_rows, mesh4, root)
+    out["routed"] = mesh_routed(device, fusion_rows, mesh4)
+    if timed:
+        f, s, r = out["fused"], out["store"], out["routed"]
+        log(f"mesh (b) fused waves on {mesh4!r}: "
+            + "; ".join(f"{name} {v['sizes']} tickets, buckets {v['buckets']}"
+                        for name, v in f.items())
+            + ", one sharded wave each, every ticket == serial")
+        log(f"mesh (c) AdmissionPolicy(mesh=...): {out['intake']['admission_requests']} "
+            f"requests coalesced == tick == the rules on {out['intake']['admission_shards']} "
+            f"shards; scheduler flushed at max_batch 2 x {out['intake']['admission_shards']}")
+        log(f"mesh (d) store: A saved {s['A']['saves']} entries (the 'shard' entry present: "
+            f"{s['A']['shard_entry']}); B's first call: {s['B']['persist_hits']} store hits, "
+            f"{s['B']['persist_misses']} misses, == A bit for bit")
+        log(f"mesh (e) ROUTED sharded execute_many: == FROID serial, {r['many_keys']} "
+            f"sampled configuration(s), each keyed by the shard token; HEKATON sharded "
+            f"== FROID serial, results on {r['result_devices']}")
+    return out
+
+
+def mesh_phase() -> dict:
+    """The mesh on the card: (a)-(e) over meshes naming ``cuda:0`` 2 and 4
+    times; (f) where there are several cards, (a)-(e) again over a mesh of
+    every card."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = mesh_run(None, INVOCATION_ROWS["detail"], 20_000, MESH_SWEEP, MESH_ROUNDS,
+                   timed=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        from repro_torch.launch.mesh import make_small_mesh
+
+        log(f"mesh (f) over every card: make_small_mesh(data={cards})")
+        out["all_cards"] = mesh_run(None, INVOCATION_ROWS["detail"], 20_000, MESH_SWEEP,
+                                    MESH_ROUNDS, timed=True,
+                                    meshes={f"cards{cards}": make_small_mesh(data=cards)})
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        out["all_cards"] = None
+        log("mesh (f) not run: one CUDA device here, and a mesh over several cards "
+            "needs as many (make_small_mesh never maps a missing card onto another)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh phase ok in {out['seconds']:.1f} s")
+    return out
+
+
 def intake_check(model, reqs, want: dict) -> dict:
     """(c): ``ServeEngine.submit`` each request then ``drain``: the
     completions (verdicts, greedy and sampled tokens) equal ``run``'s
@@ -4877,6 +5226,12 @@ def main() -> int:
             log(relagg_times_line(label, t))
         print(json.dumps({"card": card, "tree": str(ROOT), "relagg": times}), flush=True)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        _build.load("relagg")
+        out = mesh_phase()
+        print(json.dumps({"card": card, "cards": torch.cuda.device_count(), "mesh": out},
+                         default=str), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -4934,6 +5289,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fleet = fleet_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase()
     log(f"iterative phase ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4974,7 +5332,7 @@ def main() -> int:
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
                     "invocation": invocation, "fused": fused, "routed": routed,
-                    "fleet": fleet,
+                    "fleet": fleet, "mesh": mesh,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
@@ -5036,7 +5394,14 @@ def main() -> int:
                 for n in ("Q5", "Q12")},
              **{f"routed_fresh_fleet/drain{i}": d["relagg_launches"]
                 for i, d in enumerate(fleet["routing"]["fresh_fleet"])},
-             "two_threads": fleet["relagg_threads"]["launches"]}},
+             "two_threads": fleet["relagg_threads"]["launches"]},
+         # the mesh phase, the count set to 0 just before each timed call:
+         # (a) an execute_many call of key_total unsharded, and sharded over
+         # cuda:0 named 2 and 4 times (one unbatched launch a shard)
+         "launches_mesh": {
+             f"key_total/{label}/N{n}": r["relagg_launches_per_call"]
+             for n, row in mesh["key_total"].items() for label, r in row.items()
+             if isinstance(r, dict)}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:36",

@@ -1,5 +1,6 @@
-"""Port of ``src/repro/core/policy.py:1-264``:
-a copy without the mesh/sharding members.
+"""Port of ``src/repro/core/policy.py:1-264``: a copy, whose
+``shard_token`` names devices by ``(type, index)`` (the port's mesh may
+name one device more than once, see :mod:`repro_torch.launch.mesh`).
 
 Execution policies: the paper's experiment axes as one value object.
 
@@ -65,6 +66,18 @@ class ExecutionPolicy:
     #: at the bound a new dispatch first blocks on the oldest in-flight one
     #: (backpressure — a runaway producer cannot queue unbounded device work)
     max_inflight: int = dataclasses.field(default=64, compare=False)
+
+    # -- mesh-sharding knobs (tuning like the batch knobs: never part of
+    # plan/executable identity — the sharded-executable cache tier keys on
+    # shard_token() separately, so policies that differ only here still
+    # share plans and the single-device executables) -----------------------
+    #: device mesh sharded `execute_many` places batches on (None = the
+    #: session's device; axes named per repro_torch.dist.sharding)
+    mesh: object = dataclasses.field(default=None, compare=False, repr=False)
+    #: shard the stacked parameter axis of `execute_many` buckets over the
+    #: mesh's data axes; divisibility-gated per bucket — buckets the data
+    #: axes don't divide run on the replicated single-device path
+    shard_batches: bool = dataclasses.field(default=False, compare=False)
 
     # -- multi-statement fusion knobs (tuning like the batch/shard knobs:
     # never part of plan/executable identity — the fused-executable cache
@@ -146,6 +159,12 @@ class ExecutionPolicy:
                           else max_inflight),
         )
 
+    def sharded(self, mesh, shard_batches: bool = True) -> "ExecutionPolicy":
+        """The same policy placing `execute_many` batches on ``mesh``."""
+        return dataclasses.replace(
+            self, name=self.name, mesh=mesh, shard_batches=shard_batches,
+        )
+
     def fused(self, fuse: bool | None = None,
               max_fused_statements: int | None = None) -> "ExecutionPolicy":
         """The same policy with different multi-statement fusion knobs."""
@@ -169,6 +188,34 @@ class ExecutionPolicy:
         if persist == self.persist:
             return self
         return dataclasses.replace(self, name=self.name, persist=persist)
+
+    def shard_devices(self) -> int:
+        """Data-parallel shard count batched execution may spread over:
+        the mesh's data-axis product when sharding is on, else 1."""
+        if not (self.shard_batches and self.mesh is not None
+                and self.compile_plan):
+            return 1
+        from repro_torch.dist.sharding import data_axis_size
+
+        return data_axis_size(self.mesh)
+
+    def shard_token(self) -> tuple:
+        """Hashable identity of the sharding placement for the sharded-
+        executable cache tier: the mesh's axis layout plus the device at
+        each mesh position, in mesh order, as ``(type, index)`` (a rebuilt
+        mesh over the same devices hits; another device set or shape
+        re-specializes, and a mesh naming ``cuda:0`` twice differs from
+        one naming it four times)."""
+        if self.shard_devices() <= 1:
+            return ()
+        tok = self.__dict__.get("_shard_tok")
+        if tok is None:
+            mesh = self.mesh
+            axes = tuple((str(a), int(s)) for a, s in mesh.shape.items())
+            devices = tuple((d.type, d.index) for d in mesh.devices.flat)
+            tok = (axes, devices)
+            object.__setattr__(self, "_shard_tok", tok)
+        return tok
 
     @classmethod
     def from_kwargs(

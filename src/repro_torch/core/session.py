@@ -19,6 +19,13 @@ batched and async paths.
   chunked at ``policy.max_batch`` and pipelined; ``execute_async``
   dispatches and returns an :class:`AsyncResult` whose marker is a
   ``torch.cuda.Event`` recorded after the dispatch.
+* A policy carrying a mesh (``policy.sharded(mesh)``,
+  :mod:`repro_torch.launch.mesh`) shards the stacked parameter axis of
+  ``execute_many`` and of a fused wave over the mesh's data axes: each
+  block runs the same vmapped plan on its position's device, against a
+  catalog replica kept there, on that device's current stream, and the
+  host waits on one event per device (the **shard cache**, keyed as the
+  reference's).
 * ``execute_fused`` runs a mixed queue of *different* prepared statements
   as one fused wave (:mod:`repro_torch.fuse`): the subtrees they share run
   once, each member's plan is one ``torch.func.vmap`` over its tickets,
@@ -47,10 +54,10 @@ stats).  The keys are the reference's, content-derived
 pickled, and a hit runs the loaded plan.  Every store failure degrades to
 a rebuild, as in the reference.  The cost router warm-starts from the
 store (``_load_costs``) and ``save_costs`` writes its measured tables.
-Not ported yet: the mesh (ROADMAP A10).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -377,6 +384,23 @@ def _stack_params(params_list: list[dict], device) -> dict:
     return out
 
 
+def _on_device(device):
+    """The context a shard's work runs in: its card current (so its
+    operators queue on that device's current stream); nothing on the
+    host."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _row_of(parts: list, bucket: int, j: int) -> tuple:
+    """``(part, row)`` of stacked row ``j`` of a bucket split into
+    ``len(parts)`` contiguous blocks, one a shard position (one block on
+    an unsharded path)."""
+    b = bucket // len(parts)
+    return parts[j // b], j % b
+
+
 def _vocab(dictionary) -> tuple | None:
     """Host tuple of a DictEncoding's contents."""
     if dictionary is None:
@@ -611,7 +635,8 @@ class _Executable:
     stats: dict  # logical reads of one execution
     interp: Interpreter | None = None  # the scan-mode hook, if the plan calls UDFs
     raw: Any = None  # (table_args, param_args) closure (the vmap source)
-    raw_of: Any = None  # plan -> such a closure over another plan (a loaded one)
+    raw_of: Any = None  # (plan, device) -> such a closure (a loaded plan, a shard)
+    interps: dict | None = None  # device -> its scan-mode hook, if the plan calls UDFs
 
 
 @dataclasses.dataclass
@@ -622,6 +647,18 @@ class _BatchedExecutable:
     stats: dict
     bucket: int
     interp: Interpreter | None = None  # shared with the unbatched executable
+
+
+@dataclasses.dataclass
+class _ShardedExecutable:
+    fn: Any  # (batched_pargs, catalog_token) -> [(mask (B/n, n), cols)] a position
+    plan: R.RelNode
+    out_dicts: dict  # shared with the unbatched executable's capture
+    stats: dict
+    bucket: int
+    positions: list  # the device of each block, in mesh order
+    interp: Interpreter | None = None  # the session device's scan-mode hook
+    interps: dict | None = None  # device -> scan-mode hook (rows counted over all)
 
 
 @dataclasses.dataclass
@@ -645,6 +682,7 @@ class _FusedExecutable:
     members: list  # _FuseMember descriptors, fusion order
     merged: Any = None  # repro_torch.fuse.merge.FusedPlan (sharing maps + explain)
     eval_counts: dict | None = None  # pool key -> the last run's evaluations
+    positions: list | None = None  # a sharded wave's device a position, else None
 
 
 @dataclasses.dataclass
@@ -694,6 +732,7 @@ class Session:
         self._plans: _BoundedCache = _BoundedCache(cap)
         self._execs: _BoundedCache = _BoundedCache(cap)
         self._batch_execs: _BoundedCache = _BoundedCache(cap)
+        self._shard_execs: _BoundedCache = _BoundedCache(cap)
         self._fuse_execs: _BoundedCache = _BoundedCache(cap)
         self._merge_cache: _BoundedCache = _BoundedCache(64)
         self._prepared: _BoundedCache = _BoundedCache(cap)
@@ -714,6 +753,7 @@ class Session:
             "plan_hits": 0, "plan_misses": 0,
             "exec_hits": 0, "exec_misses": 0,
             "batch_hits": 0, "batch_misses": 0,
+            "shard_hits": 0, "shard_misses": 0,
             "fuse_hits": 0, "fuse_misses": 0,
             # cross-statement CSE: evaluations avoided by sharing (constant
             # refs beyond the first + template ticket-refs beyond their
@@ -853,11 +893,12 @@ class Session:
         node = query.node if isinstance(query, Q) else query
         # the handle cache additionally keys on the non-identity knobs, so
         # two prepares with different knobs do not alias (a routed and an
-        # unrouted FROID share plans and executables, not handles)
+        # unrouted FROID, or a sharded and an unsharded one, share plans and
+        # executables, not handles)
         key = (plan_fingerprint(node), policy.fingerprint(),
                policy.max_batch, policy.coalesce_window_s, policy.allow_async,
-               policy.max_inflight, policy.fuse, policy.max_fused_statements,
-               policy.route)
+               policy.max_inflight, policy.shard_batches, policy.shard_token(),
+               policy.fuse, policy.max_fused_statements, policy.route)
         ps = self._prepared.get(key)
         if ps is None:
             ps = PreparedStatement(self, node, policy)
@@ -938,8 +979,8 @@ class Session:
                      shard_token: tuple = (), template: tuple = ()) -> tuple:
         """The cache identity as one self-describing stable tuple, the
         reference's: plan fingerprint x policy fingerprint x param
-        signature x batch bucket x shard token (always ``()`` here: no
-        mesh yet) x fused/CSE template tuple, plus the content env token.
+        signature x batch bucket x shard token x fused/CSE template
+        tuple, plus the content env token.
         ``assert_stable_key`` is the enforcement point — any process-local
         value (an ``id()``, a stamp, a live object) smuggled into a
         component raises here instead of silently degrading the
@@ -1071,6 +1112,43 @@ class Session:
         self._args_cache = (token, args)
         return args
 
+    def _catalog_on(self, device, token: tuple | None = None) -> tuple:
+        """``(args, tables)`` of the catalog on ``device``: the session's
+        own on its device; on another, a replica copied once per catalog
+        token and device (a small LRU) — the catalog every shard on that
+        device reads, and its scan-mode hook's tables."""
+        if token is None:
+            token = self._catalog_token()
+        args = self._catalog_args(token)
+        if device == self.device:
+            return args, self.catalog
+        cache = getattr(self, "_replicas", None)
+        if cache is None:
+            cache = self._replicas = _BoundedCache(8)
+        key = (token, device)
+        hit = cache.get(key)
+        if hit is None:
+            from repro_torch.dist.sharding import to_device
+
+            rargs = to_device(args, device)
+            tables = {
+                tname: Table({c: Column(data, valid,
+                                        self.catalog[tname].columns[c].dictionary)
+                              for c, (data, valid) in cols.items()})
+                for tname, cols in rargs.items()
+            }
+            hit = cache[key] = (rargs, tables)
+        return hit
+
+    def _catalog_args_replicated(self, mesh, token: tuple) -> dict:
+        """The catalog's argument structure on every distinct device of
+        ``mesh`` (``device -> args``), one replica a device: replication
+        is a real cross-device copy, made once per catalog state, not once
+        per sharded dispatch, and never twice for a device the mesh names
+        twice."""
+        return {d: self._catalog_on(d, token)[0]
+                for d in dict.fromkeys(mesh.devices.flat)}
+
     def _executable(self, node: R.RelNode, query_fp: tuple,
                     policy: ExecutionPolicy, params: dict | None,
                     env_token: tuple | None = None
@@ -1092,11 +1170,24 @@ class Session:
         # hybrid plans where the inlining budget ran out).  'scan' mode is
         # the reference's only jit-traceable interpreter, so the compiled
         # path always uses it regardless of policy.udf_mode.
-        interp = hook = None
+        interp = None
+        interps: dict = {}
         if _has_udf_calls(plan):
             interp = Interpreter(self.catalog, self.registry, mode="scan",
                                  device=self.device)
-            hook = interp.eval_udf_call
+            interps[self.device] = interp
+
+        def hook_on(dev):
+            """The scan-mode hook on ``dev``: an interpreter over the
+            catalog replica there (a shard's), made once a device."""
+            if interp is None:
+                return None
+            it = interps.get(dev)
+            if it is None:
+                it = interps[dev] = Interpreter(
+                    self._catalog_on(dev, env_token[0])[1], self.registry,
+                    mode="scan", device=dev)
+            return it.eval_udf_call
 
         # host-side metadata (dictionaries) is captured; data goes by
         # argument, so a catalog reload with the same shape reuses nothing
@@ -1113,9 +1204,11 @@ class Session:
         run_stats: dict = {}
         device = self.device
 
-        def raw_of(run_plan: R.RelNode):
-            """The closure that runs ``run_plan``: the session's own plan,
-            or one loaded from the store."""
+        def raw_of(run_plan: R.RelNode, dev=device):
+            """The closure that runs ``run_plan`` on ``dev``: the session's
+            own plan or one loaded from the store, on the session's device
+            or a shard's."""
+            hook = hook_on(dev)
 
             def raw(table_args, param_args):
                 catalog = {
@@ -1132,7 +1225,7 @@ class Session:
                     for name, (data, valid) in param_args.items()
                 }
                 ex = Executor(catalog, udf_column_evaluator=hook,
-                              use_pallas_agg=policy.pallas_agg, device=device)
+                              use_pallas_agg=policy.pallas_agg, device=dev)
                 out = ex.execute(run_plan, params=pvals)
                 for n, c in out.table.columns.items():
                     out_dicts[n] = c.dictionary
@@ -1173,7 +1266,8 @@ class Session:
                 pargs[pname] = (v.data, v.validity())
             return raw(self._catalog_args(catalog_token), pargs)
 
-        entry = _Executable(fn, plan, out_dicts, run_stats, interp, raw, raw_of)
+        entry = _Executable(fn, plan, out_dicts, run_stats, interp, raw, raw_of,
+                            interps)
         self._execs[key] = entry
         return entry, False, plan_hit
 
@@ -1226,6 +1320,79 @@ class Session:
         self._batch_execs[key] = entry
         return entry, False
 
+    def _sharded_executable(self, node: R.RelNode, query_fp: tuple,
+                            policy: ExecutionPolicy, params0: dict,
+                            sig: tuple, bucket: int,
+                            env_token: tuple | None = None
+                            ) -> tuple[_ShardedExecutable, bool]:
+        """(mesh-sharded executable, shard-cache-hit).  The same vmapped
+        program as :meth:`_batched_executable`, with the stacked parameter
+        axis split into one contiguous block per data-axis position of the
+        mesh (``repro_torch.dist.sharding.place``): each block runs on its
+        position's device, with that device's catalog replica, executor
+        and scan-mode hook (one vmapped closure per distinct device).
+        Keyed as the reference keys its sharded jit, ``(query_fp, policy,
+        env token, sig, bucket, shard_token)``.  Callers gate on
+        divisibility: a bucket the data axes don't divide never reaches
+        here (it runs on the replicated single-device path instead — rows
+        are never padded onto a mesh that doesn't fit them).  With a
+        store, the entry is the reference's ``"shard"`` key with the shard
+        token (one entry a placement): a hit runs the loaded plan on every
+        shard, a miss writes its entry behind its first run."""
+        from repro_torch.dist.sharding import batch_sharding, place, positions
+
+        if env_token is None:
+            env_token = self._env_token()
+        shard_token = policy.shard_token()
+        key = (query_fp, policy.fingerprint(), env_token, sig, bucket,
+               shard_token)
+        entry = self._shard_execs.get(key)
+        if entry is not None:
+            self.cache_stats["shard_hits"] += 1
+            return entry, True
+        self.cache_stats["shard_misses"] += 1
+        self._fault("compile", (query_fp,))
+        base, _, _ = self._executable(node, query_fp, policy, params0, env_token)
+        mesh = policy.mesh
+        parg_sharding = batch_sharding(mesh, bucket)
+        if parg_sharding is None:  # callers gate; keep the invariant loud
+            raise ValueError(
+                f"bucket {bucket} is not divisible by the mesh data axes"
+            )
+        devs = positions(parg_sharding)
+        store = self._persist_store(policy)
+        loaded = None
+        if store is not None:
+            pkey = self._persist_key("shard", query_fp, policy, sig=sig,
+                                     bucket=bucket, shard_token=shard_token)
+            loaded = self._persist_load(store, pkey)
+        run_plan = base.plan if loaded is None else loaded[0]
+        targets = {
+            d: torch.func.vmap(
+                base.raw if (d == self.device and loaded is None)
+                else base.raw_of(run_plan, d), in_dims=(None, 0))
+            for d in dict.fromkeys(devs)
+        }
+
+        def fn(batched_pargs: dict, catalog_token: tuple | None = None):
+            cats = self._catalog_args_replicated(
+                mesh, catalog_token if catalog_token is not None
+                else self._catalog_token())
+            outs = []
+            for d, block in zip(devs, place(batched_pargs, parg_sharding)):
+                with _on_device(d):
+                    outs.append(targets[d](cats[d], block))
+            return outs
+
+        if store is not None and loaded is None:
+            fn = _save_after_first_run(fn, lambda: self._persist_save(
+                store, pkey, base.plan, out_dicts=base.out_dicts,
+                stats=base.stats))
+        entry = _ShardedExecutable(fn, base.plan, base.out_dicts, base.stats,
+                                   bucket, devs, base.interp, base.interps)
+        self._shard_execs[key] = entry
+        return entry, False
+
     def synchronize(self) -> None:
         """Wait for the session's device (the reference's
         ``jax.block_until_ready``)."""
@@ -1240,6 +1407,18 @@ class Session:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         return ev
+
+    def _markers(self, devices) -> list:
+        """One ``torch.cuda.Event`` a distinct card among ``devices``,
+        recorded on its current stream after the work queued so far (the
+        host's wait for a sharded dispatch); none for host devices."""
+        out = []
+        for d in dict.fromkeys(devices):
+            if d.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                out.append(ev)
+        return out
 
     # -- multi-statement fusion ----------------------------------------------
     def _merged_for(self, members: list, env_token: tuple):
@@ -1264,7 +1443,7 @@ class Session:
         return merged
 
     def _fused_executable(self, members: list, policy: ExecutionPolicy,
-                          env_token: tuple, merged, groups: list,
+                          shard: bool, env_token: tuple, merged, groups: list,
                           member_tmaps: list, slot_names: list,
                           template_token: tuple
                           ) -> tuple[_FusedExecutable, bool]:
@@ -1283,11 +1462,20 @@ class Session:
         is the reference's: member keys x template token, no stamps, no
         ids); a hit runs the loaded member plans (:meth:`_loaded_fused`),
         and the compile fault seam fires only on a store miss, as in the
-        reference.  The reference's sharded placement (ROADMAP A10) is not
-        ported."""
+        reference.
+
+        A sharded wave (``shard``) runs the program once a data-axis
+        position of the policy's mesh, on that position's device: each
+        batched member's stacked axis is split into contiguous blocks,
+        while parameter-free members, template pools and the shared
+        subtrees are computed on every shard (replicated, as XLA's SPMD
+        partitioner would).  Its key adds the shard token, and it is not
+        persisted (the reference's members fall back to their shard-tier
+        entries instead)."""
+        shard_token = policy.shard_token() if shard else ()
         key = (tuple(m.key for m in members),
                tuple(_stamp(m.plan) for m in members), policy.fingerprint(),
-               env_token, template_token)
+               env_token, shard, shard_token, template_token)
         entry = self._fuse_execs.get(key)
         if entry is not None:
             self.cache_stats["fuse_hits"] += 1
@@ -1296,6 +1484,9 @@ class Session:
         from repro_torch.fuse.program import build_fused_raw
         from repro_torch.persist import codec as _codec
 
+        if shard:
+            return self._sharded_fused(key, members, policy, merged, groups,
+                                       member_tmaps, slot_names)
         store = self._persist_store(policy)
         loaded = None
         if store is not None:
@@ -1330,6 +1521,54 @@ class Session:
 
         entry = _FusedExecutable(fn, [m.plan for m in members], out_dicts,
                                  run_stats, members, merged, eval_counts)
+        self._fuse_execs[key] = entry
+        return entry, False
+
+    def _sharded_fused(self, key: tuple, members: list, policy: ExecutionPolicy,
+                       merged, groups: list, member_tmaps: list,
+                       slot_names: list) -> tuple[_FusedExecutable, bool]:
+        """The sharded fused executable (see :meth:`_fused_executable`):
+        one fused closure per distinct device of the mesh's data-axis
+        positions; ``fn`` returns one member tuple a position.  The entry's
+        dictionaries, stats and pool counts are the first position's (the
+        shards run the same program)."""
+        from repro_torch.dist.sharding import (batch_sharding, data_axis_size,
+                                               place, positions,
+                                               replicated_sharding)
+        from repro_torch.fuse.program import build_fused_raw
+
+        self._fault("compile", tuple(m.key[0] for m in members))
+        mesh = policy.mesh
+        split = batch_sharding(mesh, data_axis_size(mesh))
+        rep = replicated_sharding(mesh)
+        devs = positions(split)
+        specs = [g.spec() for g in groups]
+        built = {d: build_fused_raw(self, members, policy, merged, specs,
+                                    member_tmaps, slot_names, device=d)
+                 for d in dict.fromkeys(devs)}
+
+        def replicated(tree) -> dict:
+            return dict(zip(positions(rep), place(tree, rep)))
+
+        def fn(pargs_tuple, targs_tuple, catalog_token: tuple | None = None):
+            cats = self._catalog_args_replicated(
+                mesh, catalog_token if catalog_token is not None
+                else self._catalog_token())
+            targs = replicated(targs_tuple)
+            blocks = [place(p, split) if m.sig else replicated(p)
+                      for p, m in zip(pargs_tuple, members)]
+            outs = []
+            for i, d in enumerate(devs):
+                pargs = tuple(b[i] if m.sig else b[d]
+                              for b, m in zip(blocks, members))
+                with _on_device(d):
+                    outs.append(built[d][0](cats[d], pargs, targs[d]))
+            return outs
+
+        _, out_dicts, run_stats, merged, eval_counts = built[devs[0]]
+        entry = _FusedExecutable(fn, [m.plan for m in members], out_dicts,
+                                 run_stats, members, merged, eval_counts,
+                                 positions=devs)
         self._fuse_execs[key] = entry
         return entry, False
 
@@ -1415,13 +1654,13 @@ class Session:
                 order.append(k)
             ent["idxs"].append(idx)
             ent["params"].append(params)
-        # one fused wave per drain: tickets beyond the batch bound ride the
-        # per-statement path (already batched + pipelined).  max_batch is a
-        # non-identity knob, so fingerprint-equal members may disagree —
-        # honor the strictest bound (and keep the cap, and therefore the
-        # buckets and cache keys, arrival-order independent).  The
-        # reference multiplies the cap by the mesh's devices (ROADMAP A10).
-        cap = max(1, min(s.policy.max_batch for _, s, _ in group))
+        # one fused wave per drain: tickets beyond the mesh-scaled batch
+        # bound ride the per-statement path (already batched + pipelined).
+        # max_batch is a non-identity knob, so fingerprint-equal members
+        # may disagree — honor the strictest bound (and keep the cap, and
+        # therefore the buckets and cache keys, arrival-order independent)
+        cap = max(1, min(s.policy.max_batch for _, s, _ in group)
+                  * policy.shard_devices())
         for k in order:
             ent = by_key[k]
             if len(ent["params"]) > cap:
@@ -1444,7 +1683,34 @@ class Session:
                       for name, v in ent["params"][0].items()}
             members.append(_FuseMember(plan, ent["sig"], bucket, pdicts,
                                        (stmt._query_fp, ent["sig"], bucket)))
-        # the reference places the wave over a mesh here (ROADMAP A10)
+        devices = policy.shard_devices()
+        shard = False
+        if devices > 1:
+            from repro_torch.dist.sharding import data_axis_size, pick_data_axes
+
+            # one program, one placement: shard whenever ANY batched
+            # member's bucket divides the data axes.  A non-dividing
+            # batched member pads its bucket up to the next multiple of the
+            # data-axis product (padding repeats the last ticket, exactly
+            # like power-of-two bucket padding), so every batched member
+            # splits over the same positions.  The cap is max_batch ×
+            # devices — itself a multiple of the product — so a padded
+            # bucket never exceeds it.  Only when NO batched member divides
+            # (or none is batched) does the wave replicate; parameter-free
+            # members are unbatched and always replicate.  (On a pod mesh,
+            # a bucket that divides ``data`` alone pads too: the reference
+            # splits it over ``data`` and replicates it over ``pod``.)
+            mesh = policy.mesh
+            n = data_axis_size(mesh)
+            full = pick_data_axes(mesh, n)
+            batched = [m for m in members if m.sig]
+            shard = any(pick_data_axes(mesh, m.bucket) is not None
+                        for m in batched)
+            if shard:
+                for m in batched:
+                    if pick_data_axes(mesh, m.bucket) != full:
+                        m.bucket += (-m.bucket) % n
+                        m.key = (m.key[0], m.key[1], m.bucket)
         # cross-statement CSE: plan the template binding pools from the
         # wave's actual ticket values (the merge maps are cached; only the
         # binding dedup runs per wave)
@@ -1492,16 +1758,21 @@ class Session:
             for g in groups)
         stack_s = time.perf_counter() - t0
         entry, hit = self._fused_executable(
-            members, policy, env_token, merged, groups, member_tmaps,
+            members, policy, shard, env_token, merged, groups, member_tmaps,
             slot_names, template_token)
         t0 = time.perf_counter() - stack_s
         wave_fps = tuple(m.key[0] for m in members)
         self._fault("dispatch", wave_fps)
         outs = entry.fn(tuple(pargs_tuple), targs_tuple, env_token[0])
-        event = self._marker()
+        if shard:
+            events = self._markers(entry.positions)
+        else:
+            outs = [outs]
+            events = [ev for ev in (self._marker(),) if ev is not None]
         return {"members": members, "order": order, "by_key": by_key,
                 "merged": merged, "groups": groups, "slot_maps": slot_maps,
-                "entry": entry, "hit": hit, "outs": outs, "event": event,
+                "entry": entry, "hit": hit, "outs": outs, "events": events,
+                "shard": shard, "devices": devices,
                 "t0": t0, "dispatch_s": time.perf_counter() - t0,
                 "wave_fps": wave_fps}
 
@@ -1511,8 +1782,8 @@ class Session:
         members, order, by_key = rec["members"], rec["order"], rec["by_key"]
         merged, groups, entry = rec["merged"], rec["groups"], rec["entry"]
         self._fault("sync", rec["wave_fps"])
-        if rec["event"] is not None:
-            rec["event"].synchronize()
+        for ev in rec["events"]:
+            ev.synchronize()
         elapsed = time.perf_counter() - rec["t0"]
         t_dispatch = rec["dispatch_s"]
         n_stmts = len({m.key[0] for m in members})
@@ -1543,7 +1814,8 @@ class Session:
         fused_explain = merged.explain()
         for j, (m, k) in enumerate(zip(members, order)):
             ent = by_key[k]
-            mask, cols = rec["outs"][j]
+            # one member tuple a shard position (one on an unsharded wave)
+            parts = [out[j] for out in rec["outs"]]
             stats = {
                 **entry.stats, "compiled": True, "batched": True,
                 "fused": True, "fused_programs": 1,
@@ -1563,12 +1835,17 @@ class Session:
                 "wave_tickets": n_tickets,
                 "fused_explain": fused_explain,
             }
+            if rec["shard"]:
+                stats["sharded"] = True
+                stats["shard_devices"] = rec["devices"]
             out_dicts = entry.out_dicts[j]
 
             if not m.sig:
                 # unbatched member: one shared materialization serves
                 # every ticket (distinct QueryResult shells, like
-                # execute_many's parameter-free group)
+                # execute_many's parameter-free group); every shard
+                # computed it, and the first position's answers
+                mask, cols = parts[0]
                 cell: dict = {}
 
                 def mat_shared(mask=mask, cols=cols, out_dicts=out_dicts,
@@ -1589,7 +1866,8 @@ class Session:
                     )
                 continue
 
-            def materialize(row, mask=mask, cols=cols, out_dicts=out_dicts):
+            def materialize(j, parts=parts, bucket=m.bucket, out_dicts=out_dicts):
+                (mask, cols), row = _row_of(parts, bucket, j)
                 table = Table(
                     {n: Column(data[row], valid[row], out_dicts.get(n))
                      for n, (data, valid) in cols.items()}
@@ -1728,6 +2006,16 @@ class PreparedStatement:
         split into chunks.  Returns one :class:`QueryResult` per input, in
         input order, element-wise equal to the serial ``execute`` loop.
 
+        A policy carrying a mesh (``policy.sharded(mesh)``) shards the
+        stacked parameter axis over the mesh's data axes: ``max_batch``
+        bounds the *per-device* batch, so one mesh dispatch carries up to
+        ``max_batch × shard_devices()`` parameter sets, and each position's
+        block runs on its device (``stats['sharded']``,
+        ``stats['shard_devices']``).  Sharding is divisibility-gated per
+        bucket — buckets the data axes don't divide (small remainders,
+        tiny batches) run on the replicated single-device path, re-chunked
+        to ``max_batch``, never padded onto a mesh that doesn't fit.
+
         Chunked dispatches are **pipelined**: every chunk is dispatched
         before any chunk is waited for (bounded by ``policy.max_inflight``
         unsynced dispatches — past the bound a new dispatch first waits for
@@ -1755,7 +2043,8 @@ class PreparedStatement:
             groups.setdefault(param_signature(p), []).append(i)
         results: list[QueryResult | None] = [None] * len(params_list)
         pending: list[dict] = []  # dispatched-but-unsynced chunk records
-        cap = max(1, self.policy.max_batch)
+        # mesh capacity: max_batch bounds the per-device batch
+        cap = max(1, self.policy.max_batch * self.policy.shard_devices())
         for sig, idxs in groups.items():
             if not sig:
                 # parameter-free: every invocation is the same program run —
@@ -1791,11 +2080,30 @@ class PreparedStatement:
             # that beats the natural one's estimated first-run cost (bucket
             # >= k always holds — rides only go up, and padding repeats the
             # last set); the bucket picks the executable
-            bucket = router.choose_bucket(self, sig, k, bucket, cap, shard=False)
-        entry, hit = self.session._batched_executable(
-            self.node, self._query_fp, self.policy, plist[0], sig, bucket,
-            env_token,
-        )
+            bucket = router.choose_bucket(
+                self, sig, k, bucket, cap,
+                shard=self.policy.shard_devices() > 1)
+        devices = self.policy.shard_devices()
+        shard = False
+        if devices > 1:
+            from repro_torch.dist.sharding import pick_data_axes
+
+            shard = pick_data_axes(self.policy.mesh, bucket) is not None
+            if not shard:
+                # replicated fallback: the mesh-capacity bucket would land
+                # whole on one device, so re-chunk to the per-device bound
+                # (max_batch is a single-device promise, not just a knob)
+                mb = max(1, self.policy.max_batch)
+                if k > mb:
+                    for s in range(0, k, mb):
+                        self._dispatch_batch(idxs[s:s + mb], plist[s:s + mb],
+                                             sig, env_token, pending, mb)
+                    return
+                bucket = batch_bucket(k, mb)
+        make = (self.session._sharded_executable if shard
+                else self.session._batched_executable)
+        entry, hit = make(self.node, self._query_fp, self.policy, plist[0],
+                          sig, bucket, env_token)
         # runahead bound: past max_inflight unsynced chunks, wait for the
         # oldest before issuing another dispatch (the same backpressure rule
         # as execute_async — the host cannot queue unbounded device work)
@@ -1803,26 +2111,33 @@ class PreparedStatement:
         unsynced = [r for r in pending if not r["synced"]]
         while len(unsynced) >= bound:
             oldest = unsynced.pop(0)
-            if oldest["event"] is not None:
-                oldest["event"].synchronize()
+            for ev in oldest["events"]:
+                ev.synchronize()
             oldest["synced"] = True
         # pad to the bucket by repeating the last param set; padding rows
         # are computed and discarded (never surfaced in results)
         padded = plist + [plist[-1]] * (bucket - k)
-        rows_before = entry.interp.rows_driven if entry.interp else 0
+        # a sharded plan's row loop runs once a shard, on its device's hook
+        interps = ([] if entry.interp is None
+                   else list(entry.interps.values()) if shard else [entry.interp])
+        rows_before = sum(it.rows_driven for it in interps)
         t0 = time.perf_counter()
         pargs = _stack_params(padded, self.session.device)
         self.session._fault("dispatch", (self._query_fp,))
-        mask, cols = entry.fn(pargs, env_token[0])
-        event = self.session._marker()
+        if shard:
+            parts = entry.fn(pargs, env_token[0])
+            events = self.session._markers(entry.positions)
+        else:
+            parts = [entry.fn(pargs, env_token[0])]
+            events = [ev for ev in (self.session._marker(),) if ev is not None]
         t_dispatch = time.perf_counter() - t0
         pending.append({
-            "idxs": idxs, "entry": entry, "hit": hit, "mask": mask,
-            "cols": cols, "k": k, "bucket": bucket, "t0": t0,
-            "dispatch_s": t_dispatch, "event": event, "synced": False,
-            "sig": sig,
-            "udf_rows": (entry.interp.rows_driven - rows_before
-                         if entry.interp else None),
+            "idxs": idxs, "entry": entry, "hit": hit, "parts": parts,
+            "k": k, "bucket": bucket, "shard": shard, "devices": devices,
+            "t0": t0, "dispatch_s": t_dispatch, "events": events,
+            "synced": False, "sig": sig,
+            "udf_rows": ((sum(it.rows_driven for it in interps) - rows_before)
+                         // len(parts) if interps else None),
         })
 
     def _finalize_batch(self, rec: dict, results: list,
@@ -1831,10 +2146,10 @@ class PreparedStatement:
         QueryResults.  ``sync_s`` is the wait from dispatch end to this
         chunk's barrier arrival — under pipelining that wait overlaps the
         later chunks' host-side stacking, which is the point."""
-        entry, mask, cols = rec["entry"], rec["mask"], rec["cols"]
+        entry, parts = rec["entry"], rec["parts"]
         self.session._fault("sync", (self._query_fp,))
-        if rec["event"] is not None:
-            rec["event"].synchronize()
+        for ev in rec["events"]:
+            ev.synchronize()
         rec["synced"] = True
         elapsed = time.perf_counter() - rec["t0"]
         stats = {
@@ -1848,19 +2163,24 @@ class PreparedStatement:
             # by wave_tickets or they double-count the chunk
             "wave_tickets": rec["k"],
         }
+        if rec["shard"]:
+            stats["sharded"] = True
+            stats["shard_devices"] = rec["devices"]
         if rec["udf_rows"] is not None:
             stats["udf_rows"] = rec["udf_rows"]
         router = self.session.cost_router
         if router is not None:
             router.observe_many(self._query_fp, self.policy, rec["sig"],
-                                rec["bucket"], elapsed, rec["k"], shard=False)
+                                rec["bucket"], elapsed, rec["k"],
+                                shard=rec["shard"])
 
         def materialize(j: int) -> MaskedTable:
+            (mask, cols), r = _row_of(parts, rec["bucket"], j)
             table = Table(
-                {n: Column(data[j], valid[j], entry.out_dicts.get(n))
+                {n: Column(data[r], valid[r], entry.out_dicts.get(n))
                  for n, (data, valid) in cols.items()}
             )
-            return MaskedTable(table, mask[j])
+            return MaskedTable(table, mask[r])
 
         for j, i in enumerate(rec["idxs"]):
             results[i] = QueryResult(

@@ -1,9 +1,8 @@
 """Port of ``src/repro/cost/router.py``: a copy (host only, no device
 work) over the port's policy and :mod:`repro_torch.cost.model` (the H100's
-peaks).  The port's policy has no mesh (ROADMAP A10), so nothing here is
-sharded: ``shard`` is always False, the shard token in every key is
-``()`` (the reference's key shapes, so exported state reads the same),
-``shard=True`` raises naming A10, and a bucket spreads over one device.
+peaks).  A sharded configuration's keys carry the policy's shard token in
+the reference's position, and its estimates spread a bucket over the
+mesh's data-axis devices.
 
 Online cost router: measured wave costs + static estimates → the
 cheapest configuration per statement and per drain wave.
@@ -85,12 +84,6 @@ def _fused_key(member_fps) -> tuple:
     seam sees one fp per (statement, signature) member while the routing
     seam sees one per statement — the same wave must hit the same key."""
     return ("fused", tuple(sorted(set(member_fps), key=repr)))
-
-
-def _unsharded(shard: bool) -> None:
-    if shard:
-        raise NotImplementedError(
-            "sharded routing needs the mesh, which is not ported yet (ROADMAP A10)")
 
 
 @dataclasses.dataclass
@@ -190,10 +183,10 @@ class CostRouter:
 
     def observe_many(self, query_fp, policy: ExecutionPolicy, sig, bucket: int,
                      wave_s: float, tickets: int, *, shard: bool) -> None:
-        _unsharded(shard)
         pol_fp = policy.fingerprint()
+        shard_token = policy.shard_token() if shard else ()
         self._observe(
-            ("many", query_fp, pol_fp, sig, (), bucket), wave_s,
+            ("many", query_fp, pol_fp, sig, shard_token, bucket), wave_s,
             coarse=("many", query_fp, pol_fp), tickets=tickets,
         )
 
@@ -332,10 +325,10 @@ class CostRouter:
         """Bucket for ``k`` same-signature tickets: the natural power-of-
         two bucket, or a larger already-measured one when riding it is
         estimated cheaper than cold-compiling the natural bucket."""
-        _unsharded(shard)
         pol = stmt.policy
         pol_fp = pol.fingerprint()
-        prefix = ("many", stmt._query_fp, pol_fp, sig, ())
+        shard_token = pol.shard_token() if shard else ()
+        prefix = ("many", stmt._query_fp, pol_fp, sig, shard_token)
         warm = self._warm_many.get(prefix)
         if not warm or natural in warm:
             return natural
@@ -343,9 +336,10 @@ class CostRouter:
         if not rides:
             return natural
         plan = self._plan_for(stmt, pol)
+        devices = pol.shard_devices() if shard else 1
         cold_s = (estimate_compile_s(plan)
                   + estimate_statement_s(plan, self.session.catalog,
-                                         bucket=natural, devices=1))
+                                         bucket=natural, devices=devices))
         ride_bucket, ride_ema = min(rides.items(),
                                     key=lambda be: be[1].wave_s)
         if ride_ema.wave_s < cold_s:

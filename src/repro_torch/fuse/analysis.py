@@ -1,6 +1,4 @@
-"""Port of ``src/repro/fuse/analysis.py``: a copy (host only), with one
-difference: a policy of the port has no mesh yet (ROADMAP A10), so the
-group key is the policy fingerprint alone.
+"""Port of ``src/repro/fuse/analysis.py``: a copy (host only).
 
 Fusability analysis: which calls of a mixed-statement queue may share
 one fused device program, and which must fall back.
@@ -36,10 +34,9 @@ from repro_torch.fuse.merge import plan_is_pure, subtree_shape
 
 
 def fusion_group_key(stmt) -> tuple:
-    """Compatibility key: calls fuse only within one of these.  The
-    reference adds the policy's shard devices and shard token; the port's
-    policies have no mesh (ROADMAP A10)."""
-    return (stmt.policy.fingerprint(),)
+    """Compatibility key: calls fuse only within one of these."""
+    p = stmt.policy
+    return (p.fingerprint(), p.shard_devices(), p.shard_token())
 
 
 def _plan_pure_cached(stmt) -> bool:

@@ -146,8 +146,10 @@ def _plans_have_udf_calls(plans) -> bool:
 
 
 def build_fused_raw(session, members, policy, merged=None, groups=(),
-                    member_tmaps=(), slot_names=()):
-    """Build the fused raw closure for ``members`` (see module docstring).
+                    member_tmaps=(), slot_names=(), device=None):
+    """Build the fused raw closure for ``members`` (see module docstring),
+    running on ``device`` (default: the session's; a shard's otherwise,
+    reading the session's catalog replica there).
 
     ``groups`` are the session's template pool groups (canonical node,
     hole names/dictionaries, one per (template, binding-signature)),
@@ -171,10 +173,10 @@ def build_fused_raw(session, members, policy, merged=None, groups=(),
     # 'scan' mode is the only interpreter that runs inside a vmapped plan
     # (see Session._executable)
     hook = None
-    device = session.device
+    device = session.device if device is None else device
     if _plans_have_udf_calls(plans):
-        interp = Interpreter(session.catalog, session.registry, mode="scan",
-                             device=device)
+        interp = Interpreter(session._catalog_on(device)[1], session.registry,
+                             mode="scan", device=device)
         hook = interp.eval_udf_call
 
     meta = {

@@ -1,1 +1,1 @@
-"""Port of ``src/repro/launch``: the serving launcher (the train and dry-run launchers wait, ROADMAP A16)."""
+"""Port of ``src/repro/launch``: device meshes and the serving launcher (the train and dry-run launchers wait, ROADMAP A16)."""

@@ -19,8 +19,9 @@ and coalesces concurrent submits on a
 INTERPRETED and HEKATON the rules run on the port's per-row interpreter,
 on the same device.  ``store`` (a ``PlanStore`` or a directory) is
 shared by the tick session and the request session, so the request
-statement warm-starts from it across engine restarts.  Not ported yet:
-``mesh`` (ROADMAP A10).
+statement warm-starts from it across engine restarts.  ``mesh`` shards the
+per-request batches' stacked request axis over the mesh's data axes (the
+tick path is eager and unaffected).
 """
 from __future__ import annotations
 
@@ -124,10 +125,6 @@ def _compiled_variant(policy: ExecutionPolicy) -> ExecutionPolicy:
     )
 
 
-def _waits(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
 class AdmissionPolicy:
     """Evaluates the rules over the queued-request table, set-oriented, on
     ``device`` (the card unless ``device="cpu"``).
@@ -138,8 +135,9 @@ class AdmissionPolicy:
     per-request coalescing path (``fuse``: mixed-statement waves, e.g.
     custom rule statements sharing the request session, drain as one fused
     wave; ``timeout_s``: the default per-ticket deadline; an expired ticket
-    sheds with a typed ``DeadlineExceeded``).  ``store``: the persistent
-    plan store (a ``PlanStore`` or a path) both sessions share.
+    sheds with a typed ``DeadlineExceeded``; ``mesh``: the device mesh the
+    per-request batches shard over).  ``store``: the persistent plan store
+    (a ``PlanStore`` or a path) both sessions share.
     """
 
     def __init__(self, froid: bool = True,
@@ -147,14 +145,13 @@ class AdmissionPolicy:
                  scheduler: CoalescingScheduler | None = None, mesh=None,
                  fuse: bool = False, adaptive: bool = False,
                  timeout_s: float | None = None, store=None):
-        if mesh is not None:
-            _waits("sharded admission (mesh)", "A10")
         self.session = Session(device=device, store=store)
         default_rules(self.session)
         if policy is None:
             policy = FROID if froid else INTERPRETED
         # the queue table is re-loaded every tick: run the policy eagerly
         self.policy = resolve_policy(policy).eager()
+        self.mesh = mesh
         self._query = _tick_query()
         # per-request path: a second session sharing the rule registry but
         # with an empty catalog, so the request statement's cache key is
@@ -191,8 +188,11 @@ class AdmissionPolicy:
     def request_statement(self):
         """The rules as one prepared parameterized statement (lazy)."""
         if self._request_stmt is None:
+            policy = _compiled_variant(self.policy)
+            if self.mesh is not None:
+                policy = policy.sharded(self.mesh)
             self._request_stmt = self._request_session.prepare(
-                _request_query(), _compiled_variant(self.policy)
+                _request_query(), policy
             )
         return self._request_stmt
 

@@ -23,8 +23,9 @@ Two intake shapes, as in the reference:
 
 ``admission_fuse`` drains mixed-statement admission waves as one fused
 wave; ``admission_store`` (a ``PlanStore`` or a path) warm-starts the
-admission statement across engine restarts; ``admission_mesh`` waits for
-the mesh (ROADMAP A10).
+admission statement across engine restarts; ``admission_mesh`` shards the
+online (``submit``/``drain``) admission batches over a device mesh
+(:mod:`repro_torch.launch.mesh`).
 """
 from __future__ import annotations
 

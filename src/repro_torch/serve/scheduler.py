@@ -1,6 +1,4 @@
-"""Copy of ``src/repro/serve/scheduler.py``, with one difference:
-``_max_batch`` has no mesh multiplier, since the port's policy has no mesh
-(ROADMAP A10).
+"""Copy of ``src/repro/serve/scheduler.py``.
 
 Coalescing microbatch scheduler: per-request submits, set-oriented drains.
 
@@ -215,11 +213,10 @@ class CoalescingScheduler:
 
     # -- knob resolution ----------------------------------------------------
     def _max_batch(self, stmt: PreparedStatement) -> int:
-        # the reference multiplies by stmt.policy.shard_devices()
-        # (src/repro/serve/scheduler.py:217): the port's policy has no mesh
-        # yet (ROADMAP A10), so the bound is one device's
-        return (self.max_batch if self.max_batch is not None
+        base = (self.max_batch if self.max_batch is not None
                 else stmt.policy.max_batch)
+        # mesh-sized buckets: per-device bound × data-parallel shard count
+        return base * stmt.policy.shard_devices()
 
     def _window(self, stmt: PreparedStatement) -> float:
         return (self.window_s if self.window_s is not None

@@ -174,3 +174,27 @@ def test_flash_variant_edits_apply_once(smoke, name):
     src = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu").read_text()
     for old, new in smoke.FLASH_VARIANTS[name]:
         assert src.count(old) == 1 and old != new
+
+
+def test_mesh_fused_specs_are_the_sharded_tests_specs(smoke):
+    """The mesh phase's (b) drains ``tests/test_fused.py:434-457``'s
+    mixed-divisibility spec and the padded one the port's sharded tests
+    hold to the reference's figures."""
+    from test_torch_sharded_many import FUSED_SPECS
+
+    assert smoke.MESH_FUSED_SPECS == {"mixed_divisibility": FUSED_SPECS["fused_mixed"],
+                                      "padded": FUSED_SPECS["fused_padded"]}
+
+
+def test_mesh_phase_rehearsal(smoke):
+    """``mesh_run`` on the CPU at 3,000 ``detail`` rows: every check of
+    (a)-(e) passes on meshes naming the CPU 2 and 4 times."""
+    out = smoke.mesh_run("cpu", 3000, 3000, (32,), 1, timed=False)
+    row = out["key_total"][32]
+    assert [row[x]["shard_devices"] for x in ("unsharded", "x2", "x4")] == [1, 2, 4]
+    assert row["x2"]["bit_equal_to_unsharded"] and row["x4"]["bit_equal_to_unsharded"]
+    assert row["shard_hits_warm_calls"] == 2
+    assert out["fused"]["padded"]["buckets"] == [1, 4, 8]
+    assert out["intake"]["flush_size"] == 8
+    assert out["store"]["B"]["persist_hits"] == 2 and out["store"]["A"]["shard_entry"]
+    assert out["routed"]["sharded"] and out["routed"]["many_keys"] >= 1

@@ -8,8 +8,8 @@ reference (its ``jax.vmap``), on the CPU.
   and its per-row plan (the decorrelation rules off) each equal the
   reference's per-row answer (``_per_row_reference``) and its FROID; the
   port's INTERPRETED and HEKATON equal its FROID, and so does its
-  ``execute_many`` under FROID (the oracle's unsharded leg).  The sharded
-  leg waits for the mesh (ROADMAP A10).
+  ``execute_many`` under FROID, unsharded and sharded over four CPU mesh
+  positions (the oracle's two ``execute_many`` legs).
 * ``_exec_vmap_apply`` (semi, anti, cross, outer; ``passthrough`` set or
   not, which this path ignores in both packages), the correlated EXISTS,
   a GroupAgg under vmap on the sort, dense and relagg paths with
@@ -47,6 +47,7 @@ from repro_torch.core import relalg as PR
 from repro_torch.core import scalar as PS
 from repro_torch.core.session import _param_value
 from repro_torch.kernels.relagg import ops as relagg_ops
+from repro_torch.launch.mesh import make_small_mesh
 from repro_torch.kernels.relagg.ref import (
     grouped_aggregate_batched_ref,
     grouped_aggregate_ref,
@@ -178,8 +179,10 @@ def test_decorrelation_oracle_on_the_port(spec, n_rows):
     # side (ROADMAP C1); its per-row answer stands for it there
     ref_froid = not (n_rows == 0 and kind in ("semi", "anti") and keyshape != "nonequi")
     iterative = [port.prepare(pq, p) for p in (PC.INTERPRETED, PC.HEKATON)]
+    mesh = make_small_mesh(data=4, devices=["cpu"] * 4)
     with no_vmap_fallback():
         many = pstmt.execute_many(PARAMS)
+        sharded = port.prepare(pq, PC.FROID.sharded(mesh)).execute_many(PARAMS)
     for i, p in enumerate(PARAMS):
         per_row = _per_row_reference(ref, rq, p).masked
         with no_vmap_fallback():
@@ -193,10 +196,12 @@ def test_decorrelation_oracle_on_the_port(spec, n_rows):
                           f"[{i}] port FROID vs reference FROID")
         for policy, got in zip(("interpreted", "hekaton"), others):
             assert_masked(froid, got, f"[{i}] port {policy} vs port FROID")
-        # the oracle's unsharded execute_many leg (the sharded one waits
-        # for the mesh, ROADMAP A10)
+        # the oracle's execute_many legs, unsharded and sharded
         assert many[i].stats["batched"]
         assert_masked(froid, many[i].masked, f"[{i}] port execute_many vs port FROID")
+        assert sharded[i].stats["sharded"] and sharded[i].stats["shard_devices"] == 4
+        assert_masked(froid, sharded[i].masked,
+                      f"[{i}] port sharded execute_many vs port FROID")
 
 
 # ---------------------------------------------------------------------------

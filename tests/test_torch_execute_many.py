@@ -15,8 +15,8 @@ release, DDL / catalog / UDF changes between submit and drain, the
 scheduler's window, full-batch and forced flushes on a fake clock, the
 adaptive window, coalesced admission == the tick path and
 ``ServeEngine.submit``/``drain`` == ``run``.  Then the invocation oracle's
-unsharded and HEKATON legs (``conformance_util.check_invocation_oracle``;
-its sharded leg waits for the mesh, ROADMAP A10), and a ``pallas_agg``
+unsharded, sharded (four CPU mesh positions) and HEKATON legs
+(``conformance_util.check_invocation_oracle``), and a ``pallas_agg``
 plan whose parameter reaches relagg: one batched op a chunk, and a
 GroupAgg the parameter does not reach runs once, unbatched.
 
@@ -34,6 +34,7 @@ import repro.core as RC
 import repro_torch.core as PC
 from repro.serve.admission import AdmissionPolicy as RefAdmission
 from repro_torch.kernels.relagg import ops as relagg_ops
+from repro_torch.launch.mesh import make_small_mesh
 from repro_torch.serve.admission import AdmissionPolicy
 from repro_torch.serve.scheduler import CoalescingScheduler
 
@@ -762,7 +763,7 @@ def test_serve_engine_submit_drain_matches_run():
 
 
 # ---------------------------------------------------------------------------
-# the invocation oracle (unsharded and HEKATON legs)
+# the invocation oracle (unsharded, sharded and HEKATON legs)
 # ---------------------------------------------------------------------------
 
 #: ``tests/test_conformance_oracle.py``'s mixed-signature list (int and
@@ -775,8 +776,8 @@ PARAMS_MIXED = ([{"cut": c, "shift": 0.5} for c in (2, 7, 4, 0, 5)]
 @pytest.mark.parametrize("n_rows", [0, 23], ids=["empty", "populated"])
 def test_invocation_oracle_on_the_port(name, n_rows):
     """``check_invocation_oracle`` on the port: ``execute_many`` under
-    FROID and HEKATON == the port's serial FROID loop == the reference's.
-    The sharded leg waits for the mesh (ROADMAP A10)."""
+    FROID, FROID sharded over four CPU mesh positions, and HEKATON == the
+    port's serial FROID loop == the reference's."""
     ref, port = RC.Session(), PC.Session(device="cpu")
     for tname, arrays in _facts_tables(n_rows, seed=2).items():
         ref.create_table(tname, **arrays)
@@ -788,9 +789,14 @@ def test_invocation_oracle_on_the_port(name, n_rows):
               for p in PARAMS_MIXED]
     _assert_ref([rstmt.execute(params=p) for p in PARAMS_MIXED], serial,
                 "reference serial vs port serial")
-    for policy in (PC.FROID, PC.HEKATON):
+    mesh = make_small_mesh(data=4, devices=["cpu"] * 4)
+    for policy, label in ((PC.FROID, "many"), (PC.FROID.sharded(mesh), "sharded"),
+                          (PC.HEKATON, "hekaton")):
         batched = port.prepare(_keys_query(PC, "f"), policy).execute_many(PARAMS_MIXED)
-        _assert_ref(serial, batched, f"execute_many[{policy.name}] vs serial")
+        _assert_ref(serial, batched, f"execute_many[{label}] vs serial")
+        # both signature groups (buckets 8 and 4) split over the 4 positions
+        assert all(r.stats.get("sharded", False) == (label == "sharded")
+                   for r in batched)
 
 
 def test_invocation_oracle_empty_params_list():

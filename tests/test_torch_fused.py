@@ -24,7 +24,9 @@ queues held to the benchmark's; and routed fused drains (``ROUTED``:
 the cost router picks the arm each wave) beside the reference's, under
 faults too.  Decorrelated plans explain as the reference's byte for byte
 (their column digests included).  The sharded cases
-(``test_fused.py:412-457``) wait for the mesh (ROADMAP A10).
+(``test_fused.py:412-457``) run on four CPU mesh positions
+(``make_small_mesh(data=4, devices=["cpu"] * 4)``), beside the
+reference's fused drain of the same queue.
 
 The same numpy-seeded tables go through both packages (``device="cpu"``
 for the port).  Masks, keys and validity match exactly and floats to rtol
@@ -1131,6 +1133,56 @@ def test_fusion_oracle_empty_table():
 
 def test_fusion_oracle_ddl_between_submit_and_drain():
     check_fusion_oracle_port(15, 23, PC.FROID, ddl=True)
+
+
+def _cpu_mesh():
+    from repro_torch.launch.mesh import make_small_mesh
+
+    return make_small_mesh(data=4, devices=["cpu"] * 4)
+
+
+def _assert_ref_rows(want, got):
+    """Rows only: the reference's drain here runs on one device, so its
+    buckets are the unsharded ones (``test_torch_sharded_many`` holds the
+    sharded figures to the reference's under forced host devices)."""
+    assert len(want) == len(got)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert_masked(w.masked, g.masked, f"reference fused drain[{i}]")
+
+
+def test_fusion_oracle_sharded():
+    """``tests/test_fused.py::test_fusion_oracle_sharded`` on the port: 8
+    tickets a statement make every member bucket divide the 4 positions;
+    the wave runs sharded and equals serial and the reference's drain."""
+    spec = ([(0, {"cut": int(k % 6), "shift": 0.5}) for k in range(8)]
+            + [(1, {"minq": int(k % 4), "scale": 2.0}) for k in range(8)]
+            + [(2, None) for _ in range(8)])
+    fused = check_fusion_oracle_port(16, 23, PC.FROID.sharded(_cpu_mesh()), spec)
+    _assert_ref_rows(CU.check_fusion_oracle(16, 23, RC.FROID, spec), fused)
+    sts = [r.stats for r in fused if r.stats.get("fused")]
+    assert len(sts) == len(spec)
+    assert all(st.get("sharded") and st["shard_devices"] == 4 for st in sts)
+
+
+@pytest.mark.parametrize("small", [3, 2], ids=["bucket4", "padded"])
+def test_fusion_oracle_sharded_mixed_divisibility(small):
+    """``tests/test_fused.py::test_fusion_oracle_sharded_mixed_divisibility``
+    on the port: one member of 8 tickets, one of ``small`` and a
+    parameter-free one.  The wave shards; a member whose bucket does not
+    divide the 4 positions (2 tickets: bucket 2) pads up to 4, and every
+    ticket equals serial and the reference's rows."""
+    spec = ([(0, {"cut": int(k % 6), "shift": 0.5}) for k in range(8)]
+            + [(1, {"minq": int(k % 4), "scale": 2.0}) for k in range(small)]
+            + [(2, None) for _ in range(2)])
+    fused = check_fusion_oracle_port(17, 23, PC.FROID.sharded(_cpu_mesh()), spec)
+    _assert_ref_rows(CU.check_fusion_oracle(17, 23, RC.FROID, spec), fused)
+    sts = [r.stats for r in fused if r.stats.get("fused")]
+    assert len(sts) == len(spec)
+    assert all(st.get("sharded") and st["shard_devices"] == 4 for st in sts), sts[0]
+    member1 = fused[8].stats
+    assert member1["batch_bucket"] == 4 and member1["batch_size"] == small
+    assert fused[0].stats["batch_bucket"] == 8
+    assert fused[-1].stats["batch_bucket"] == 1
 
 
 #: ``tests/test_fuse_cse.py::FIXED_OVERLAP_QUEUES``

@@ -36,6 +36,7 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch, repro_torch.core, repro_torch.data.tpch_udfs\n"
         "import repro_torch.kernels.relagg.relagg, repro_torch.fuse, repro_torch.cost\n"
         "import repro_torch.cost.router, repro_torch.persist, repro_torch.persist.keys\n"
+        "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.launch.mesh\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(loaded)\n"
         "sys.exit(1 if loaded else 0)\n"

@@ -14,10 +14,10 @@ subquery that binds a loop's outputs, against the reference's, on the CPU.
   the port's INTERPRETED and HEKATON, which equal the reference's: counts,
   keys and validity exactly, floats to rtol 1e-4.  Fixed replays of
   ``tests/test_loops.py``, an empty cursor (``x < 0``) and an empty
-  ``facts``.  The loop oracle's unsharded ``execute_many`` leg
+  ``facts``.  The loop oracle's ``execute_many`` legs
   (``conformance_util.check_loop_oracle``): the port's ``execute_many``
-  under FROID equals its serial loop and the reference's; the sharded leg
-  waits for the mesh (ROADMAP A10).
+  under FROID, unsharded and sharded over four CPU mesh positions, equals
+  its serial loop and the reference's.
 * The scan kind keeps each carry at its loop-entry dtype after every row,
   steps the rows in order and reads nothing back to the host.
 * A correlated EXISTS, a correlated Apply over a general subplan and a
@@ -45,6 +45,7 @@ from repro_torch.core import relalg as PR
 from repro_torch.core import scalar as PS
 from repro_torch.core.tsql import parse_udf as port_parse
 from repro_torch.kernels.relagg import ops as relagg_ops
+from repro_torch.launch.mesh import make_small_mesh
 from repro_torch.loops import LoopVerdict, classify as port_classify
 
 from conformance_util import LOOP_BODIES, build_loop_udf, expected_loop_kind
@@ -218,20 +219,28 @@ PARAMS = [{"cut": 5, "shift": 0.5}, {"cut": 7, "shift": -1.0},
 
 
 def _many_leg(spec, seed, n_rows, params_list):
-    """``check_loop_oracle``'s unsharded ``execute_many`` leg: the port's
-    FROID batch == its serial loop == the reference's serial loop (the
-    scan kind steps its rows once for the whole batch)."""
+    """``check_loop_oracle``'s ``execute_many`` legs: the port's FROID
+    batch, unsharded and sharded over four CPU mesh positions, == its
+    serial loop == the reference's serial loop (the scan kind steps its
+    rows once for the whole batch, once a shard)."""
     ref, port = _sessions(_facts_tables(n_rows, seed), lambda M: _loop_udf(M, *spec))
     q = lambda M: _keys_query(M, "floop")
     stmt = port.prepare(q(PC), PC.FROID)
+    mesh = make_small_mesh(data=4, devices=["cpu"] * 4)
     with no_vmap_fallback():
         serial = [stmt.execute(params=p) for p in params_list]
-        batched = stmt.execute_many(params_list)
+        legs = {"many": stmt.execute_many(params_list),
+                "sharded": port.prepare(q(PC), PC.FROID.sharded(mesh))
+                .execute_many(params_list)}
     rstmt = ref.prepare(q(RC), RC.FROID)
-    for i, p in enumerate(params_list):
-        assert batched[i].stats["batched"]
-        assert_rows(serial[i], batched[i], f"execute_many[{i}] vs serial")
-        assert_rows(rstmt.execute(params=p), batched[i], f"reference[{i}] vs execute_many")
+    for label, batched in legs.items():
+        for i, p in enumerate(params_list):
+            assert batched[i].stats["batched"]
+            # bucket 4 splits over the 4 positions; buckets 1 and 2 replicate
+            assert batched[i].stats.get("sharded", False) == (
+                label == "sharded" and len(params_list) > 2)
+            assert_rows(serial[i], batched[i], f"{label}[{i}] vs serial")
+            assert_rows(rstmt.execute(params=p), batched[i], f"reference[{i}] vs {label}")
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)

@@ -1,7 +1,7 @@
 """The port's cost router (``repro_torch.cost.router``, the ``ROUTED``
 preset, ``Session.cost_stats``) against the reference's, on the CPU.
 
-Ports every unsharded case of ``tests/test_cost_routing.py``: the
+Ports every case of ``tests/test_cost_routing.py``: the
 ``ROUTED`` preset and ``routed()``, the lazy attach, the static estimates,
 sample intake (EMAs, ``suppress``, fault-window exclusion end to end),
 the three axes (policy, batch bucket, fuse-or-not), the routing oracle
@@ -18,18 +18,19 @@ printable snapshot.  Then:
   nothing in ``src/repro/`` changes) so that both estimates are equal;
 * ``export_state`` → ``import_state`` on the port;
 * a 15-example port of ``tests/test_property_froid.py::
-  test_routing_oracle_random_queues``, unsharded;
+  test_routing_oracle_random_queues``, sharded or not;
 * the session side: a routed and an unrouted prepare do not alias, an
   unrouted session never makes a router, every surface (``execute``,
   ``execute_many``, ``execute_async``, scheduler drains fused and not)
   equals the reference's FROID serial answer.
 
-The sharded cases wait for the mesh (ROADMAP A10):
-``test_routing_oracle_matrix``'s two ``sharded`` cases,
-``test_routed_sharded_many_matches_serial``, and the ``shard=True`` legs
-of ``test_routing_oracle_random_queues``; the port's router raises
-``NotImplementedError`` naming A10 for ``shard=True``.  The stats audit
-reads the store counters (``persist_*``) too.
+The sharded cases (``test_routing_oracle_matrix``'s two ``sharded``
+cases, ``test_routed_sharded_many_matches_serial`` and the ``shard=True``
+legs of ``test_routing_oracle_random_queues``) run over four CPU mesh
+positions (``make_small_mesh(data=4, devices=["cpu"] * 4)``); a sharded
+configuration's router keys carry the policy's shard token in the
+reference's position.  The stats audit reads the store counters
+(``persist_*``) too.
 
 Every port run is under ``no_vmap_fallback``.
 """
@@ -53,6 +54,7 @@ from repro_torch.cost import (
 )
 from repro_torch.cost import model as port_model
 from repro_torch.cost.router import DECISION_LOG, _Ema
+from repro_torch.launch.mesh import make_small_mesh
 from repro_torch.persist import PlanStore
 from repro_torch.resilience import FaultInjector, FaultSpec
 from repro_torch.serve.scheduler import CoalescingScheduler
@@ -194,15 +196,33 @@ def test_suppress_drops_samples_and_is_reentrant():
     assert not r.measured and not r.per_ticket
 
 
+def _cpu_mesh():
+    return make_small_mesh(data=4, devices=["cpu"] * 4)
+
+
 def test_sharded_routing_raises_naming_a10():
+    """Named for what it checked before the mesh was ported (a raise
+    naming A10); now the ported behaviour: a sharded sample is keyed
+    ``("many", query_fp, policy fp, sig, shard_token, bucket)``, the
+    reference's key, apart from an unsharded one, and a bucket ride only
+    rides a bucket measured under the same placement."""
     db = _routed_session()
-    stmt = db.prepare(PCU.param_query(), PC.ROUTED)
+    stmt = db.prepare(PCU.param_query(), PC.ROUTED.sharded(_cpu_mesh()))
     r = db.cost_router
-    with pytest.raises(NotImplementedError, match="A10"):
-        r.observe_many(stmt._query_fp, stmt.policy, (), 4, 1.0, 4, shard=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        r.choose_bucket(stmt, (), 3, 4, 256, shard=True)
-    assert r.stats["samples"] == 0
+    token = stmt.policy.shard_token()
+    assert token and token[1] == (("cpu", None),) * 4
+    r.observe_many(stmt._query_fp, stmt.policy, (), 8, 1e-9, 8, shard=True)
+    r.observe_many(stmt._query_fp, stmt.policy, (), 16, 1e-9, 16, shard=False)
+    keys = {k for k in r.measured if k[0] == "many"}
+    pol_fp = stmt.policy.fingerprint()
+    assert keys == {("many", stmt._query_fp, pol_fp, (), token, 8),
+                    ("many", stmt._query_fp, pol_fp, (), (), 16)}
+    assert r.stats["samples"] == 2
+    # the measured sharded bucket 8 is ridable only under the placement
+    assert r.choose_bucket(stmt, (), 3, 4, 256, shard=True) == 8
+    assert r.choose_bucket(stmt, (), 3, 4, 256, shard=False) == 16
+    assert any(d.startswith("many:") and d.endswith(":sharded")
+               for d in db.cost_stats["measured"])
 
 
 @pytest.mark.parametrize("site,times", [("dispatch", 3), ("sync", 2), ("compile", 1)])
@@ -340,20 +360,23 @@ def test_bucket_ride_preserves_results_end_to_end():
 # ---------------------------------------------------------------------------
 
 
-def check_routing_oracle_port(seed: int, n_rows: int, *, fuse: bool = True, waves: int = 3,
+def check_routing_oracle_port(seed: int, n_rows: int, *, fuse: bool = True,
+                              shard: bool = False, waves: int = 3,
                               calls_spec=None, queries=None) -> dict:
     """``conformance_util.check_routing_oracle`` on the port: the reference's
     FROID serial answer to every call of the queue (``queries`` a
     (reference, port) pair of statement lists) against the port's routed
     session draining the queue ``waves`` times through a scheduler
-    (``fuse`` drain mode), then a final serial ``execute`` pass."""
+    (``fuse`` drain mode; sharded over four CPU mesh positions per
+    ``shard``), then a final serial ``execute`` pass."""
     rqs, pqs = queries if queries is not None else (CU.fusion_queries(), PCU.fusion_queries())
     spec = calls_spec if calls_spec is not None else CU.fusion_calls_spec()
     oracle = _ref_session(seed, n_rows)
     o_stmts = [oracle.prepare(q, RC.FROID) for q in rqs]
     expected = [o_stmts[i].execute(params=p) for i, p in spec]
     db = _routed_session(seed, n_rows)
-    stmts = [db.prepare(q, PC.ROUTED) for q in pqs]
+    policy = PC.ROUTED.sharded(_cpu_mesh()) if shard else PC.ROUTED
+    stmts = [db.prepare(q, policy) for q in pqs]
     sched = _sched(fuse)
     for w in range(waves):
         tickets = [sched.submit(stmts[i], p) for i, p in spec]
@@ -392,9 +415,28 @@ def test_route_fuse_requires_all_routed():
     assert sched.stats["fused_batches"] >= 1
 
 
+@pytest.mark.parametrize("shard", [False, True], ids=["unsharded", "sharded"])
 @pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
-def test_routing_oracle_matrix(fuse):
-    check_routing_oracle_port(11, CU.N_ROWS, fuse=fuse, waves=2)
+def test_routing_oracle_matrix(fuse, shard):
+    check_routing_oracle_port(11, CU.N_ROWS, fuse=fuse, shard=shard, waves=2)
+
+
+def test_routed_sharded_many_matches_serial():
+    """The routed ``execute_many`` path on a sharded mesh still equals the
+    serial oracle (bucket riding and sharding compose), and its samples
+    are keyed by the placement."""
+    db = _routed_session()
+    stmt = db.prepare(PCU.param_query(), PC.ROUTED.sharded(_cpu_mesh()))
+    params = [{"cut": int(k % 6), "shift": 0.5} for k in range(8)]
+    got = stmt.execute_many(params)
+    oracle = _ref_session()
+    o = oracle.prepare(CU.param_query(), RC.FROID)
+    for i, (p, g) in enumerate(zip(params, got)):
+        CU.assert_rows_equal(o.execute(params=p), g, f"routed sharded[{i}]")
+        assert g.stats["sharded"] and g.stats["shard_devices"] == 4
+    assert db.cost_stats["samples"] >= 1
+    token = stmt.policy.shard_token()
+    assert any(k[0] == "many" and k[4] == token for k in db.cost_router.measured)
 
 
 def test_routing_oracle_empty_table():
@@ -404,17 +446,17 @@ def test_routing_oracle_empty_table():
 @settings(max_examples=15, **ORACLE_SETTINGS)
 @given(specs=_overlap_specs, values=_ticket_values, seed=st.integers(0, 3),
        n_rows=st.sampled_from([0, CU.N_ROWS]), fuse=st.booleans(),
-       waves=st.integers(1, 3))
-def test_routing_oracle_random_queues(specs, values, seed, n_rows, fuse, waves):
+       shard=st.booleans(), waves=st.integers(1, 3))
+def test_routing_oracle_random_queues(specs, values, seed, n_rows, fuse, shard, waves):
     """``test_property_froid.test_routing_oracle_random_queues`` on the
-    port, unsharded: any overlap queue, any wave count, fused or unfused
-    drains — routing changes costs, never results."""
+    port: any overlap queue, any wave count, fused or unfused drains,
+    sharded or not — routing changes costs, never results."""
     rqs, calls = CU.overlap_queue(specs, values)
     pqs, pcalls = PCU.overlap_queue(specs, values)
     assert pcalls == calls
     with no_vmap_fallback():
-        check_routing_oracle_port(seed, n_rows, fuse=fuse, waves=waves, calls_spec=calls,
-                                  queries=(rqs, pqs))
+        check_routing_oracle_port(seed, n_rows, fuse=fuse, shard=shard, waves=waves,
+                                  calls_spec=calls, queries=(rqs, pqs))
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,10 @@ from repro.models import build_model as ref_build
 from repro.serve.admission import AdmissionPolicy as RefAdmission
 from repro.serve.engine import Request as RefRequest
 from repro.serve.engine import ServeEngine as RefEngine
+import repro_torch.core as PC
 from repro_torch import configs as tconfigs
 from repro_torch.launch import serve as launcher
+from repro_torch.launch.mesh import make_small_mesh
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_reference
 from repro_torch.serve import AdmissionPolicy, Request, ServeEngine
@@ -138,8 +140,10 @@ def test_unported_intake_raises():
     ``tests/test_torch_execute_many.py``), and so are its fused drains
     (A7): ``fuse`` passes through to the scheduler, as in
     ``tests/test_fused.py:459-488``, and coalesced verdicts equal the
-    tick's.  What it still lacks raises, naming its item: the mesh (A10).
-    The store is ported (``test_admission_store_warm_start``)."""
+    tick's.  So is its mesh (A10): ``mesh`` shards the request statement,
+    whose coalesced verdicts equal the tick's too, and whose sharded
+    router keys carry the shard token in the reference's position.  The
+    store is ported (``test_admission_store_warm_start``)."""
     cfg = tconfigs.smoke_config_for("granite3_2b")
     model = build_model(cfg, "cpu").init()
     eng = ServeEngine(model, slots=2, max_len=32, admission_fuse=True,
@@ -151,8 +155,16 @@ def test_unported_intake_raises():
     tick, co = ap.evaluate(reqs), ap.evaluate_coalesced(reqs)
     for name in ("admit", "granted", "temp"):
         np.testing.assert_array_equal(co[name], tick[name], err_msg=name)
-    with pytest.raises(NotImplementedError, match="A10"):
-        AdmissionPolicy(device="cpu", mesh=object())
+    mesh = make_small_mesh(data=4, devices=["cpu"] * 4)
+    sharded = AdmissionPolicy(device="cpu", mesh=mesh, policy=PC.ROUTED)
+    co = sharded.evaluate_coalesced(_edge_requests(8, np.random.default_rng(0)))
+    want = ap.evaluate(_edge_requests(8, np.random.default_rng(0)))
+    for name in ("admit", "granted", "temp"):
+        np.testing.assert_array_equal(co[name], want[name], err_msg=name)
+    stmt = sharded.request_statement()
+    assert stmt.policy.mesh is mesh and stmt.policy.shard_devices() == 4
+    keys = [k for k in sharded._request_session.cost_router.measured if k[0] == "many"]
+    assert keys and all(k[4] == stmt.policy.shard_token() for k in keys)
 
 
 def test_admission_store_warm_start(tmp_path):

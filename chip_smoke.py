@@ -151,7 +151,26 @@ script exits non-zero:
 9. LM cross-device — the smoke configs' prefill and decode logits (phi3's
    and gemma3's at their published head dims, 96 and 256, beside the same
    with the plain version in place of the kernel on the card) and the
-   admission verdicts on the CPU and on the card.
+   admission verdicts on the CPU and on the card;
+10. training (ROADMAP A16.1) — (a) flash_attention's backward kernels
+   (``flash_bwd_preprocess``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) against
+   ``flash_attention_bwd_ref`` in float32 and bf16 at head dims 16 to 256
+   (granite-3-2b's training layer, gemma3-12b's 1,024-key window with a
+   query offset at 1, 40 and 1,000 queries, rows with no valid key), the
+   forward's log-sum-exp against the plain one's, dK/dV bit-equal across
+   two launches, and the ``autograd.Function`` under a checkpoint (D = 64,
+   and 24 through the padding) against torch autograd of the float32
+   plain version; (b) the data pipeline at 8 x 4,096 tokens, FROID ==
+   INTERPRETED on the card == the CPU bit for bit; (c) granite-3-2b at
+   full width, random weights from seed 0, 6 steps of ``train_loop`` over
+   4 x 4,096 tokens in 2 microbatches with remat: losses finite and
+   falling, 160 forward and 80 backward flash launches a step, ms a step,
+   tokens/s, peak memory, one traced step, and the first step on 1,024
+   tokens with the kernels against the plain attention; (d) the smoke
+   config card against CPU over 8 steps, microbatches, compression,
+   a checkpoint restored and continued bit for bit, the launcher resuming;
+   (e) the backward's times at granite's training inputs beside its
+   bound, the plain backward and ``scaled_dot_product_attention``'s.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -182,6 +201,10 @@ and Q5's inputs.
 builds relagg alone and runs the mesh phase alone; on a machine with
 several cards its (f) leg runs it again over a mesh of every card.
 
+    python3 chip_smoke.py --train
+
+builds flash_attention alone and runs the training phase (10) alone.
+
     python3 chip_smoke.py --flash-variants
 
 builds the edits of ``csrc/flash_attention.cu`` in :data:`FLASH_VARIANTS`
@@ -199,6 +222,7 @@ import hashlib
 import importlib
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -315,7 +339,9 @@ def build_report() -> dict[str, dict]:
     """Per kernel instance of the three libraries: ``ptxas -v``'s registers,
     shared memory and spills, and the HGMMA count of its SASS.  Fails
     unless each bf16 flash_attention instance (D = 16, 64, 96, 128, 256)
-    holds tensor-core instructions, or if those at D = 96 and 256 spill."""
+    holds tensor-core instructions, or if those at D = 96 and 256 spill,
+    or if a flash_attention backward kernel (three kernels, two dtypes, the
+    five head dims) is missing or spills."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
     from repro_torch.kernels.ssd_scan.ssd_scan import PASSES
@@ -342,6 +368,11 @@ def build_report() -> dict[str, dict]:
           f"a bf16 flash_attention instance has no HGMMA: {bf16}")
     check(all(bf16[D]["spill_stores"] == 0 and bf16[D]["spill_loads"] == 0 for D in (96, 256)),
           f"a bf16 flash_attention instance at D = 96 or 256 spills: {bf16}")
+    bwd = {n: r for n, r in report.items() if "flash_bwd_" in n}
+    check(len(bwd) == 3 * 2 * len(HEAD_DIMS), f"expected flash_bwd_preprocess, _dkdv and "
+          f"_dq in float32 and bf16 at D = {HEAD_DIMS}: {sorted(bwd)}")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in bwd.values()),
+          f"a flash_attention backward kernel spills: {bwd}")
     ssd = {n.split("::")[-1]: r for n, r in report.items() if r["source"] == "ssd_scan.cu"}
     check(set(ssd) == set(PASSES), f"ssd_scan.cu's kernels {sorted(ssd)}, expected "
           f"{list(PASSES)}")
@@ -4455,8 +4486,9 @@ def flash_variants_phase() -> dict:
     return out
 
 
-def ssd_rel_err(a, b) -> float:
-    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, in float32."""
+    return float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-9)
 
 
 def ssd_kernel_phase() -> dict:
@@ -4494,7 +4526,7 @@ def ssd_kernel_phase() -> dict:
         b = ssd_scan_ref(xdt, dtA, B, C, BH // BG)
         y_sp, s_in = ssd_scan_state_passing(xdt, dtA, B, C, BH // BG, chunk(),
                                             return_states=True)
-        err, err_sp = ssd_rel_err(a, b), ssd_rel_err(a, y_sp)
+        err, err_sp = rel_err(a, b), rel_err(a, y_sp)
         err_states = (float((call.states - s_in[:, 1:]).abs().max())
                       if call.states.numel() else 0.0)
         label = f"ssd_scan BH={BH} BG={BG} L={L} P={P} N={N} (chunk {chunk()})"
@@ -4599,20 +4631,23 @@ class LongestCall:
         return self.fn(*args, **kwargs)
 
 
-def device_busy(fn) -> tuple[float | None, list, dict, int]:
+def device_busy(fn, host: bool = True) -> tuple[float | None, list, dict, int]:
     """Device time (ms) of what ``fn`` runs on the card, as the union of the
     intervals of the device events (kernels, copies) in a ``torch.profiler``
     trace, the five kernels with the most device time, and the port's own
     kernels by name (``flash_fwd_bf16``, ``flash_fwd_kernel``, ...) with
     their time and launches, a template instance also by its last integer
     argument (``flash_fwd_bf16<96>``, the head dim), and the number of
-    device events.  (None, [], {}, 0) if the trace holds no device event."""
+    device events.  (None, [], {}, 0) if the trace holds no device event.
+    ``host=False`` records no host operators, which keeps the profiler's own
+    host cost down over a long ``fn``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -4624,7 +4659,7 @@ def device_busy(fn) -> tuple[float | None, list, dict, int]:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
-        m = re.search(r"(flash_fwd_\w+|ssd_\w+|relagg_\w+)(<[^>]*>)?", name)
+        m = re.search(r"(flash_(?:fwd|bwd)_\w+|ssd_\w+|relagg_\w+)(<[^>]*>)?", name)
         if m:
             arg = re.findall(r"\d+", m.group(2) or "")
             for key in [m.group(1)] + ([f"{m.group(1)}<{arg[-1]}>"] if arg else []):
@@ -5067,7 +5102,7 @@ def time_ssd(args) -> dict:
     N = B.shape[2]
     out = ssd_scan_cuda(xdt, dtA, B, C, n_rep)
     ref = ssd_scan_chunked(xdt, dtA, B, C, n_rep)
-    err = ssd_rel_err(out, ref)
+    err = rel_err(out, ref)
     check(err < 3e-4, f"ssd_scan at the serving inputs: error {err} of max|y|")
     max_abs = float((out - ref).abs().max())
     del ref
@@ -5182,6 +5217,501 @@ def lm_cross_device_phase() -> None:
     log("LM cross-device: admission verdicts cpu == card")
 
 
+# ---------------------------------------------------------------------------
+# training (ROADMAP A16.1)
+# ---------------------------------------------------------------------------
+
+#: (label, B, Hq, Hk, Sq, Sk, D, kwargs): the backward kernels against
+#: ``flash_attention_bwd_ref`` in float32 and bf16.  granite-3-2b's training
+#: layer (a microbatch of 2 x 4,096 tokens); gemma3-12b's 1,024-key window at
+#: D = 256 with MHA and a query offset, at 1, 40 and 1,000 queries; rows
+#: with no valid key, all of them and some of them.
+FLASH_BWD_CASES = [
+    ("d16", 1, 4, 2, 300, 300, 16, dict(causal=True)),
+    ("granite3_2b", 2, 32, 8, 4096, 4096, 64, dict(causal=True)),
+    ("d96_full", 1, 4, 4, 500, 700, 96, dict(causal=False)),
+    ("d128", 1, 4, 2, 600, 600, 128, dict(causal=True, window=200)),
+    ("gemma3_local_S1", 1, 4, 4, 1, 1500, 256, dict(causal=True, window=1024, q_offset=1499)),
+    ("gemma3_local_S40", 1, 4, 4, 40, 1500, 256, dict(causal=True, window=1024, q_offset=1460)),
+    ("gemma3_local_S1000", 1, 4, 4, 1000, 1500, 256,
+     dict(causal=True, window=1024, q_offset=500)),
+    ("fully_masked", 1, 2, 1, 8, 16, 64, dict(causal=False, window=4, q_offset=40)),
+    ("some_rows_masked", 1, 2, 1, 8, 16, 64, dict(causal=False, window=4, q_offset=14)),
+]
+#: max |kernel - plain| over max |plain|, per gradient: float32 sums in
+#: another order; in bf16 both round float32 sums to bf16 at the end (one
+#: bf16 ulp is 2^-8 of the value)
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
+#: the forward's log-sum-exp against the plain one's, absolute
+FLASH_LSE_TOL = 1e-4
+#: the autograd.Function against torch autograd of the float32 plain
+#: version, max |diff| over max |grad|
+FLASH_AUTOGRAD_TOL = 1e-4
+#: granite-3-2b's training run: 6 steps of 4 x 4,096 tokens in 2 microbatches
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 4096, 2
+#: the first step on one 1,024-token sequence, kernels against the plain
+#: attention swapped in: relative limits on the loss and the gradient norm
+#: (the forward kernel rounds P to bf16 before P V, which the plain version
+#: does not; the backward kernels and autograd sum in another order)
+KERNEL_VS_PLAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2}
+#: the smoke config on the card against the CPU over 8 steps, relative per
+#: step loss (bf16 activations summed in another order, P rounded to bf16
+#: in the card's forward kernel)
+SMOKE_LOSS_TOL = 5e-3
+
+
+def flash_backward_checks() -> dict:
+    """(a): the backward kernels against ``flash_attention_bwd_ref`` at
+    :data:`FLASH_BWD_CASES` in both dtypes, the forward's lse against the
+    plain one's, dK/dV bit-equal across two launches, and the
+    ``autograd.Function`` (through ``ops.flash_attention``, inside a
+    non-reentrant checkpoint; D = 64 and D = 24 through the zero padding)
+    against torch autograd of the float32 plain version."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    errs, max_abs = {}, 0.0
+    for label, B, Hq, Hk, Sq, Sk, D, kw in FLASH_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            q, do = (torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((B, Hk, Sk, D), generator=g, device="cuda").to(dtype)
+                    for _ in range(2))
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+            finite = torch.isfinite(lse_ref)
+            check(torch.equal(torch.isfinite(lse), finite),
+                  f"flash lse at {label} {name}: rows with no valid key differ")
+            lse_err = float((lse[finite] - lse_ref[finite]).abs().max()) if finite.any() else 0.0
+            check(lse_err <= FLASH_LSE_TOL, f"flash lse at {label} {name}: {lse_err}")
+            got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+            for n, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(a.dtype == dtype and a.shape == b.shape, f"flash bwd {label}: {n} shape")
+                check(rel[n] <= FLASH_BWD_TOL[name],
+                      f"flash backward at {label} {name}: {n} max |kernel - plain| / max "
+                      f"|plain| {rel[n]} over {FLASH_BWD_TOL[name]}")
+                max_abs = max(max_abs, float((a.float() - b.float()).abs().max()))
+            if label.endswith("masked") and label.startswith("fully"):
+                check(not any(t.any() for t in got), f"flash backward {label}: nonzero gradient")
+            errs[f"{label}/{name}"] = {**rel, "lse": lse_err}
+            if label == "granite3_2b" and dtype == torch.bfloat16:
+                again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      "flash backward at granite3_2b bf16: two launches differ")
+            del q, k, v, o, do, got, want
+    torch.cuda.empty_cache()
+    autograd = {}
+    for D in (64, 24):
+        q = torch.randn((2, 4, 300, D), generator=g, device="cuda").requires_grad_()
+        k, v = (torch.randn((2, 2, 300, D), generator=g, device="cuda").requires_grad_()
+                for _ in range(2))
+        w = torch.randn((2, 4, 300, D), generator=g, device="cuda")
+
+        def loss(attend, q, k, v):
+            return (attend(q, k, v, causal=True, window=200) * w).sum()
+
+        fwd, bwd = fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES
+        checkpoint(loss, fa_ops.flash_attention, q, k, v, use_reentrant=False).backward()
+        check(fa_ops.LAUNCHES == fwd + 2 and fa_ops.BACKWARD_LAUNCHES == bwd + 1,
+              f"flash autograd at D = {D}: launches {fa_ops.LAUNCHES - fwd} forward, "
+              f"{fa_ops.BACKWARD_LAUNCHES - bwd} backward under checkpoint, not 2 and 1")
+        got = [t.grad for t in (q, k, v)]
+        want = torch.autograd.grad(loss(flash_attention_ref, q, k, v), (q, k, v))
+        autograd[D] = max(rel_err(a, b) for a, b in zip(got, want))
+        check(autograd[D] <= FLASH_AUTOGRAD_TOL,
+              f"flash autograd.Function at D = {D}: {autograd[D]} over {FLASH_AUTOGRAD_TOL}")
+    worst = {name: max(max(e[n] for n in ("dq", "dk", "dv")) for key, e in errs.items()
+                       if key.endswith(name)) for name in FLASH_BWD_TOL}
+    log(f"train (a): flash backward == flash_attention_bwd_ref at {len(errs)} cases "
+        f"(worst max |diff| / max |plain|: float32 {worst['float32']:.3g}, limit "
+        f"{FLASH_BWD_TOL['float32']}; bf16 {worst['bfloat16']:.3g}, limit "
+        f"{FLASH_BWD_TOL['bfloat16']}); lse within {max(e['lse'] for e in errs.values()):.3g} "
+        f"(limit {FLASH_LSE_TOL}); dK/dV bit-equal across two launches; autograd.Function "
+        f"under checkpoint vs torch autograd of the float32 plain version: D = 64 "
+        f"{autograd[64]:.3g}, D = 24 (padded) {autograd[24]:.3g} (limit {FLASH_AUTOGRAD_TOL})")
+    return {"cases": errs, "max_abs_err": max_abs, "autograd": autograd}
+
+
+def train_pipeline_check(vocab: int) -> dict:
+    """(b): the data pipeline at seed 0, steps 0-3, batch 8 x 4,096: FROID
+    == INTERPRETED on the card == the CPU's batch, bit for bit, and the
+    tokens equal ``synthetic_corpus``'s."""
+    import torch
+
+    from repro_torch.data.pipeline import DataPipeline, synthetic_corpus
+
+    t0 = time.perf_counter()
+    pipes = {"froid": DataPipeline(batch=8, seq_len=4096, vocab=vocab),
+             "interpreted": DataPipeline(batch=8, seq_len=4096, vocab=vocab, froid=False),
+             "cpu": DataPipeline(batch=8, seq_len=4096, vocab=vocab, device="cpu")}
+    for step in range(4):
+        out = {name: p.batch_at(step) for name, p in pipes.items()}
+        check(out["froid"]["tokens"].is_cuda, "the pipeline's batch is not on the card")
+        for key in out["cpu"]:
+            for name in ("froid", "interpreted"):
+                check(torch.equal(out[name][key].cpu(), out["cpu"][key]),
+                      f"pipeline step {step}: {name} {key} differs from the CPU's")
+        toks = synthetic_corpus(0, step, 8, 4096, vocab)
+        check(np.array_equal(out["froid"]["tokens"].cpu().numpy(), toks[:, :-1]),
+              f"pipeline step {step}: tokens differ from synthetic_corpus")
+    seconds = time.perf_counter() - t0
+    log(f"train (b): pipeline steps 0-3 at 8 x 4,096, FROID == INTERPRETED on the card == "
+        f"the CPU bit for bit, tokens == synthetic_corpus ({seconds:.1f} s)")
+    return {"seconds": seconds}
+
+
+def _capture_flash_backward(store: dict):
+    """Wrap the backward binding so that its first call's inputs are kept
+    (clones): the training path's own inputs for (e).  Returns the
+    original, to put back."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_binding
+
+    original = fa_binding.flash_attention_bwd_cuda
+
+    def capture(q, k, v, o, lse, do, **kw):
+        if not store:
+            store["args"] = tuple(t.clone() for t in (q, k, v, o, lse, do))
+            store["kw"] = dict(kw)
+        return original(q, k, v, o, lse, do, **kw)
+
+    fa_binding.flash_attention_bwd_cuda = capture
+    return original
+
+
+def granite_training(cfg) -> tuple[dict, dict]:
+    """(c): granite-3-2b at full width, random weights from seed 0, through
+    ``train_loop`` on the card; the traced step; the first step with the
+    kernels against the plain attention swapped in.  Returns the figures
+    and the captured backward inputs."""
+    import torch
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.flash_attention import flash_attention as fa_binding
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_loop import init_state, make_train_step, train_loop
+
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    state = init_state(model, torch.Generator("cuda").manual_seed(0), opt_cfg)
+    pipe = DataPipeline(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab)
+    captured: dict = {}
+    original = _capture_flash_backward(captured)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    history: list = []
+    fa_ops.LAUNCHES = fa_ops.BACKWARD_LAUNCHES = 0
+    try:
+        state = train_loop(model, state, iter(pipe), opt_cfg, steps=TRAIN_STEPS,
+                           microbatches=TRAIN_MICRO, log_every=0, history=history)
+    finally:
+        fa_binding.flash_attention_bwd_cuda = original
+    fwd, bwd = fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in history]
+    per_step = cfg.n_repeats * len(cfg.super_block) * TRAIN_MICRO
+    check(all(math.isfinite(x) for x in losses), f"granite training: a loss is not finite: "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"granite training: the last loss {losses[-1]} is not below "
+          f"the first {losses[0]}")
+    check(fwd == 2 * per_step * TRAIN_STEPS and bwd == per_step * TRAIN_STEPS,
+          f"granite training: flash launched {fwd} forward and {bwd} backward in "
+          f"{TRAIN_STEPS} steps, not {2 * per_step} and {per_step} a step")
+    timed = [h["seconds"] for h in history[2:]]
+    step_ms = 1e3 * sum(timed) / len(timed)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+
+    # one traced step (the batch of step 7)
+    step_fn = make_train_step(model, opt_cfg, TRAIN_MICRO)
+    batch = pipe.batch_at(TRAIN_STEPS)
+    t0 = time.perf_counter()
+    busy_ms, top, port, events = device_busy(lambda: step_fn(state, batch), host=False)
+    traced_ms = 1e3 * (time.perf_counter() - t0)
+    check(busy_ms is not None, "granite training: the traced step holds no device event")
+    del state, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step on one 1,024-token sequence: kernels, then the plain
+    # attention (differentiated by autograd) swapped in
+    state0 = init_state(model, torch.Generator("cuda").manual_seed(0), opt_cfg)
+    one = DataPipeline(batch=1, seq_len=1024, vocab=cfg.vocab).batch_at(0)
+    first = make_train_step(model, opt_cfg, 1)
+    _, mk = first(state0, one)
+    kernel = {"loss": float(mk["loss"]), "grad_norm": float(mk["grad_norm"])}
+    flash = ATT.flash_attention
+    ATT.flash_attention = lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw)
+    try:
+        _, mp = first(state0, one)
+    finally:
+        ATT.flash_attention = flash
+    plain = {"loss": float(mp["loss"]), "grad_norm": float(mp["grad_norm"])}
+    rel = {key: abs(kernel[key] - plain[key]) / abs(plain[key]) for key in kernel}
+    for key, tol in KERNEL_VS_PLAIN_TOL.items():
+        check(rel[key] <= tol, f"granite first step at 1,024 tokens: kernel {key} "
+              f"{kernel[key]} against plain {plain[key]}: {rel[key]} over {tol}")
+    del state0, one, first, mk, mp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for h in history:
+        log(f"train (c): step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+            f"{h['grad_norm']:.6f}, lr {h['lr']:.6g}, {1e3 * h['seconds']:.1f} ms")
+    log(f"train (c): granite-3-2b at full width ({TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"{TRAIN_MICRO} microbatches, remat): {step_ms:.1f} ms a step (steps 3-{TRAIN_STEPS}), "
+        f"{tokens_per_s:.0f} tokens/s, peak {peak_gb:.2f} GB; flash launches a step "
+        f"{fwd // TRAIN_STEPS} forward, {bwd // TRAIN_STEPS} backward; traced step: "
+        f"device busy {busy_ms:.1f} ms, {busy_ms / step_ms:.3f} of an untraced step "
+        f"({traced_ms:.1f} ms wall under the profiler), {events} device events; top "
+        f"{[(n, round(ms, 2)) for n, ms in top]}; port kernels "
+        f"{ {k: (round(e['ms'], 2), e['launches']) for k, e in port.items() if '<' not in k} }")
+    log(f"train (c): first step at 1,024 tokens, kernels against the plain attention: loss "
+        f"{kernel['loss']:.6f} / {plain['loss']:.6f} (rel {rel['loss']:.3g}, limit "
+        f"{KERNEL_VS_PLAIN_TOL['loss']}), grad_norm {kernel['grad_norm']:.6f} / "
+        f"{plain['grad_norm']:.6f} (rel {rel['grad_norm']:.3g}, limit "
+        f"{KERNEL_VS_PLAIN_TOL['grad_norm']})")
+    return {
+        "steps": history, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+        "peak_gb": peak_gb, "flash_forward_per_step": fwd // TRAIN_STEPS,
+        "flash_backward_per_step": bwd // TRAIN_STEPS,
+        # the profiler's own host cost stretches the traced step's wall, so
+        # the busy share is the device's busy time over an untraced step's
+        "traced": {"wall_ms": traced_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+                   "events": events, "top": top, "port": port},
+        "kernel_vs_plain": {"kernel": kernel, "plain": plain, "rel": rel},
+    }, captured
+
+
+def smoke_training(cfg, tmp: pathlib.Path) -> dict:
+    """(d): the smoke config from one initial tree (drawn on the CPU, moved
+    to the card) over the same pipeline batches: 8 steps card against CPU;
+    microbatches 2 against 1; compression converging on a repeated batch;
+    a checkpoint at step 4 restored and continued to step 8 against the
+    uninterrupted run; and the launcher twice over one ``--ckpt``."""
+    import torch
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.dist.compress import init_error_tree
+    from repro_torch.dist.sharding import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import TrainState, make_train_step, train_loop
+    from repro_torch.tree import tree_leaves
+
+    tree = init_params(torch.Generator("cpu").manual_seed(0), cfg, "cpu")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+
+    def fresh(device, compress=False):
+        params = to_device(tree, device)
+        return TrainState(params, adamw_init(params, opt_cfg),
+                          init_error_tree(params) if compress else None)
+
+    def pipe(device, batch=4):
+        return DataPipeline(batch=batch, seq_len=32, vocab=cfg.vocab, seed=1, device=device)
+
+    models = {d: build_model(cfg, d) for d in ("cpu", "cuda")}
+    runs = {}
+    for device in ("cpu", "cuda"):
+        history: list = []
+        train_loop(models[device], fresh(device), iter(pipe(device)), opt_cfg, steps=8,
+                   log_every=0, history=history)
+        runs[device] = [h["loss"] for h in history]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    check(loss_rel <= SMOKE_LOSS_TOL, f"smoke training card vs CPU: per-step loss rel "
+          f"{loss_rel} over {SMOKE_LOSS_TOL}: {runs}")
+
+    batch = pipe("cuda", batch=8).batch_at(0)
+    s1, m1 = make_train_step(models["cuda"], opt_cfg, 1)(fresh("cuda"), batch)
+    s2, m2 = make_train_step(models["cuda"], opt_cfg, 4)(fresh("cuda"), batch)
+    micro_loss = abs(float(m1["loss"]) - float(m2["loss"])) / abs(float(m1["loss"]))
+    micro_param = float((tree_leaves(s1.params)[0] - tree_leaves(s2.params)[0]).abs().max())
+    check(micro_loss <= 2e-2 and micro_param <= 2e-2,
+          f"smoke microbatches 4 vs 1 on the card: loss rel {micro_loss}, first leaf "
+          f"{micro_param} (limits 2e-2, the reference's)")
+
+    state = fresh("cuda", compress=True)
+    step = make_train_step(models["cuda"], opt_cfg, compress=True)
+    fixed = pipe("cuda").batch_at(0)
+    compressed = []
+    for _ in range(8):
+        state, m = step(state, fixed)
+        compressed.append(float(m["loss"]))
+    check(compressed[-1] < compressed[0] and all(math.isfinite(x) for x in compressed),
+          f"smoke compressed training on a repeated batch does not converge: {compressed}")
+    check(any(float(e.abs().max()) > 0 for e in tree_leaves(state.ef_error)),
+          "smoke compressed training: the error-feedback residuals are all zero")
+
+    ckpt = tmp / "resume"
+    mgr = CheckpointManager(str(ckpt), keep_n=3)
+    whole = train_loop(models["cuda"], fresh("cuda"), iter(pipe("cuda")), opt_cfg, steps=8,
+                       checkpoint_mgr=mgr, checkpoint_every=4, log_every=0)
+    mgr.wait()
+    restored = mgr.restore(4, device="cuda")
+    p = pipe("cuda")
+    resumed = train_loop(models["cuda"], TrainState(restored["params"], restored["opt"]),
+                         (p.batch_at(s) for s in range(4, 8)), opt_cfg, steps=8, log_every=0)
+    resume_diff = max(float((a - b).abs().max()) for a, b in
+                      zip(tree_leaves(resumed.params), tree_leaves(whole.params)))
+    check(resume_diff == 0.0, f"smoke checkpoint at step 4, restored and continued to step "
+          f"8: params differ from the uninterrupted run by {resume_diff}")
+
+    launcher_dir = tmp / "launcher"
+    outs = []
+    for steps in (4, 6):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite3_2b",
+             "--smoke", "--steps", str(steps), "--batch", "4", "--seq", "32",
+             "--checkpoint-every", "2", "--ckpt", str(launcher_dir)],
+            capture_output=True, text=True, timeout=300, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        check(proc.returncode == 0, f"launcher --steps {steps}: rc {proc.returncode}\n"
+              f"{proc.stdout}\n{proc.stderr}")
+        outs.append(proc.stdout)
+    check("done at step 4" in outs[0] and "resuming from checkpoint step 4" in outs[1]
+          and "done at step 6" in outs[1], f"launcher twice over one --ckpt: {outs}")
+    log(f"train (d): smoke granite card vs CPU over 8 steps: max per-step loss rel "
+        f"{loss_rel:.3g} (limit {SMOKE_LOSS_TOL}; card {[round(x, 5) for x in runs['cuda']]}); "
+        f"microbatches 4 vs 1: loss rel {micro_loss:.3g}, first leaf {micro_param:.3g} (limits "
+        f"2e-2); compressed on a repeated batch {compressed[0]:.4f} -> {compressed[-1]:.4f}; "
+        f"checkpoint at step 4 restored and continued: step-8 params bit-equal; launcher "
+        f"resumed from step 4 to 6")
+    return {"losses": runs, "loss_rel": loss_rel, "micro_loss_rel": micro_loss,
+            "micro_first_leaf": micro_param, "compressed": compressed,
+            "resume_max_diff": resume_diff}
+
+
+def time_flash_backward(captured: dict) -> dict:
+    """(e): the backward at granite-3-2b's training inputs (the first
+    backward call of the run, captured): the three kernels together by
+    CUDA events and each apart by CUDA events between its launches
+    (:func:`pass_split_ms`), the bound (5 products of 2 D operations per valid pair at the
+    bf16 peak, against each input read once and each gradient written
+    once), ``scaled_dot_product_attention``'s forward + backward minus its
+    forward, the plain backward, and the forward with lse against
+    without."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        backward_plan, flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    q, k, v, o, lse, do = captured["args"]
+    kw = captured["kw"]
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    rel = max(rel_err(a, b) for a, b in zip(got, want))
+    max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    check(rel <= FLASH_BWD_TOL["bfloat16"], f"flash backward at granite's training inputs: "
+          f"{rel} over {FLASH_BWD_TOL['bfloat16']}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    def bwd():
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+
+    k1, k2 = cuda_ms(bwd, reps=10), cuda_ms(bwd, reps=10)
+    split = pass_split_ms(backward_plan(q, k, v, o, lse, do, **kw))
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), reps=3,
+                       warmup=1)
+    torch.cuda.empty_cache()
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), do)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(sdpa_fwd, reps=10)
+    lib_both = cuda_ms(sdpa_fwd_bwd, reps=10)
+    fwd_plain = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=10)
+    fwd_lse = cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True, **kw), reps=10)
+    pairs = valid_pairs(Sq, Sk, kw.get("causal", True), kw.get("window"),
+                        kw.get("q_offset", 0)) * B * Hq
+    ops_count = 5 * 2 * D * pairs
+    nbytes = (3 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size()
+              + lse.numel() * lse.element_size())
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops_count / BF16_OPS_PER_S * 1e3
+    out = {
+        "shape": [B, Hq, k.shape[1], Sq, Sk, D], "dtype": str(q.dtype), "kwargs": kw,
+        "ms": min(k1, k2), "split_ms": split, "plain_ms": plain_ms,
+        "library_ms": lib_both - lib_fwd, "library_forward_ms": lib_fwd,
+        "library_forward_backward_ms": lib_both,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "ops": ops_count, "bytes": nbytes, "pairs": pairs,
+        "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
+        "forward_ms": fwd_plain, "forward_lse_ms": fwd_lse,
+        "max_abs_err": max_abs, "max_rel_err": rel,
+    }
+    log(f"train (e): flash backward at granite's training inputs {out['shape']} bf16: "
+        f"{out['ms']:.3f} ms ({out['tflops']:.2f} TFLOP/s of the 5-product count; by kernel "
+        f"{ {n: round(t, 3) for n, t in split.items()} } ms), bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {ops_count / 1e9:.1f} GFLOP at 989 "
+        f"TFLOP/s, {nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, SDPA backward "
+        f"{out['library_ms']:.3f} ms (forward + backward {lib_both:.3f} - forward "
+        f"{lib_fwd:.3f}); forward {fwd_plain:.3f} ms, with lse {fwd_lse:.3f} ms; == plain "
+        f"(max |diff| / max |plain| {rel:.3g})")
+    return out
+
+
+def train_phase() -> dict:
+    """Training on the card (ROADMAP A16.1): (a) the flash backward against
+    its plain version; (b) the data pipeline; (c) granite-3-2b at full
+    width through ``train_loop``; (d) the smoke config card against CPU,
+    microbatches, compression, checkpoint resume and the launcher; (e) the
+    backward's times at granite's training inputs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import config_for, smoke_config_for
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_for("granite3_2b")
+    out = {"flash_backward": flash_backward_checks()}
+    out["pipeline"] = train_pipeline_check(cfg.vocab)
+    out["granite"], captured = granite_training(cfg)
+    out["backward_times"] = time_flash_backward(captured)
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        out["smoke"] = smoke_training(smoke_config_for("granite3_2b"), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train phase ok in {out['seconds']:.1f} s")
+    return out
+
+
 def card_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5231,6 +5761,11 @@ def main() -> int:
         out = mesh_phase()
         print(json.dumps({"card": card, "cards": torch.cuda.device_count(), "mesh": out},
                          default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        _build.load("flash_attention")
+        out = train_phase()
+        print(json.dumps({"card": card, "train": out}, default=str), flush=True)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -5329,12 +5864,18 @@ def main() -> int:
     lm_cross_device_phase()
     log(f"LM cross-device phase ok in {time.perf_counter() - t0:.1f} s")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase()
+    bt = train["backward_times"]
+
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
                     "invocation": invocation, "fused": fused, "routed": routed,
                     "fleet": fleet, "mesh": mesh,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
+                    "train": train,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
@@ -5415,7 +5956,22 @@ def main() -> int:
          "paths": [{"path": path, "head_dim": t["shape"][5], "launches": t["launches"],
                     "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                    "library_ms": t["library_ms"]} for path, t in flash_paths.items()]},
+                    "library_ms": t["library_ms"]} for path, t in flash_paths.items()],
+         # the backward kernels (no TPU counterpart: the reference
+         # differentiates its plain attention), timed at granite-3-2b's
+         # training inputs; launches a training step of granite-3-2b
+         # (each launch the three kernels), the counts set to 0 just before
+         # the run
+         "backward": {
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "none: src/repro/kernels/flash_attention/ops.py:38-48 differentiates "
+                         "the plain attention (the reference has no backward kernel)",
+             "ms": bt["ms"], "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+             "library_ms": bt["library_ms"], "plain_ms": bt["plain_ms"],
+             "max_abs_err": max(bt["max_abs_err"], train["flash_backward"]["max_abs_err"]),
+             "split_ms": bt["split_ms"],
+             "launches_train": train["granite"]["flash_backward_per_step"],
+             "launches_train_forward": train["granite"]["flash_forward_per_step"]}},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:36",
          "launches": serving["mamba2_370m"]["launches"],

@@ -93,6 +93,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -110,6 +111,7 @@ struct Args {
   int Hq, Hk, Sq, Sk, n_rep;
   int causal, has_window, window, q_offset;
   float sm_scale;
+  float* lse;  // (B, Hq, Sq) log-sum-exp of the scaled scores, or null
 };
 
 // ---------------------------------------------------------------------------
@@ -263,6 +265,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       store(o + (size_t)r * D + tx + 16 * j, acc[i][j] / safe_l);
+    // the scores were scaled with Q: lse is m + log l, -inf with no valid key
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(size_t)(b * a.Hq + h) * a.Sq + q0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -703,6 +708,16 @@ __global__ void __launch_bounds__(kThreads * warpgroups<D>()) flash_fwd_bf16(Arg
               __floats2bfloat162_rn(acc[i][4 * j + 2 * r] * inv[r],
                                     acc[i][4 * j + 2 * r + 1] * inv[r]);
       }
+  // m is in log2 units (the scores were scaled by sm_scale log2 e): lse
+  // = (m + log2 l) ln 2, -inf with no valid key
+  if (a.lse != nullptr && (lane & 3) == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < rows_w)
+        a.lse[(size_t)(b * a.Hq + h) * a.Sq + qw + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.69314718055994531f : -INFINITY;
+    }
 }
 
 }  // namespace tc
@@ -721,6 +736,396 @@ int launch_bf16(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// backward: flash_bwd_preprocess, flash_bwd_dkdv, flash_bwd_dq
+// ---------------------------------------------------------------------------
+//
+// The reference has no backward kernel: it trains by autodiff of its plain
+// attention.  These three exist so that training through the forward
+// kernel has a gradient on the card.  With P = exp(S sm_scale - lse) (S =
+// Q K^T, lse from the forward), dO the output's gradient and
+// delta = rowsum(dO o O):
+//     dV = P^T dO,  dS = P o (dO V^T - delta),
+//     dK = sm_scale dS^T Q,  dQ = sm_scale dS K,
+// each sum over the key or query pairs the mask lets through, GQA's query
+// heads summed into their KV head.  A row with no valid key (lse = -inf)
+// contributes nothing and gets dQ = 0.
+//
+// All three run on the CUDA cores in float32, for bf16 and float32 inputs
+// alike (loaded as float32 into shared memory, gradients written in the
+// inputs' dtype).  Bound: 5 products of 2 D flops per valid (query, key)
+// pair; these kernels do 7 (dkdv recomputes S and dP, dq both again), at
+// most 67 TFLOP/s in float32 FMAs, against 989 TFLOP/s on the bf16 tensor
+// cores that the bound is counted at.  A simple kernel that is right:
+// wgmma, TMA and a single pass are for later.
+//  * flash_bwd_preprocess: one warp a row, delta in float32.
+//  * flash_bwd_dkdv: one block of 256 threads owns a 64-key tile of one KV
+//    head of one batch item, and loops over its group's n_rep query heads
+//    and over the 32-row query tiles that the mask lets see the tile.  K
+//    and V stay in shared memory; each query tile brings Q, dO, lse and
+//    delta.  Thread (ty, tx) of a 16 x 16 grid computes S and dP for rows
+//    2 ty, 2 ty + 1 and keys tx + 16 j, P and dS go through shared memory,
+//    and it accumulates dK and dV for keys 4 ty .. 4 ty + 3 and columns
+//    tx + 16 j in registers.  Every sum has one owner and a fixed order: no
+//    atomics, and the same bits from run to run.
+//  * flash_bwd_dq: one block per 32-row query tile, query head and batch
+//    item, looping over the key tiles the mask lets in; dQ for rows
+//    2 ty, 2 ty + 1 and columns tx + 16 j in registers.
+//  Shared rows are padded by one float, as in the forward's float32
+//  kernel: 209 KB (dkdv) and 201 KB (dq) at D = 256.
+
+namespace bwd {
+
+constexpr int kKeys = 64;   // keys per tile
+constexpr int kRows = 32;   // query rows per tile
+constexpr int kThreads = 256;
+constexpr int kPS = kKeys + 1;  // padded row stride of the P and dS tiles
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int Hq, Hk, Sq, Sk, n_rep;
+  int causal, has_window, window, q_offset;
+  float sm_scale;
+};
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// delta[row] = sum_d dO[row, d] O[row, d] over the B Hq Sq rows
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_preprocess(BwdArgs a, long rows) {
+  const long row = (long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* o = (const T*)a.o + row * D;
+  const T* g = (const T*)a.dout + row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(ld(g + d), ld(o + d), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) a.delta[row] = acc;
+}
+
+// may query position qpos see key position kpos
+__device__ __forceinline__ bool visible(const BwdArgs& a, int qpos, int kpos) {
+  bool ok = kpos < a.Sk;
+  if (a.causal) ok = ok && kpos <= qpos;
+  if (a.has_window) ok = ok && kpos > qpos - a.window;
+  return ok;
+}
+
+// rows r < valid of a (rows x D) tile from src into shared dst (row stride
+// D + 1), zero past valid
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, int rows, int valid, int tid) {
+  for (int e = tid; e < rows * D; e += kThreads) {
+    const int r = e / D, d = e % D;
+    dst[r * (D + 1) + d] = r < valid ? ld(src + (size_t)r * D + d) : 0.f;
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  return sizeof(float) * (2 * (size_t)kKeys * (D + 1) + 2 * (size_t)kRows * (D + 1) +
+                          2 * (size_t)kRows * kPS + 2 * kRows);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(BwdArgs a) {
+  constexpr int DP = D + 1;
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;              // kKeys x DP
+  float* Vs = Ks + kKeys * DP;   // kKeys x DP
+  float* Qs = Vs + kKeys * DP;   // kRows x DP
+  float* Gs = Qs + kRows * DP;   // kRows x DP (dO)
+  float* Ps = Gs + kRows * DP;   // kRows x kPS
+  float* dSs = Ps + kRows * kPS; // kRows x kPS
+  float* Ls = dSs + kRows * kPS; // kRows lse
+  float* Es = Ls + kRows;        // kRows delta
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kKeys;
+  const int keys = min(kKeys, a.Sk - k0);
+  const size_t kv_off = ((size_t)(b * a.Hk + kvh) * a.Sk + k0) * D;
+  stage<T, D>(Ks, (const T*)a.k + kv_off, kKeys, keys, tid);
+  stage<T, D>(Vs, (const T*)a.v + kv_off, kKeys, keys, tid);
+
+  // the query rows that may see some key of this tile
+  const int k_last = k0 + keys - 1;
+  int i_begin = a.causal ? max(0, k0 - a.q_offset) : 0;
+  int i_end = a.Sq;
+  if (a.has_window) i_end = min(i_end, max(0, k_last + a.window - a.q_offset));
+  const int t_begin = i_begin / kRows;
+  const int t_end = i_end > i_begin ? (i_end + kRows - 1) / kRows : t_begin;
+
+  float dk[4][DJ], dv[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int r = 0; r < a.n_rep; ++r) {
+    const int h = kvh * a.n_rep + r;
+    const size_t row0 = (size_t)(b * a.Hq + h) * a.Sq;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i0 = t * kRows;
+      const int rows = min(kRows, a.Sq - i0);
+      __syncthreads();  // the last tile's Qs, Gs, Ps, dSs read (and Ks, Vs written)
+      stage<T, D>(Qs, (const T*)a.q + (row0 + i0) * D, kRows, rows, tid);
+      stage<T, D>(Gs, (const T*)a.dout + (row0 + i0) * D, kRows, rows, tid);
+      if (tid < kRows) {
+        Ls[tid] = tid < rows ? a.lse[row0 + i0 + tid] : -INFINITY;
+        Es[tid] = tid < rows ? a.delta[row0 + i0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // S and dP for rows 2 ty + i, keys tx + 16 j
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float qv[2], gv[2], kv[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          qv[i] = Qs[(2 * ty + i) * DP + d];
+          gv[i] = Gs[(2 * ty + i) * DP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kv[j] = Ks[(tx + 16 * j) * DP + d];
+          vv[j] = Vs[(tx + 16 * j) * DP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = 2 * ty + i;
+        const int qpos = a.q_offset + i0 + qi;
+        const float lse = Ls[qi], delta = Es[qi];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kk = tx + 16 * j;
+          const bool ok = qi < rows && lse != -INFINITY && visible(a, qpos, k0 + kk);
+          const float p = ok ? expf(s[i][j] * a.sm_scale - lse) : 0.f;
+          Ps[qi * kPS + kk] = p;
+          dSs[qi * kPS + kk] = p * (dp[i][j] - delta);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q for keys 4 ty + i, columns tx + 16 j
+#pragma unroll 4
+      for (int qi = 0; qi < kRows; ++qi) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = Ps[qi * kPS + 4 * ty + i];
+          ds[i] = dSs[qi * kPS + 4 * ty + i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const float g = Gs[qi * DP + tx + 16 * j];
+          const float qq = Qs[qi * DP + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dv[i][j] = fmaf(p[i], g, dv[i][j]);
+            dk[i][j] = fmaf(ds[i], qq, dk[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  T* dk_out = (T*)a.dk + kv_off;
+  T* dv_out = (T*)a.dv + kv_off;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kk = 4 * ty + i;
+    if (kk >= keys) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      st(dk_out + (size_t)kk * D + tx + 16 * j, dk[i][j] * a.sm_scale);
+      st(dv_out + (size_t)kk * D + tx + 16 * j, dv[i][j]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * (size_t)kKeys * (D + 1) + 2 * (size_t)kRows * (D + 1) +
+                          (size_t)kRows * kPS + 2 * kRows);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
+  constexpr int DP = D + 1;
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;              // kRows x DP
+  float* Gs = Qs + kRows * DP;   // kRows x DP (dO)
+  float* Ks = Gs + kRows * DP;   // kKeys x DP
+  float* Vs = Ks + kKeys * DP;   // kKeys x DP
+  float* dSs = Vs + kKeys * DP;  // kRows x kPS
+  float* Ls = dSs + kRows * kPS; // kRows lse
+  float* Es = Ls + kRows;        // kRows delta
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / a.n_rep;
+  const int i0 = blockIdx.x * kRows;
+  const int rows = min(kRows, a.Sq - i0);
+  const size_t row0 = (size_t)(b * a.Hq + h) * a.Sq + i0;
+  stage<T, D>(Qs, (const T*)a.q + row0 * D, kRows, rows, tid);
+  stage<T, D>(Gs, (const T*)a.dout + row0 * D, kRows, rows, tid);
+  if (tid < kRows) {
+    Ls[tid] = tid < rows ? a.lse[row0 + tid] : -INFINITY;
+    Es[tid] = tid < rows ? a.delta[row0 + tid] : 0.f;
+  }
+
+  // the keys that some row of this tile may see
+  const int qpos_first = a.q_offset + i0, qpos_last = a.q_offset + i0 + rows - 1;
+  int k_end = a.Sk;
+  if (a.causal) k_end = min(k_end, qpos_last + 1);
+  const int k_begin = a.has_window ? max(0, qpos_first - a.window + 1) : 0;
+  const int t_begin = k_begin / kKeys;
+  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+  const T* kb = (const T*)a.k + (size_t)(b * a.Hk + kvh) * a.Sk * D;
+  const T* vb = (const T*)a.v + (size_t)(b * a.Hk + kvh) * a.Sk * D;
+
+  float dq[2][DJ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kKeys;
+    __syncthreads();  // Qs, Gs, Ls, Es written; the last tile's Ks, dSs read
+    stage<T, D>(Ks, kb + (size_t)k0 * D, kKeys, a.Sk - k0, tid);
+    stage<T, D>(Vs, vb + (size_t)k0 * D, kKeys, a.Sk - k0, tid);
+    __syncthreads();
+
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[2], gv[2], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        qv[i] = Qs[(2 * ty + i) * DP + d];
+        gv[i] = Gs[(2 * ty + i) * DP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = Ks[(tx + 16 * j) * DP + d];
+        vv[j] = Vs[(tx + 16 * j) * DP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = 2 * ty + i;
+      const int qpos = a.q_offset + i0 + qi;
+      const float lse = Ls[qi], delta = Es[qi];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kk = tx + 16 * j;
+        const bool ok = qi < rows && lse != -INFINITY && visible(a, qpos, k0 + kk);
+        const float p = ok ? expf(s[i][j] * a.sm_scale - lse) : 0.f;
+        dSs[qi * kPS + kk] = p * (dp[i][j] - delta);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K for rows 2 ty + i, columns tx + 16 j
+#pragma unroll 4
+    for (int kk = 0; kk < kKeys; ++kk) {
+      const float ds0 = dSs[(2 * ty) * kPS + kk], ds1 = dSs[(2 * ty + 1) * kPS + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float kv = Ks[kk * DP + tx + 16 * j];
+        dq[0][j] = fmaf(ds0, kv, dq[0][j]);
+        dq[1][j] = fmaf(ds1, kv, dq[1][j]);
+      }
+    }
+  }
+
+  T* out = (T*)a.dq + row0 * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = 2 * ty + i;
+    if (qi >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) st(out + (size_t)qi * D + tx + 16 * j, dq[i][j] * a.sm_scale);
+  }
+}
+
+// passes: a bit mask of the launches to make, in order: 1 preprocess,
+// 2 dkdv, 4 dq (7 for the whole backward; one at a time to time each)
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    const long rows = (long)B * a.Hq * a.Sq;
+    flash_bwd_preprocess<T, D><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                                 kThreads, 0, stream>>>(a, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if ((passes & 2) && a.Sk > 0) {
+    const size_t smem_kv = dkdv_smem<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_kv((a.Sk + kKeys - 1) / kKeys, a.Hk, B);
+    flash_bwd_dkdv<T, D><<<grid_kv, kThreads, smem_kv, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(passes & 4)) return 0;
+  const size_t smem_q = dq_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((a.Sq + kRows - 1) / kRows, a.Hq, B);
+  flash_bwd_dq<T, D><<<grid_q, kThreads, smem_q, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 extern "C" {
@@ -734,15 +1139,18 @@ const char* flash_attention_error_string(int err) {
 // which MLA also takes, its v padded to its qk head dim, and gemma3-12b's
 // 256); any other D returns cudaErrorInvalidValue.
 // All four tensors are contiguous; bf16 ones start at a 16-byte boundary.
-// window is read only when has_window.
+// window is read only when has_window.  lse, where not null, receives the
+// float32 (B, Hq, Sq) log-sum-exp of each row's scaled scores (-inf for a
+// row with no valid key), for the backward; null leaves the outputs as
+// they were without it.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int Hk, int Sq, int Sk, int D,
                         int dtype, int causal, int has_window, int window,
-                        int q_offset, float sm_scale, void* stream) {
+                        int q_offset, float sm_scale, void* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hk <= 0 || Hq % Hk != 0 || Sk < 0) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, Hq, Hk, Sq, Sk, Hq / Hk,
-         causal, has_window, window, q_offset, sm_scale};
+         causal, has_window, window, q_offset, sm_scale, (float*)lse};
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype * 1000 + D) {
     case 16: return launch<float, 16>(a, B, s);
@@ -755,6 +1163,38 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 1096: return launch_bf16<96>(a, B, s);
     case 1128: return launch_bf16<128>(a, B, s);
     case 1256: return launch_bf16<256>(a, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of flash_attention_fwd: delta (B, Hq, Sq, float32 scratch)
+// = rowsum(dout o o), then dk, dv (B, Hk, Sk, D) and dq (B, Hq, Sq, D),
+// written whole (every element, zeros where no valid pair reaches it).
+// q, k, v, o, dout, dq, dk, dv share one dtype (0 float32, 1 bfloat16) and
+// are contiguous; lse is the forward's.  The same head dims as the forward.
+// passes: 7 for the whole backward, or the bits of the launches to make
+// (1 preprocess, 2 dkdv, 4 dq), which run in that order and hand on delta.
+int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const void* lse, void* delta, void* dq,
+                        void* dk, void* dv, int B, int Hq, int Hk, int Sq, int Sk, int D,
+                        int dtype, int causal, int has_window, int window, int q_offset,
+                        float sm_scale, int passes, void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (Hk <= 0 || Hq % Hk != 0 || Sk < 0) return (int)cudaErrorInvalidValue;
+  bwd::BwdArgs a{q, k, v, o, dout, (const float*)lse, (float*)delta, dq, dk, dv,
+                 Hq, Hk, Sq, Sk, Hq / Hk, causal, has_window, window, q_offset, sm_scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype * 1000 + D) {
+    case 16: return bwd::launch_bwd<float, 16>(a, B, passes, s);
+    case 64: return bwd::launch_bwd<float, 64>(a, B, passes, s);
+    case 96: return bwd::launch_bwd<float, 96>(a, B, passes, s);
+    case 128: return bwd::launch_bwd<float, 128>(a, B, passes, s);
+    case 256: return bwd::launch_bwd<float, 256>(a, B, passes, s);
+    case 1016: return bwd::launch_bwd<__nv_bfloat16, 16>(a, B, passes, s);
+    case 1064: return bwd::launch_bwd<__nv_bfloat16, 64>(a, B, passes, s);
+    case 1096: return bwd::launch_bwd<__nv_bfloat16, 96>(a, B, passes, s);
+    case 1128: return bwd::launch_bwd<__nv_bfloat16, 128>(a, B, passes, s);
+    case 1256: return bwd::launch_bwd<__nv_bfloat16, 256>(a, B, passes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

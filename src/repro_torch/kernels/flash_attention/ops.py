@@ -4,10 +4,13 @@
 A tensor on the CPU takes the plain torch version, picked by the
 reference's own threshold (``ops.py:14, 39``): the dense form up to
 512 x 512 score elements per (batch, head), the chunked online-softmax
-form above.  A CUDA tensor launches the hand-written Hopper kernel
-(``csrc/flash_attention.cu``) or raises: a head dim between its compiled
-instances is zero-padded to the next one (the output sliced back), and
-one above the largest raises.
+form above; autograd differentiates it there.  A CUDA tensor launches the
+hand-written Hopper kernel (``csrc/flash_attention.cu``) or raises: a head
+dim between its compiled instances is zero-padded to the next one (the
+output sliced back; autograd goes through the pad and the slice), and one
+above the largest raises.  When grad is enabled and q, k or v requires it,
+the launch goes through :class:`FlashAttention`, whose backward launches
+the backward kernels or raises: it never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -20,9 +23,52 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_chunked,
 # the chunked online-softmax form
 _CHUNKED_THRESHOLD = 512 * 512
 
-#: kernel launches made by :func:`flash_attention` (a plain count, read by
-#: ``chip_smoke.py`` to show the serving path went through the kernel)
+#: forward kernel launches made by :func:`flash_attention` (a plain count,
+#: read by ``chip_smoke.py`` to show the serving and training paths went
+#: through the kernel)
 LAUNCHES = 0
+#: backward launches (each the three backward kernels) made by
+#: :class:`FlashAttention`'s backward
+BACKWARD_LAUNCHES = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting at a 16-byte boundary (the bf16
+    forward copies 16 bytes at a time): a copy where it is not."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with its log-sum-exp kept, and the backward
+    kernels as its gradient (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, sm_scale):
+        from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, sm_scale=sm_scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, sm_scale=sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        global BACKWARD_LAUNCHES
+        from repro_torch.kernels.flash_attention.flash_attention import (
+            flash_attention_bwd_cuda)
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do, **ctx.kw)
+        BACKWARD_LAUNCHES += 1
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash_fn(q, k, v, *, sm_scale, causal, window, q_offset):
+    return FlashAttention.apply(q, k, v, causal, window, q_offset, sm_scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,7 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,
                                                                      flash_attention_cuda)
 
-    out = pad_head_dim(flash_attention_cuda, q, k, v,
+    differentiable = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    out = pad_head_dim(_flash_fn if differentiable else flash_attention_cuda, q, k, v,
                        padded_head_dim(q.shape[-1], HEAD_DIMS), sm_scale,
                        causal=causal, window=window, q_offset=q_offset)
     LAUNCHES += 1

@@ -6,7 +6,10 @@ q: (B, Hq, Sq, D); k, v: (B, Hk, Sk, D) with Hq a multiple of Hk.  Query
 head h reads KV head ``h // n_rep`` (``jnp.repeat`` along the head axis is
 ``repeat_interleave``).  A row with no valid key outputs 0, not NaN.
 Scores, softmax and the value product are float32; the output has q's
-dtype.
+dtype.  ``flash_attention_ref(..., return_lse=True)`` also gives each
+row's log-sum-exp, and :func:`flash_attention_bwd_ref` is the backward
+kernels' own formulas in plain torch (the reference has no backward
+kernel: it differentiates its plain attention).
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ def _mask(Sq: int, Sk: int, causal: bool, window, q_offset: int, device):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
-                        sm_scale=None):
+                        sm_scale=None, return_lse=False):
+    """o (B, Hq, Sq, D) in q's dtype; with ``return_lse`` (o, lse), lse
+    (B, Hq, Sq) float32 the log-sum-exp of each row's scaled scores over
+    its valid keys, -inf where it has none."""
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
     n_rep = Hq // Hk
@@ -38,11 +44,52 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
     s = torch.where(mask, s, float("-inf"))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom > 0, denom, 1.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(denom > 0, m + torch.log(denom), float("-inf"))[..., 0]
+    return out, lse.detach()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None,
+                            q_offset=0, sm_scale=None):
+    """The backward kernels' formulas, dense and in float32: with
+    P = exp(S sm_scale - lse) over the valid pairs (0 elsewhere and on a row
+    with lse = -inf) and delta = rowsum(dO o O),
+
+        dV = P^T dO,  dS = P o (dO V^T - delta),
+        dQ = sm_scale dS K,  dK = sm_scale dS^T Q,
+
+    dK and dV summed over each KV head's group of query heads.  Returns
+    (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, Hq, Sq, D = q.shape
+    _, Hk, Sk, _ = k.shape
+    n_rep = Hq // Hk
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(n_rep, dim=1)
+    vf = v.float().repeat_interleave(n_rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    lse = lse.float()[..., None]
+    valid = _mask(Sq, Sk, causal, window, q_offset, q.device) & torch.isfinite(lse)
+    p = torch.where(valid, torch.exp(s - torch.where(valid, lse, 0.0)), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
+
+    def grouped(t):  # (B, Hq, Sk, D) -> (B, Hk, Sk, D), each group summed
+        return t.reshape(B, Hk, n_rep, Sk, D).sum(dim=2)
+
+    dk = grouped(torch.einsum("bhqk,bhqd->bhkd", ds, qf)) * sm_scale
+    dv = grouped(torch.einsum("bhqk,bhqd->bhkd", p, dof))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,

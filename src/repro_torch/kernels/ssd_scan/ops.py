@@ -5,8 +5,11 @@ of dt into x and A and its model-to-kernel layout reshapes, ``:32-35, 49``;
 
 A tensor on the CPU takes the plain torch version (the chunked form above
 64 steps, the per-step recurrence below, as the reference picks off the
-TPU); a CUDA tensor launches the hand-written Hopper kernels
-(``csrc/ssd_scan.cu``) or raises.
+TPU), which autograd differentiates; a CUDA tensor launches the
+hand-written Hopper kernels (``csrc/ssd_scan.cu``) or raises.  The kernels
+have no backward yet: on a CUDA tensor that requires grad (grad enabled)
+:func:`ssd_scan` raises ``NotImplementedError`` naming ROADMAP A16.2
+rather than return a result with no gradient.
 """
 from __future__ import annotations
 
@@ -41,6 +44,11 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
             y = ssd_scan_ref(xdt, dtA, Bk, Ck, n_rep)
     elif x.device.type == "cuda":
         from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+            raise NotImplementedError(
+                "ssd_scan's backward kernels are not ported yet (Mamba-2 training "
+                "on the card): ROADMAP A16.2")
 
         y = ssd_scan_cuda(xdt, dtA, Bk, Ck, n_rep)
         LAUNCHES += 1

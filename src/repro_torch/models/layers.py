@@ -1,5 +1,6 @@
-"""Shared layers: a port of ``src/repro/models/layers.py:1-66`` (RMSNorm,
-rotary embeddings, the SwiGLU MLP and their initialisers).
+"""Shared layers: a port of ``src/repro/models/layers.py`` (RMSNorm,
+rotary embeddings, the SwiGLU MLP and their initialisers, ``:1-66``; the
+chunked cross-entropy ``chunked_softmax_xent``, ``:134-174``).
 
 Parameters are float32 tensors; compute is bf16 with float32 norms and
 activations, as in the reference: weights are cast to the activations'
@@ -7,13 +8,14 @@ dtype where the reference casts them (``.astype(dt)``).  Initialisers draw
 from an explicit ``torch.Generator`` (the reference's PRNG keys give other
 numbers; parity tests carry parameters across with
 :func:`repro_torch.models.convert.params_from_reference`).  MoE
-(``init_moe``, ``moe``, ``moe_aux_loss``) waits for the MoE configs and
-``chunked_softmax_xent`` for training.
+(``init_moe``, ``moe``, ``moe_aux_loss``) waits for the MoE configs
+(ROADMAP A19).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -68,3 +70,44 @@ def mlp(params, x):
     u = x @ params["w_up"].to(dt)
     h = F.silu(g.float()).to(dt) * u
     return h @ params["w_down"].to(dt)
+
+
+# ------------------------------------------------------------------ losses
+def _xent_chunk(xi, wf, li, mi):
+    """(sum of the masked NLL, count of masked positions) over one chunk;
+    its (B, chunk, V) float32 logits live only inside this call."""
+    logits = xi.float() @ wf
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[..., None])[..., 0]
+    mf = mi.float()
+    return torch.sum((lse - gold) * mf), torch.sum(mf)
+
+
+def chunked_softmax_xent(x, w_head, labels, mask=None, chunk: int = 512):
+    """Next-token CE without materializing (B, S, V) logits: the sequence
+    is processed in chunks, each computing float32 logits -> logsumexp ->
+    label logit and discarding the logits; each chunk is rematerialised
+    (``torch.utils.checkpoint``), so the backward recomputes its logits.
+    The reference's padding to a multiple of ``chunk``, masking and
+    ``max(count, 1)`` denominator.
+
+    x: (B, S, D); w_head: (D, V); labels: (B, S) integer; mask: (B, S)
+    bool or None (every position counts)."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    labels = labels.long()
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = torch.cat([mask, mask.new_zeros((B, pad))], dim=1)
+    wf = w_head.float()
+    total, count = [], []
+    for c in range(0, S + pad, chunk):
+        nll, n = checkpoint(_xent_chunk, x[:, c:c + chunk], wf, labels[:, c:c + chunk],
+                            mask[:, c:c + chunk], use_reentrant=False)
+        total.append(nll)
+        count.append(n)
+    return torch.stack(total).sum() / torch.clamp(torch.stack(count).sum(), min=1.0)

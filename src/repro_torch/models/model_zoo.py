@@ -1,11 +1,15 @@
 """Model facade: a port of ``src/repro/models/model_zoo.py:21-61``.
 
-:class:`Model` is an ``nn.Module`` that holds its parameters (the
+:class:`Model` is an ``nn.Module`` that holds its serving parameters (the
 reference's ``Model`` is a stateless facade over a parameter pytree), so
-``prefill`` and ``decode_step`` take no ``params``.  ``build_model(cfg)``
-runs on the card unless the caller passes ``device="cpu"``.  ``loss_fn``
-(training), ``input_specs`` and the other dry-run helpers wait for ROADMAP
-A16.
+``prefill`` and ``decode_step`` take no ``params``; they run under
+``inference_mode`` on frozen float32 parameters.  Training takes the
+parameters as a plain tree instead, as the reference does:
+:meth:`Model.init_params` draws one (float32 tensors, ``blocks`` a list of
+one dict per repeat, the draw :meth:`Model.init` makes), and
+:meth:`Model.loss_fn` differentiates through whatever tree it is given.  ``build_model(cfg)`` runs on the card unless the caller passes
+``device="cpu"``.  ``init_shapes``, ``input_specs`` and the other dry-run
+helpers wait for ROADMAP A16.3.
 """
 from __future__ import annotations
 
@@ -30,6 +34,24 @@ class Model(nn.Module):
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         return self.load(T.init_params(generator, self.cfg, self.device))
+
+    def init_params(self, generator: torch.Generator | None = None) -> dict:
+        """A fresh parameter tree of float32 tensors on the model's device,
+        drawn as :meth:`init` draws it (seed 0 by default), for training;
+        the model keeps nothing."""
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        return T.init_params(generator, self.cfg, self.device)
+
+    def loss_fn(self, params, batch, remat: bool = True):
+        """The mean next-token CE of ``batch`` under ``params`` (a plain
+        tree, e.g. the bf16 compute cast of :meth:`init_params`' float32
+        masters), differentiable."""
+        return T.loss_fn(params, batch, self.cfg, remat=remat)
+
+    def init_shapes(self):
+        raise NotImplementedError("init_shapes (the dry-run's parameter shapes) is "
+                                  "not ported yet: ROADMAP A16.3")
 
     def load(self, params: dict) -> "Model":
         """Take a parameter tree as :func:`transformer.init_params` builds it."""
@@ -59,4 +81,4 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 
 def input_specs(*args, **kwargs):
     raise NotImplementedError("input_specs (the dry-run's stand-ins) is not "
-                              "ported yet: ROADMAP A16")
+                              "ported yet: ROADMAP A16.3")

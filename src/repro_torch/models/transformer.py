@@ -1,34 +1,44 @@
 """Model assembly: a port of ``src/repro/models/transformer.py`` for the
 decoder stacks of dense attention and Mamba-2 super-blocks, with the
-serving entry points:
+reference's three entry points:
 
+  * ``loss_fn(params, batch, cfg)``         — next-token CE (chunked)
   * ``prefill(params, tokens, cfg, ...)``   — forward + KV/SSM cache
   * ``decode_step(params, cache, t, cfg)``  — single-token serve step
 
 The reference folds depth into ``lax.scan`` over ``n_repeats`` stacked
-super-blocks; here the stack is an ``nn.ModuleList`` of
-:class:`SuperBlock` modules, each holding its :class:`Layer` modules, and
-parameter names follow the reference's dict keys
-(``blocks.<r>.layer<i>.attn.wq`` is ``params["blocks"]["layer<i>"]["attn"]
-["wq"][r]``).  Parameters are float32 and never need gradients here.
+super-blocks; here depth is a loop over a list of super-blocks, and the
+sequence form (``_layer_seq``, ``_stack_seq``, ``forward``) is functional
+over either parameter tree: a plain dict ``{"embed", "final_norm",
+["lm_head"], "blocks": [one dict per repeat]}`` of tensors (training: the
+tensors may require grad, or be the bf16 cast of ones that do), or the
+serving :class:`Transformer` module, an ``nn.ModuleList`` of
+:class:`SuperBlock` modules holding frozen float32 parameters named by the
+reference's dict keys (``blocks.<r>.layer<i>.attn.wq`` is
+``params["blocks"]["layer<i>"]["attn"]["wq"][r]``).  ``forward(...,
+remat=True)`` rematerialises each super-block with
+``torch.utils.checkpoint`` (non-reentrant) when grad is enabled, as the
+reference wraps its scan body in ``jax.checkpoint``.
 
-``shard_batch`` (``dist/activations.py``) is the identity on one card and
-is not ported.  The decode cache is a dict ``{"pos": int, "layers": [one
-dict per super-block]}``; decode updates its tensors in place.  Not in
-this slice, each raising ``NotImplementedError``: ``loss_fn`` and remat
-(training, ROADMAP A16), MLA (A17), the ``cross`` mixer, ``encode`` and
-memory inputs (A18), and MoE layers (A19).
+``shard_batch`` (``dist/activations.py``) is the identity on one card.
+The decode cache is a dict ``{"pos": int, "layers": [one dict per
+super-block]}``; decode updates its tensors in place.  Not in this slice,
+each raising ``NotImplementedError``: Mamba-2 and hybrid training (ROADMAP
+A16.2), MLA (A17), the ``cross`` mixer, ``encode`` and memory inputs
+(A18), and MoE layers (A19).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as ATT
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig, LayerSpec
-from repro_torch.models.layers import (COMPUTE_DTYPE, _dense_init, init_mlp,
-                                       init_rmsnorm, mlp, rmsnorm)
+from repro_torch.models.layers import (COMPUTE_DTYPE, _dense_init,
+                                       chunked_softmax_xent, init_mlp, init_rmsnorm,
+                                       mlp, rmsnorm)
 
 
 def _unported(what: str, item: str):
@@ -76,32 +86,13 @@ class Params(nn.Module):
 
 class Layer(Params):
     """One layer of a super-block: the reference's ``layer<i>`` dict, with
-    its sequence form (``_layer_seq``) and its decode form (the body of
-    ``decode_step``)."""
+    its decode form (the body of ``decode_step``); its sequence form is
+    :func:`_layer_seq`, shared with the training trees."""
 
     def __init__(self, spec: LayerSpec, cfg: ArchConfig, tree: dict):
         super().__init__(tree)
         self.spec = spec
         self.cfg = cfg
-
-    def seq(self, x, q_offset: int = 0, causal: bool = True):
-        """(x', cache products) over a sequence (B, S, D)."""
-        spec, cfg = self.spec, self.cfg
-        cache_out = {}
-        if spec.mixer == "attn":
-            h = rmsnorm(x, self["norm1"], cfg.norm_eps)
-            o, kv = ATT.attention_seq(self["attn"], h, cfg, window=spec.window,
-                                      q_offset=q_offset, causal=causal)
-            cache_out["kv"] = kv
-            x = x + o
-        elif spec.mixer == "mamba":
-            h = rmsnorm(x, self["norm1"], cfg.norm_eps)
-            o, state = SSM.mamba_seq(self["mamba"], h, cfg)
-            cache_out["ssm"] = state
-            x = x + o
-        if spec.mlp == "dense":
-            x = x + mlp(self["mlp"], rmsnorm(x, self["norm2"], cfg.norm_eps))
-        return x, cache_out
 
     def decode(self, h, c: dict, pos: int):
         """(h', new cache entry) for one token (B, 1, D)."""
@@ -198,23 +189,57 @@ def _embed(params, tokens):
     return params["embed"][tokens].to(COMPUTE_DTYPE)
 
 
+def _layer_seq(lp, spec: LayerSpec, x, cfg: ArchConfig, q_offset: int = 0,
+               causal: bool = True):
+    """One layer over a sequence (B, S, D): (x', cache products).  ``lp``
+    is the layer's parameters, a dict or a :class:`Layer`."""
+    cache_out = {}
+    if spec.mixer == "attn":
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        o, kv = ATT.attention_seq(lp["attn"], h, cfg, window=spec.window,
+                                  q_offset=q_offset, causal=causal)
+        cache_out["kv"] = kv
+        x = x + o
+    elif spec.mixer == "mamba":
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        o, state = SSM.mamba_seq(lp["mamba"], h, cfg)
+        cache_out["ssm"] = state
+        x = x + o
+    if spec.mlp == "dense":
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+    return x, cache_out
+
+
+def _block_seq(bp, x, cfg: ArchConfig, q_offset: int, causal: bool):
+    """One super-block (a repeat): (x', {layer<i>: cache products})."""
+    caches = {}
+    for i, spec in enumerate(cfg.super_block):
+        x, caches[f"layer{i}"] = _layer_seq(bp[f"layer{i}"], spec, x, cfg, q_offset,
+                                            causal)
+    return x, caches
+
+
 def _stack_seq(params, x, cfg: ArchConfig, q_offset: int = 0, *,
-               collect_cache: bool = False, causal: bool = True):
+               collect_cache: bool = False, causal: bool = True, remat: bool = False):
+    """The super-blocks in order.  With ``remat`` and grad enabled each is
+    rematerialised: its activations are recomputed in the backward."""
     caches = []
-    for block in params.blocks:
-        c = {}
-        for i in range(len(cfg.super_block)):
-            x, c[f"layer{i}"] = block[f"layer{i}"].seq(x, q_offset, causal)
+    for bp in params["blocks"]:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda h, bp=bp: _block_seq(bp, h, cfg, q_offset, causal)[0],
+                           x, use_reentrant=False)
+            continue
+        x, c = _block_seq(bp, x, cfg, q_offset, causal)
         if collect_cache:
             caches.append(c)
     return x, caches
 
 
-def forward(params, tokens, cfg: ArchConfig, memory=None):
+def forward(params, tokens, cfg: ArchConfig, memory=None, *, remat: bool = True):
     """Token ids -> final hidden states (B, S, D) in COMPUTE_DTYPE."""
     if memory is not None:
         _unported("memory inputs (encoder / vision)", "A18")
-    x, _ = _stack_seq(params, _embed(params, tokens), cfg)
+    x, _ = _stack_seq(params, _embed(params, tokens), cfg, remat=remat)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -227,8 +252,16 @@ def lm_head(params, x, cfg: ArchConfig):
     return x.float() @ w.float()
 
 
-def loss_fn(*args, **kwargs):
-    _unported("training (loss_fn, chunked_softmax_xent)", "A16")
+def loss_fn(params, batch, cfg: ArchConfig, *, remat: bool = True):
+    """batch: {tokens (B, S), labels (B, S)[, mask (B, S)]} -> the mean
+    next-token CE over the masked positions (a float32 0-d tensor).
+    ``weight`` is ignored, as in the reference."""
+    _check_supported(cfg)
+    if any(spec.mixer == "mamba" for spec in cfg.super_block):
+        _unported("Mamba-2 and hybrid training (ssd_scan's backward)", "A16.2")
+    x = forward(params, batch["tokens"], cfg, batch.get("memory"), remat=remat)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return chunked_softmax_xent(x, w, batch["labels"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

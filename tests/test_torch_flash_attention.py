@@ -7,6 +7,15 @@ Tolerances are the reference's (``tests/test_kernels.py``): 2e-5 absolute
 and relative in float32, 2e-2 in bf16 (outputs compared as float32; the two
 packages round the bf16 output from float32 sums taken in another order).
 The CUDA kernel itself runs only on the card: ``test_torch_kernels_card.py``.
+
+Gradients (training): torch autograd of the port's plain versions against
+``jax.grad`` of the reference's ``flash_attention_ref`` and
+``flash_attention_chunked``, and ``flash_attention_bwd_ref`` (the backward
+kernels' formulas) against torch autograd, in float32 within 1e-5 of
+max |grad| (the same float32 arithmetic summed in another order).  A row
+with no valid key is compared only against ``flash_attention_bwd_ref``:
+both packages' dense forms take exp(-inf - -inf) there, so autograd's
+gradient of such a row is NaN.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +27,8 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import (flash_attention_chunked as jax_chunked,
                                                flash_attention_ref as jax_ref)
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import (flash_attention_chunked,
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_chunked,
                                                      flash_attention_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -152,3 +162,92 @@ def test_padded_head_dim_picks_the_next_instance():
         == [16, 16, 64, 64, 64, 96, 96, 256, 256]
     with pytest.raises(ValueError, match=r"head dim 257 .*\(16, 64, 96, 128, 256\)"):
         ops.padded_head_dim(257, HEAD_DIMS)
+
+
+def _grel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) / (float(np.abs(b).max()) + 1e-12)
+
+
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,kw", [
+    (1, 4, 2, 40, 40, 16, dict(causal=True)),
+    (2, 4, 1, 24, 56, 64, dict(causal=True, window=16, q_offset=32)),
+    (1, 2, 2, 33, 33, 96, dict(causal=False)),
+])
+def test_plain_autograd_matches_jax_grad(rng, B, Hq, Hk, Sq, Sk, D, kw):
+    """Autograd of the port's dense and chunked forms against jax.grad of
+    the reference's, for loss = sum(out * w)."""
+    import jax
+
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((B, Hq, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D), (B, Hq, Sq, D))]
+    w = arrs[3]
+    for port_fn, jax_fn, extra in ((flash_attention_ref, jax_ref, {}),
+                                   (flash_attention_chunked, jax_chunked, {"bk": 16})):
+        want = jax.grad(lambda q, k, v: (jax_fn(q, k, v, **kw, **extra) * w).sum(),
+                        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrs[:3]))
+        q, k, v = (torch.as_tensor(a).requires_grad_() for a in arrs[:3])
+        got = torch.autograd.grad((port_fn(q, k, v, **kw, **extra) * torch.as_tensor(w)).sum(),
+                                  (q, k, v))
+        for a, b in zip(got, want):
+            assert _grel(a.numpy(), b) < 1e-5, (port_fn.__name__, _grel(a.numpy(), b))
+
+
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,kw", [
+    (1, 4, 2, 37, 37, 16, dict(causal=True)),                       # GQA, ragged
+    (2, 4, 4, 50, 50, 64, dict(causal=True, window=12)),             # window, MHA
+    (1, 4, 1, 20, 70, 16, dict(causal=True, q_offset=50)),           # q_offset
+    (1, 2, 1, 30, 45, 64, dict(causal=False, sm_scale=0.3)),
+])
+def test_bwd_ref_matches_autograd(rng, B, Hq, Hk, Sq, Sk, D, kw):
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).requires_grad_()
+               for s in ((B, Hq, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D)))
+    do = torch.as_tensor(rng.normal(size=(B, Hq, Sq, D)), dtype=torch.float32)
+    o, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), lse, do, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _grel(a, b) < 1e-5
+    # lse against torch.logsumexp of the masked scores
+    n_rep = Hq // Hk
+    s = torch.einsum("bhqd,bhkd->bhqk", q.detach(), k.detach().repeat_interleave(n_rep, 1))
+    s = s * kw.get("sm_scale", D ** -0.5)
+    qpos = kw.get("q_offset", 0) + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    mask = (kpos <= qpos) if kw["causal"] else torch.ones((Sq, Sk), dtype=torch.bool)
+    if "window" in kw:
+        mask &= kpos > qpos - kw["window"]
+    want_lse = torch.logsumexp(torch.where(mask, s, float("-inf")), dim=-1)
+    assert torch.isfinite(lse).all() and _grel(lse, want_lse) < 1e-6
+
+
+def test_bwd_ref_through_the_head_dim_padding(rng):
+    """D = 24 on the card runs at 64, q, k, v zero-padded and the scale
+    kept at 24's: the backward formulas at 64, their gradients sliced back,
+    equal autograd of the plain version at 24."""
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).requires_grad_()
+               for s in ((1, 4, 40, 24), (1, 2, 40, 24), (1, 2, 40, 24)))
+    do = torch.as_tensor(rng.normal(size=(1, 4, 40, 24)), dtype=torch.float32)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal=True, window=9), (q, k, v),
+                               do)
+    pad = lambda t: torch.nn.functional.pad(t.detach(), (0, 40))  # noqa: E731
+    o, lse = flash_attention_ref(pad(q), pad(k), pad(v), causal=True, window=9,
+                                 sm_scale=24 ** -0.5, return_lse=True)
+    got = flash_attention_bwd_ref(pad(q), pad(k), pad(v), o, lse, pad(do), causal=True,
+                                  window=9, sm_scale=24 ** -0.5)
+    for a, b in zip(got, want):
+        assert not a[..., 24:].any()
+        assert _grel(a[..., :24], b) < 1e-5
+
+
+def test_bwd_ref_fully_masked_rows_are_zero(rng):
+    """Every key too old for every row: lse = -inf and zero gradients
+    (autograd of the dense form gives NaN there)."""
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+                   for s in ((1, 2, 8, 16), (1, 1, 16, 16), (1, 1, 16, 16), (1, 2, 8, 16)))
+    kw = dict(causal=False, window=4, q_offset=40)
+    o, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.isneginf(lse).all() and not o.any()
+    for g in flash_attention_bwd_ref(q, k, v, o, lse, do, **kw):
+        assert not torch.isnan(g).any() and not g.any()

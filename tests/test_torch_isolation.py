@@ -37,6 +37,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.kernels.relagg.relagg, repro_torch.fuse, repro_torch.cost\n"
         "import repro_torch.cost.router, repro_torch.persist, repro_torch.persist.keys\n"
         "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.train, repro_torch.train.checkpoint, repro_torch.train.elastic\n"
+        "import repro_torch.train.straggler, repro_torch.data.pipeline\n"
+        "import repro_torch.dist.compress, repro_torch.dist.activations\n"
+        "import repro_torch.launch.train, repro_torch.models.convert\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(loaded)\n"
         "sys.exit(1 if loaded else 0)\n"

@@ -12,13 +12,22 @@ zero-padded to the next of them); ssd_scan a max error
 below 3e-4 of max|y| in float32, and
 the states its state pass leaves within 1e-5 of the plain version of its
 passes.  The kernels sum in another order than the plain versions (tiles
-of 64 keys, chunks of the kernel's own length)."""
+of 64 keys, chunks of the kernel's own length).
+
+flash_attention's backward kernels against ``flash_attention_bwd_ref`` (the
+same formulas, dense, in float32): max |kernel - plain| within 2e-5 of
+max |plain| in float32 (float32 sums in another order) and 8e-3 in bf16
+(both round float32 sums to bf16 at the end: one bf16 ulp is 2^-8 of the
+value); the forward's log-sum-exp within 1e-4 of the plain one's; the
+``autograd.Function`` against torch autograd of the float32 plain version
+within 1e-4 of max |grad|."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked, ssd_scan_ref,
                                               ssd_scan_state_passing)
@@ -202,3 +211,127 @@ def test_ssd_ops_launches_once(rng):
     y_cpu = ssd_ops.ssd_scan(*(t.cpu() for t in (x, dt, A, Bm, Cm)))
     err = float((y.cpu() - y_cpu).abs().max()) / float(y_cpu.abs().max())
     assert err < 3e-4, err
+
+
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-9)
+
+
+def _bwd_case(rng, B, Hq, Hk, Sq, Sk, D, dtype, **kw):
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).to("cuda", dtype)
+                   for s in ((B, Hq, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D), (B, Hq, Sq, D)))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), finite)
+    if finite.any():
+        assert float((lse[finite] - lse_ref[finite]).abs().max()) < 1e-4
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) < BWD_TOL[dtype], (name, _rel(a, b))
+    return got
+
+
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,kw", [
+    (1, 4, 2, 100, 100, 16, dict(causal=True)),
+    (2, 8, 2, 300, 300, 64, dict(causal=True)),    # granite-3-2b's group of 4
+    (1, 4, 4, 130, 200, 96, dict(causal=False)),   # phi3-mini-3.8b's head dim, MHA
+    (1, 2, 1, 200, 200, 128, dict(causal=True, window=50)),
+    (1, 4, 4, 1100, 1100, 256, dict(causal=True, window=1024)),  # gemma3's local layers
+    (1, 4, 2, 1, 40, 64, dict(causal=True, q_offset=39)),         # decode offset
+    (1, 2, 2, 40, 1000, 256, dict(causal=True, q_offset=960)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain(rng, B, Hq, Hk, Sq, Sk, D, kw, dtype):
+    _bwd_case(rng, B, Hq, Hk, Sq, Sk, D, dtype, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_fully_masked_rows_are_zero(rng, dtype):
+    """Every key too old for every row (lse = -inf): zero gradients."""
+    dq, dk, dv = _bwd_case(rng, 1, 2, 1, 8, 16, 64, dtype, causal=False, window=4,
+                           q_offset=40)
+    assert not dq.any() and not dk.any() and not dv.any()
+
+
+def test_flash_backward_is_deterministic(rng):
+    """dK and dV have one owner each: two launches give the same bits."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, do = (torch.as_tensor(rng.normal(size=(2, 32, 700, 64)), dtype=torch.float32)
+             .to("cuda", torch.bfloat16) for _ in range(2))
+    k, v = (torch.as_tensor(rng.normal(size=(2, 8, 700, 64)), dtype=torch.float32)
+            .to("cuda", torch.bfloat16) for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("D", [64, 24])
+def test_flash_autograd_function_under_checkpoint(rng, D):
+    """ops.flash_attention on CUDA tensors that require grad, inside a
+    non-reentrant torch.utils.checkpoint: the forward launches twice, the
+    backward once, and the gradients equal torch autograd of the float32
+    plain version (D = 24 through the zero padding to 64)."""
+    from torch.utils.checkpoint import checkpoint
+
+    arrs = [rng.normal(size=s) for s in ((2, 4, 150, D), (2, 2, 150, D), (2, 2, 150, D))]
+    q, k, v = (torch.as_tensor(a, dtype=torch.float32, device="cuda").requires_grad_()
+               for a in arrs)
+    weight = torch.as_tensor(rng.normal(size=(2, 4, 150, D)), dtype=torch.float32,
+                             device="cuda")
+
+    def loss(attend, q, k, v):
+        return (attend(q, k, v, causal=True, window=100) * weight).sum()
+
+    fwd, bwd = fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES
+    checkpoint(loss, fa_ops.flash_attention, q, k, v, use_reentrant=False).backward()
+    assert fa_ops.LAUNCHES == fwd + 2 and fa_ops.BACKWARD_LAUNCHES == bwd + 1
+    got = [t.grad.clone() for t in (q, k, v)]
+    want = torch.autograd.grad(loss(flash_attention_ref, q, k, v), (q, k, v))
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-4, _rel(a, b)
+
+
+def test_ssd_scan_raises_on_a_cuda_input_that_requires_grad():
+    x = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
+    dt = torch.full((1, 8, 2), 0.1, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    Bm = torch.zeros((1, 8, 1, 16), device="cuda")
+    before = ssd_ops.LAUNCHES
+    with pytest.raises(NotImplementedError, match="A16.2"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Bm)
+    assert ssd_ops.LAUNCHES == before
+    with torch.no_grad():
+        ssd_ops.ssd_scan(x, dt, A, Bm, Bm)
+    assert ssd_ops.LAUNCHES == before + 1
+
+
+def test_flash_backward_passes_one_at_a_time(rng):
+    """The backward's launches made one at a time (as ``chip_smoke.py``
+    times them) give the whole call's bits."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BACKWARD_PASSES, backward_plan, flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, do = (torch.as_tensor(rng.normal(size=(1, 4, 200, 64)), dtype=torch.float32)
+             .to("cuda", torch.bfloat16) for _ in range(2))
+    k, v = (torch.as_tensor(rng.normal(size=(1, 2, 200, 64)), dtype=torch.float32)
+            .to("cuda", torch.bfloat16) for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    call = backward_plan(q, k, v, o, lse, do)
+    assert [name for name, _ in call.passes] == [name for name, _ in BACKWARD_PASSES]
+    for _, launch in call.passes:
+        launch()
+    whole = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip((call.dq, call.dk, call.dv), whole))

@@ -12,8 +12,10 @@ script exits non-zero:
    parallel) from the sources in this checkout, and prints each kernel
    instance's registers, shared memory and spills (``ptxas -v``) and its
    tensor-core instructions (HGMMA, from ``cuobjdump -sass``); a bf16
-   flash_attention instance without HGMMA fails (D = 16, 64, 96, 128,
-   256), and so does a spill in the bf16 instances at D = 96 and 256, an
+   flash_attention instance without HGMMA fails (the forward at D = 16,
+   64, 96, 128, 256; the backward's ``flash_bwd_dkdv_bf16`` and
+   ``flash_bwd_dq_bf16`` at the same five), and so does a spill in
+   the bf16 forward at D = 96 and 256 or in any backward kernel, an
    ssd_scan kernel that spills or a set of ssd_scan kernels other than its
    four passes;
 2. kernels — each kernel against its plain torch version on the card:
@@ -153,24 +155,30 @@ script exits non-zero:
    with the plain version in place of the kernel on the card) and the
    admission verdicts on the CPU and on the card;
 10. training (ROADMAP A16.1) — (a) flash_attention's backward kernels
-   (``flash_bwd_preprocess``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) against
-   ``flash_attention_bwd_ref`` in float32 and bf16 at head dims 16 to 256
-   (granite-3-2b's training layer, gemma3-12b's 1,024-key window with a
-   query offset at 1, 40 and 1,000 queries, rows with no valid key), the
-   forward's log-sum-exp against the plain one's, dK/dV bit-equal across
-   two launches, and the ``autograd.Function`` under a checkpoint (D = 64,
+   (``flash_bwd_preprocess``, then dK/dV and dQ: on the tensor cores in
+   bf16, ``flash_bwd_dkdv_bf16`` and ``flash_bwd_dq_bf16``; on the CUDA
+   cores in float32, ``flash_bwd_dkdv`` and ``flash_bwd_dq``) against ``flash_attention_bwd_ref`` in float32 and bf16
+   at head dims 16 to 256 (granite-3-2b's training layer, gemma3-12b's
+   1,024-key window with a query offset at 1, 40 and 1,000 queries, rows
+   with no valid key), the forward's log-sum-exp against the plain one's,
+   dQ/dK/dV bit-equal across two launches, and the ``autograd.Function``
+   under a checkpoint (D = 64,
    and 24 through the padding) against torch autograd of the float32
    plain version; (b) the data pipeline at 8 x 4,096 tokens, FROID ==
    INTERPRETED on the card == the CPU bit for bit; (c) granite-3-2b at
    full width, random weights from seed 0, 6 steps of ``train_loop`` over
-   4 x 4,096 tokens in 2 microbatches with remat: losses finite and
-   falling, 160 forward and 80 backward flash launches a step, ms a step,
+   4 x 4,096 tokens in 2 microbatches with remat: losses finite, the loss
+   of one batch the run does not train on lower after the 6 steps than
+   before, 160 forward and 80 backward flash launches a step, ms a step,
    tokens/s, peak memory, one traced step, and the first step on 1,024
    tokens with the kernels against the plain attention; (d) the smoke
    config card against CPU over 8 steps, microbatches, compression,
    a checkpoint restored and continued bit for bit, the launcher resuming;
-   (e) the backward's times at granite's training inputs beside its
-   bound, the plain backward and ``scaled_dot_product_attention``'s.
+   (e) the backward's times at granite's training inputs, by kernel and
+   in TFLOP/s, beside its bound, the plain backward and
+   ``scaled_dot_product_attention``'s; the same at phi3-mini-3.8b's layer
+   (D = 96, MHA) and gemma3-12b's global one (D = 256) from random
+   inputs.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -204,6 +212,15 @@ several cards its (f) leg runs it again over a mesh of every card.
     python3 chip_smoke.py --train
 
 builds flash_attention alone and runs the training phase (10) alone.
+
+    python3 chip_smoke.py --train-seeds
+
+builds flash_attention alone and runs (c)'s 6 granite steps from the
+initial states of seeds 0, 1 and 2, printing each step's batch loss, the
+held-out batch's loss before and after, and which of two gates holds
+(the last step's batch loss below the first's; the held-out batch's loss
+falling): copied into another source tree, it runs that tree's kernels
+the same way.
 
     python3 chip_smoke.py --flash-variants
 
@@ -326,13 +343,18 @@ def hgmma_counts(lib: pathlib.Path, tool: pathlib.Path) -> dict[str, int]:
     return counts
 
 
-def flash_head_dim(name: str) -> int:
-    """D of a bf16 flash_attention instance, from its demangled name
-    (``tc::flash_fwd_bf16<(int)96>``) or its mangled one
+def flash_head_dim(name: str, kernel: str = "flash_fwd_bf16") -> int:
+    """D of a bf16 flash_attention instance of ``kernel``, from its
+    demangled name (``tc::flash_fwd_bf16<(int)96>``) or its mangled one
     (``flash_fwd_bf16ILi96E``)."""
-    m = re.search(r"flash_fwd_bf16(?:<(?:\(int\))?|ILi)(\d+)", name)
+    m = re.search(kernel + r"(?:<(?:\(int\))?|ILi)(\d+)", name)
     check(m is not None, f"no head dim in the kernel name {name}")
     return int(m.group(1))
+
+
+#: the backward's dK/dV and dQ kernels on the tensor cores, bf16 at every
+#: head dim (their CUDA-core counterparts take float32)
+FLASH_BWD_TC = ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
 
 
 def build_report() -> dict[str, dict]:
@@ -340,8 +362,9 @@ def build_report() -> dict[str, dict]:
     shared memory and spills, and the HGMMA count of its SASS.  Fails
     unless each bf16 flash_attention instance (D = 16, 64, 96, 128, 256)
     holds tensor-core instructions, or if those at D = 96 and 256 spill,
-    or if a flash_attention backward kernel (three kernels, two dtypes, the
-    five head dims) is missing or spills."""
+    or if a flash_attention backward kernel (preprocess in two dtypes, dK/dV
+    and dQ on the tensor cores in bf16, each holding HGMMA, and on the CUDA
+    cores in float32, each at the five head dims) is missing or spills."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
     from repro_torch.kernels.ssd_scan.ssd_scan import PASSES
@@ -371,6 +394,10 @@ def build_report() -> dict[str, dict]:
     bwd = {n: r for n, r in report.items() if "flash_bwd_" in n}
     check(len(bwd) == 3 * 2 * len(HEAD_DIMS), f"expected flash_bwd_preprocess, _dkdv and "
           f"_dq in float32 and bf16 at D = {HEAD_DIMS}: {sorted(bwd)}")
+    for kernel in FLASH_BWD_TC:
+        tc = {flash_head_dim(n, kernel): r for n, r in bwd.items() if kernel in n}
+        check(sorted(tc) == list(HEAD_DIMS) and all(r["hgmma"] for r in tc.values()),
+              f"expected {kernel} at D = {HEAD_DIMS}, each with HGMMA: {tc}")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in bwd.values()),
           f"a flash_attention backward kernel spills: {bwd}")
     ssd = {n.split("::")[-1]: r for n, r in report.items() if r["source"] == "ssd_scan.cu"}
@@ -5224,8 +5251,10 @@ def lm_cross_device_phase() -> None:
 #: (label, B, Hq, Hk, Sq, Sk, D, kwargs): the backward kernels against
 #: ``flash_attention_bwd_ref`` in float32 and bf16.  granite-3-2b's training
 #: layer (a microbatch of 2 x 4,096 tokens); gemma3-12b's 1,024-key window at
-#: D = 256 with MHA and a query offset, at 1, 40 and 1,000 queries; rows
-#: with no valid key, all of them and some of them.
+#: D = 256 with MHA and a query offset, at 1, 40 and 1,000 queries, and at
+#: D = 64 with GQA; rows with no valid key, all of them and some of them; a
+#: decode row at D = 128.  bf16 runs on the tensor cores, float32 on the
+#: CUDA cores.
 FLASH_BWD_CASES = [
     ("d16", 1, 4, 2, 300, 300, 16, dict(causal=True)),
     ("granite3_2b", 2, 32, 8, 4096, 4096, 64, dict(causal=True)),
@@ -5237,6 +5266,8 @@ FLASH_BWD_CASES = [
      dict(causal=True, window=1024, q_offset=500)),
     ("fully_masked", 1, 2, 1, 8, 16, 64, dict(causal=False, window=4, q_offset=40)),
     ("some_rows_masked", 1, 2, 1, 8, 16, 64, dict(causal=False, window=4, q_offset=14)),
+    ("d64_window_S40", 1, 8, 2, 40, 1500, 64, dict(causal=True, window=1024, q_offset=1460)),
+    ("d128_S1", 2, 4, 4, 1, 700, 128, dict(causal=True, q_offset=699)),
 ]
 #: max |kernel - plain| over max |plain|, per gradient: float32 sums in
 #: another order; in bf16 both round float32 sums to bf16 at the end (one
@@ -5250,6 +5281,13 @@ FLASH_AUTOGRAD_TOL = 1e-4
 #: granite-3-2b's training run: 6 steps of 4 x 4,096 tokens in 2 microbatches
 TRAIN_STEPS = 6
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 4096, 2
+#: the pipeline step whose batch the run does not train on and whose loss
+#: must fall over the run: the same tokens before and after, so the check
+#: does not compare one batch's loss with another's (on uniform tokens the
+#: batches' losses differ by more than 6 steps lower them)
+TRAIN_HELD_OUT_STEP = 50
+#: the initial states ``--train-seeds`` trains from
+TRAIN_SEEDS = (0, 1, 2)
 #: the first step on one 1,024-token sequence, kernels against the plain
 #: attention swapped in: relative limits on the loss and the gradient norm
 #: (the forward kernel rounds P to bf16 before P V, which the plain version
@@ -5264,7 +5302,7 @@ SMOKE_LOSS_TOL = 5e-3
 def flash_backward_checks() -> dict:
     """(a): the backward kernels against ``flash_attention_bwd_ref`` at
     :data:`FLASH_BWD_CASES` in both dtypes, the forward's lse against the
-    plain one's, dK/dV bit-equal across two launches, and the
+    plain one's, dQ/dK/dV bit-equal across two launches, and the
     ``autograd.Function`` (through ``ops.flash_attention``, inside a
     non-reentrant checkpoint; D = 64 and D = 24 through the zero padding)
     against torch autograd of the float32 plain version."""
@@ -5309,7 +5347,7 @@ def flash_backward_checks() -> dict:
             if label == "granite3_2b" and dtype == torch.bfloat16:
                 again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      "flash backward at granite3_2b bf16: two launches differ")
+                      "flash backward at granite3_2b bf16: two launches differ (dQ, dK or dV)")
             del q, k, v, o, do, got, want
     torch.cuda.empty_cache()
     autograd = {}
@@ -5338,7 +5376,7 @@ def flash_backward_checks() -> dict:
         f"(worst max |diff| / max |plain|: float32 {worst['float32']:.3g}, limit "
         f"{FLASH_BWD_TOL['float32']}; bf16 {worst['bfloat16']:.3g}, limit "
         f"{FLASH_BWD_TOL['bfloat16']}); lse within {max(e['lse'] for e in errs.values()):.3g} "
-        f"(limit {FLASH_LSE_TOL}); dK/dV bit-equal across two launches; autograd.Function "
+        f"(limit {FLASH_LSE_TOL}); dQ/dK/dV bit-equal across two launches; autograd.Function "
         f"under checkpoint vs torch autograd of the float32 plain version: D = 64 "
         f"{autograd[64]:.3g}, D = 24 (padded) {autograd[24]:.3g} (limit {FLASH_AUTOGRAD_TOL})")
     return {"cases": errs, "max_abs_err": max_abs, "autograd": autograd}
@@ -5390,6 +5428,74 @@ def _capture_flash_backward(store: dict):
     return original
 
 
+def held_out_loss(model, params, batch) -> float:
+    """The loss of ``batch`` under ``params`` (bf16 compute, as a training
+    step), without gradients."""
+    import torch
+
+    from repro_torch.train.train_loop import compute_params
+
+    with torch.no_grad():
+        return float(model.loss_fn(compute_params(params), batch, remat=False))
+
+
+def granite_six_steps(model, cfg, seed: int, history: list) -> dict:
+    """(c)'s run: ``train_loop`` over :data:`TRAIN_STEPS` steps from seed
+    ``seed``'s initial state, and the held-out batch's loss before and
+    after.  Returns the state, the pipeline, both losses, the steps' peak GB
+    and the flash launches of the steps alone (the counts set to 0 just
+    before them)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_loop import init_state, train_loop
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    state = init_state(model, torch.Generator("cuda").manual_seed(seed), opt_cfg)
+    pipe = DataPipeline(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab)
+    held_out = pipe.batch_at(TRAIN_HELD_OUT_STEP)
+    before = held_out_loss(model, state.params, held_out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = fa_ops.BACKWARD_LAUNCHES = 0
+    state = train_loop(model, state, iter(pipe), opt_cfg, steps=TRAIN_STEPS,
+                       microbatches=TRAIN_MICRO, log_every=0, history=history)
+    launches = (fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = held_out_loss(model, state.params, held_out)
+    return {"state": state, "pipe": pipe, "held_out_before": before, "held_out_after": after,
+            "peak_gb": peak_gb, "launches": launches}
+
+
+def train_seeds_phase() -> dict:
+    """``--train-seeds``: (c)'s 6 steps from each of :data:`TRAIN_SEEDS`'
+    initial states, and which gate holds in each."""
+    import torch
+
+    from repro_torch.configs import config_for
+    from repro_torch.models import build_model
+
+    cfg = config_for("granite3_2b")
+    model = build_model(cfg)
+    out = {}
+    for seed in TRAIN_SEEDS:
+        history: list = []
+        run = granite_six_steps(model, cfg, seed, history)
+        before, after = run["held_out_before"], run["held_out_after"]
+        losses = [h["loss"] for h in history]
+        out[seed] = {"losses": losses, "held_out_before": before, "held_out_after": after,
+                     "last_below_first": losses[-1] < losses[0],
+                     "held_out_falling": after < before}
+        log(f"train seeds: seed {seed}: {json.dumps(out[seed])}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def granite_training(cfg) -> tuple[dict, dict]:
     """(c): granite-3-2b at full width, random weights from seed 0, through
     ``train_loop`` on the card; the traced step; the first step with the
@@ -5399,37 +5505,33 @@ def granite_training(cfg) -> tuple[dict, dict]:
 
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.kernels.flash_attention import flash_attention as fa_binding
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models import attention as ATT
     from repro_torch.models import build_model
     from repro_torch.train.optim import AdamWConfig
-    from repro_torch.train.train_loop import init_state, make_train_step, train_loop
+    from repro_torch.train.train_loop import init_state, make_train_step
 
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
-    state = init_state(model, torch.Generator("cuda").manual_seed(0), opt_cfg)
-    pipe = DataPipeline(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab)
     captured: dict = {}
     original = _capture_flash_backward(captured)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     history: list = []
-    fa_ops.LAUNCHES = fa_ops.BACKWARD_LAUNCHES = 0
     try:
-        state = train_loop(model, state, iter(pipe), opt_cfg, steps=TRAIN_STEPS,
-                           microbatches=TRAIN_MICRO, log_every=0, history=history)
+        run = granite_six_steps(model, cfg, 0, history)
     finally:
         fa_binding.flash_attention_bwd_cuda = original
-    fwd, bwd = fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, pipe, peak_gb = run["state"], run["pipe"], run["peak_gb"]
+    held_before, held_after = run["held_out_before"], run["held_out_after"]
+    fwd, bwd = run["launches"]
+    del run
     losses = [h["loss"] for h in history]
     per_step = cfg.n_repeats * len(cfg.super_block) * TRAIN_MICRO
-    check(all(math.isfinite(x) for x in losses), f"granite training: a loss is not finite: "
-          f"{losses}")
-    check(losses[-1] < losses[0], f"granite training: the last loss {losses[-1]} is not below "
-          f"the first {losses[0]}")
+    check(all(math.isfinite(x) for x in losses + [held_before, held_after]),
+          f"granite training: a loss is not finite: {losses}, held-out {held_before} / "
+          f"{held_after}")
+    check(held_after < held_before, f"granite training: the loss of the batch of pipeline "
+          f"step {TRAIN_HELD_OUT_STEP}, not trained on, went from {held_before} before the "
+          f"{TRAIN_STEPS} steps to {held_after} after: not falling")
     check(fwd == 2 * per_step * TRAIN_STEPS and bwd == per_step * TRAIN_STEPS,
           f"granite training: flash launched {fwd} forward and {bwd} backward in "
           f"{TRAIN_STEPS} steps, not {2 * per_step} and {per_step} a step")
@@ -5481,13 +5583,16 @@ def granite_training(cfg) -> tuple[dict, dict]:
         f"({traced_ms:.1f} ms wall under the profiler), {events} device events; top "
         f"{[(n, round(ms, 2)) for n, ms in top]}; port kernels "
         f"{ {k: (round(e['ms'], 2), e['launches']) for k, e in port.items() if '<' not in k} }")
+    log(f"train (c): the batch of pipeline step {TRAIN_HELD_OUT_STEP}, not trained on: loss "
+        f"{held_before:.6f} before the {TRAIN_STEPS} steps, {held_after:.6f} after")
     log(f"train (c): first step at 1,024 tokens, kernels against the plain attention: loss "
         f"{kernel['loss']:.6f} / {plain['loss']:.6f} (rel {rel['loss']:.3g}, limit "
         f"{KERNEL_VS_PLAIN_TOL['loss']}), grad_norm {kernel['grad_norm']:.6f} / "
         f"{plain['grad_norm']:.6f} (rel {rel['grad_norm']:.3g}, limit "
         f"{KERNEL_VS_PLAIN_TOL['grad_norm']})")
     return {
-        "steps": history, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+        "steps": history, "held_out_loss": {"before": held_before, "after": held_after},
+        "step_ms": step_ms, "tokens_per_s": tokens_per_s,
         "peak_gb": peak_gb, "flash_forward_per_step": fwd // TRAIN_STEPS,
         "flash_backward_per_step": bwd // TRAIN_STEPS,
         # the profiler's own host cost stretches the traced step's wall, so
@@ -5598,15 +5703,36 @@ def smoke_training(cfg, tmp: pathlib.Path) -> dict:
             "resume_max_diff": resume_diff}
 
 
-def time_flash_backward(captured: dict) -> dict:
-    """(e): the backward at granite-3-2b's training inputs (the first
-    backward call of the run, captured): the three kernels together by
-    CUDA events and each apart by CUDA events between its launches
-    (:func:`pass_split_ms`), the bound (5 products of 2 D operations per valid pair at the
-    bf16 peak, against each input read once and each gradient written
-    once), ``scaled_dot_product_attention``'s forward + backward minus its
-    forward, the plain backward, and the forward with lse against
-    without."""
+#: (label, B, Hq, Hk, S, D, kwargs): training layers whose backward (e)
+#: also times, from random inputs: phi3-mini-3.8b's (MHA, D = 96, on the
+#: tensor cores) and gemma3-12b's global layer (D = 256, two warpgroups a
+#: block)
+FLASH_BWD_TIMED = [("phi3_mini_38b", 2, 32, 32, 4096, 96, dict(causal=True)),
+                   ("gemma3_12b_global", 2, 16, 8, 4096, 256, dict(causal=True))]
+
+
+def random_backward_inputs(B: int, Hq: int, Hk: int, S: int, D: int, kw: dict,
+                           seed: int) -> tuple:
+    """bf16 q, k, v and dO from a seed, and the forward kernel's o and lse."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, Hq, S, D), generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, Hk, S, D), generator=g, device="cuda").bfloat16() for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    return q, k, v, o, lse, do
+
+
+def time_flash_backward(label: str, args: tuple, kw: dict) -> dict:
+    """(e): one backward call's times: the three kernels together by CUDA
+    events and each apart by CUDA events between its launches
+    (:func:`pass_split_ms`), the bound (5 products of 2 D operations per
+    valid pair at the bf16 peak, against each input read once and each
+    gradient written once) and TFLOP/s on that count,
+    ``scaled_dot_product_attention``'s forward + backward minus its forward,
+    the plain backward, and the forward with lse against without."""
     import torch
     import torch.nn.functional as F
 
@@ -5614,15 +5740,14 @@ def time_flash_backward(captured: dict) -> dict:
         backward_plan, flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
-    q, k, v, o, lse, do = captured["args"]
-    kw = captured["kw"]
+    q, k, v, o, lse, do = args
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     rel = max(rel_err(a, b) for a, b in zip(got, want))
     max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-    check(rel <= FLASH_BWD_TOL["bfloat16"], f"flash backward at granite's training inputs: "
+    check(rel <= FLASH_BWD_TOL["bfloat16"], f"flash backward at {label}'s training inputs: "
           f"{rel} over {FLASH_BWD_TOL['bfloat16']}")
     del got, want
     torch.cuda.empty_cache()
@@ -5667,9 +5792,9 @@ def time_flash_backward(captured: dict) -> dict:
         "forward_ms": fwd_plain, "forward_lse_ms": fwd_lse,
         "max_abs_err": max_abs, "max_rel_err": rel,
     }
-    log(f"train (e): flash backward at granite's training inputs {out['shape']} bf16: "
-        f"{out['ms']:.3f} ms ({out['tflops']:.2f} TFLOP/s of the 5-product count; by kernel "
-        f"{ {n: round(t, 3) for n, t in split.items()} } ms), bound "
+    log(f"train (e): flash backward at {label}'s training inputs {out['shape']} bf16 "
+        f"{kw}: {out['ms']:.3f} ms ({out['tflops']:.2f} TFLOP/s of the 5-product count; by "
+        f"kernel { {n: round(t, 3) for n, t in split.items()} } ms), bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {ops_count / 1e9:.1f} GFLOP at 989 "
         f"TFLOP/s, {nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, SDPA backward "
         f"{out['library_ms']:.3f} ms (forward + backward {lib_both:.3f} - forward "
@@ -5683,7 +5808,8 @@ def train_phase() -> dict:
     its plain version; (b) the data pipeline; (c) granite-3-2b at full
     width through ``train_loop``; (d) the smoke config card against CPU,
     microbatches, compression, checkpoint resume and the launcher; (e) the
-    backward's times at granite's training inputs."""
+    backward's times at granite's training inputs and at
+    :data:`FLASH_BWD_TIMED`'s layers."""
     import shutil
     import tempfile
 
@@ -5698,10 +5824,18 @@ def train_phase() -> dict:
     out = {"flash_backward": flash_backward_checks()}
     out["pipeline"] = train_pipeline_check(cfg.vocab)
     out["granite"], captured = granite_training(cfg)
-    out["backward_times"] = time_flash_backward(captured)
+    out["backward_times"] = time_flash_backward("granite3_2b", captured["args"],
+                                                captured["kw"])
     del captured
     gc.collect()
     torch.cuda.empty_cache()
+    out["backward_shapes"] = {}
+    for i, (label, B, Hq, Hk, S, D, kw) in enumerate(FLASH_BWD_TIMED):
+        args = random_backward_inputs(B, Hq, Hk, S, D, kw, seed=30 + i)
+        out["backward_shapes"][label] = time_flash_backward(label, args, kw)
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         out["smoke"] = smoke_training(smoke_config_for("granite3_2b"), tmp)
@@ -5761,6 +5895,11 @@ def main() -> int:
         out = mesh_phase()
         print(json.dumps({"card": card, "cards": torch.cuda.device_count(), "mesh": out},
                          default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--train-seeds"]:
+        _build.load("flash_attention")
+        print(json.dumps({"card": card, "tree": str(ROOT), "train_seeds": train_seeds_phase()}),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--train"]:
         _build.load("flash_attention")
@@ -5969,7 +6108,15 @@ def main() -> int:
              "ms": bt["ms"], "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
              "library_ms": bt["library_ms"], "plain_ms": bt["plain_ms"],
              "max_abs_err": max(bt["max_abs_err"], train["flash_backward"]["max_abs_err"]),
-             "split_ms": bt["split_ms"],
+             "split_ms": bt["split_ms"], "tflops": bt["tflops"],
+             # HGMMA instructions of the tensor-core instances (bf16), from
+             # the build report
+             "hgmma": {name.split("::")[-1]: r["hgmma"] for name, r in build.items()
+                       if any(kernel in name for kernel in FLASH_BWD_TC)},
+             # phi3-mini-3.8b's and gemma3-12b's layer shapes, random inputs
+             "shapes": {label: {key: t[key] for key in (
+                 "shape", "ms", "split_ms", "tflops", "bound_ms", "bound_by", "library_ms",
+                 "plain_ms", "max_abs_err")} for label, t in train["backward_shapes"].items()},
              "launches_train": train["granite"]["flash_backward_per_step"],
              "launches_train_forward": train["granite"]["flash_forward_per_step"]}},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -752,26 +752,73 @@ int launch_bf16(const Args& a, int B, cudaStream_t stream) {
 // heads summed into their KV head.  A row with no valid key (lse = -inf)
 // contributes nothing and gets dQ = 0.
 //
-// All three run on the CUDA cores in float32, for bf16 and float32 inputs
-// alike (loaded as float32 into shared memory, gradients written in the
-// inputs' dtype).  Bound: 5 products of 2 D flops per valid (query, key)
-// pair; these kernels do 7 (dkdv recomputes S and dP, dq both again), at
-// most 67 TFLOP/s in float32 FMAs, against 989 TFLOP/s on the bf16 tensor
-// cores that the bound is counted at.  A simple kernel that is right:
-// wgmma, TMA and a single pass are for later.
+// Bound: 5 products of 2 D flops per valid (query, key) pair, at 989
+// TFLOP/s on the bf16 tensor cores.  The kernels do 7: dkdv computes S and
+// dP for its key tile, and dq computes both again for its query tile, so
+// that dQ has a pass of its own and every sum one owner (no atomics: dQ,
+// dK and dV are the same bits from run to run).  Three launches in order:
 //  * flash_bwd_preprocess: one warp a row, delta in float32.
-//  * flash_bwd_dkdv: one block of 256 threads owns a 64-key tile of one KV
-//    head of one batch item, and loops over its group's n_rep query heads
-//    and over the 32-row query tiles that the mask lets see the tile.  K
+//  * dK and dV: a block owns a 64-key tile of one KV head of one batch
+//    item and loops over its group's n_rep query heads and, within each,
+//    over the 64-row query tiles the mask lets see the tile, in that fixed
+//    order.
+//  * dQ: a block owns a 64-row query tile of one query head and loops
+//    over the key tiles its rows can see.
+//
+// bf16, flash_bwd_dkdv_bf16<D> and flash_bwd_dq_bf16<D> (the five D), on
+// the tensor cores (the training path's bf16 inputs: granite-3-2b's D = 64,
+// phi3-mini-3.8b's 96, gemma3-12b's 256, the smoke configs' 16).  One
+// warpgroup a block (two at D = 256, below), the forward's parts:
+// swizzled Tile<D> shared memory, wgmma with float32 accumulators in
+// registers, the cp.async ring of two stages.
+//  * dkdv keeps K and V resident.  Q, dO, lse and delta of the next query
+//    tile load into the other stage while this one is multiplied.  It
+//    computes the transposes S^T = K Q^T and dP^T = V dO^T (both operands
+//    K-major, M = keys, N = query rows), so that P^T = exp2(S^T sm_scale
+//    log2 e - lse log2 e) and dS^T = P^T o (dP^T - delta) come out in the
+//    accumulator layout, which is wgmma's A-operand layout once packed to
+//    bf16 (as the forward packs P).  dV += P^T dO and dK += dS^T Q then
+//    read P^T and dS^T from registers and dO and Q MN-major, as the forward
+//    reads V: 4 products a query tile, nothing of P or dS through shared
+//    memory.  A thread's rows are keys and its columns query positions, so
+//    the mask's predicate is taken with the roles swapped and lse and
+//    delta are read for the 16 query columns it holds.
+//  * dq loads Q and dO once and K/V tiles through the ring, as the
+//    forward: S = Q K^T and dP = dO V^T (both K-major), P and dS in
+//    registers, dQ += dS K with K read MN-major: 3 products a key tile.
+//    The last query tiles, which see the most keys under the causal mask,
+//    are scheduled first; in dkdv the first key tiles are.
+//  * P and dS are rounded to bf16 only where they enter a product (the
+//    plain version's round_to_bf16 repeats that).  A row with no valid
+//    key (lse = -inf) is read as lse = +inf, so its P is exp2(-inf) = 0;
+//    rows and keys past Sq and Sk load as zeros (their delta and lse as 0),
+//    so they add nothing; only the tiles that the diagonal, the window's
+//    edge or Sk cut are masked elementwise.  dK is scaled by sm_scale in
+//    float32 at write-out.
+//  * Registers: dK and dV take D floats a thread together, S^T and dP^T
+//    64, dQ D / 2.  At D = 256 that is too many for one warpgroup, so both
+//    kernels take two there, each holding half of D's columns of dK and dV
+//    (dQ) and each computing the whole of S and dP from the shared tiles:
+//    6 products a query tile in dkdv in place of 4, 5 a key tile in dq in
+//    place of 3.  dkdv at D = 256 also takes a query tile's S^T and dP^T in
+//    two halves of 32 rows (m64n32), 32 registers in place of 64.
+//  * Shared memory: dkdv K, V + 2 stages x (Q, dO) tiles + 1 KB of lse and
+//    delta, 50 KB at D = 64, 98 KB at D = 96 and 128, 194 KB at 256; dq
+//    the same tiles without the lse stages.
+//  Left out, for later: warp specialisation with a TMA producer, a single
+//  pass (dQ by atomics would lose the fixed order).
+//
+// float32, flash_bwd_dkdv<D> and flash_bwd_dq<D> (the five
+// D), on the CUDA cores (float32 FMAs at 67 TFLOP/s at most; TF32 products
+// would break float32's 2e-5 agreement).
+//  * flash_bwd_dkdv: one block of 256 threads, 32-row query tiles.  K
 //    and V stay in shared memory; each query tile brings Q, dO, lse and
 //    delta.  Thread (ty, tx) of a 16 x 16 grid computes S and dP for rows
 //    2 ty, 2 ty + 1 and keys tx + 16 j, P and dS go through shared memory,
 //    and it accumulates dK and dV for keys 4 ty .. 4 ty + 3 and columns
-//    tx + 16 j in registers.  Every sum has one owner and a fixed order: no
-//    atomics, and the same bits from run to run.
+//    tx + 16 j in registers.
 //  * flash_bwd_dq: one block per 32-row query tile, query head and batch
-//    item, looping over the key tiles the mask lets in; dQ for rows
-//    2 ty, 2 ty + 1 and columns tx + 16 j in registers.
+//    item; dQ for rows 2 ty, 2 ty + 1 and columns tx + 16 j in registers.
 //  Shared rows are padded by one float, as in the forward's float32
 //  kernel: 209 KB (dkdv) and 201 KB (dq) at D = 256.
 
@@ -800,8 +847,6 @@ struct BwdArgs {
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // delta[row] = sum_d dO[row, d] O[row, d] over the B Hq Sq rows
 template <typename T, int D>
@@ -828,8 +873,8 @@ __device__ __forceinline__ bool visible(const BwdArgs& a, int qpos, int kpos) {
 
 // rows r < valid of a (rows x D) tile from src into shared dst (row stride
 // D + 1), zero past valid
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int rows, int valid, int tid) {
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int rows, int valid, int tid) {
   for (int e = tid; e < rows * D; e += kThreads) {
     const int r = e / D, d = e % D;
     dst[r * (D + 1) + d] = r < valid ? ld(src + (size_t)r * D + d) : 0.f;
@@ -842,7 +887,7 @@ constexpr size_t dkdv_smem() {
                           2 * (size_t)kRows * kPS + 2 * kRows);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(BwdArgs a) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
@@ -861,8 +906,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(BwdArgs a) {
   const int k0 = blockIdx.x * kKeys;
   const int keys = min(kKeys, a.Sk - k0);
   const size_t kv_off = ((size_t)(b * a.Hk + kvh) * a.Sk + k0) * D;
-  stage<T, D>(Ks, (const T*)a.k + kv_off, kKeys, keys, tid);
-  stage<T, D>(Vs, (const T*)a.v + kv_off, kKeys, keys, tid);
+  stage<D>(Ks, (const float*)a.k + kv_off, kKeys, keys, tid);
+  stage<D>(Vs, (const float*)a.v + kv_off, kKeys, keys, tid);
 
   // the query rows that may see some key of this tile
   const int k_last = k0 + keys - 1;
@@ -885,8 +930,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(BwdArgs a) {
       const int i0 = t * kRows;
       const int rows = min(kRows, a.Sq - i0);
       __syncthreads();  // the last tile's Qs, Gs, Ps, dSs read (and Ks, Vs written)
-      stage<T, D>(Qs, (const T*)a.q + (row0 + i0) * D, kRows, rows, tid);
-      stage<T, D>(Gs, (const T*)a.dout + (row0 + i0) * D, kRows, rows, tid);
+      stage<D>(Qs, (const float*)a.q + (row0 + i0) * D, kRows, rows, tid);
+      stage<D>(Gs, (const float*)a.dout + (row0 + i0) * D, kRows, rows, tid);
       if (tid < kRows) {
         Ls[tid] = tid < rows ? a.lse[row0 + i0 + tid] : -INFINITY;
         Es[tid] = tid < rows ? a.delta[row0 + i0 + tid] : 0.f;
@@ -959,16 +1004,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(BwdArgs a) {
     }
   }
 
-  T* dk_out = (T*)a.dk + kv_off;
-  T* dv_out = (T*)a.dv + kv_off;
+  float* dk_out = (float*)a.dk + kv_off;
+  float* dv_out = (float*)a.dv + kv_off;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kk = 4 * ty + i;
     if (kk >= keys) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      st(dk_out + (size_t)kk * D + tx + 16 * j, dk[i][j] * a.sm_scale);
-      st(dv_out + (size_t)kk * D + tx + 16 * j, dv[i][j]);
+      dk_out[(size_t)kk * D + tx + 16 * j] = dk[i][j] * a.sm_scale;
+      dv_out[(size_t)kk * D + tx + 16 * j] = dv[i][j];
     }
   }
 }
@@ -979,7 +1024,7 @@ constexpr size_t dq_smem() {
                           (size_t)kRows * kPS + 2 * kRows);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
@@ -998,8 +1043,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
   const int i0 = blockIdx.x * kRows;
   const int rows = min(kRows, a.Sq - i0);
   const size_t row0 = (size_t)(b * a.Hq + h) * a.Sq + i0;
-  stage<T, D>(Qs, (const T*)a.q + row0 * D, kRows, rows, tid);
-  stage<T, D>(Gs, (const T*)a.dout + row0 * D, kRows, rows, tid);
+  stage<D>(Qs, (const float*)a.q + row0 * D, kRows, rows, tid);
+  stage<D>(Gs, (const float*)a.dout + row0 * D, kRows, rows, tid);
   if (tid < kRows) {
     Ls[tid] = tid < rows ? a.lse[row0 + tid] : -INFINITY;
     Es[tid] = tid < rows ? a.delta[row0 + tid] : 0.f;
@@ -1012,8 +1057,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
   const int k_begin = a.has_window ? max(0, qpos_first - a.window + 1) : 0;
   const int t_begin = k_begin / kKeys;
   const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
-  const T* kb = (const T*)a.k + (size_t)(b * a.Hk + kvh) * a.Sk * D;
-  const T* vb = (const T*)a.v + (size_t)(b * a.Hk + kvh) * a.Sk * D;
+  const float* kb = (const float*)a.k + (size_t)(b * a.Hk + kvh) * a.Sk * D;
+  const float* vb = (const float*)a.v + (size_t)(b * a.Hk + kvh) * a.Sk * D;
 
   float dq[2][DJ];
 #pragma unroll
@@ -1024,8 +1069,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kKeys;
     __syncthreads();  // Qs, Gs, Ls, Es written; the last tile's Ks, dSs read
-    stage<T, D>(Ks, kb + (size_t)k0 * D, kKeys, a.Sk - k0, tid);
-    stage<T, D>(Vs, vb + (size_t)k0 * D, kKeys, a.Sk - k0, tid);
+    stage<D>(Ks, kb + (size_t)k0 * D, kKeys, a.Sk - k0, tid);
+    stage<D>(Vs, vb + (size_t)k0 * D, kKeys, a.Sk - k0, tid);
     __syncthreads();
 
     float s[2][4], dp[2][4];
@@ -1082,18 +1127,406 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
     }
   }
 
-  T* out = (T*)a.dq + row0 * D;
+  float* out = (float*)a.dq + row0 * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = 2 * ty + i;
     if (qi >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) st(out + (size_t)qi * D + tx + 16 * j, dq[i][j] * a.sm_scale);
+    for (int j = 0; j < DJ; ++j) out[(size_t)qi * D + tx + 16 * j] = dq[i][j] * a.sm_scale;
   }
 }
 
+// flash_bwd_dkdv and flash_bwd_dq on the CUDA cores
+template <int D>
+int launch_bwd_cuda_cores(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if ((passes & 2) && a.Sk > 0) {
+    const size_t smem_kv = dkdv_smem<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_kv((a.Sk + kKeys - 1) / kKeys, a.Hk, B);
+    flash_bwd_dkdv<D><<<grid_kv, kThreads, smem_kv, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(passes & 4)) return 0;
+  const size_t smem_q = dq_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((a.Sq + kRows - 1) / kRows, a.Hq, B);
+  flash_bwd_dq<D><<<grid_q, kThreads, smem_q, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// Warpgroups a block: two at D = 256, each holding dK and dV (dQ) for half
+// of D's columns, each computing the whole of S and dP; one otherwise.
+template <int D>
+__host__ __device__ constexpr int bwd_warpgroups() { return D == 256 ? 2 : 1; }
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  // bytes 0 zero-fills the 4 (src unread)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// D(64x32, f32) (+)= A(64x16, smem) B(32x16, smem)^T
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N) = A B^T over D, N = 64 or 32 rows of B, both operands K-major
+// in Tile<D> shared memory (b the address of B's first row): D / 16
+// products of k16, issued (not committed) on this warpgroup
+template <int D, int NACC>
+__device__ __forceinline__ void products_k_major(float (&d)[NACC], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (NACC == 32)
+      tc::wgmma_ss_n64(d, tc::desc_k_major<D>(a, kk), tc::desc_k_major<D>(b, kk), kk > 0);
+    else
+      wgmma_ss_n32(d, tc::desc_k_major<D>(a, kk), tc::desc_k_major<D>(b, kk), kk > 0);
+  }
+}
+
+// lse in log2 units for exp2; a row with no valid key (-inf) as +inf, so
+// that exp2(s - lse) is 0 there and never inf
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == -INFINITY ? INFINITY : lse * tc::kLog2e;
+}
+
+// K, V, then kStages stages of (Q, dO), then kStages stages of 64 lse and
+// 64 delta, and room to align to 1024 bytes
+template <int D>
+constexpr size_t dkdv_bf16_smem() {
+  return (size_t)tc::Tile<D>::kBytes * (2 + 2 * tc::kStages) +
+         tc::kStages * 2 * kKeys * sizeof(float) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads * bwd_warpgroups<D>())
+    flash_bwd_dkdv_bf16(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using Tl = tc::Tile<D>;
+  constexpr int kWg = bwd_warpgroups<D>();
+  constexpr int kNT = tc::kThreads * kWg;
+  constexpr int kCols = D / kWg;     // columns of dK and dV a warpgroup holds
+  constexpr int kN = tc::Pv<D>::kN;  // columns of D one dK or dV product covers
+  constexpr int kCount = kCols / kN;
+  constexpr int kAcc = kN / 2;
+  constexpr int kQ = 64;             // query rows a tile
+  // query rows S^T and dP^T cover at once: at D = 256 a tile's two halves
+  // in turn, so that S^T and dP^T take 32 registers a thread, not 64
+  constexpr int kHalves = D == 256 ? 2 : 1;
+  constexpr int kP = kQ / kHalves;
+  extern __shared__ uint8_t tc_smem[];  // (smem is the CUDA-core kernels' float array)
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(tc_smem);
+  const uint32_t sK = (base + 1023u) & ~1023u;
+  const uint32_t sV = sK + Tl::kBytes;
+  const uint32_t sRing = sV + Tl::kBytes;  // stage s: Q at + 2 s kBytes, dO after it
+  const uint32_t sLD = sRing + 2 * tc::kStages * Tl::kBytes;  // stage s: lse, delta
+  const float* lse_delta = reinterpret_cast<const float*>(tc_smem + (sLD - base));
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // this thread's warpgroup (broadcast from lane 0, so the compiler sees it
+  // uniform across the warp) and its warp in it
+  const int wg = kWg == 1 ? 0 : __shfl_sync(0xffffffffu, tid / tc::kThreads, 0);
+  const int warp = (tid % tc::kThreads) >> 5;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kKeys;
+  const int keys = min(kKeys, a.Sk - k0);
+  const size_t kv_off = ((size_t)(b * a.Hk + kvh) * a.Sk + k0) * D;
+  const bf16* q = (const bf16*)a.q;
+  const bf16* g = (const bf16*)a.dout;
+
+  // the query rows that may see some key of this tile, in 64-row tiles;
+  // the block walks (query head, query tile) pairs, head by head
+  const int k_last = k0 + keys - 1;
+  const int i_begin = a.causal ? max(0, k0 - a.q_offset) : 0;
+  int i_end = a.Sq;
+  if (a.has_window) i_end = min(i_end, max(0, k_last + a.window - a.q_offset));
+  const int t_begin = i_begin / kQ;
+  const int nt = i_end > i_begin ? (i_end + kQ - 1) / kQ - t_begin : 0;
+  const int n_it = a.n_rep * nt;
+
+  // Q, dO, lse and delta of step it into stage it % 2, one commit group
+  const auto load_step = [&](int it) {
+    const int st = it & 1;
+    const int i0 = (t_begin + it % nt) * kQ;
+    const size_t row0 = (size_t)(b * a.Hq + kvh * a.n_rep + it / nt) * a.Sq + i0;
+    const uint32_t sQ = sRing + 2 * st * Tl::kBytes;
+    tc::load_tile<D, kNT>(sQ, q + row0 * D, a.Sq - i0, tid);
+    tc::load_tile<D, kNT>(sQ + Tl::kBytes, g + row0 * D, a.Sq - i0, tid);
+    if (tid < 2 * kQ) {
+      const int c = tid & (kQ - 1);
+      const bool in = i0 + c < a.Sq;
+      const float* src = tid < kQ ? a.lse : a.delta;
+      cp_async4(sLD + st * 2 * kQ * sizeof(float) + tid * sizeof(float),
+                src + row0 + (in ? c : 0), in ? 4 : 0);
+    }
+    tc::cp_async_commit();
+  };
+
+  float dk[kCount][kAcc], dv[kCount][kAcc];
+#pragma unroll
+  for (int i = 0; i < kCount; ++i)
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  if (n_it > 0) {  // else nothing to load: the block writes zeros
+    tc::load_tile<D, kNT>(sK, (const bf16*)a.k + kv_off, keys, tid);
+    tc::load_tile<D, kNT>(sV, (const bf16*)a.v + kv_off, keys, tid);
+    load_step(0);  // K and V in step 0's group
+  }
+
+  const float scale = a.sm_scale * tc::kLog2e;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's keys: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);           // and query columns c0, c0 + 1 of each 8
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      load_step(it + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_proxy_async();
+    __syncthreads();  // every thread's copies of this step (and K, V) landed
+
+    const int st = it & 1;
+    const uint32_t sQ = sRing + 2 * st * Tl::kBytes;
+    const uint32_t sG = sQ + Tl::kBytes;
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      // S^T and dP^T: rows keys, columns the query rows kP hf .. of the tile
+      float s[kP / 2], dp[kP / 2];
+      tc::wgmma_fence();
+      products_k_major<D>(s, sK, sQ + kP * hf * Tl::kRowBytes);
+      products_k_major<D>(dp, sV, sG + kP * hf * Tl::kRowBytes);
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::reg_fence(s);
+      tc::reg_fence(dp);
+
+      const int qpos0 = a.q_offset + (t_begin + it % nt) * kQ + kP * hf;
+      const bool edge = k0 + kKeys > a.Sk || (a.causal && k0 + kKeys - 1 > qpos0) ||
+                        (a.has_window && k0 <= qpos0 + kP - 1 - a.window);
+      const float* L = lse_delta + st * 2 * kQ + kP * hf;  // lse, then delta at + kQ
+      uint32_t pp[kP / 4], pd[kP / 4];  // P^T and dS^T as bf16 A operands
+#pragma unroll
+      for (int j = 0; j < kP / 8; ++j) {
+        const float2 lse = *reinterpret_cast<const float2*>(L + 8 * j + c0);
+        const float2 del = *reinterpret_cast<const float2*>(L + kQ + 8 * j + c0);
+        const float l2[2] = {lse_log2(lse.x), lse_log2(lse.y)};
+        const float dl[2] = {del.x, del.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = exp2f(fmaf(s[i], scale, -l2[e & 1]));
+          if (edge && !visible(a, qpos0 + 8 * j + c0 + (e & 1), k0 + r0 + 8 * (e >> 1)))
+            p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - dl[e & 1]);
+        }
+        pp[2 * j] = tc::pack_bf16(s[4 * j], s[4 * j + 1]);
+        pp[2 * j + 1] = tc::pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        pd[2 * j] = tc::pack_bf16(dp[4 * j], dp[4 * j + 1]);
+        pd[2 * j + 1] = tc::pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+      }
+
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kP / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < kCount; ++i) {
+          const int blk = (wg * kCols + i * kN) / Tl::kBlockCols;
+          const int rows16 = kP / 16 * hf + kk;  // 16-row group of the tile
+          tc::wgmma_rs(dv[i], pp + 4 * kk, tc::desc_mn_major<D>(sG, blk, rows16));
+          tc::wgmma_rs(dk[i], pd + 4 * kk, tc::desc_mn_major<D>(sQ, blk, rows16));
+        }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < kCount; ++i) {
+        tc::reg_fence(dv[i]);
+        tc::reg_fence(dk[i]);
+      }
+    }
+    __syncthreads();  // this stage is read: the next step refills it
+  }
+
+  bf16* dk_out = (bf16*)a.dk + kv_off;
+  bf16* dv_out = (bf16*)a.dv + kv_off;
+#pragma unroll
+  for (int i = 0; i < kCount; ++i)
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = r0 + 8 * r;
+        if (key >= keys) continue;
+        const size_t at = (size_t)key * D + wg * kCols + i * kN + 8 * j + c0;
+        *reinterpret_cast<__nv_bfloat162*>(dk_out + at) = __floats2bfloat162_rn(
+            dk[i][4 * j + 2 * r] * a.sm_scale, dk[i][4 * j + 2 * r + 1] * a.sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
+            __floats2bfloat162_rn(dv[i][4 * j + 2 * r], dv[i][4 * j + 2 * r + 1]);
+      }
+}
+
+// Q, dO, then kStages stages of (K, V), and room to align to 1024 bytes
+template <int D>
+constexpr size_t dq_bf16_smem() {
+  return (size_t)tc::Tile<D>::kBytes * (2 + 2 * tc::kStages) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads * bwd_warpgroups<D>())
+    flash_bwd_dq_bf16(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using Tl = tc::Tile<D>;
+  constexpr int kWg = bwd_warpgroups<D>();
+  constexpr int kNT = tc::kThreads * kWg;
+  constexpr int kCols = D / kWg;  // columns of dQ a warpgroup holds
+  constexpr int kN = tc::Pv<D>::kN;
+  constexpr int kCount = kCols / kN;
+  constexpr int kAcc = kN / 2;
+  constexpr int kQ = 64;
+  extern __shared__ uint8_t tc_smem[];
+  const uint32_t sQ = ((uint32_t)__cvta_generic_to_shared(tc_smem) + 1023u) & ~1023u;
+  const uint32_t sG = sQ + Tl::kBytes;
+  const uint32_t sKV = sG + Tl::kBytes;  // stage s: K at + 2 s kBytes, V after it
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = kWg == 1 ? 0 : __shfl_sync(0xffffffffu, tid / tc::kThreads, 0);
+  const int warp = (tid % tc::kThreads) >> 5;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kQ;
+  const int kvh = h / a.n_rep;
+  const int rows = min(kQ, a.Sq - i0);
+  const size_t row0 = (size_t)(b * a.Hq + h) * a.Sq + i0;
+  const bf16* k = (const bf16*)a.k + (size_t)(b * a.Hk + kvh) * a.Sk * D;
+  const bf16* v = (const bf16*)a.v + (size_t)(b * a.Hk + kvh) * a.Sk * D;
+
+  // the keys that some row of this tile may see
+  const int qpos_first = a.q_offset + i0, qpos_last = a.q_offset + i0 + rows - 1;
+  int k_end = a.Sk;
+  if (a.causal) k_end = min(k_end, qpos_last + 1);
+  const int k_begin = a.has_window ? max(0, qpos_first - a.window + 1) : 0;
+  const int t_begin = k_begin / kKeys;
+  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+
+  if (t_begin < t_end) {  // else nothing to load: the block writes zeros
+    const int k1 = t_begin * kKeys;
+    tc::load_tile<D, kNT>(sQ, (const bf16*)a.q + row0 * D, rows, tid);
+    tc::load_tile<D, kNT>(sG, (const bf16*)a.dout + row0 * D, rows, tid);
+    tc::load_tile<D, kNT>(sKV, k + (size_t)k1 * D, a.Sk - k1, tid);
+    tc::load_tile<D, kNT>(sKV + Tl::kBytes, v + (size_t)k1 * D, a.Sk - k1, tid);
+  }
+  tc::cp_async_commit();
+
+  const float scale = a.sm_scale * tc::kLog2e;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);           // and key columns c0, c0 + 1 of each 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = r0 + 8 * r < rows;
+    l2[r] = in ? lse_log2(a.lse[row0 + r0 + 8 * r]) : 0.f;
+    dl[r] = in ? a.delta[row0 + r0 + 8 * r] : 0.f;
+  }
+  float dq[kCount][kAcc];
+#pragma unroll
+  for (int i = 0; i < kCount; ++i)
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) dq[i][j] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const uint32_t sK = sKV + 2 * ((t - t_begin) & 1) * Tl::kBytes;
+    const uint32_t sV = sK + Tl::kBytes;
+    if (t + 1 < t_end) {  // the next tile into the other stage
+      const uint32_t nK = sKV + 2 * ((t + 1 - t_begin) & 1) * Tl::kBytes;
+      const int k1 = (t + 1) * kKeys;
+      tc::load_tile<D, kNT>(nK, k + (size_t)k1 * D, a.Sk - k1, tid);
+      tc::load_tile<D, kNT>(nK + Tl::kBytes, v + (size_t)k1 * D, a.Sk - k1, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_proxy_async();
+    __syncthreads();  // every thread's copies of this tile (and Q, dO) landed
+
+    float s[32], dp[32];
+    tc::wgmma_fence();
+    products_k_major<D>(s, sQ, sK);
+    products_k_major<D>(dp, sG, sV);
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    tc::reg_fence(s);
+    tc::reg_fence(dp);
+
+    const int k0 = t * kKeys;
+    const bool edge = k0 + kKeys > a.Sk || (a.causal && k0 + kKeys - 1 > qpos_first) ||
+                      (a.has_window && k0 <= qpos_last - a.window);
+    uint32_t pd[16];  // dS as bf16 A operands
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2f(fmaf(s[i], scale, -l2[r]));
+      if (edge && !visible(a, qpos_first + r0 + 8 * r, k0 + 8 * (i >> 2) + c0 + (i & 1)))
+        p = 0.f;
+      dp[i] = p * (dp[i] - dl[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pd[i] = tc::pack_bf16(dp[2 * i], dp[2 * i + 1]);
+
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < kCount; ++i)
+        tc::wgmma_rs(dq[i], pd + 4 * kk,
+                     tc::desc_mn_major<D>(sK, (wg * kCols + i * kN) / Tl::kBlockCols, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < kCount; ++i) tc::reg_fence(dq[i]);
+    __syncthreads();  // this stage is read: the tile after next refills it
+  }
+
+  bf16* out = (bf16*)a.dq + row0 * D;
+#pragma unroll
+  for (int i = 0; i < kCount; ++i)
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < rows)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + wg * kCols + i * kN +
+                                             8 * j + c0) =
+              __floats2bfloat162_rn(dq[i][4 * j + 2 * r] * a.sm_scale,
+                                    dq[i][4 * j + 2 * r + 1] * a.sm_scale);
+      }
+}
+
 // passes: a bit mask of the launches to make, in order: 1 preprocess,
-// 2 dkdv, 4 dq (7 for the whole backward; one at a time to time each)
+// 2 dkdv, 4 dq (7 for the whole backward; one at a time to time each).
+// bf16 takes the tensor-core kernels, float32 the CUDA-core ones.
 template <typename T, int D>
 int launch_bwd(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
@@ -1104,24 +1537,31 @@ int launch_bwd(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if ((passes & 2) && a.Sk > 0) {
-    const size_t smem_kv = dkdv_smem<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if constexpr (sizeof(T) == 2) {
+    if ((passes & 2) && a.Sk > 0) {
+      const size_t smem_kv = dkdv_bf16_smem<D>();
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+      if (err != cudaSuccess) return (int)err;
+      // key tiles slowest, so that the first ones (the most query rows
+      // under the causal mask) go first
+      const dim3 grid_kv(a.Hk, B, (a.Sk + kKeys - 1) / kKeys);
+      flash_bwd_dkdv_bf16<D>
+          <<<grid_kv, tc::kThreads * bwd_warpgroups<D>(), smem_kv, stream>>>(a);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (!(passes & 4)) return 0;
+    const size_t smem_q = dq_bf16_smem<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_q);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid_kv((a.Sk + kKeys - 1) / kKeys, a.Hk, B);
-    flash_bwd_dkdv<T, D><<<grid_kv, kThreads, smem_kv, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_q(a.Hq, B, (a.Sq + 63) / 64);
+    flash_bwd_dq_bf16<D><<<grid_q, tc::kThreads * bwd_warpgroups<D>(), smem_q, stream>>>(a);
+    return (int)cudaGetLastError();
+  } else {
+    return launch_bwd_cuda_cores<D>(a, B, passes, stream);
   }
-  if (!(passes & 4)) return 0;
-  const size_t smem_q = dq_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((a.Sq + kRows - 1) / kRows, a.Hq, B);
-  flash_bwd_dq<T, D><<<grid_q, kThreads, smem_q, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace bwd

@@ -20,11 +20,21 @@ float32 runs on the CUDA cores, as first ported, to keep its 2e-5
 agreement with the plain version.  With ``return_lse`` the forward also
 writes each row's float32 log-sum-exp, which the backward reads.
 
-Backward (:func:`flash_attention_bwd_cuda`): ``flash_bwd_preprocess``
-(delta = rowsum(dO o O)), ``flash_bwd_dkdv`` (a block owns a key tile of
-one KV head and loops over its group's query heads: no atomics, the same
-bits every run) and ``flash_bwd_dq``, all on the CUDA cores in float32.
-See the source's header for the design.
+Backward (:func:`flash_attention_bwd_cuda`), three launches in order:
+``flash_bwd_preprocess`` (delta = rowsum(dO o O)), then dK/dV (a block
+owns a 64-key tile of one KV head and loops over its group's query heads
+and their query tiles) and dQ (a block owns a 64-row query tile and loops
+over the key tiles it sees): no atomics, the same bits every run.  bf16
+runs on the tensor cores (``flash_bwd_dkdv_bf16``, ``flash_bwd_dq_bf16``):
+one warpgroup a block (two for dK/dV at D = 256, each half of D),
+S^T = K Q^T and dP^T = V dO^T as ``wgmma`` products so that P^T and dS^T
+land in the A-operand layout of dV += P^T dO and dK += dS^T Q, both
+rounded to bf16 only there (``ref.flash_attention_bwd_ref(...,
+round_to_bf16=True)`` is that arithmetic in plain torch), Q/dO or K/V
+tiles through a two-stage ``cp.async`` ring.  float32 runs on the CUDA
+cores (``flash_bwd_dkdv``, ``flash_bwd_dq``).  The bound is 5 products at
+989 TFLOP/s; the kernels compute 7 (S and dP in both passes).  See the
+source's header.
 """
 from __future__ import annotations
 

@@ -57,7 +57,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None,
-                            q_offset=0, sm_scale=None):
+                            q_offset=0, sm_scale=None, round_to_bf16=False):
     """The backward kernels' formulas, dense and in float32: with
     P = exp(S sm_scale - lse) over the valid pairs (0 elsewhere and on a row
     with lse = -inf) and delta = rowsum(dO o O),
@@ -65,7 +65,10 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None,
         dV = P^T dO,  dS = P o (dO V^T - delta),
         dQ = sm_scale dS K,  dK = sm_scale dS^T Q,
 
-    dK and dV summed over each KV head's group of query heads.  Returns
+    dK and dV summed over each KV head's group of query heads.  With
+    ``round_to_bf16``, P and dS are rounded to bf16 where they enter the
+    products that read them (dV, and dK and dQ), as the bf16 tensor-core
+    kernels do; dS itself is formed from the unrounded P.  Returns
     (dq, dk, dv) in q's, k's and v's dtypes."""
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
@@ -82,6 +85,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=None,
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     delta = (dof * of).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
+    if round_to_bf16:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
 
     def grouped(t):  # (B, Hq, Sk, D) -> (B, Hk, Sk, D), each group summed

@@ -151,6 +151,19 @@ def test_flash_head_dim_from_the_kernel_name(smoke, name, D):
     assert smoke.flash_head_dim(name) == D
 
 
+@pytest.mark.parametrize("name,kernel,D", [
+    ("<unnamed>::bwd::flash_bwd_dkdv_bf16<(int)96>", "flash_bwd_dkdv_bf16", 96),
+    ("bwd::flash_bwd_dq_bf16<16>", "flash_bwd_dq_bf16", 16),
+    ("_ZN12_GLOBAL__N_13bwd17flash_bwd_dq_bf16ILi128EEEvNS0_8BwdArgsE", "flash_bwd_dq_bf16",
+     128),
+])
+def test_flash_backward_head_dim_from_the_kernel_name(smoke, name, kernel, D):
+    """The build report reads the tensor-core backward instances' head dims
+    from their names, as it reads the forward's."""
+    assert kernel in smoke.FLASH_BWD_TC
+    assert smoke.flash_head_dim(name, kernel) == D
+
+
 def test_longest_call_keeps_each_kind(smoke):
     """The capture keeps the longest windowed call and the longest call
     without a window apart (gemma3's local and global layers), and counts

@@ -15,7 +15,10 @@ kernels' formulas) against torch autograd, in float32 within 1e-5 of
 max |grad| (the same float32 arithmetic summed in another order).  A row
 with no valid key is compared only against ``flash_attention_bwd_ref``:
 both packages' dense forms take exp(-inf - -inf) there, so autograd's
-gradient of such a row is NaN.
+gradient of such a row is NaN.  ``flash_attention_bwd_ref`` with
+``round_to_bf16`` (P and dS rounded to bf16 before their products, the
+bf16 tensor-core kernels' arithmetic) is held on bf16-rounded inputs to
+jax.grad of the reference within 8e-3 of max |grad|, the card's bf16 limit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -251,3 +254,65 @@ def test_bwd_ref_fully_masked_rows_are_zero(rng):
     assert torch.isneginf(lse).all() and not o.any()
     for g in flash_attention_bwd_ref(q, k, v, o, lse, do, **kw):
         assert not torch.isnan(g).any() and not g.any()
+
+
+#: chip_smoke.py's FLASH_BWD_TOL["bfloat16"]: the card holds the bf16
+#: backward kernels to the float32 plain version within 8e-3 of max |grad|
+BWD_BF16_TOL = 8e-3
+
+
+def _bf16_values(rng, shapes):
+    """Normal draws rounded to bf16 once, held as float32 (torch tensors and
+    the same values as numpy arrays for JAX)."""
+    arrs = [torch.as_tensor(rng.normal(size=s).astype(np.float32)).bfloat16().float()
+            for s in shapes]
+    return [t.numpy() for t in arrs], arrs
+
+
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,kw", [
+    (1, 4, 4, 77, 77, 16, dict(causal=True)),                          # MHA, ragged
+    (1, 8, 2, 100, 130, 64, dict(causal=True)),                        # GQA n_rep 4
+    (2, 4, 1, 45, 150, 64, dict(causal=True, window=40, q_offset=105)),  # window, offset
+    (1, 4, 4, 70, 90, 16, dict(causal=False)),
+])
+def test_bwd_ref_bf16_rounding_matches_jax_grad(rng, B, Hq, Hk, Sq, Sk, D, kw):
+    """``flash_attention_bwd_ref(..., round_to_bf16=True)``, the tensor-core
+    kernels' arithmetic (P and dS rounded to bf16 before their products), on
+    bf16-rounded inputs, against jax.grad of the reference's float32
+    ``flash_attention_ref`` on the same values: within the card's bf16
+    limit.  Gradients and O stay float32 here, so the comparison sees the
+    rounding of P and dS alone.  The rounding is taken (the result differs
+    from the unrounded form's)."""
+    import jax
+
+    (nq, nk, nv, ndo), (q, k, v, do) = _bf16_values(
+        rng, ((B, Hq, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D), (B, Hq, Sq, D)))
+    want = jax.grad(lambda q, k, v: (jax_ref(q, k, v, **kw) * ndo).sum(),
+                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (nq, nk, nv)))
+    o, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_ref(q, k, v, o, lse, do, round_to_bf16=True, **kw)
+    unrounded = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, want):
+        assert _grel(a.numpy(), b) < BWD_BF16_TOL, _grel(a.numpy(), b)
+    assert not all(torch.equal(a, b) for a, b in zip(got, unrounded))
+
+
+def test_bwd_ref_bf16_rounding_through_the_head_dim_padding(rng):
+    """D = 24 padded to 64 (the card's bf16 instance), P and dS rounded to
+    bf16: the gradients sliced back are within the card's bf16 limit of
+    jax.grad of the reference at 24, and the padded columns are zero."""
+    import jax
+
+    kw = dict(causal=True, window=9)
+    (nq, nk, nv, ndo), (q, k, v, do) = _bf16_values(
+        rng, ((1, 4, 50, 24), (1, 1, 50, 24), (1, 1, 50, 24), (1, 4, 50, 24)))
+    want = jax.grad(lambda q, k, v: (jax_ref(q, k, v, **kw) * ndo).sum(),
+                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (nq, nk, nv)))
+    pad = lambda t: torch.nn.functional.pad(t, (0, 40))  # noqa: E731
+    o, lse = flash_attention_ref(pad(q), pad(k), pad(v), sm_scale=24 ** -0.5,
+                                 return_lse=True, **kw)
+    got = flash_attention_bwd_ref(pad(q), pad(k), pad(v), o, lse, pad(do),
+                                  sm_scale=24 ** -0.5, round_to_bf16=True, **kw)
+    for a, b in zip(got, want):
+        assert not a[..., 24:].any()
+        assert _grel(a[..., :24].numpy(), b) < BWD_BF16_TOL

@@ -18,7 +18,9 @@ flash_attention's backward kernels against ``flash_attention_bwd_ref`` (the
 same formulas, dense, in float32): max |kernel - plain| within 2e-5 of
 max |plain| in float32 (float32 sums in another order) and 8e-3 in bf16
 (both round float32 sums to bf16 at the end: one bf16 ulp is 2^-8 of the
-value); the forward's log-sum-exp within 1e-4 of the plain one's; the
+value; bf16 runs on the tensor cores, which round P and dS to bf16
+before their products); the forward's log-sum-exp within 1e-4
+of the plain one's; two launches give the same bits; the
 ``autograd.Function`` against torch autograd of the float32 plain version
 within 1e-4 of max |grad|."""
 import numpy as np
@@ -249,6 +251,15 @@ def _bwd_case(rng, B, Hq, Hk, Sq, Sk, D, dtype, **kw):
     (1, 4, 4, 1100, 1100, 256, dict(causal=True, window=1024)),  # gemma3's local layers
     (1, 4, 2, 1, 40, 64, dict(causal=True, q_offset=39)),         # decode offset
     (1, 2, 2, 40, 1000, 256, dict(causal=True, q_offset=960)),
+    # ragged Sq and Sk, windows with a query offset, n_rep 1 and 4
+    (1, 4, 1, 37, 200, 16, dict(causal=True, q_offset=163)),
+    (1, 4, 4, 300, 300, 16, dict(causal=True, window=100)),
+    (2, 8, 2, 130, 700, 64, dict(causal=True, window=256, q_offset=570)),
+    (1, 4, 4, 1, 300, 64, dict(causal=True, q_offset=299)),
+    (1, 8, 2, 333, 200, 96, dict(causal=False)),
+    (1, 4, 4, 200, 333, 96, dict(causal=True, window=64, q_offset=133)),
+    (1, 4, 1, 500, 500, 128, dict(causal=True)),
+    (1, 2, 2, 40, 1000, 128, dict(causal=True, window=300, q_offset=960)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_matches_plain(rng, B, Hq, Hk, Sq, Sk, D, kw, dtype):
@@ -263,18 +274,26 @@ def test_flash_backward_fully_masked_rows_are_zero(rng, dtype):
     assert not dq.any() and not dk.any() and not dv.any()
 
 
-def test_flash_backward_is_deterministic(rng):
-    """dK and dV have one owner each: two launches give the same bits."""
+@pytest.mark.parametrize("Hq,Hk,S,D,kw", [
+    (32, 8, 700, 64, dict(causal=True)),
+    (4, 4, 300, 16, dict(causal=True, window=100)),
+    (8, 2, 333, 96, dict(causal=False)),
+    (4, 1, 500, 128, dict(causal=True, window=300, q_offset=40)),
+    (4, 2, 300, 256, dict(causal=True, window=100)),
+])
+def test_flash_backward_is_deterministic(rng, Hq, Hk, S, D, kw):
+    """dQ, dK and dV have one owner each: two launches give the same bits
+    (bf16, the tensor-core kernels)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda)
 
-    q, do = (torch.as_tensor(rng.normal(size=(2, 32, 700, 64)), dtype=torch.float32)
+    q, do = (torch.as_tensor(rng.normal(size=(2, Hq, S, D)), dtype=torch.float32)
              .to("cuda", torch.bfloat16) for _ in range(2))
-    k, v = (torch.as_tensor(rng.normal(size=(2, 8, 700, 64)), dtype=torch.float32)
+    k, v = (torch.as_tensor(rng.normal(size=(2, Hk, S, D)), dtype=torch.float32)
             .to("cuda", torch.bfloat16) for _ in range(2))
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    first = flash_attention_bwd_cuda(q, k, v, o, lse, do)
-    second = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 

@@ -17,7 +17,7 @@ script exits non-zero:
    ``flash_bwd_dq_bf16`` at the same five), and so does a spill in
    the bf16 forward at D = 96 and 256 or in any backward kernel, an
    ssd_scan kernel that spills or a set of ssd_scan kernels other than its
-   four passes;
+   four forward and four backward passes;
 2. kernels — each kernel against its plain torch version on the card:
    relagg on the shared-memory and the global-atomics path, with an empty
    mask and with out-of-range group ids, its sums also within 1 float32
@@ -154,7 +154,7 @@ script exits non-zero:
    and gemma3's at their published head dims, 96 and 256, beside the same
    with the plain version in place of the kernel on the card) and the
    admission verdicts on the CPU and on the card;
-10. training (ROADMAP A16.1) — (a) flash_attention's backward kernels
+10. training (ROADMAP A16.1, A16.2) — (a) flash_attention's backward kernels
    (``flash_bwd_preprocess``, then dK/dV and dQ: on the tensor cores in
    bf16, ``flash_bwd_dkdv_bf16`` and ``flash_bwd_dq_bf16``; on the CUDA
    cores in float32, ``flash_bwd_dkdv`` and ``flash_bwd_dq``) against ``flash_attention_bwd_ref`` in float32 and bf16
@@ -172,13 +172,28 @@ script exits non-zero:
    before, 160 forward and 80 backward flash launches a step, ms a step,
    tokens/s, peak memory, one traced step, and the first step on 1,024
    tokens with the kernels against the plain attention; (d) the smoke
-   config card against CPU over 8 steps, microbatches, compression,
+   config card against CPU over 8 steps (losses, and each parameter's
+   move from its initial value, beside a control with the flash
+   backward's dK zeroed that must fail), microbatches, compression,
    a checkpoint restored and continued bit for bit, the launcher resuming;
    (e) the backward's times at granite's training inputs, by kernel and
    in TFLOP/s, beside its bound, the plain backward and
    ``scaled_dot_product_attention``'s; the same at phi3-mini-3.8b's layer
    (D = 96, MHA) and gemma3-12b's global one (D = 256) from random
-   inputs.
+   inputs; (ROADMAP A16.2) (f) ssd_scan's backward kernels
+   (``ssd_bwd_dstate``, ``ssd_bwd_state_pass``, ``ssd_bwd_chunk_dx``,
+   ``ssd_bwd_chunk_dbc``) against ``ssd_scan_bwd_ref`` in float64 at the
+   forward sweep's shapes and mamba2-370m's training inputs (also at
+   strong decays), with dy one position off as a control, bit-equal
+   across two launches, and ``ops.SSDScan`` under a checkpoint; (g)
+   mamba2-370m at full width and depth, random weights from seed 0, 6
+   steps of 4 x 4,096 tokens in 2 microbatches with remat: losses finite,
+   the held-out batch's loss falling, 192 forward and 96 backward ssd
+   launches a step, ms a step, tokens/s, peak memory, one traced step;
+   (h) the ssd backward's times at (g)'s captured inputs, by kernel,
+   beside its bound (the reverse recurrence's work), the plain backward
+   and the forward; (i) mamba's smoke config card against CPU over 8
+   steps as (d), the control zeroing the ssd backward's ddtA.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -211,16 +226,18 @@ several cards its (f) leg runs it again over a mesh of every card.
 
     python3 chip_smoke.py --train
 
-builds flash_attention alone and runs the training phase (10) alone.
+builds flash_attention and ssd_scan alone and runs the training phase
+(10) alone.
 
     python3 chip_smoke.py --train-seeds
 
-builds flash_attention alone and runs (c)'s 6 granite steps from the
-initial states of seeds 0, 1 and 2, printing each step's batch loss, the
-held-out batch's loss before and after, and which of two gates holds
-(the last step's batch loss below the first's; the held-out batch's loss
-falling): copied into another source tree, it runs that tree's kernels
-the same way.
+builds flash_attention and ssd_scan alone and runs (c)'s 6 granite steps
+from the initial states of seeds 0, 1 and 2, printing each step's batch
+loss, the held-out batch's loss before and after, and which of two gates
+holds (the last step's batch loss below the first's; the held-out batch's
+loss falling), then (d)'s and (i)'s card-against-CPU checks from the same
+seeds: copied into another source tree, it runs that tree's kernels the
+same way.
 
     python3 chip_smoke.py --flash-variants
 
@@ -367,7 +384,7 @@ def build_report() -> dict[str, dict]:
     cores in float32, each at the five head dims) is missing or spills."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
-    from repro_torch.kernels.ssd_scan.ssd_scan import PASSES
+    from repro_torch.kernels.ssd_scan.ssd_scan import BACKWARD_PASSES, PASSES
 
     bindir = pathlib.Path(_build._nvcc()).parent
     report = {}
@@ -401,8 +418,8 @@ def build_report() -> dict[str, dict]:
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in bwd.values()),
           f"a flash_attention backward kernel spills: {bwd}")
     ssd = {n.split("::")[-1]: r for n, r in report.items() if r["source"] == "ssd_scan.cu"}
-    check(set(ssd) == set(PASSES), f"ssd_scan.cu's kernels {sorted(ssd)}, expected "
-          f"{list(PASSES)}")
+    check(set(ssd) == set(PASSES + BACKWARD_PASSES), f"ssd_scan.cu's kernels {sorted(ssd)}, "
+          f"expected {list(PASSES + BACKWARD_PASSES)}")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ssd.values()),
           f"an ssd_scan kernel spills: {ssd}")
     return report
@@ -4518,6 +4535,16 @@ def rel_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) / (float(b.float().abs().max()) + 1e-9)
 
 
+#: ssd_scan's sweep, (BH, BG, L, P, N): L = 1, under one chunk, ragged;
+#: mamba2-370m's widths (one group for 32 heads) and its smoke; jamba-1.5's
+#: full widths (P = N = 128, 8 groups) at the first serving batch's length
+#: and its smoke (2 groups); more heads and groups than a grid's y axis
+#: holds (65,535)
+SSD_CASES = [(4, 4, 1, 64, 128), (8, 2, 40, 64, 128), (32, 1, 100, 64, 128),
+             (32, 1, 2048, 64, 128), (4, 4, 2048, 64, 128), (8, 8, 100, 16, 16),
+             (16, 8, 1819, 128, 128), (4, 2, 100, 16, 16), (70_000, 70_000, 80, 4, 4)]
+
+
 def ssd_kernel_phase() -> dict:
     """ssd_scan kernels vs the plain per-step recurrence on the card: max
     error below 3e-4 of max|y| (the reference's float32 bound); and vs the
@@ -4530,14 +4557,7 @@ def ssd_kernel_phase() -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_scan_state_passing
     from repro_torch.kernels.ssd_scan.ssd_scan import chunk, plan
 
-    # (BH, BG, L, P, N): L = 1, under one chunk, ragged; mamba2-370m's
-    # widths (one group for 32 heads) and its smoke; jamba-1.5's full widths
-    # (P = N = 128, 8 groups) at the first serving batch's length and its
-    # smoke (2 groups); more heads and groups than a grid's y axis holds
-    # (65,535)
-    cases = [(4, 4, 1, 64, 128), (8, 2, 40, 64, 128), (32, 1, 100, 64, 128),
-             (32, 1, 2048, 64, 128), (4, 4, 2048, 64, 128), (8, 8, 100, 16, 16),
-             (16, 8, 1819, 128, 128), (4, 2, 100, 16, 16), (70_000, 70_000, 80, 4, 4)]
+    cases = SSD_CASES
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = worst_states = max_abs = 0.0
     for BH, BG, L, P, N in cases:
@@ -5078,6 +5098,28 @@ def ssd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
     return ops_count, nbytes
 
 
+def ssd_bwd_ops_needed(BH: int, L: int, P: int, N: int) -> int:
+    """Operations of ssd_scan's backward at chunk 1, the reverse
+    recurrence: per row and head, G_t = C_t dy_t^T + exp(dtA_{t+1}) G_{t+1},
+    dxdt_t = G_t^T B_t, dB_t = G_t xdt_t, dC_t = S_t dy_t and the forward
+    state S_t recomputed alongside, each N P multiply-adds: 10 N P
+    operations, 2.5x the forward's 4 N P (dB and dC summed over a group's
+    heads inside those multiply-adds).  ddtA_t = exp(dtA_t) <G_t, S_{t-1}>
+    needs no N P term of its own: <G_t, S_t> is both ddtA_t + xdt_t . dxdt_t
+    and dy_t . y_t + ddtA_{t+1}, so ddtA is the reverse cumsum of
+    dy_t . y_t - xdt_t . dxdt_t, O(P) a row with y the forward's output."""
+    return 10 * N * P * L * BH
+
+
+def ssd_bwd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
+    """(operations, bytes) that ssd_scan's backward needs at these shapes:
+    operations at chunk 1 (:func:`ssd_bwd_ops_needed`); bytes for xdt, dtA,
+    dy, dxdt and ddtA once per head, B, C, dB and dC once per group,
+    float32 (the forward's scratch is the kernels' choice, not counted)."""
+    return (ssd_bwd_ops_needed(BH, L, P, N),
+            4 * (3 * BH * L * P + 2 * BH * L + 4 * BG * L * N))
+
+
 def pass_split_ms(call, reps: int = 10) -> dict[str, float]:
     """Mean device time of each of a call's launches, from CUDA events
     between them over ``reps`` runs of the whole sequence."""
@@ -5297,6 +5339,15 @@ KERNEL_VS_PLAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2}
 #: step loss (bf16 activations summed in another order, P rounded to bf16
 #: in the card's forward kernel)
 SMOKE_LOSS_TOL = 5e-3
+#: the same runs held to what the 8 steps did: ``loss`` limits the largest
+#: per-step |card - CPU| loss gap over the largest move the CPU's steps made
+#: in a batch's loss (its loss at that step less the initial tree's loss of
+#: the same batch); ``move`` limits, per parameter leaf, |card's move - the
+#: CPU's move| over |the CPU's move| (a move: final - initial, Frobenius
+#: norms).  Set from ``--train-seeds``' runs (PERF.md, PR 31): a healthy
+#: card reads about a third of them, a control run in which one kernel's
+#: gradient is zeroed reads ~1 on ``move``, which it must fail
+SMOKE_MOVE_TOL = {"loss": 0.2, "move": 0.2}
 
 
 def flash_backward_checks() -> dict:
@@ -5439,16 +5490,17 @@ def held_out_loss(model, params, batch) -> float:
         return float(model.loss_fn(compute_params(params), batch, remat=False))
 
 
-def granite_six_steps(model, cfg, seed: int, history: list) -> dict:
-    """(c)'s run: ``train_loop`` over :data:`TRAIN_STEPS` steps from seed
-    ``seed``'s initial state, and the held-out batch's loss before and
-    after.  Returns the state, the pipeline, both losses, the steps' peak GB
-    and the flash launches of the steps alone (the counts set to 0 just
-    before them)."""
+def six_steps(model, cfg, seed: int, history: list) -> dict:
+    """(c)'s and (g)'s run: ``train_loop`` over :data:`TRAIN_STEPS` steps
+    from seed ``seed``'s initial state, and the held-out batch's loss
+    before and after.  Returns the state, the pipeline, both losses, the
+    steps' peak GB and the flash and ssd_scan launches (forward, backward)
+    of the steps alone (the counts set to 0 just before them)."""
     import torch
 
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.train.optim import AdamWConfig
     from repro_torch.train.train_loop import init_state, train_loop
 
@@ -5461,21 +5513,86 @@ def granite_six_steps(model, cfg, seed: int, history: list) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.LAUNCHES = fa_ops.BACKWARD_LAUNCHES = 0
+    ssd_ops.LAUNCHES = ssd_ops.BACKWARD_LAUNCHES = 0
     state = train_loop(model, state, iter(pipe), opt_cfg, steps=TRAIN_STEPS,
                        microbatches=TRAIN_MICRO, log_every=0, history=history)
-    launches = (fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES)
+    launches = {"flash_attention": (fa_ops.LAUNCHES, fa_ops.BACKWARD_LAUNCHES),
+                "ssd_scan": (ssd_ops.LAUNCHES, ssd_ops.BACKWARD_LAUNCHES)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     after = held_out_loss(model, state.params, held_out)
     return {"state": state, "pipe": pipe, "held_out_before": before, "held_out_after": after,
             "peak_gb": peak_gb, "launches": launches}
 
 
+def trained_figures(label: str, kernel: str, model, cfg, opt_cfg, run: dict,
+                    history: list) -> dict:
+    """The checks and figures (c) and (g) share on a :func:`six_steps`
+    run: losses finite, the held-out batch's loss falling, ``kernel``'s
+    forward launches twice (remat) and its backward once a layer a
+    microbatch, ms a step over steps 3-6, tokens/s, peak GB, and one traced
+    step (the batch of step 7)."""
+    from repro_torch.train.train_loop import make_train_step
+
+    held_before, held_after = run["held_out_before"], run["held_out_after"]
+    fwd, bwd = run["launches"][kernel]
+    losses = [h["loss"] for h in history]
+    per_step = cfg.n_repeats * len(cfg.super_block) * TRAIN_MICRO
+    check(all(math.isfinite(x) for x in losses + [held_before, held_after]),
+          f"{label} training: a loss is not finite: {losses}, held-out {held_before} / "
+          f"{held_after}")
+    check(held_after < held_before, f"{label} training: the loss of the batch of pipeline "
+          f"step {TRAIN_HELD_OUT_STEP}, not trained on, went from {held_before} before the "
+          f"{TRAIN_STEPS} steps to {held_after} after: not falling")
+    check(fwd == 2 * per_step * TRAIN_STEPS and bwd == per_step * TRAIN_STEPS,
+          f"{label} training: {kernel} launched {fwd} forward and {bwd} backward in "
+          f"{TRAIN_STEPS} steps, not {2 * per_step} and {per_step} a step")
+    timed = [h["seconds"] for h in history[2:]]
+    step_ms = 1e3 * sum(timed) / len(timed)
+    step_fn = make_train_step(model, opt_cfg, TRAIN_MICRO)
+    batch = run["pipe"].batch_at(TRAIN_STEPS)
+    t0 = time.perf_counter()
+    busy_ms, top, port, events = device_busy(lambda: step_fn(run["state"], batch), host=False)
+    traced_ms = 1e3 * (time.perf_counter() - t0)
+    check(busy_ms is not None, f"{label} training: the traced step holds no device event")
+    return {
+        "steps": history, "held_out_loss": {"before": held_before, "after": held_after},
+        "step_ms": step_ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "peak_gb": run["peak_gb"], "forward_per_step": fwd // TRAIN_STEPS,
+        "backward_per_step": bwd // TRAIN_STEPS,
+        # the profiler's own host cost stretches the traced step's wall, so
+        # the busy share is the device's busy time over an untraced step's
+        "traced": {"wall_ms": traced_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+                   "events": events, "top": top, "port": port},
+    }
+
+
+def log_trained(tag: str, label: str, kernel: str, out: dict) -> None:
+    """(c)'s and (g)'s lines: each step, then the run's figures."""
+    tr = out["traced"]
+    for h in out["steps"]:
+        log(f"train ({tag}): step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+            f"{h['grad_norm']:.6f}, lr {h['lr']:.6g}, {1e3 * h['seconds']:.1f} ms")
+    log(f"train ({tag}): {label} at full width ({TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"{TRAIN_MICRO} microbatches, remat): {out['step_ms']:.1f} ms a step (steps "
+        f"3-{TRAIN_STEPS}), {out['tokens_per_s']:.0f} tokens/s, peak {out['peak_gb']:.2f} GB; "
+        f"{kernel} launches a step {out['forward_per_step']} forward, "
+        f"{out['backward_per_step']} backward; traced step: device busy {tr['busy_ms']:.1f} ms, "
+        f"{tr['busy_share']:.3f} of an untraced step ({tr['wall_ms']:.1f} ms wall under the "
+        f"profiler), {tr['events']} device events; top "
+        f"{[(n, round(ms, 2)) for n, ms in tr['top']]}; port kernels "
+        f"{ {k: (round(e['ms'], 2), e['launches']) for k, e in tr['port'].items() if '<' not in k} }")
+    held = out["held_out_loss"]
+    log(f"train ({tag}): the batch of pipeline step {TRAIN_HELD_OUT_STEP}, not trained on: "
+        f"loss {held['before']:.6f} before the {TRAIN_STEPS} steps, {held['after']:.6f} after")
+
+
 def train_seeds_phase() -> dict:
     """``--train-seeds``: (c)'s 6 steps from each of :data:`TRAIN_SEEDS`'
-    initial states, and which gate holds in each."""
+    initial states, and which gate holds in each; then (d)'s and (i)'s
+    card-against-CPU checks from each (:func:`card_against_cpu`)."""
     import torch
 
-    from repro_torch.configs import config_for
+    from repro_torch.configs import config_for, smoke_config_for
     from repro_torch.models import build_model
 
     cfg = config_for("granite3_2b")
@@ -5483,7 +5600,7 @@ def train_seeds_phase() -> dict:
     out = {}
     for seed in TRAIN_SEEDS:
         history: list = []
-        run = granite_six_steps(model, cfg, seed, history)
+        run = six_steps(model, cfg, seed, history)
         before, after = run["held_out_before"], run["held_out_after"]
         losses = [h["loss"] for h in history]
         out[seed] = {"losses": losses, "held_out_before": before, "held_out_after": after,
@@ -5493,6 +5610,13 @@ def train_seeds_phase() -> dict:
         del run
         gc.collect()
         torch.cuda.empty_cache()
+    del model
+    for seed in TRAIN_SEEDS:
+        for arch, seq_len, control in (("granite3_2b", 32, _flash_dk_zeroed),
+                                       ("mamba2_370m", 96, _ssd_ddtA_zeroed)):
+            figures = card_against_cpu(f"train seeds: seed {seed} smoke {arch}",
+                                       smoke_config_for(arch), seq_len, control, seed)
+            out[seed][f"{arch}_smoke"] = {k: v for k, v in figures.items() if k != "losses"}
     return out
 
 
@@ -5517,36 +5641,11 @@ def granite_training(cfg) -> tuple[dict, dict]:
     original = _capture_flash_backward(captured)
     history: list = []
     try:
-        run = granite_six_steps(model, cfg, 0, history)
+        run = six_steps(model, cfg, 0, history)
     finally:
         fa_binding.flash_attention_bwd_cuda = original
-    state, pipe, peak_gb = run["state"], run["pipe"], run["peak_gb"]
-    held_before, held_after = run["held_out_before"], run["held_out_after"]
-    fwd, bwd = run["launches"]
+    out = trained_figures("granite", "flash_attention", model, cfg, opt_cfg, run, history)
     del run
-    losses = [h["loss"] for h in history]
-    per_step = cfg.n_repeats * len(cfg.super_block) * TRAIN_MICRO
-    check(all(math.isfinite(x) for x in losses + [held_before, held_after]),
-          f"granite training: a loss is not finite: {losses}, held-out {held_before} / "
-          f"{held_after}")
-    check(held_after < held_before, f"granite training: the loss of the batch of pipeline "
-          f"step {TRAIN_HELD_OUT_STEP}, not trained on, went from {held_before} before the "
-          f"{TRAIN_STEPS} steps to {held_after} after: not falling")
-    check(fwd == 2 * per_step * TRAIN_STEPS and bwd == per_step * TRAIN_STEPS,
-          f"granite training: flash launched {fwd} forward and {bwd} backward in "
-          f"{TRAIN_STEPS} steps, not {2 * per_step} and {per_step} a step")
-    timed = [h["seconds"] for h in history[2:]]
-    step_ms = 1e3 * sum(timed) / len(timed)
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
-
-    # one traced step (the batch of step 7)
-    step_fn = make_train_step(model, opt_cfg, TRAIN_MICRO)
-    batch = pipe.batch_at(TRAIN_STEPS)
-    t0 = time.perf_counter()
-    busy_ms, top, port, events = device_busy(lambda: step_fn(state, batch), host=False)
-    traced_ms = 1e3 * (time.perf_counter() - t0)
-    check(busy_ms is not None, "granite training: the traced step holds no device event")
-    del state, batch, step_fn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5572,35 +5671,132 @@ def granite_training(cfg) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    for h in history:
-        log(f"train (c): step {h['step']}: loss {h['loss']:.6f}, grad_norm "
-            f"{h['grad_norm']:.6f}, lr {h['lr']:.6g}, {1e3 * h['seconds']:.1f} ms")
-    log(f"train (c): granite-3-2b at full width ({TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
-        f"{TRAIN_MICRO} microbatches, remat): {step_ms:.1f} ms a step (steps 3-{TRAIN_STEPS}), "
-        f"{tokens_per_s:.0f} tokens/s, peak {peak_gb:.2f} GB; flash launches a step "
-        f"{fwd // TRAIN_STEPS} forward, {bwd // TRAIN_STEPS} backward; traced step: "
-        f"device busy {busy_ms:.1f} ms, {busy_ms / step_ms:.3f} of an untraced step "
-        f"({traced_ms:.1f} ms wall under the profiler), {events} device events; top "
-        f"{[(n, round(ms, 2)) for n, ms in top]}; port kernels "
-        f"{ {k: (round(e['ms'], 2), e['launches']) for k, e in port.items() if '<' not in k} }")
-    log(f"train (c): the batch of pipeline step {TRAIN_HELD_OUT_STEP}, not trained on: loss "
-        f"{held_before:.6f} before the {TRAIN_STEPS} steps, {held_after:.6f} after")
+    log_trained("c", "granite-3-2b", "flash_attention", out)
     log(f"train (c): first step at 1,024 tokens, kernels against the plain attention: loss "
         f"{kernel['loss']:.6f} / {plain['loss']:.6f} (rel {rel['loss']:.3g}, limit "
         f"{KERNEL_VS_PLAIN_TOL['loss']}), grad_norm {kernel['grad_norm']:.6f} / "
         f"{plain['grad_norm']:.6f} (rel {rel['grad_norm']:.3g}, limit "
         f"{KERNEL_VS_PLAIN_TOL['grad_norm']})")
-    return {
-        "steps": history, "held_out_loss": {"before": held_before, "after": held_after},
-        "step_ms": step_ms, "tokens_per_s": tokens_per_s,
-        "peak_gb": peak_gb, "flash_forward_per_step": fwd // TRAIN_STEPS,
-        "flash_backward_per_step": bwd // TRAIN_STEPS,
-        # the profiler's own host cost stretches the traced step's wall, so
-        # the busy share is the device's busy time over an untraced step's
-        "traced": {"wall_ms": traced_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
-                   "events": events, "top": top, "port": port},
-        "kernel_vs_plain": {"kernel": kernel, "plain": plain, "rel": rel},
-    }, captured
+    out["kernel_vs_plain"] = {"kernel": kernel, "plain": plain, "rel": rel}
+    return out, captured
+
+
+@contextlib.contextmanager
+def _flash_dk_zeroed():
+    """(d)'s control: the flash backward's dK replaced by zeros."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa_binding
+
+    original = fa_binding.flash_attention_bwd_cuda
+
+    def zeroed(*args, **kw):
+        dq, dk, dv = original(*args, **kw)
+        return dq, torch.zeros_like(dk), dv
+
+    fa_binding.flash_attention_bwd_cuda = zeroed
+    try:
+        yield
+    finally:
+        fa_binding.flash_attention_bwd_cuda = original
+
+
+@contextlib.contextmanager
+def _ssd_ddtA_zeroed():
+    """(i)'s control: the ssd backward's ddtA replaced by zeros."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_binding
+
+    original = ssd_binding.ssd_scan_bwd_cuda
+
+    def zeroed(*args):
+        dxdt, ddtA, dB, dC = original(*args)
+        return dxdt, torch.zeros_like(ddtA), dB, dC
+
+    ssd_binding.ssd_scan_bwd_cuda = zeroed
+    try:
+        yield
+    finally:
+        ssd_binding.ssd_scan_bwd_cuda = original
+
+
+def card_against_cpu(label: str, cfg, seq_len: int, control, seed: int = 0) -> dict:
+    """(d)'s and (i)'s first check: ``cfg`` from one initial tree (drawn on
+    the CPU from ``seed``, moved to the card) over the same pipeline batches of 4 x
+    ``seq_len`` tokens, 8 steps on the CPU, on the card, and on the card
+    under ``control`` (a context in which one kernel's gradient is zeroed).
+    Each step's loss within :data:`SMOKE_LOSS_TOL` and the final parameters
+    within 2e-2; the loss gaps and the parameters' moves within
+    :data:`SMOKE_MOVE_TOL`, which the control must fail."""
+    import torch
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.dist.sharding import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import TrainState, train_loop
+    from repro_torch.tree import tree_leaves
+
+    tree = init_params(torch.Generator("cpu").manual_seed(seed), cfg, "cpu")
+    initial = [t.clone() for t in tree_leaves(tree)]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+
+    def pipe(device):
+        return DataPipeline(batch=4, seq_len=seq_len, vocab=cfg.vocab, seed=1, device=device)
+
+    def run(device):
+        params = to_device(tree, device)
+        history: list = []
+        final = train_loop(build_model(cfg, device),
+                           TrainState(params, adamw_init(params, opt_cfg), None),
+                           iter(pipe(device)), opt_cfg, steps=8, log_every=0, history=history)
+        return ([h["loss"] for h in history],
+                [t.cpu() - t0 for t, t0 in zip(tree_leaves(final.params), initial)])
+
+    losses, moves = {}, {}
+    for name in ("cpu", "cuda"):
+        losses[name], moves[name] = run(name)
+    with control():
+        losses["control"], moves["control"] = run("cuda")
+    cpu_model, batches = build_model(cfg, "cpu"), pipe("cpu")
+    start = [held_out_loss(cpu_model, tree, batches.batch_at(s)) for s in range(8)]
+    moved = max(abs(a - b) for a, b in zip(losses["cpu"], start))
+
+    def figures(name):
+        return {
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses[name], losses["cpu"])),
+            "param_max_diff": max(float((a - b).abs().max())
+                                  for a, b in zip(moves[name], moves["cpu"])),
+            "loss_gap_of_move": max(abs(a - b) for a, b in zip(losses[name], losses["cpu"]))
+            / moved,
+            "move_rel": max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                            for a, b in zip(moves[name], moves["cpu"])),
+        }
+
+    card, ctl = figures("cuda"), figures("control")
+    check(card["loss_rel"] <= SMOKE_LOSS_TOL, f"{label} card vs CPU: per-step loss rel "
+          f"{card['loss_rel']} over {SMOKE_LOSS_TOL}: {losses}")
+    check(card["param_max_diff"] <= 2e-2, f"{label} card vs CPU: final parameters differ by "
+          f"{card['param_max_diff']}, over 2e-2")
+    check(card["loss_gap_of_move"] <= SMOKE_MOVE_TOL["loss"], f"{label} card vs CPU: loss "
+          f"gap {card['loss_gap_of_move']} of the steps' largest move {moved}, over "
+          f"{SMOKE_MOVE_TOL['loss']}")
+    check(card["move_rel"] <= SMOKE_MOVE_TOL["move"], f"{label} card vs CPU: a leaf's move "
+          f"differs by {card['move_rel']} of the CPU's, over {SMOKE_MOVE_TOL['move']}")
+    check(ctl["move_rel"] > SMOKE_MOVE_TOL["move"], f"{label} card vs CPU: the control's "
+          f"moves read {ctl['move_rel']}, inside {SMOKE_MOVE_TOL['move']}: the check cannot "
+          f"see a zeroed gradient")
+    log(f"{label} card vs CPU over 8 steps at 4 x {seq_len} tokens: max per-step loss rel "
+        f"{card['loss_rel']:.3g} (limit {SMOKE_LOSS_TOL}; card "
+        f"{[round(x, 5) for x in losses['cuda']]}), final parameters max |diff| "
+        f"{card['param_max_diff']:.3g} (limit 2e-2); loss gap {card['loss_gap_of_move']:.3g} of "
+        f"the steps' largest move {moved:.4g} (limit {SMOKE_MOVE_TOL['loss']}), parameter "
+        f"moves {card['move_rel']:.3g} of the CPU's (limit {SMOKE_MOVE_TOL['move']}); control "
+        f"({control.__name__}): loss gap {ctl['loss_gap_of_move']:.3g}, moves "
+        f"{ctl['move_rel']:.3g}")
+    return {"losses": losses, "loss_move": moved, **card, "control": ctl}
 
 
 def smoke_training(cfg, tmp: pathlib.Path) -> dict:
@@ -5632,17 +5828,8 @@ def smoke_training(cfg, tmp: pathlib.Path) -> dict:
     def pipe(device, batch=4):
         return DataPipeline(batch=batch, seq_len=32, vocab=cfg.vocab, seed=1, device=device)
 
+    against_cpu = card_against_cpu("train (d): smoke granite", cfg, 32, _flash_dk_zeroed)
     models = {d: build_model(cfg, d) for d in ("cpu", "cuda")}
-    runs = {}
-    for device in ("cpu", "cuda"):
-        history: list = []
-        train_loop(models[device], fresh(device), iter(pipe(device)), opt_cfg, steps=8,
-                   log_every=0, history=history)
-        runs[device] = [h["loss"] for h in history]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
-    check(loss_rel <= SMOKE_LOSS_TOL, f"smoke training card vs CPU: per-step loss rel "
-          f"{loss_rel} over {SMOKE_LOSS_TOL}: {runs}")
-
     batch = pipe("cuda", batch=8).batch_at(0)
     s1, m1 = make_train_step(models["cuda"], opt_cfg, 1)(fresh("cuda"), batch)
     s2, m2 = make_train_step(models["cuda"], opt_cfg, 4)(fresh("cuda"), batch)
@@ -5692,13 +5879,11 @@ def smoke_training(cfg, tmp: pathlib.Path) -> dict:
         outs.append(proc.stdout)
     check("done at step 4" in outs[0] and "resuming from checkpoint step 4" in outs[1]
           and "done at step 6" in outs[1], f"launcher twice over one --ckpt: {outs}")
-    log(f"train (d): smoke granite card vs CPU over 8 steps: max per-step loss rel "
-        f"{loss_rel:.3g} (limit {SMOKE_LOSS_TOL}; card {[round(x, 5) for x in runs['cuda']]}); "
-        f"microbatches 4 vs 1: loss rel {micro_loss:.3g}, first leaf {micro_param:.3g} (limits "
+    log(f"train (d): smoke granite microbatches 4 vs 1: loss rel {micro_loss:.3g}, first leaf {micro_param:.3g} (limits "
         f"2e-2); compressed on a repeated batch {compressed[0]:.4f} -> {compressed[-1]:.4f}; "
         f"checkpoint at step 4 restored and continued: step-8 params bit-equal; launcher "
         f"resumed from step 4 to 6")
-    return {"losses": runs, "loss_rel": loss_rel, "micro_loss_rel": micro_loss,
+    return {"card_against_cpu": against_cpu, "micro_loss_rel": micro_loss,
             "micro_first_leaf": micro_param, "compressed": compressed,
             "resume_max_diff": resume_diff}
 
@@ -5803,13 +5988,230 @@ def time_flash_backward(label: str, args: tuple, kw: dict) -> dict:
     return out
 
 
+#: ssd_scan's backward against ``ssd_scan_bwd_ref`` in float64, per
+#: gradient, max |kernel - plain| over max |plain|: float32 sums in another
+#: order, and the chunk's float32 cumsum of dtA (whose rounding grows with
+#: |cum|) in every exp(cum_i - cum_j).  Measured up to 2.1e-6 at |dtA| up to
+#: 0.5, 2.1e-5 up to 12, 7.2e-5 up to 50 (the forward shares that cumsum),
+#: and 1.7e-5 at mamba2-370m's own training inputs (NVIDIA H100 80GB HBM3,
+#: 700.00 W); the start was 1e-3
+SSD_BWD_TOL = 1e-4
+#: (BH, BG, L, P, N, largest |dtA| a step): the forward sweep's shapes
+#: (:data:`SSD_CASES`), mamba2-370m's training inputs (B = 2 a microbatch:
+#: 64 heads, 2 groups, 4,096 rows), and the same at the decays its A =
+#: -1..-16 gives at dt ~0.7 and at dt ~3, where exp(cum) leaves float32's
+#: range within a chunk
+SSD_BWD_CASES = ([(*case, 0.5) for case in SSD_CASES]
+                 + [(64, 2, 4096, 64, 128, a) for a in (0.5, 12.0, 50.0)])
+
+
+def ssd_backward_checks() -> dict:
+    """(f): the backward kernels against ``ssd_scan_bwd_ref`` in float64 at
+    :data:`SSD_BWD_CASES`, each gradient within :data:`SSD_BWD_TOL` of its
+    max |plain|; dy one position off must read outside the limit on every
+    gradient (a control); two launches give the same bits; and
+    ``ops.ssd_scan`` on model-layout inputs that require grad, inside a
+    non-reentrant checkpoint, launching the forward twice and the backward
+    once, against torch autograd of the plain version on the CPU."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import plan, ssd_scan_bwd_cuda
+
+    names = ("dxdt", "ddtA", "dB", "dC")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    errs, max_abs = {}, 0.0
+    for BH, BG, L, P, N, amax in SSD_BWD_CASES:
+        label = f"BH={BH} BG={BG} L={L} P={P} N={N} |dtA|<={amax}"
+        xdt = torch.randn((BH, L, P), generator=g, device="cuda") * 0.5
+        dtA = -(0.01 + (amax - 0.01) * torch.rand((BH, L), generator=g, device="cuda"))
+        B = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+        C = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+        dy = torch.randn((BH, L, P), generator=g, device="cuda")
+        fw = plan(xdt, dtA, B, C, BH // BG)
+        for _, launch in fw.passes:
+            launch()
+        args = (xdt, dtA, B, C, BH // BG, fw.states, fw.decay, fw.cbt)
+        got = ssd_scan_bwd_cuda(*args, dy)
+        again = ssd_scan_bwd_cuda(*args, dy)
+        shifted = ssd_scan_bwd_cuda(*args, torch.roll(dy, 1, dims=1)) if L > 1 else None
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"ssd backward at {label}: two launches differ")
+        want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), BH // BG,
+                                dy.double())
+        rel = {n: rel_err(a.double(), b) for n, a, b in zip(names, got, want)}
+        for n, a, b in zip(names, got, want):
+            check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                  f"ssd backward at {label}: {n} shape or not finite")
+            check(rel[n] <= SSD_BWD_TOL, f"ssd backward at {label}: {n} max |kernel - plain| "
+                  f"/ max |plain| {rel[n]} over {SSD_BWD_TOL}")
+            max_abs = max(max_abs, float((a.double() - b).abs().max()))
+        control = None
+        if shifted is not None:
+            control = {n: rel_err(a.double(), b) for n, a, b in zip(names, shifted, want)}
+            check(min(control.values()) > SSD_BWD_TOL, f"ssd backward at {label}: dy one "
+                  f"position off reads within the limit: {control}")
+        errs[label] = {"rel": rel, "control": control}
+        log(f"train (f): ssd backward at {label}: max |kernel - plain| / max |plain| "
+            f"{ {n: float(f'{e:.3g}') for n, e in rel.items()} }; dy one position off "
+            f"{ {n: float(f'{e:.3g}') for n, e in (control or {}).items()} }; bit-equal")
+        del xdt, dtA, B, C, dy, fw, args, got, again, shifted, want
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(31)
+    arrs = (rng.normal(size=(2, 300, 8, 64)), rng.uniform(0.05, 0.3, size=(2, 300, 8)),
+            -rng.uniform(0.1, 1.0, size=(8,)), rng.normal(size=(2, 300, 2, 128)) * 0.3,
+            rng.normal(size=(2, 300, 2, 128)) * 0.3)
+    weight = rng.normal(size=(2, 300, 8, 64))
+
+    def grads(device):
+        ins = [torch.as_tensor(a, dtype=torch.float32, device=device).requires_grad_()
+               for a in arrs]
+        w = torch.as_tensor(weight, dtype=torch.float32, device=device)
+        checkpoint(lambda *t: (ssd_ops.ssd_scan(*t) * w).sum(), *ins,
+                   use_reentrant=False).backward()
+        return [t.grad.cpu() for t in ins]
+
+    fwd, bwd = ssd_ops.LAUNCHES, ssd_ops.BACKWARD_LAUNCHES
+    card = grads("cuda")
+    check(ssd_ops.LAUNCHES == fwd + 2 and ssd_ops.BACKWARD_LAUNCHES == bwd + 1,
+          f"ssd autograd under checkpoint: {ssd_ops.LAUNCHES - fwd} forward and "
+          f"{ssd_ops.BACKWARD_LAUNCHES - bwd} backward launches, not 2 and 1")
+    autograd = max(rel_err(a, b) for a, b in zip(card, grads("cpu")))
+    check(autograd <= FLASH_AUTOGRAD_TOL, f"ssd autograd.Function under checkpoint against "
+          f"the CPU's autograd: {autograd} over {FLASH_AUTOGRAD_TOL}")
+    worst = {n: max(e["rel"][n] for e in errs.values()) for n in names}
+    log(f"train (f): ssd backward == ssd_scan_bwd_ref (float64) at {len(errs)} cases, worst "
+        f"{ {n: float(f'{e:.3g}') for n, e in worst.items()} } (limit {SSD_BWD_TOL}); each "
+        f"bit-equal across two launches; autograd.Function under checkpoint vs the CPU's "
+        f"autograd {autograd:.3g} (limit {FLASH_AUTOGRAD_TOL})")
+    return {"cases": errs, "worst": worst, "max_abs_err": max_abs, "autograd": autograd}
+
+
+def _capture_ssd_backward(store: dict):
+    """Wrap the ssd backward binding so that its first call's inputs are
+    kept (clones): the training path's own inputs for (h).  Returns the
+    original, to put back."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_binding
+
+    original = ssd_binding.ssd_scan_bwd_cuda
+
+    def capture(xdt, dtA, B, C, n_rep, states, decay, cbt, dy):
+        if not store:
+            store["args"] = tuple(t.clone() for t in (xdt, dtA, B, C, states, decay, cbt, dy))
+            store["n_rep"] = n_rep
+        return original(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+
+    ssd_binding.ssd_scan_bwd_cuda = capture
+    return original
+
+
+def mamba_training(cfg) -> tuple[dict, dict]:
+    """(g): mamba2-370m at full width and depth, random weights from seed
+    0, through ``train_loop`` on the card as (c) runs granite
+    (:func:`trained_figures`: the held-out batch's loss falling, 2 x 48
+    forward and 48 backward ssd launches a microbatch, ms a step,
+    tokens/s, peak GB, a traced step).  Returns the figures and the
+    captured backward inputs."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_binding
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import AdamWConfig
+
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    captured: dict = {}
+    original = _capture_ssd_backward(captured)
+    history: list = []
+    try:
+        run = six_steps(model, cfg, 0, history)
+    finally:
+        ssd_binding.ssd_scan_bwd_cuda = original
+    out = trained_figures("mamba", "ssd_scan", model, cfg, opt_cfg, run, history)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_trained("g", "mamba2-370m", "ssd_scan", out)
+    return out, captured
+
+
+def time_ssd_backward(captured: dict) -> dict:
+    """(h): one backward call at (g)'s captured inputs: checked against the
+    float64 plain backward, timed whole by CUDA events and by kernel
+    (:func:`pass_split_ms`), beside the float32 plain backward
+    (``ssd_scan_bwd_ref``), the bound of this data (:func:`ssd_bwd_bound`)
+    and the forward at the same inputs; no PyTorch call computes it."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import backward_plan, plan, ssd_scan_bwd_cuda
+
+    xdt, dtA, B, C, states, decay, cbt, dy = captured["args"]
+    n_rep = captured["n_rep"]
+    BH, L, P = xdt.shape
+    BG, N = B.shape[0], B.shape[2]
+    got = ssd_scan_bwd_cuda(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+    want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), n_rep, dy.double())
+    rel = max(rel_err(a.double(), b) for a, b in zip(got, want))
+    max_abs = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+    check(rel <= SSD_BWD_TOL, f"ssd backward at mamba's training inputs: {rel} over "
+          f"{SSD_BWD_TOL}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    def bwd():
+        return ssd_scan_bwd_cuda(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+
+    k1, k2 = cuda_ms(bwd, reps=10), cuda_ms(bwd, reps=10)
+    call = backward_plan(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+    split = pass_split_ms(call)
+    scratch = call.scratch_bytes()
+    del call
+    plain_ms = cuda_ms(lambda: ssd_scan_bwd_ref(xdt, dtA, B, C, n_rep, dy), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    forward_ms = cuda_ms(lambda: [launch() for _, launch in plan(xdt, dtA, B, C,
+                                                                 n_rep).passes], reps=10)
+    ops_count, nbytes = ssd_bwd_bound(BH, BG, L, P, N)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
+    out = {
+        "shape": [BH, BG, L, P, N], "ms": min(k1, k2), "split_ms": split, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "ops": ops_count, "bytes": nbytes, "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
+        "forward_ms": forward_ms, "scratch_bytes": scratch,
+        "max_abs_err": max_abs, "max_rel_err": rel,
+    }
+    log(f"train (h): ssd backward at mamba's training inputs {out['shape']}: {out['ms']:.3f} "
+        f"ms ({out['tflops']:.2f} TFLOP/s of the recurrence's count; by kernel "
+        f"{ {n: round(t, 4) for n, t in split.items()} } ms), bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {ops_count / 1e9:.2f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} "
+        f"MB), plain (float32) {plain_ms:.3f} ms, forward {forward_ms:.3f} ms; scratch "
+        f"{scratch / 1e6:.1f} MB; == plain (max |diff| / max |plain| {rel:.3g})")
+    return out
+
+
+def mamba_smoke_training(cfg) -> dict:
+    """(i): mamba2-370m's smoke config card against CPU over 8 steps at
+    batches of 96 tokens (two of the kernels' chunks), with ddtA zeroed as
+    the control (:func:`card_against_cpu`)."""
+    return card_against_cpu("train (i): smoke mamba", cfg, 96, _ssd_ddtA_zeroed)
+
+
 def train_phase() -> dict:
-    """Training on the card (ROADMAP A16.1): (a) the flash backward against
-    its plain version; (b) the data pipeline; (c) granite-3-2b at full
-    width through ``train_loop``; (d) the smoke config card against CPU,
-    microbatches, compression, checkpoint resume and the launcher; (e) the
-    backward's times at granite's training inputs and at
-    :data:`FLASH_BWD_TIMED`'s layers."""
+    """Training on the card (ROADMAP A16.1, A16.2): (a) the flash backward
+    against its plain version; (b) the data pipeline; (c) granite-3-2b at
+    full width through ``train_loop``; (d) the smoke config card against
+    CPU, microbatches, compression, checkpoint resume and the launcher; (e)
+    the backward's times at granite's training inputs and at
+    :data:`FLASH_BWD_TIMED`'s layers; (f) the ssd backward against its
+    plain version; (g) mamba2-370m at full width through ``train_loop``;
+    (h) the ssd backward's times at (g)'s inputs; (i) mamba's smoke config
+    card against CPU."""
     import shutil
     import tempfile
 
@@ -5841,6 +6243,17 @@ def train_phase() -> dict:
         out["smoke"] = smoke_training(smoke_config_for("granite3_2b"), tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ssd_backward"] = ssd_backward_checks()
+    out["mamba"], captured = mamba_training(config_for("mamba2_370m"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ssd_backward_times"] = time_ssd_backward(captured)
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mamba_smoke"] = mamba_smoke_training(smoke_config_for("mamba2_370m"))
     out["seconds"] = time.perf_counter() - t0
     log(f"train phase ok in {out['seconds']:.1f} s")
     return out
@@ -5871,6 +6284,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan.ssd_scan import BACKWARD_PASSES
 
     if sys.argv[1:] == ["--flash-digest"]:
         digests = flash_kernel_phase(digest_only=True)["digests"]
@@ -5897,12 +6311,14 @@ def main() -> int:
                          default=str), flush=True)
         return 0
     if sys.argv[1:] == ["--train-seeds"]:
-        _build.load("flash_attention")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            list(pool.map(_build.load, ("flash_attention", "ssd_scan")))
         print(json.dumps({"card": card, "tree": str(ROOT), "train_seeds": train_seeds_phase()}),
               flush=True)
         return 0
     if sys.argv[1:] == ["--train"]:
-        _build.load("flash_attention")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            list(pool.map(_build.load, ("flash_attention", "ssd_scan")))
         out = train_phase()
         print(json.dumps({"card": card, "train": out}, default=str), flush=True)
         return 0
@@ -6006,7 +6422,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase()
-    bt = train["backward_times"]
+    bt, sbt = train["backward_times"], train["ssd_backward_times"]
 
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
@@ -6117,14 +6533,35 @@ def main() -> int:
              "shapes": {label: {key: t[key] for key in (
                  "shape", "ms", "split_ms", "tflops", "bound_ms", "bound_by", "library_ms",
                  "plain_ms", "max_abs_err")} for label, t in train["backward_shapes"].items()},
-             "launches_train": train["granite"]["flash_backward_per_step"],
-             "launches_train_forward": train["granite"]["flash_forward_per_step"]}},
+             "launches_train": train["granite"]["backward_per_step"],
+             "launches_train_forward": train["granite"]["forward_per_step"]}},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:36",
          "launches": serving["mamba2_370m"]["launches"],
          "max_abs_err": max(ssd["max_abs_err"], sd["max_abs_err"]),
          "ms": sd["ms"], "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
-         "bound_by": sd["bound_by"], "library_ms": None, "ok": True},
+         "bound_by": sd["bound_by"], "library_ms": None, "ok": True,
+         # the backward kernels (no TPU counterpart: the reference
+         # differentiates its plain chunked form), timed at mamba2-370m's
+         # training inputs; launches a training step of mamba2-370m (each
+         # launch the backward's kernels), the counts set to 0 just before
+         # the run
+         "backward": {
+             "kernels": list(BACKWARD_PASSES),
+             "source": "src/repro_torch/csrc/ssd_scan.cu",
+             "replaces": "none: src/repro/kernels/ssd_scan/ops.py:44-48 differentiates the "
+                         "plain chunked form or the recurrence (the reference has no backward "
+                         "kernel)",
+             "ms": sbt["ms"], "bound_ms": sbt["bound_ms"], "bound_by": sbt["bound_by"],
+             "library_ms": None, "plain_ms": sbt["plain_ms"],
+             "max_abs_err": max(sbt["max_abs_err"], train["ssd_backward"]["max_abs_err"]),
+             "split_ms": sbt["split_ms"], "tflops": sbt["tflops"],
+             "launches_train": train["mamba"]["backward_per_step"],
+             "launches_train_forward": train["mamba"]["forward_per_step"],
+             # registers and spills, from the build report
+             "ptxas": {name.split("::")[-1]: {k: r[k] for k in (
+                 "registers", "smem", "spill_stores", "spill_loads")}
+                 for name, r in build.items() if r["source"] == "ssd_scan.cu"}}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -401,6 +401,25 @@ def _row_of(parts: list, bucket: int, j: int) -> tuple:
     return parts[j // b], j % b
 
 
+def _blocks_at(full, part) -> list[int]:
+    """For each position of the leading-axis split ``full`` (mesh order),
+    the index of the block of ``part`` it holds.  ``part`` splits over a
+    subset of ``full``'s axes (``pick_data_axes`` gives ``(pod, data)`` or
+    ``data`` alone), so a position's block is its index along those axes."""
+    def axes(sharding) -> tuple:
+        entry = sharding.spec[0]
+        return entry if isinstance(entry, tuple) else (entry,)
+
+    mesh, full_axes, part_axes = full.mesh, axes(full), axes(part)
+    out = []
+    for idx in itertools.product(*(range(mesh.shape[a]) for a in full_axes)):
+        block = 0
+        for a in part_axes:
+            block = block * mesh.shape[a] + idx[full_axes.index(a)]
+        out.append(block)
+    return out
+
+
 def _vocab(dictionary) -> tuple | None:
     """Host tuple of a DictEncoding's contents."""
     if dictionary is None:
@@ -683,6 +702,9 @@ class _FusedExecutable:
     merged: Any = None  # repro_torch.fuse.merge.FusedPlan (sharing maps + explain)
     eval_counts: dict | None = None  # pool key -> the last run's evaluations
     positions: list | None = None  # a sharded wave's device a position, else None
+    # a sharded wave's member -> the positions holding its blocks, in block
+    # order (None for an unbatched member); else None
+    member_blocks: list | None = None
 
 
 @dataclasses.dataclass
@@ -1529,12 +1551,16 @@ class Session:
                        slot_names: list) -> tuple[_FusedExecutable, bool]:
         """The sharded fused executable (see :meth:`_fused_executable`):
         one fused closure per distinct device of the mesh's data-axis
-        positions; ``fn`` returns one member tuple a position.  The entry's
+        positions; ``fn`` returns one member tuple a position.  Each
+        batched member is placed by its own ``batch_sharding(mesh,
+        bucket)``, as the reference places it: a member split over
+        ``data`` alone gives block ``d`` to every position whose ``data``
+        index is ``d`` (replicated over ``pod``).  The entry's
         dictionaries, stats and pool counts are the first position's (the
         shards run the same program)."""
         from repro_torch.dist.sharding import (batch_sharding, data_axis_size,
                                                place, positions,
-                                               replicated_sharding)
+                                               replicated_sharding, to_device)
         from repro_torch.fuse.program import build_fused_raw
 
         self._fault("compile", tuple(m.key[0] for m in members))
@@ -1542,6 +1568,11 @@ class Session:
         split = batch_sharding(mesh, data_axis_size(mesh))
         rep = replicated_sharding(mesh)
         devs = positions(split)
+        member_splits = [batch_sharding(mesh, m.bucket) if m.sig else None
+                         for m in members]
+        # the block of each batched member at each position
+        takes = [_blocks_at(split, s) if s is not None else None
+                 for s in member_splits]
         specs = [g.spec() for g in groups]
         built = {d: build_fused_raw(self, members, policy, merged, specs,
                                     member_tmaps, slot_names, device=d)
@@ -1555,20 +1586,22 @@ class Session:
                 mesh, catalog_token if catalog_token is not None
                 else self._catalog_token())
             targs = replicated(targs_tuple)
-            blocks = [place(p, split) if m.sig else replicated(p)
-                      for p, m in zip(pargs_tuple, members)]
+            blocks = [place(p, s) if s is not None else replicated(p)
+                      for p, s in zip(pargs_tuple, member_splits)]
             outs = []
             for i, d in enumerate(devs):
-                pargs = tuple(b[i] if m.sig else b[d]
-                              for b, m in zip(blocks, members))
+                pargs = tuple(to_device(b[t[i]], d) if t is not None else b[d]
+                              for b, t in zip(blocks, takes))
                 with _on_device(d):
                     outs.append(built[d][0](cats[d], pargs, targs[d]))
             return outs
 
         _, out_dicts, run_stats, merged, eval_counts = built[devs[0]]
-        entry = _FusedExecutable(fn, [m.plan for m in members], out_dicts,
-                                 run_stats, members, merged, eval_counts,
-                                 positions=devs)
+        entry = _FusedExecutable(
+            fn, [m.plan for m in members], out_dicts, run_stats, members, merged,
+            eval_counts, positions=devs,
+            member_blocks=[None if t is None else [t.index(b) for b in range(max(t) + 1)]
+                           for t in takes])
         self._fuse_execs[key] = entry
         return entry, False
 
@@ -1688,27 +1721,27 @@ class Session:
         if devices > 1:
             from repro_torch.dist.sharding import data_axis_size, pick_data_axes
 
-            # one program, one placement: shard whenever ANY batched
-            # member's bucket divides the data axes.  A non-dividing
-            # batched member pads its bucket up to the next multiple of the
-            # data-axis product (padding repeats the last ticket, exactly
-            # like power-of-two bucket padding), so every batched member
-            # splits over the same positions.  The cap is max_batch ×
-            # devices — itself a multiple of the product — so a padded
-            # bucket never exceeds it.  Only when NO batched member divides
-            # (or none is batched) does the wave replicate; parameter-free
-            # members are unbatched and always replicate.  (On a pod mesh,
-            # a bucket that divides ``data`` alone pads too: the reference
-            # splits it over ``data`` and replicates it over ``pod``.)
+            # one program: shard whenever ANY batched member's bucket
+            # divides the data axes.  A batched member that divides no data
+            # axis pads its bucket up to the next multiple of the data-axis
+            # product (padding repeats the last ticket, exactly like
+            # power-of-two bucket padding).  The cap is max_batch × devices
+            # — itself a multiple of the product — so a padded bucket never
+            # exceeds it.  Each batched member is then placed by its own
+            # batch_sharding (``_sharded_fused``): on a pod mesh a bucket
+            # that divides ``data`` but not ``pod × data`` is split over
+            # ``data`` alone, replicated over ``pod`` and left unpadded, as
+            # in the reference.  Only when NO batched member divides (or
+            # none is batched) does the wave replicate; parameter-free
+            # members are unbatched and always replicate.
             mesh = policy.mesh
             n = data_axis_size(mesh)
-            full = pick_data_axes(mesh, n)
             batched = [m for m in members if m.sig]
             shard = any(pick_data_axes(mesh, m.bucket) is not None
                         for m in batched)
             if shard:
                 for m in batched:
-                    if pick_data_axes(mesh, m.bucket) != full:
+                    if pick_data_axes(mesh, m.bucket) is None:
                         m.bucket += (-m.bucket) % n
                         m.key = (m.key[0], m.key[1], m.bucket)
         # cross-statement CSE: plan the template binding pools from the
@@ -1814,8 +1847,12 @@ class Session:
         fused_explain = merged.explain()
         for j, (m, k) in enumerate(zip(members, order)):
             ent = by_key[k]
-            # one member tuple a shard position (one on an unsharded wave)
-            parts = [out[j] for out in rec["outs"]]
+            # one member tuple a block: a shard position's (one on an
+            # unsharded wave; the first of its positions for a member
+            # replicated over ``pod``)
+            blocks_at = entry.member_blocks[j] if entry.member_blocks else None
+            parts = ([rec["outs"][i][j] for i in blocks_at] if blocks_at is not None
+                     else [out[j] for out in rec["outs"]])
             stats = {
                 **entry.stats, "compiled": True, "batched": True,
                 "fused": True, "fused_programs": 1,

@@ -6,10 +6,12 @@ of dt into x and A and its model-to-kernel layout reshapes, ``:32-35, 49``;
 A tensor on the CPU takes the plain torch version (the chunked form above
 64 steps, the per-step recurrence below, as the reference picks off the
 TPU), which autograd differentiates; a CUDA tensor launches the
-hand-written Hopper kernels (``csrc/ssd_scan.cu``) or raises.  The kernels
-have no backward yet: on a CUDA tensor that requires grad (grad enabled)
-:func:`ssd_scan` raises ``NotImplementedError`` naming ROADMAP A16.2
-rather than return a result with no gradient.
+hand-written Hopper kernels (``csrc/ssd_scan.cu``) or raises.  When grad
+is enabled and an input requires it, the launch goes through
+:class:`SSDScan`, whose backward launches the backward kernels or raises:
+it never falls back to the plain version.  The pre-fusion of dt into x and
+A and the layout reshapes stay outside it, so autograd carries x, dt, A, B
+and C through them.
 """
 from __future__ import annotations
 
@@ -18,8 +20,41 @@ import torch
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
 
 #: calls of :func:`ssd_scan` that launched the CUDA kernels (a plain count,
-#: read by ``chip_smoke.py`` to show the serving path went through them)
+#: read by ``chip_smoke.py`` to show the serving and training paths went
+#: through them)
 LAUNCHES = 0
+#: backward calls (each the backward kernels) made by :class:`SSDScan`
+BACKWARD_LAUNCHES = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """The forward kernels on the kernel layout (xdt, dtA, B, C), their
+    scratch kept for the backward kernels (CUDA tensors only).  Everything
+    is saved with ``save_for_backward``, so a non-reentrant checkpoint
+    drops it and recomputes it."""
+
+    @staticmethod
+    def forward(ctx, xdt, dtA, B, C, n_rep):
+        from repro_torch.kernels.ssd_scan.ssd_scan import plan
+
+        xdt, dtA, B, C = (t.contiguous() for t in (xdt, dtA, B, C))
+        call = plan(xdt, dtA, B, C, n_rep)
+        for _, launch in call.passes:
+            launch()
+        ctx.save_for_backward(xdt, dtA, B, C, call.states, call.decay, call.cbt)
+        ctx.n_rep = n_rep
+        return call.y
+
+    @staticmethod
+    def backward(ctx, dy):
+        global BACKWARD_LAUNCHES
+        from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_bwd_cuda
+
+        xdt, dtA, B, C, states, decay, cbt = ctx.saved_tensors
+        grads = ssd_scan_bwd_cuda(xdt, dtA, B, C, ctx.n_rep, states, decay, cbt,
+                                  dy.contiguous())
+        BACKWARD_LAUNCHES += 1
+        return (*grads, None)
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 128):
@@ -46,11 +81,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128):
         from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
 
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
-            raise NotImplementedError(
-                "ssd_scan's backward kernels are not ported yet (Mamba-2 training "
-                "on the card): ROADMAP A16.2")
-
-        y = ssd_scan_cuda(xdt, dtA, Bk, Ck, n_rep)
+            y = SSDScan.apply(xdt, dtA, Bk, Ck, n_rep)
+        else:
+            y = ssd_scan_cuda(xdt, dtA, Bk, Ck, n_rep)
         LAUNCHES += 1
     else:
         raise ValueError(f"ssd_scan: no kernel for {x.device}")

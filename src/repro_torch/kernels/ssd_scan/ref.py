@@ -1,11 +1,14 @@
 """Plain torch versions of the SSD scan: a port of
 ``src/repro/kernels/ssd_scan/ref.py`` (the per-step recurrence
 ``ssd_scan_ref`` and the chunked form ``ssd_scan_chunked``), and
-``ssd_scan_state_passing``, the four steps the CUDA kernels take.
+``ssd_scan_state_passing``, the four steps the CUDA kernels take, and
+``ssd_scan_bwd_ref``, the gradients the backward kernels compute, in the
+same steps.
 
 xdt: (BH, L, P); dtA: (BH, L); B, C: (BG, L, N); BH == BG * n_rep, head bh
 reading group ``bh // n_rep`` (``jnp.repeat`` is ``repeat_interleave``).
-Both compute in float32 and return xdt's dtype.
+The forward forms compute in float32 and return xdt's dtype; the
+backward computes in float64 when given float64 inputs, else float32.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ def ssd_scan_ref(xdt, dtA, B, C, n_rep):
 
 def ssd_scan_chunked(xdt, dtA, B, C, n_rep, chunk: int = 128):
     """Within-chunk quadratic form plus the cross-chunk state carry, the
-    same math as the kernel."""
+    same math as the kernel; autograd differentiates it (finite where the
+    reference's gradient is NaN, ROADMAP C10)."""
     BH, L, P = xdt.shape
     N = B.shape[2]
     chunk = min(chunk, L)
@@ -50,7 +54,11 @@ def ssd_scan_chunked(xdt, dtA, B, C, n_rep, chunk: int = 128):
         xc, ac = x[:, c0:c0 + chunk], a[:, c0:c0 + chunk]
         bc, cc = Bx[:, c0:c0 + chunk], Cx[:, c0:c0 + chunk]
         cum = torch.cumsum(ac, dim=1)
-        decay = torch.where(tri, torch.exp(cum[:, :, None] - cum[:, None, :]), 0.0)
+        # masked before the exp: the same values as the reference's
+        # where(tri, exp(.), 0), but above the diagonal exp(cum_i - cum_j)
+        # can overflow, and its gradient there is then 0 * inf = NaN
+        # (ROADMAP C10)
+        decay = torch.exp(torch.where(tri, cum[:, :, None] - cum[:, None, :], -torch.inf))
         scores = torch.einsum("bqn,bkn->bqk", cc, bc) * decay
         y = torch.einsum("bqk,bkp->bqp", scores, xc)
         y = y + torch.exp(cum)[..., None] * torch.einsum("bqn,bnp->bqp", cc, S)
@@ -101,3 +109,79 @@ def ssd_scan_state_passing(xdt, dtA, B, C, n_rep, chunk: int = 64,
     if return_states:
         return y, s_in.reshape(BH, nc, N, P)
     return y
+
+
+def ssd_scan_bwd_ref(xdt, dtA, B, C, n_rep, dy, chunk: int = 64):
+    """The gradients of y = ssd_scan(xdt, dtA, B, C) against dy, written out
+    (not autograd of a forward) in the steps the backward kernels take at
+    their chunk Q: (dxdt (BH, L, P), ddtA (BH, L), dB (BG, L, N), dC (BG,
+    L, N)), dB and dC summed over each group's heads.
+
+    With cum the inclusive cumsum of dtA within a chunk, S_in the state
+    entering it, tri the lower triangle and Lij = exp(cum_i - cum_j) on it:
+      b1. dS_in[c] = sum_i exp(cum_i) C_i (x) dy_i, for c >= 1;
+      b2. g_c, the gradient of chunk c's end state from later chunks:
+          g_{last} = 0, g_c = dS_in[c+1] + exp(cum_end[c+1]) g_{c+1}; and
+          dd_c = <g_c, S_in[c]>;
+      b3. dxdt_j = sum_{i>=j} (C_i . B_j) Lij dy_i + exp(cum_end - cum_j) B_j g_c;
+      b4. with D_ij = (dy_i . xdt_j) Lij:
+          dC_i = sum_j D_ij B_j + exp(cum_i) S_in dy_i,
+          dB_j = sum_i D_ij C_i + exp(cum_end - cum_j) g_c xdt_j,
+          d cum_k = sum_j W_kj - sum_i W_ik + u_k - v_k, W = D o (C B^T),
+          u_k = C_k . (exp(cum_k) S_in dy_k), v_k = B_k . (exp(cum_end -
+          cum_k) g_c xdt_k), and at the chunk's last row also
+          exp(cum_end) dd_c + sum_j v_j; ddtA is the reverse cumsum of
+          d cum within the chunk.  W's diagonal and v at the last row add
+          to d cum and take from it again: both are left out, which keeps
+          ddtA's float32 error down where they dwarf the rest (a strong
+          decay)."""
+    f = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    BH, L, P = xdt.shape
+    BG, _, N = B.shape
+    R, Q = n_rep, chunk
+    nc = -(-L // Q)
+    pad = nc * Q - L
+    pad_rows = (lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))) if pad else (lambda t: t)
+    x = pad_rows(xdt.to(f)).reshape(BG, R, nc, Q, P)
+    g_y = pad_rows(dy.to(f)).reshape(BG, R, nc, Q, P)
+    a = torch.nn.functional.pad(dtA.to(f), (0, pad)).reshape(BG, R, nc, Q)
+    Bc = pad_rows(B.to(f)).reshape(BG, nc, Q, N)
+    Cc = pad_rows(C.to(f)).reshape(BG, nc, Q, N)
+    cum = torch.cumsum(a, dim=-1)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xdt.device))
+    Lij = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :], -torch.inf))
+    ecum = torch.exp(cum)
+    wend = torch.exp(cum[..., -1:] - cum)
+    decay = torch.exp(cum[..., -1])
+    # the forward's states entering each chunk
+    s_local = torch.einsum("gcjn,grcjp->grcnp", Bc, x * wend[..., None])
+    s_in = torch.zeros_like(s_local)
+    for c in range(1, nc):
+        s_in[:, :, c] = decay[:, :, c - 1, None, None] * s_in[:, :, c - 1] \
+            + s_local[:, :, c - 1]
+    # b1, b2
+    ds_in = torch.einsum("gcin,grci,grcip->grcnp", Cc, ecum, g_y)
+    g = torch.zeros_like(s_local)
+    for c in range(nc - 2, -1, -1):
+        g[:, :, c] = ds_in[:, :, c + 1] + decay[:, :, c + 1, None, None] * g[:, :, c + 1]
+    dd = (g * s_in).sum((-2, -1))
+    # b3
+    cb = torch.einsum("gcin,gcjn->gcij", Cc, Bc)
+    dx = torch.einsum("grcij,grcip->grcjp", cb[:, None] * Lij, g_y) \
+        + torch.einsum("gcjn,grcj,grcnp->grcjp", Bc, wend, g)
+    # b4
+    D = torch.einsum("grcip,grcjp->grcij", g_y, x) * Lij
+    dc_state = ecum[..., None] * torch.einsum("grcip,grcnp->grcin", g_y, s_in)
+    db_state = wend[..., None] * torch.einsum("grcjp,grcnp->grcjn", x, g)
+    dC = torch.einsum("grcij,gcjn->gcin", D, Bc) + dc_state.sum(1)
+    dB = torch.einsum("grcij,gcin->gcjn", D, Cc) + db_state.sum(1)
+    # the diagonal adds to both sums below and cancels: left out, it costs
+    # no precision where it dwarfs the rest (a strong decay)
+    W = torch.where(torch.eye(Q, dtype=torch.bool, device=xdt.device), 0.0, D * cb[:, None])
+    v = (Bc[:, None] * db_state).sum(-1)
+    v[..., -1] = 0.0  # v at the last row adds to it and takes from it: left out too
+    dcum = W.sum(-1) - W.sum(-2) + (Cc[:, None] * dc_state).sum(-1) - v
+    dcum[..., -1] += decay * dd + v.sum(-1)
+    ddtA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    return (dx.reshape(BH, nc * Q, P)[:, :L], ddtA.reshape(BH, nc * Q)[:, :L],
+            dB.reshape(BG, nc * Q, N)[:, :L], dC.reshape(BG, nc * Q, N)[:, :L])

@@ -5,8 +5,10 @@ Mamba-2's chunk-parallel SSD algorithm at the kernels' chunk of 64
 (:func:`chunk`), in four launches on the current stream (:data:`PASSES`):
 C B^T once per group and chunk, each chunk's own end state, the states
 passed from chunk to chunk, and the outputs.  The wrapper allocates the
-scratch those passes hand on (:class:`Plan`).  See the source's
-header for the bound and the design.
+scratch those passes hand on (:class:`Plan`).  Its backward
+(:data:`BACKWARD_PASSES`, :func:`backward_plan`) takes the forward's
+scratch and dy and gives dxdt, ddtA, dB and dC in four more launches.
+See the source's header for the bound and the design.
 """
 from __future__ import annotations
 
@@ -20,12 +22,23 @@ from repro_torch.kernels import _build
 #: the kernels, in launch order; the middle two run only when L spans more
 #: than one chunk
 PASSES = ("ssd_chunk_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+#: the backward's kernels, in launch order; the first two run only when L
+#: spans more than one chunk
+BACKWARD_PASSES = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk_dx",
+                   "ssd_bwd_chunk_dbc")
+#: the largest state size the backward takes: its last kernel keeps dB and
+#: dC of a chunk, (64, N) each, in shared memory
+MAX_BACKWARD_N = 256
 
 _ARGTYPES = {
     "ssd_chunk_cb_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3,
     "ssd_chunk_state_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
     "ssd_state_pass_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4,
     "ssd_chunk_out_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+    "ssd_bwd_dstate_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
+    "ssd_bwd_state_pass_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
+    "ssd_bwd_chunk_dx_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+    "ssd_bwd_chunk_dbc_launch": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5,
 }
 
 
@@ -37,6 +50,10 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         lib.ssd_scan_chunk.argtypes = []
         lib.ssd_scan_chunk.restype = ctypes.c_int
+        lib.ssd_bwd_parts.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ssd_bwd_parts.restype = ctypes.c_int
+        lib.ssd_bwd_dbc_smem.argtypes = [ctypes.c_int]
+        lib.ssd_bwd_dbc_smem.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -105,9 +122,6 @@ def plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     states = torch.empty((BH, max(nc - 1, 0), N, P), dtype=torch.float32,
                          device=xdt.device)
     decay = torch.empty((BH, max(nc - 1, 0)), dtype=torch.float32, device=xdt.device)
-    device = xdt.device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
     # tensors, not their pointers: the launches hold them alive
     args = {
         "ssd_chunk_cb": (B, C, cbt, BG, L, N),
@@ -115,6 +129,16 @@ def plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         "ssd_state_pass": (states, decay, BH, L, P, N),
         "ssd_chunk_out": (xdt, dtA, C, cbt, states, y, BH, L, P, N, n_rep),
     }
+    names = PASSES if nc > 1 else ("ssd_chunk_cb", "ssd_chunk_out")
+    return Plan(y, cbt, states, decay, _launchers(lib, xdt.device, args, names))
+
+
+def _launchers(lib, device, args: dict, names) -> list[tuple[str, Callable[[], None]]]:
+    """(name, launch) for each kernel of ``names``, each launching on the
+    device's current stream with ``args[name]`` (tensors by their data
+    pointers) and raising on a failed launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
 
     def launcher(name: str) -> Callable[[], None]:
         fn = getattr(lib, f"{name}_launch")
@@ -128,8 +152,7 @@ def plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                                    + lib.ssd_scan_error_string(err).decode())
         return launch
 
-    names = PASSES if nc > 1 else ("ssd_chunk_cb", "ssd_chunk_out")
-    return Plan(y, cbt, states, decay, [(name, launcher(name)) for name in names])
+    return [(name, launcher(name)) for name in names]
 
 
 def ssd_scan_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
@@ -141,3 +164,80 @@ def ssd_scan_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
     for _, launch in call.passes:
         launch()
     return call.y
+
+
+class BackwardPlan(NamedTuple):
+    """A backward call's gradients, its scratch and its launches in order.
+    gstates (BH, n_chunks - 1, N, P): dS_in of each chunk past the first,
+    then after the state pass g_c, the gradient of chunk c's end state;
+    ddp (BH, n_chunks, parts): the state pass's partial sums of <g_c,
+    S_in[c]>."""
+    dxdt: torch.Tensor
+    ddtA: torch.Tensor
+    dB: torch.Tensor
+    dC: torch.Tensor
+    gstates: torch.Tensor
+    ddp: torch.Tensor
+    passes: list[tuple[str, Callable[[], None]]]
+
+    def scratch_bytes(self) -> int:
+        return self.gstates.nbytes + self.ddp.nbytes
+
+
+def backward_plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  n_rep: int, states: torch.Tensor, decay: torch.Tensor, cbt: torch.Tensor,
+                  dy: torch.Tensor) -> BackwardPlan:
+    """Check the inputs and allocate the gradients and the scratch; launch
+    nothing.  ``states``, ``decay`` and ``cbt`` are a forward :class:`Plan`'s
+    after its launches (the states entering each chunk past the first),
+    from the same xdt, dtA, B and C; dy (BH, L, P) float32."""
+    _check(xdt, dtA, B, C, n_rep)
+    BH, L, P = xdt.shape
+    BG, N = B.shape[0], B.shape[2]
+    if dy.shape != xdt.shape or dy.dtype != torch.float32 or not dy.is_cuda:
+        raise ValueError(f"ssd_scan backward: dy {tuple(dy.shape)} {dy.dtype}, expected "
+                         f"{tuple(xdt.shape)} float32 on the card")
+    if N > MAX_BACKWARD_N:
+        raise ValueError(f"ssd_scan backward takes N up to {MAX_BACKWARD_N}; got N={N}")
+    lib = _lib()
+    Q = lib.ssd_scan_chunk()
+    nc = _n_chunks(L, Q)
+    if states.shape != (BH, max(nc - 1, 0), N, P) or decay.shape != (BH, max(nc - 1, 0)) \
+            or cbt.shape != (BG, nc, Q, Q):
+        raise ValueError(f"ssd_scan backward: the forward's scratch states "
+                         f"{tuple(states.shape)}, decay {tuple(decay.shape)}, cbt "
+                         f"{tuple(cbt.shape)} do not fit these inputs")
+    xdt, dtA, B, C, dy, states, decay, cbt = (
+        t.contiguous() for t in (xdt, dtA, B, C, dy, states, decay, cbt))
+    if any(t.data_ptr() % 16 for t in (xdt, B, C, dy, states, cbt)):
+        raise ValueError("ssd_scan backward takes 16-byte aligned xdt, B, C, dy and scratch")
+    dev = xdt.device
+    dxdt = torch.empty_like(xdt)
+    ddtA = torch.empty_like(dtA)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    gstates = torch.empty_like(states)
+    ddp = torch.empty((BH, nc if nc > 1 else 0, lib.ssd_bwd_parts(P, N)),
+                      dtype=torch.float32, device=dev)
+    args = {
+        "ssd_bwd_dstate": (dy, dtA, C, gstates, BH, L, P, N, n_rep),
+        "ssd_bwd_state_pass": (gstates, decay, states, ddp, BH, L, P, N),
+        "ssd_bwd_chunk_dx": (dy, dtA, B, cbt, gstates, dxdt, BH, L, P, N, n_rep),
+        "ssd_bwd_chunk_dbc": (xdt, dy, dtA, B, C, cbt, states, gstates, decay, ddp, dB, dC,
+                              ddtA, BG, L, P, N, n_rep),
+    }
+    names = BACKWARD_PASSES if nc > 1 else ("ssd_bwd_chunk_dx", "ssd_bwd_chunk_dbc")
+    return BackwardPlan(dxdt, ddtA, dB, dC, gstates, ddp, _launchers(lib, dev, args, names))
+
+
+def ssd_scan_bwd_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, n_rep: int, states: torch.Tensor,
+                      decay: torch.Tensor, cbt: torch.Tensor, dy: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels on the current stream: (dxdt, ddtA, dB,
+    dC), dB and dC summed over each group's heads.  Does not
+    synchronise."""
+    call = backward_plan(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+    for _, launch in call.passes:
+        launch()
+    return call.dxdt, call.ddtA, call.dB, call.dC

@@ -53,9 +53,11 @@ def _split_proj(cfg, proj):
     return z, xBC, dt_raw
 
 
-def mamba_seq(params, x_in, cfg: ArchConfig):
+def mamba_seq(params, x_in, cfg: ArchConfig, collect_cache: bool = True):
     """Sequence form.  Returns (out, (conv_state, ssd_state)): the final
-    states for the cache handoff after prefill."""
+    states for the cache handoff after prefill; with ``collect_cache`` False
+    (training, where no cache is kept) (out, None), without computing
+    them."""
     s, d_in, H, conv_dim = _dims(cfg)
     B, S, D = x_in.shape
     dt_ = x_in.dtype
@@ -86,6 +88,8 @@ def mamba_seq(params, x_in, cfg: ArchConfig):
 
     y = rmsnorm(y, params["gate_norm"], cfg.norm_eps) * F.silu(z.float()).to(dt_)
     out = y @ params["w_out"].to(dt_)
+    if not collect_cache:
+        return out, None
 
     conv_state = xBC[:, -(k - 1):, :] if k > 1 else xBC.new_zeros((B, 0, conv_dim))
     # exact final SSD state for the prefill->decode handoff:

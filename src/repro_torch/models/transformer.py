@@ -23,9 +23,9 @@ reference wraps its scan body in ``jax.checkpoint``.
 ``shard_batch`` (``dist/activations.py``) is the identity on one card.
 The decode cache is a dict ``{"pos": int, "layers": [one dict per
 super-block]}``; decode updates its tensors in place.  Not in this slice,
-each raising ``NotImplementedError``: Mamba-2 and hybrid training (ROADMAP
-A16.2), MLA (A17), the ``cross`` mixer, ``encode`` and memory inputs
-(A18), and MoE layers (A19).
+each raising ``NotImplementedError``: MLA (A17), the ``cross`` mixer,
+``encode`` and memory inputs (A18), and MoE layers (A19), which keeps
+jamba's hybrid stack out of training too.
 """
 from __future__ import annotations
 
@@ -189,10 +189,12 @@ def _embed(params, tokens):
     return params["embed"][tokens].to(COMPUTE_DTYPE)
 
 
-def _layer_seq(lp, spec: LayerSpec, x, cfg: ArchConfig, q_offset: int = 0,
-               causal: bool = True):
+def _layer_seq(lp, spec: LayerSpec, x, cfg: ArchConfig, q_offset: int, causal: bool, *,
+               collect_cache: bool):
     """One layer over a sequence (B, S, D): (x', cache products).  ``lp``
-    is the layer's parameters, a dict or a :class:`Layer`."""
+    is the layer's parameters, a dict or a :class:`Layer`.  Without
+    ``collect_cache`` a Mamba layer skips its final states (the cache's
+    only use)."""
     cache_out = {}
     if spec.mixer == "attn":
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
@@ -202,20 +204,22 @@ def _layer_seq(lp, spec: LayerSpec, x, cfg: ArchConfig, q_offset: int = 0,
         x = x + o
     elif spec.mixer == "mamba":
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        o, state = SSM.mamba_seq(lp["mamba"], h, cfg)
-        cache_out["ssm"] = state
+        o, state = SSM.mamba_seq(lp["mamba"], h, cfg, collect_cache=collect_cache)
+        if collect_cache:
+            cache_out["ssm"] = state
         x = x + o
     if spec.mlp == "dense":
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
     return x, cache_out
 
 
-def _block_seq(bp, x, cfg: ArchConfig, q_offset: int, causal: bool):
+def _block_seq(bp, x, cfg: ArchConfig, q_offset: int, causal: bool, *,
+               collect_cache: bool):
     """One super-block (a repeat): (x', {layer<i>: cache products})."""
     caches = {}
     for i, spec in enumerate(cfg.super_block):
         x, caches[f"layer{i}"] = _layer_seq(bp[f"layer{i}"], spec, x, cfg, q_offset,
-                                            causal)
+                                            causal, collect_cache=collect_cache)
     return x, caches
 
 
@@ -226,10 +230,11 @@ def _stack_seq(params, x, cfg: ArchConfig, q_offset: int = 0, *,
     caches = []
     for bp in params["blocks"]:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(lambda h, bp=bp: _block_seq(bp, h, cfg, q_offset, causal)[0],
+            x = checkpoint(lambda h, bp=bp: _block_seq(bp, h, cfg, q_offset, causal,
+                                                       collect_cache=False)[0],
                            x, use_reentrant=False)
             continue
-        x, c = _block_seq(bp, x, cfg, q_offset, causal)
+        x, c = _block_seq(bp, x, cfg, q_offset, causal, collect_cache=collect_cache)
         if collect_cache:
             caches.append(c)
     return x, caches
@@ -257,8 +262,6 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat: bool = True):
     next-token CE over the masked positions (a float32 0-d tensor).
     ``weight`` is ignored, as in the reference."""
     _check_supported(cfg)
-    if any(spec.mixer == "mamba" for spec in cfg.super_block):
-        _unported("Mamba-2 and hybrid training (ssd_scan's backward)", "A16.2")
     x = forward(params, batch["tokens"], cfg, batch.get("memory"), remat=remat)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return chunked_softmax_xent(x, w, batch["labels"], batch.get("mask"))

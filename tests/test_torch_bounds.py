@@ -211,3 +211,48 @@ def test_mesh_phase_rehearsal(smoke):
     assert out["intake"]["flush_size"] == 8
     assert out["store"]["B"]["persist_hits"] == 2 and out["store"]["A"]["shard_entry"]
     assert out["routed"]["sharded"] and out["routed"]["many_keys"] >= 1
+
+
+def test_ssd_bwd_bound_at_mamba_training(smoke):
+    """The reverse recurrence's 10 N P operations a row and head (2.5x the
+    forward's 4 N P; ddtA is a reverse cumsum of O(P) a row) at
+    mamba2-370m's training inputs (a microbatch of 2 x 4,096 tokens: 64
+    heads, 2 groups), and its bytes, each input and gradient once."""
+    BH, BG, L, P, N = 64, 2, 4096, 64, 128
+    ops, nbytes = smoke.ssd_bwd_bound(BH, BG, L, P, N)
+    assert ops == 21_474_836_480 == 5 * 2 * N * P * L * BH
+    assert nbytes == 4 * (3 * BH * L * P + 2 * BH * L + 4 * BG * L * N)
+    assert ops / smoke.F32_OPS_PER_S * 1e3 == pytest.approx(0.32052, abs=1e-5)
+    assert list(inspect.signature(smoke.ssd_bwd_bound).parameters) == ["BH", "BG", "L", "P",
+                                                                        "N"]
+
+
+def test_ssd_backward_sweep_covers_the_forward_sweep(smoke):
+    """(f) runs every shape of the forward's sweep, L = 1 and 70,000 heads
+    among them, and mamba2-370m's training inputs."""
+    shapes = {case[:5] for case in smoke.SSD_BWD_CASES}
+    assert set(smoke.SSD_CASES) <= shapes
+    assert (64, 2, 4096, 64, 128) in shapes
+    assert any(case[2] == 1 for case in shapes) and any(case[0] == 70_000 for case in shapes)
+
+
+@pytest.mark.parametrize("control,module,name,n_grads", [
+    ("_flash_dk_zeroed", "repro_torch.kernels.flash_attention.flash_attention",
+     "flash_attention_bwd_cuda", 3),
+    ("_ssd_ddtA_zeroed", "repro_torch.kernels.ssd_scan.ssd_scan", "ssd_scan_bwd_cuda", 4),
+])
+def test_smoke_training_controls(smoke, monkeypatch, control, module, name, n_grads):
+    """(d)'s and (i)'s controls zero the second gradient of the backward
+    binding they wrap (dK of dQ, dK, dV; ddtA of dxdt, ddtA, dB, dC), pass
+    the others through, and put the binding back."""
+    import torch
+
+    binding = importlib.import_module(module)
+    grads = tuple(torch.full((2, 3), float(i + 1)) for i in range(n_grads))
+    monkeypatch.setattr(binding, name, lambda *args, **kw: grads)
+    stub = getattr(binding, name)
+    with getattr(smoke, control)():
+        got = getattr(binding, name)(None)
+    assert getattr(binding, name) is stub
+    for i, (g, w) in enumerate(zip(got, grads)):
+        assert torch.equal(g, torch.zeros_like(w) if i == 1 else w)

@@ -22,7 +22,13 @@ value; bf16 runs on the tensor cores, which round P and dS to bf16
 before their products); the forward's log-sum-exp within 1e-4
 of the plain one's; two launches give the same bits; the
 ``autograd.Function`` against torch autograd of the float32 plain version
-within 1e-4 of max |grad|."""
+within 1e-4 of max |grad|.
+
+ssd_scan's backward kernels (through ``ops.SSDScan``) against
+``ssd_scan_bwd_ref`` in float64 within 1e-4 of each gradient's max
+|value|; two launches give the same bits; under a checkpoint, the
+gradients of the model-layout inputs against torch autograd of the plain
+version on the CPU within 1e-4."""
 import numpy as np
 import pytest
 import torch
@@ -323,18 +329,101 @@ def test_flash_autograd_function_under_checkpoint(rng, D):
         assert _rel(a, b) < 1e-4, _rel(a, b)
 
 
-def test_ssd_scan_raises_on_a_cuda_input_that_requires_grad():
-    x = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
-    dt = torch.full((1, 8, 2), 0.1, device="cuda")
-    A = -torch.ones(2, device="cuda")
-    Bm = torch.zeros((1, 8, 1, 16), device="cuda")
-    before = ssd_ops.LAUNCHES
-    with pytest.raises(NotImplementedError, match="A16.2"):
-        ssd_ops.ssd_scan(x, dt, A, Bm, Bm)
-    assert ssd_ops.LAUNCHES == before
+def _ssd_kernel_layout(rng, BH, BG, L, P, N):
+    """xdt, dtA, B, C and dy on the card, float32."""
+    arrs = (rng.normal(size=(BH, L, P)) * 0.5, -rng.uniform(0.01, 0.5, size=(BH, L)),
+            rng.normal(size=(BG, L, N)) * 0.3, rng.normal(size=(BG, L, N)) * 0.3,
+            rng.normal(size=(BH, L, P)))
+    return [torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in arrs]
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N", [
+    (4, 4, 1, 64, 128),     # L = 1
+    (8, 2, 40, 64, 128),    # under one chunk
+    (32, 1, 100, 64, 128),  # ragged, 32 heads on one group
+    (8, 8, 150, 16, 16),    # one head a group
+    (4, 2, 300, 128, 128),  # jamba-1.5's widths
+])
+def test_ssd_scan_function_gradients_equal_the_plain_backward(rng, BH, BG, L, P, N):
+    """``ops.SSDScan`` on CUDA tensors that require grad: its gradients
+    (dxdt, ddtA, dB, dC) equal ``ssd_scan_bwd_ref`` in float64 within 1e-4
+    of each one's max |value| (float32 sums in another order)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    xdt, dtA, B, C, dy = _ssd_kernel_layout(rng, BH, BG, L, P, N)
+    ins = [t.clone().requires_grad_() for t in (xdt, dtA, B, C)]
+    bwd = ssd_ops.BACKWARD_LAUNCHES
+    y = ssd_ops.SSDScan.apply(*ins, BH // BG)
+    got = torch.autograd.grad(y, ins, dy)
+    assert ssd_ops.BACKWARD_LAUNCHES == bwd + 1
+    want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), BH // BG, dy.double())
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a.double(), b) < 1e-4, _rel(a.double(), b)
+
+
+def test_ssd_backward_is_deterministic(rng):
+    """Every gradient has one owner: two backward launches give the same
+    bits (mamba2-370m's widths, 32 heads on one group, ragged)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import plan, ssd_scan_bwd_cuda
+
+    xdt, dtA, B, C, dy = _ssd_kernel_layout(rng, 64, 2, 1000, 64, 128)
+    fw = plan(xdt, dtA, B, C, 32)
+    for _, launch in fw.passes:
+        launch()
+    first = ssd_scan_bwd_cuda(xdt, dtA, B, C, 32, fw.states, fw.decay, fw.cbt, dy)
+    second = ssd_scan_bwd_cuda(xdt, dtA, B, C, 32, fw.states, fw.decay, fw.cbt, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ssd_autograd_function_under_checkpoint(rng):
+    """ops.ssd_scan on CUDA tensors that require grad, in the model layout,
+    inside a non-reentrant torch.utils.checkpoint: the forward launches
+    twice, the backward once, and the gradients of x, dt, A, B and C equal
+    torch autograd of the plain version on the CPU within 1e-4."""
+    from torch.utils.checkpoint import checkpoint
+
+    arrs = (rng.normal(size=(2, 150, 4, 16)), rng.uniform(0.05, 0.3, size=(2, 150, 4)),
+            -rng.uniform(0.1, 1.0, size=(4,)), rng.normal(size=(2, 150, 2, 16)) * 0.3,
+            rng.normal(size=(2, 150, 2, 16)) * 0.3)
+    weight = rng.normal(size=(2, 150, 4, 16))
+
+    def grads(device):
+        ins = [torch.as_tensor(a, dtype=torch.float32, device=device).requires_grad_()
+               for a in arrs]
+        w = torch.as_tensor(weight, dtype=torch.float32, device=device)
+        checkpoint(lambda *t: (ssd_ops.ssd_scan(*t) * w).sum(), *ins,
+                   use_reentrant=False).backward()
+        return [t.grad.cpu() for t in ins]
+
+    fwd, bwd = ssd_ops.LAUNCHES, ssd_ops.BACKWARD_LAUNCHES
+    got = grads("cuda")
+    assert ssd_ops.LAUNCHES == fwd + 2 and ssd_ops.BACKWARD_LAUNCHES == bwd + 1
+    for a, b in zip(got, grads("cpu")):
+        assert _rel(a, b) < 1e-4, _rel(a, b)
+    # without grad the forward alone launches, as before
     with torch.no_grad():
-        ssd_ops.ssd_scan(x, dt, A, Bm, Bm)
-    assert ssd_ops.LAUNCHES == before + 1
+        ssd_ops.ssd_scan(*(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                           for a in arrs))
+    assert ssd_ops.LAUNCHES == fwd + 3 and ssd_ops.BACKWARD_LAUNCHES == bwd + 1
+
+
+def test_ssd_backward_passes_one_at_a_time(rng):
+    """The backward's launches made one at a time (as ``chip_smoke.py``
+    times them) give the whole call's bits."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import (BACKWARD_PASSES, backward_plan, plan,
+                                                       ssd_scan_bwd_cuda)
+
+    xdt, dtA, B, C, dy = _ssd_kernel_layout(rng, 8, 2, 300, 64, 128)
+    fw = plan(xdt, dtA, B, C, 4)
+    for _, launch in fw.passes:
+        launch()
+    call = backward_plan(xdt, dtA, B, C, 4, fw.states, fw.decay, fw.cbt, dy)
+    assert [name for name, _ in call.passes] == list(BACKWARD_PASSES)
+    for _, launch in call.passes:
+        launch()
+    whole = ssd_scan_bwd_cuda(xdt, dtA, B, C, 4, fw.states, fw.decay, fw.cbt, dy)
+    assert all(torch.equal(a, b) for a, b in zip((call.dxdt, call.ddtA, call.dB, call.dC),
+                                                 whole))
 
 
 def test_flash_backward_passes_one_at_a_time(rng):

@@ -10,17 +10,28 @@ Tolerances are the reference's (``tests/test_kernels.py``): the max error
 below 3e-4 of max|y| in float32 and 3e-2 in bf16; decode steps against the
 full scan within 1e-4 absolute; the passed states within 1e-5 absolute.  The CUDA kernel itself runs only on the
 card: ``test_torch_kernels_card.py``.
+
+The backward: ``ssd_scan_bwd_ref`` (the gradients the backward kernels
+compute, written out at their chunk) against ``jax.grad`` of the
+reference's chunked form and of its recurrence, and against torch autograd
+of the port's plain forms, each gradient within 1e-5 of its max |value|
+(float32 sums in another order; measured up to ~1e-6), beside a control
+(dy one position off) that must read far outside; and ``ops.ssd_scan``'s
+gradients in the model layout against ``jax.grad`` of the reference's.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from repro.kernels.ssd_scan import ops as jax_ops
+from repro.kernels.ssd_scan import ref as jax_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_scan_chunked, ssd_scan_ref,
-                                              ssd_scan_state_passing)
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_ref, ssd_scan_chunked,
+                                              ssd_scan_ref, ssd_scan_state_passing)
 
 
 def _rel_err(t, j):
@@ -132,3 +143,152 @@ def test_ops_has_no_fallback_off_the_cpu():
     x = torch.empty((1, 4, 2, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, :1], x[:, :, :1])
+
+
+#: the plain backward against jax.grad / autograd, per gradient, of its
+#: max |value| (float32 sums in another order)
+BWD_TOL = 1e-5
+
+#: (BH, BG, L, P, N): L = 1, under one chunk, ragged with one head a group
+#: and with four, 32 heads on one group over three chunks
+BWD_SHAPES = [(2, 2, 1, 8, 8), (4, 2, 40, 16, 16), (4, 4, 100, 16, 16),
+              (8, 2, 150, 16, 32), (32, 1, 130, 8, 16)]
+
+
+def _grad_rel(t, j) -> float:
+    j = np.asarray(j, np.float64)
+    return float(np.abs(t.double().numpy() - j).max()) / (float(np.abs(j).max()) + 1e-12)
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N", BWD_SHAPES)
+@pytest.mark.parametrize("form", ["chunked", "recurrence"])
+def test_plain_backward_matches_jax_grad(rng, BH, BG, L, P, N, form):
+    """dxdt, ddtA, dB and dC against ``jax.grad`` of the reference's
+    ``ssd_scan_chunked`` (at the kernels' chunk of 64) or ``ssd_scan_ref``."""
+    arrs = _kernel_inputs(rng, BH, BG, L, P, N)
+    dy = rng.normal(size=(BH, L, P))
+    n_rep = BH // BG
+    fwd = ((lambda *a: jax_ref.ssd_scan_chunked(*a, n_rep, chunk=64)) if form == "chunked"
+           else (lambda *a: jax_ref.ssd_scan_ref(*a, n_rep)))
+    jdy = jnp.asarray(dy, jnp.float32)
+    want = jax.grad(lambda *a: jnp.sum(fwd(*a) * jdy), argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a, jnp.float32) for a in arrs))
+    tx = [torch.as_tensor(a, dtype=torch.float32) for a in arrs]
+    got = ssd_scan_bwd_ref(*tx, n_rep, torch.as_tensor(dy, dtype=torch.float32))
+    for name, g, w in zip(("dxdt", "ddtA", "dB", "dC"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert _grad_rel(g, w) < BWD_TOL, (name, _grad_rel(g, w))
+    if L > 1:  # control: dy one position off
+        off = ssd_scan_bwd_ref(*tx, n_rep, torch.as_tensor(np.roll(dy, 1, axis=1),
+                                                           dtype=torch.float32))
+        assert min(_grad_rel(g, w) for g, w in zip(off, want)) > 100 * BWD_TOL
+
+
+@pytest.mark.parametrize("BH,BG,L,P,N", BWD_SHAPES)
+@pytest.mark.parametrize("form", ["chunked", "recurrence"])
+def test_plain_backward_matches_autograd(rng, BH, BG, L, P, N, form):
+    """The same against torch autograd of the port's plain forms (the
+    chunked one at its default chunk of 128, another than the kernels')."""
+    arrs = _kernel_inputs(rng, BH, BG, L, P, N)
+    dy = torch.as_tensor(rng.normal(size=(BH, L, P)), dtype=torch.float32)
+    n_rep = BH // BG
+    tx = [torch.as_tensor(a, dtype=torch.float32).requires_grad_() for a in arrs]
+    fwd = ssd_scan_chunked if form == "chunked" else ssd_scan_ref
+    want = torch.autograd.grad(fwd(*tx, n_rep), tx, dy)
+    got = ssd_scan_bwd_ref(*(t.detach() for t in tx), n_rep, dy)
+    for name, g, w in zip(("dxdt", "ddtA", "dB", "dC"), got, want):
+        assert _grad_rel(g, w.numpy()) < BWD_TOL, (name, _grad_rel(g, w.numpy()))
+
+
+def test_plain_backward_in_float64(rng):
+    """Given float64 inputs it computes in float64: against autograd of the
+    recurrence written out in float64, within 1e-12."""
+    BH, BG, L, P, N = 4, 2, 150, 8, 16
+    tx = [torch.as_tensor(a).requires_grad_() for a in _kernel_inputs(rng, BH, BG, L, P, N)]
+    dy = torch.as_tensor(rng.normal(size=(BH, L, P)))
+    xdt, dtA, B, C = tx
+    Bx, Cx = B.repeat_interleave(2, 0), C.repeat_interleave(2, 0)
+    S = torch.zeros((BH, N, P), dtype=torch.float64)
+    ys = []
+    for t in range(L):
+        S = torch.exp(dtA[:, t])[:, None, None] * S + Bx[:, t, :, None] * xdt[:, t, None, :]
+        ys.append(torch.einsum("bn,bnp->bp", Cx[:, t], S))
+    want = torch.autograd.grad(torch.stack(ys, 1), tx, dy)
+    got = ssd_scan_bwd_ref(*(t.detach() for t in tx), 2, dy)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and _grad_rel(g, w.numpy()) < 1e-12
+
+
+def test_ddtA_is_a_reverse_cumsum(rng):
+    """The identity behind ``chip_smoke.ssd_bwd_ops_needed``'s count:
+    <G_t, S_t> is both ddtA_t + xdt_t . dxdt_t and dy_t . y_t + ddtA_{t+1},
+    so ddtA is the reverse cumsum of dy . y - xdt . dxdt, O(P) a row, in
+    float64 within 1e-12 of the plain backward's."""
+    BH, BG, L, P, N = 4, 2, 150, 8, 16
+    xdt, dtA, B, C = (torch.as_tensor(a) for a in _kernel_inputs(rng, BH, BG, L, P, N))
+    dy = torch.as_tensor(rng.normal(size=(BH, L, P)))
+    dxdt, ddtA, _, _ = ssd_scan_bwd_ref(xdt, dtA, B, C, 2, dy)
+    Bx, Cx = B.repeat_interleave(2, 0), C.repeat_interleave(2, 0)
+    S = torch.zeros((BH, N, P), dtype=torch.float64)
+    ys = []
+    for t in range(L):
+        S = torch.exp(dtA[:, t])[:, None, None] * S + Bx[:, t, :, None] * xdt[:, t, None, :]
+        ys.append(torch.einsum("bn,bnp->bp", Cx[:, t], S))
+    y = torch.stack(ys, 1)
+    row = (dy * y).sum(-1) - (xdt * dxdt).sum(-1)
+    want = row.flip(1).cumsum(1).flip(1)
+    assert _grad_rel(ddtA, want.numpy()) < 1e-12
+
+
+@pytest.mark.parametrize("L", [16, 100])
+def test_ops_gradients_match_reference_ops(rng, L):
+    """``ops.ssd_scan``'s gradients on the CPU (autograd of the plain form
+    the reference picks) with respect to x, dt, A, B and C, through the
+    pre-fusion and the layout reshapes, against ``jax.grad`` of the
+    reference's ``ops.ssd_scan``."""
+    arrs = _model_inputs(rng, 2, L, 4, 8, 2, 16)
+    w = rng.normal(size=(2, L, 4, 8))
+    jw = jnp.asarray(w, jnp.float32)
+    want = jax.grad(lambda *a: jnp.sum(jax_ops.ssd_scan(*a, use_kernel=False) * jw),
+                    argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a, jnp.float32) for a in arrs))
+    tx = [torch.as_tensor(a, dtype=torch.float32).requires_grad_() for a in arrs]
+    (ops.ssd_scan(*tx) * torch.as_tensor(w, dtype=torch.float32)).sum().backward()
+    for t, j in zip(tx, want):
+        assert _grad_rel(t.grad, j) < 1e-5
+
+
+def test_chunked_gradient_is_finite_where_the_reference_is_nan(rng):
+    """ROADMAP C10: with a decay of ~11 a step (mamba's A = -16 at dt
+    ~0.7), exp(cum_i - cum_j) above a chunk's diagonal overflows, and the
+    reference's chunked form, which zeroes it with ``where`` after the exp,
+    has NaN gradients; the port's masks before the exp (the same forward
+    values) and differentiates to the recurrence's gradients, as does the
+    plain backward."""
+    BH, BG, L, P, N = 4, 2, 150, 8, 16
+    xdt, _, B, C = _kernel_inputs(rng, BH, BG, L, P, N)
+    dtA = -rng.uniform(8.0, 12.0, size=(BH, L))
+    arrs = (xdt, dtA, B, C)
+    dy = rng.normal(size=(BH, L, P))
+    jx = [jnp.asarray(a, jnp.float32) for a in arrs]
+    jdy = jnp.asarray(dy, jnp.float32)
+
+    def grads(fwd):
+        return jax.grad(lambda *a: jnp.sum(fwd(*a, 2) * jdy), argnums=(0, 1, 2, 3))(*jx)
+
+    assert any(bool(jnp.isnan(g).any()) for g in grads(jax_ref.ssd_scan_chunked))
+    want = grads(jax_ref.ssd_scan_ref)
+    tx = [torch.as_tensor(a, dtype=torch.float32).requires_grad_() for a in arrs]
+    tdy = torch.as_tensor(dy, dtype=torch.float32)
+    y = ssd_scan_chunked(*tx, 2)
+    assert _rel_err(y.detach(), jax_ref.ssd_scan_chunked(*jx, 2)) < 3e-4
+    got = torch.autograd.grad(y, tx, tdy)
+    plain = ssd_scan_bwd_ref(*(t.detach() for t in tx), 2, tdy)
+    for name, g, p, w in zip(("dxdt", "ddtA", "dB", "dC"), got, plain, want):
+        assert torch.isfinite(g).all() and torch.isfinite(p).all(), name
+        # ddtA sums terms that cancel (each pair of rows adds to one row's
+        # d cum and takes from the other's), more so at this decay: autograd
+        # of the chunked form 2e-3 (measured 3.3e-4 to 9.8e-4 over three
+        # seeds against float64), the plain backward, which leaves the
+        # cancelling diagonal out, 1e-4 (measured 2.5e-5 to 3.3e-5)
+        tol_g, tol_p = (2e-3, 1e-4) if name == "ddtA" else (BWD_TOL, BWD_TOL)
+        assert _grad_rel(g, w) < tol_g and _grad_rel(p, w) < tol_p, name

@@ -34,6 +34,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.kernels.ssd_scan.ops as jax_ssd_ops
+import repro.kernels.ssd_scan.ref as jax_ssd_ref
+import repro.models.ssm as RSSM
 import repro.models.transformer as RT
 import repro_torch.models.transformer as TT
 from repro.configs import smoke_config_for
@@ -82,10 +85,10 @@ def _np(a):
     return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
-def _carried(seed=0):
+def _carried(seed=0, arch="granite3_2b"):
     """The reference's model, optimizer config and fresh state, and the
     same state carried across to the port."""
-    ref_cfg, cfg = smoke_config_for("granite3_2b"), tconfigs.smoke_config_for("granite3_2b")
+    ref_cfg, cfg = smoke_config_for(arch), tconfigs.smoke_config_for(arch)
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=50)
     ref_model = ref_build(ref_cfg)
     ref_state = ref_init_state(ref_model, jax.random.PRNGKey(seed), RO.AdamWConfig(**kw))
@@ -310,35 +313,84 @@ def _ref_loss_and_grads(ref_model, params, batch, cast: bool):
     return jax.value_and_grad(loss)(params)
 
 
-@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
-def test_loss_fn_and_gradients_match_reference(monkeypatch, compute):
-    (ref_model, _, ref_state), (model, _, state), cfg = _carried()
+def _loss_and_grads_match(monkeypatch, compute, arch="granite3_2b", seq=40, grad_tol=None):
+    """``loss_fn`` and its gradients against ``jax.value_and_grad`` of the
+    reference's, from one carried-across state over one batch of ``seq``
+    tokens, in float32 or bf16 compute; and a control.  ``grad_tol``
+    replaces the gradients' limit."""
+    (ref_model, _, ref_state), (model, _, state), cfg = _carried(arch=arch)
+    if arch == "mamba2_370m" and seq > 64:
+        # above 64 steps the reference differentiates its chunked form,
+        # whose gradient is NaN where a chunk's decay above the diagonal
+        # overflows (ROADMAP C10; tests/test_torch_ssd_scan.py shows it):
+        # hold the port to the reference's own per-step recurrence there,
+        # called un-jitted so that no cached trace keeps the chunked form
+        monkeypatch.setattr(jax_ssd_ops, "ssd_scan_chunked",
+                            lambda xdt, dtA, B, C, n_rep, chunk=128:
+                            jax_ssd_ref.ssd_scan_ref(xdt, dtA, B, C, n_rep))
+        monkeypatch.setattr(RSSM, "ssd_scan", jax_ssd_ops.ssd_scan.__wrapped__)
     if compute == "float32":
         monkeypatch.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
         monkeypatch.setattr(TT, "COMPUTE_DTYPE", torch.float32)
-    ref_batch = RefPipeline(batch=4, seq_len=40, vocab=cfg.vocab, seed=2).batch_at(0)
-    batch = DataPipeline(batch=4, seq_len=40, vocab=cfg.vocab, seed=2, device="cpu").batch_at(0)
+    ref_batch = RefPipeline(batch=4, seq_len=seq, vocab=cfg.vocab, seed=2).batch_at(0)
+    batch = DataPipeline(batch=4, seq_len=seq, vocab=cfg.vocab, seed=2, device="cpu").batch_at(0)
     cast = compute == "bfloat16"
     rv, rg = _ref_loss_and_grads(ref_model, ref_state.params, ref_batch, cast)
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
     masters = tree_unflatten(state.params, leaves)
     val = model.loss_fn(compute_params(masters) if cast else masters, batch)
     val.backward()
-    loss_tol, grad_tol = (1e-5, 1e-4) if compute == "float32" else (1e-4, 3e-2)
+    loss_tol, default_tol = (1e-5, 1e-4) if compute == "float32" else (1e-4, 3e-2)
+    grad_tol = grad_tol or default_tol
     assert _rel(float(val.detach()), float(rv)) < loss_tol
     grads = tree_to_reference(tree_unflatten(state.params, [p.grad for p in leaves]))
     errs = [_rel(a, b) for a, b in zip(jax.tree.leaves(grads), jax.tree.leaves(rg))]
     assert max(errs) < grad_tol, errs
     # control: the next batch's loss reads outside the loss limit
-    other = model.loss_fn(masters, DataPipeline(batch=4, seq_len=40, vocab=cfg.vocab,
+    other = model.loss_fn(masters, DataPipeline(batch=4, seq_len=seq, vocab=cfg.vocab,
                                                  seed=2, device="cpu").batch_at(1))
     assert _rel(float(other.detach()), float(rv)) > loss_tol
 
 
-def test_train_loop_matches_reference():
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_loss_fn_and_gradients_match_reference(monkeypatch, compute):
+    _loss_and_grads_match(monkeypatch, compute)
+
+
+#: mamba at 130 tokens, where the port differentiates its chunked form and
+#: the reference its recurrence (C10): float32 3e-4 (the two forms sum
+#: in another order; measured 1.4e-4, on ``A_log``, whose gradient sums
+#: ddtA over every position and head; the port's own recurrence is within
+#: 1.4e-6), bf16 5e-2 (measured 3.9e-2 on ``A_log``, 4.1e-2 with the port's
+#: recurrence: bf16 rounded at other places, as in the dense case, on a
+#: sum that cancels; every other leaf within 3.6e-2)
+MAMBA_CHUNKED_GRAD_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("seq", [40, 130])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_mamba_loss_fn_and_gradients_match_reference(monkeypatch, compute, seq):
+    """mamba2-370m's smoke config at 40 tokens (the per-step recurrence on
+    both sides; the dense case's limits) and 130 (the port's chunked form,
+    ragged at its chunk of 128, against the reference's recurrence;
+    :data:`MAMBA_CHUNKED_GRAD_TOL`)."""
+    _loss_and_grads_match(monkeypatch, compute, "mamba2_370m", seq,
+                          MAMBA_CHUNKED_GRAD_TOL[compute] if seq > 64 else None)
+
+
+#: final parameters after 8 steps, (max, mean) absolute.  mamba: 6e-3 and
+#: 2e-4 (0.8 and 2.7% of the summed learning rate; measured 4.25e-3 on
+#: ``w_in`` and 1.35e-4: as in the dense case, a coordinate whose tiny
+#: gradient rounds differently moves by up to a step's lr, and its D, A_log
+#: and dt_bias, 1-d float32 leaves that gather the whole sequence's
+#: gradient, move further in mean)
+TRAIN_PARAM_TOL = {"granite3_2b": (4e-3, 1e-4), "mamba2_370m": (6e-3, 2e-4)}
+
+
+def _train_loop_matches(arch):
     """8 steps from one state over the same batches: per-step losses and
     the final parameters and moments."""
-    (ref_model, ref_opt, ref_state), (model, opt_cfg, state), cfg = _carried()
+    (ref_model, ref_opt, ref_state), (model, opt_cfg, state), cfg = _carried(arch=arch)
     ref_losses = []
     ref_final = ref_train_loop(
         ref_model, ref_state, iter(RefPipeline(batch=4, seq_len=32, vocab=cfg.vocab, seed=1)),
@@ -355,10 +407,19 @@ def test_train_loop_matches_reference():
     ours = jax.tree.leaves(tree_to_reference(final.params))
     theirs = [np.asarray(a) for a in jax.tree.leaves(ref_final.params)]
     diffs = np.concatenate([np.abs(a - b).ravel() for a, b in zip(ours, theirs)])
-    assert diffs.max() < 4e-3 and diffs.mean() < 1e-4, (diffs.max(), diffs.mean())
+    max_tol, mean_tol = TRAIN_PARAM_TOL[arch]
+    assert diffs.max() < max_tol and diffs.mean() < mean_tol, (diffs.max(), diffs.mean())
     assert int(final.opt["step"]) == int(ref_final.opt["step"]) == 8
     # the state passed in is consumed, as the reference donates it
     assert final is state
+
+
+def test_train_loop_matches_reference():
+    _train_loop_matches("granite3_2b")
+
+
+def test_mamba_train_loop_matches_reference():
+    _train_loop_matches("mamba2_370m")
 
 
 def test_launcher_on_the_cpu(tmp_path, capsys):
@@ -378,13 +439,29 @@ def test_launcher_on_the_cpu(tmp_path, capsys):
     assert int(state.opt["step"]) == 5 and mgr.all_steps() == [2, 4, 5]
 
 
+def test_launcher_trains_mamba_on_the_cpu(tmp_path, capsys):
+    """``--arch mamba2_370m --smoke``: trains, checkpoints, and resumes."""
+    from repro_torch.launch.train import main
+
+    args = ["--arch", "mamba2_370m", "--smoke", "--batch", "2", "--seq", "80",
+            "--ckpt", str(tmp_path), "--device", "cpu", "--checkpoint-every", "2"]
+    state = main(args + ["--steps", "2"])
+    assert int(state.opt["step"]) == 2
+    assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
+    state = main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "resuming from checkpoint step 2" in out and "done at step 3" in out
+    assert int(state.opt["step"]) == 3
+
+
 def test_training_raises_outside_the_slice():
     mamba = build_model(tconfigs.smoke_config_for("mamba2_370m"), "cpu")
-    params = mamba.init_params(torch.Generator().manual_seed(0))
+    jamba = build_model(tconfigs.smoke_config_for("jamba15_large_398b"), "cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
              "labels": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="A16.2"):
-        mamba.loss_fn(params, batch)
+    # jamba's hybrid stack has MoE layers
+    with pytest.raises(NotImplementedError, match="A19"):
+        jamba.loss_fn({}, batch)
     from repro_torch.models import model_zoo
 
     with pytest.raises(NotImplementedError, match="A16.3"):

@@ -11,13 +11,15 @@ script exits non-zero:
    ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``, one ``nvcc`` each, in
    parallel) from the sources in this checkout, and prints each kernel
    instance's registers, shared memory and spills (``ptxas -v``) and its
-   tensor-core instructions (HGMMA, from ``cuobjdump -sass``); a bf16
+   tensor-core instructions (HGMMA and TF32 HMMA, from ``cuobjdump
+   -sass``); a bf16
    flash_attention instance without HGMMA fails (the forward at D = 16,
    64, 96, 128, 256; the backward's ``flash_bwd_dkdv_bf16`` and
    ``flash_bwd_dq_bf16`` at the same five), and so does a spill in
    the bf16 forward at D = 96 and 256 or in any backward kernel, an
-   ssd_scan kernel that spills or a set of ssd_scan kernels other than its
-   four forward and four backward passes;
+   ssd_scan kernel that spills, a set of ssd_scan kernels other than its
+   four forward and six backward passes, or a backward kernel of
+   ``ssd_bwd_chunk_dx`` and ``ssd_bwd_chunk_dbc`` without TF32 HMMA;
 2. kernels — each kernel against its plain torch version on the card:
    relagg on the shared-memory and the global-atomics path, with an empty
    mask and with out-of-range group ids, its sums also within 1 float32
@@ -182,18 +184,25 @@ script exits non-zero:
    (D = 96, MHA) and gemma3-12b's global one (D = 256) from random
    inputs; (ROADMAP A16.2) (f) ssd_scan's backward kernels
    (``ssd_bwd_dstate``, ``ssd_bwd_state_pass``, ``ssd_bwd_chunk_dx``,
-   ``ssd_bwd_chunk_dbc``) against ``ssd_scan_bwd_ref`` in float64 at the
-   forward sweep's shapes and mamba2-370m's training inputs (also at
-   strong decays), with dy one position off as a control, bit-equal
+   ``ssd_bwd_chunk_dbc``, ``ssd_bwd_dbc_sum``, ``ssd_bwd_ddtA``) against
+   ``ssd_scan_bwd_ref`` in float64 at the forward sweep's shapes,
+   mamba2-370m's training inputs (also at strong decays), 3 and 12 heads
+   a group and N = 256, with dy one position off as a control, bit-equal
    across two launches, and ``ops.SSDScan`` under a checkpoint; (g)
    mamba2-370m at full width and depth, random weights from seed 0, 6
    steps of 4 x 4,096 tokens in 2 microbatches with remat: losses finite,
-   the held-out batch's loss falling, 192 forward and 96 backward ssd
-   launches a step, ms a step, tokens/s, peak memory, one traced step;
+   192 forward and 96 backward ssd launches a step, ms a step, tokens/s,
+   peak memory, one traced step, the held-out batch's loss read (six steps
+   do not move it past its noise: it is also read after the same steps
+   with the float64 plain ssd backward), and the first step's gradients in
+   float32 compute, every leaf within ``MAMBA_GRAD_TOL`` of those with the
+   float64 plain ssd backward in the kernels' place, ddtA zeroed as a
+   control;
    (h) the ssd backward's times at (g)'s captured inputs, by kernel,
-   beside its bound (the reverse recurrence's work), the plain backward
-   and the forward; (i) mamba's smoke config card against CPU over 8
-   steps as (d), the control zeroing the ssd backward's ddtA.
+   beside its bound (the reverse recurrence's work) and each kernel's own
+   share of it, the plain backward and the forward; (i) mamba's smoke
+   config card against CPU over 8 steps as (d), the control zeroing the
+   ssd backward's ddtA.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -228,6 +237,15 @@ several cards its (f) leg runs it again over a mesh of every card.
 
 builds flash_attention and ssd_scan alone and runs the training phase
 (10) alone.
+
+    python3 chip_smoke.py --ssd-bwd-times
+
+builds ssd_scan alone and times its backward at mamba2-370m's
+training-step inputs (BH 64, BG 2, L 4,096, P 64, N 128, from a seed),
+after holding it to the float64 plain backward at |dtA| up to 0.5 and 50:
+whole and by kernel, each kernel beside its own bound.  It reads the
+kernels from the binding's ``BACKWARD_PASSES``: copied into another
+source tree, it times that tree's kernels the same way.
 
     python3 chip_smoke.py --train-seeds
 
@@ -344,19 +362,22 @@ def ptxas_report(text: str) -> dict[str, dict]:
     return found
 
 
-def hgmma_counts(lib: pathlib.Path, tool: pathlib.Path) -> dict[str, int]:
-    """Tensor-core instructions (HGMMA) per kernel in the library's SASS."""
+def tensor_core_counts(lib: pathlib.Path, tool: pathlib.Path) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions per kernel in the library's SASS: HGMMA
+    (``wgmma``) and HMMA with TF32 operands (``mma.sync`` ... ``tf32``)."""
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    counts: dict[str, int] = {}
+    counts: dict[str, dict[str, int]] = {}
     name = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
+            counts[name] = {"hgmma": 0, "hmma_tf32": 0}
         elif name is not None and "HGMMA" in line:
-            counts[name] += 1
+            counts[name]["hgmma"] += 1
+        elif name is not None and "HMMA" in line and "TF32" in line:
+            counts[name]["hmma_tf32"] += 1
     return counts
 
 
@@ -372,16 +393,21 @@ def flash_head_dim(name: str, kernel: str = "flash_fwd_bf16") -> int:
 #: the backward's dK/dV and dQ kernels on the tensor cores, bf16 at every
 #: head dim (their CUDA-core counterparts take float32)
 FLASH_BWD_TC = ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")
+#: ssd_scan's backward kernels whose products run on the tensor cores
+#: (mma.sync, 3xTF32)
+SSD_BWD_TC = ("ssd_bwd_chunk_dx", "ssd_bwd_chunk_dbc")
 
 
 def build_report() -> dict[str, dict]:
     """Per kernel instance of the three libraries: ``ptxas -v``'s registers,
-    shared memory and spills, and the HGMMA count of its SASS.  Fails
-    unless each bf16 flash_attention instance (D = 16, 64, 96, 128, 256)
-    holds tensor-core instructions, or if those at D = 96 and 256 spill,
-    or if a flash_attention backward kernel (preprocess in two dtypes, dK/dV
-    and dQ on the tensor cores in bf16, each holding HGMMA, and on the CUDA
-    cores in float32, each at the five head dims) is missing or spills."""
+    shared memory and spills, and the HGMMA and TF32 HMMA counts of its
+    SASS.  Fails unless each bf16 flash_attention instance (D = 16, 64, 96,
+    128, 256) holds tensor-core instructions, or if those at D = 96 and 256
+    spill, or if a flash_attention backward kernel (preprocess in two
+    dtypes, dK/dV and dQ on the tensor cores in bf16, each holding HGMMA,
+    and on the CUDA cores in float32, each at the five head dims) is
+    missing or spills; or unless ssd_scan.cu holds its forward and backward
+    kernels, none spilling, each of :data:`SSD_BWD_TC` with TF32 HMMA."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
     from repro_torch.kernels.ssd_scan.ssd_scan import BACKWARD_PASSES, PASSES
@@ -394,13 +420,15 @@ def build_report() -> dict[str, dict]:
             if "warning" in line.lower() or "wgmma" in line.lower():
                 log(f"ptxas {kernel}.cu: {line.strip()}")
         res = ptxas_report(text)
-        hgmma = hgmma_counts(_build.library_path(kernel), bindir / "cuobjdump")
+        cores = tensor_core_counts(_build.library_path(kernel), bindir / "cuobjdump")
         mangled = sorted(res)
         for m, name in zip(mangled, demangle(mangled, bindir / "cu++filt")):
-            r = report[name] = {**res[m], "hgmma": hgmma.get(m, 0), "source": f"{kernel}.cu"}
+            r = report[name] = {**res[m], **cores.get(m, {"hgmma": 0, "hmma_tf32": 0}),
+                                "source": f"{kernel}.cu"}
             log(f"ptxas {name} ({kernel}.cu): {r['registers']} registers, {r['smem']} bytes "
                 f"static shared memory, spill stores {r['spill_stores']} / loads "
-                f"{r['spill_loads']} bytes; HGMMA instructions in its SASS: {r['hgmma']}")
+                f"{r['spill_loads']} bytes; HGMMA / TF32 HMMA instructions in its SASS: "
+                f"{r['hgmma']} / {r['hmma_tf32']}")
     bf16 = {flash_head_dim(n): r for n, r in report.items() if "flash_fwd_bf16" in n}
     check(sorted(bf16) == list(HEAD_DIMS), f"expected the bf16 flash_attention instances "
           f"D = {HEAD_DIMS}: {sorted(bf16)}")
@@ -422,6 +450,8 @@ def build_report() -> dict[str, dict]:
           f"expected {list(PASSES + BACKWARD_PASSES)}")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ssd.values()),
           f"an ssd_scan kernel spills: {ssd}")
+    check(all(ssd[k]["hmma_tf32"] > 0 for k in SSD_BWD_TC),
+          f"an ssd_scan backward kernel of {SSD_BWD_TC} has no TF32 HMMA: {ssd}")
     return report
 
 
@@ -5120,6 +5150,45 @@ def ssd_bwd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
             4 * (3 * BH * L * P + 2 * BH * L + 4 * BG * L * N))
 
 
+#: TF32 on the tensor cores taken three times (3xTF32), TFLOP/s: 495 / 3
+TF32X3_OPS_PER_S = 495e12 / 3
+
+
+def ssd_bwd_kernel_bounds(BH: int, BG: int, L: int, P: int, N: int) -> dict[str, dict]:
+    """Each backward kernel's own bound at these shapes, by kernel name:
+    its share of the reverse recurrence's 10 N P operations a row and head
+    (:func:`ssd_bwd_ops_needed`), dS_in 2 N P (``ssd_bwd_dstate``), dxdt 2
+    N P (``ssd_bwd_chunk_dx``), dB and dC 4 N P (``ssd_bwd_chunk_dbc``), the
+    rest none of its own (2 N P, the forward state recomputed alongside,
+    the kernels read instead); and the bytes that kernel alone must move,
+    counted as :func:`ssd_bwd_bound` counts them: each input it reads and
+    each gradient it writes once, float32, the forward's scratch not
+    counted.  The state pass reads and writes none of those: its bytes are
+    g_c's at the kernels' chunk of 64, read and written once.  ``bound_ms`` takes the operations at the
+    float32 rate (67 TFLOP/s); for the kernels whose products run as 3xTF32
+    (:data:`SSD_BWD_TC`) ``tf32x3_ms`` gives them at 495 / 3 TFLOP/s."""
+    row, head_rows, group_rows = BH * L, BH * L * P, BG * L * N
+    n_states = max(-(-L // 64) - 1, 0)
+    counts = {
+        "ssd_bwd_dstate": (2, head_rows + row + group_rows),  # dy, dtA, C
+        "ssd_bwd_state_pass": (0, 2 * BH * n_states * N * P),  # g_c
+        "ssd_bwd_chunk_dx": (2, 3 * head_rows + row + group_rows),  # dy, xdt, dtA, B; dxdt
+        "ssd_bwd_chunk_dbc": (4, 2 * head_rows + row + 2 * group_rows),  # xdt, dy, dtA, B, C
+        "ssd_bwd_dbc_sum": (0, 2 * group_rows),  # dB, dC
+        "ssd_bwd_ddtA": (0, row),  # ddtA
+    }
+    out = {}
+    for name, (share, floats) in counts.items():
+        ops_count, nbytes = share * N * P * L * BH, 4 * floats
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops_count / F32_OPS_PER_S * 1e3
+        tc_ms = (max(bytes_ms, ops_count / TF32X3_OPS_PER_S * 1e3) if name in SSD_BWD_TC
+                 else None)
+        out[name] = {"ops": ops_count, "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "tf32x3_ms": tc_ms}
+    return out
+
+
 def pass_split_ms(call, reps: int = 10) -> dict[str, float]:
     """Mean device time of each of a call's launches, from CUDA events
     between them over ``reps`` runs of the whole sequence."""
@@ -5525,12 +5594,13 @@ def six_steps(model, cfg, seed: int, history: list) -> dict:
 
 
 def trained_figures(label: str, kernel: str, model, cfg, opt_cfg, run: dict,
-                    history: list) -> dict:
+                    history: list, held_out_gate: bool = True) -> dict:
     """The checks and figures (c) and (g) share on a :func:`six_steps`
-    run: losses finite, the held-out batch's loss falling, ``kernel``'s
-    forward launches twice (remat) and its backward once a layer a
-    microbatch, ms a step over steps 3-6, tokens/s, peak GB, and one traced
-    step (the batch of step 7)."""
+    run: losses finite, the held-out batch's loss falling (where
+    ``held_out_gate``; else only read), ``kernel``'s forward launches twice
+    (remat) and its backward once a layer a microbatch, ms a step over
+    steps 3-6, tokens/s, peak GB, and one traced step (the batch of step
+    7)."""
     from repro_torch.train.train_loop import make_train_step
 
     held_before, held_after = run["held_out_before"], run["held_out_after"]
@@ -5540,9 +5610,9 @@ def trained_figures(label: str, kernel: str, model, cfg, opt_cfg, run: dict,
     check(all(math.isfinite(x) for x in losses + [held_before, held_after]),
           f"{label} training: a loss is not finite: {losses}, held-out {held_before} / "
           f"{held_after}")
-    check(held_after < held_before, f"{label} training: the loss of the batch of pipeline "
-          f"step {TRAIN_HELD_OUT_STEP}, not trained on, went from {held_before} before the "
-          f"{TRAIN_STEPS} steps to {held_after} after: not falling")
+    check(held_after < held_before or not held_out_gate, f"{label} training: the loss of the "
+          f"batch of pipeline step {TRAIN_HELD_OUT_STEP}, not trained on, went from "
+          f"{held_before} before the {TRAIN_STEPS} steps to {held_after} after: not falling")
     check(fwd == 2 * per_step * TRAIN_STEPS and bwd == per_step * TRAIN_STEPS,
           f"{label} training: {kernel} launched {fwd} forward and {bwd} backward in "
           f"{TRAIN_STEPS} steps, not {2 * per_step} and {per_step} a step")
@@ -6000,9 +6070,29 @@ SSD_BWD_TOL = 1e-4
 #: (:data:`SSD_CASES`), mamba2-370m's training inputs (B = 2 a microbatch:
 #: 64 heads, 2 groups, 4,096 rows), and the same at the decays its A =
 #: -1..-16 gives at dt ~0.7 and at dt ~3, where exp(cum) leaves float32's
-#: range within a chunk
+#: range within a chunk; 3 heads a group (one short slice of
+#: ``ssd_bwd_chunk_dbc``'s 8) and 12 (a full slice and a short one), and
+#: N = 256 (four of the kernels' N tiles), both ragged
 SSD_BWD_CASES = ([(*case, 0.5) for case in SSD_CASES]
-                 + [(64, 2, 4096, 64, 128, a) for a in (0.5, 12.0, 50.0)])
+                 + [(64, 2, 4096, 64, 128, a) for a in (0.5, 12.0, 50.0)]
+                 + [(12, 4, 300, 64, 128, 0.5), (24, 2, 300, 64, 128, 0.5),
+                    (8, 2, 200, 64, 256, 0.5)])
+
+
+SSD_GRAD_NAMES = ("dxdt", "ddtA", "dB", "dC")
+
+
+def ssd_bwd_inputs(g, BH: int, BG: int, L: int, P: int, N: int, amax: float):
+    """xdt, dtA (each step in [-amax, -0.01]), B, C and dy on the card from
+    the generator ``g``."""
+    import torch
+
+    xdt = torch.randn((BH, L, P), generator=g, device="cuda") * 0.5
+    dtA = -(0.01 + (amax - 0.01) * torch.rand((BH, L), generator=g, device="cuda"))
+    B = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+    C = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+    dy = torch.randn((BH, L, P), generator=g, device="cuda")
+    return xdt, dtA, B, C, dy
 
 
 def ssd_backward_checks() -> dict:
@@ -6020,20 +6110,16 @@ def ssd_backward_checks() -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import plan, ssd_scan_bwd_cuda
 
-    names = ("dxdt", "ddtA", "dB", "dC")
+    names = SSD_GRAD_NAMES
     g = torch.Generator(device="cuda").manual_seed(31)
     errs, max_abs = {}, 0.0
     for BH, BG, L, P, N, amax in SSD_BWD_CASES:
         label = f"BH={BH} BG={BG} L={L} P={P} N={N} |dtA|<={amax}"
-        xdt = torch.randn((BH, L, P), generator=g, device="cuda") * 0.5
-        dtA = -(0.01 + (amax - 0.01) * torch.rand((BH, L), generator=g, device="cuda"))
-        B = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
-        C = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
-        dy = torch.randn((BH, L, P), generator=g, device="cuda")
+        xdt, dtA, B, C, dy = ssd_bwd_inputs(g, BH, BG, L, P, N, amax)
         fw = plan(xdt, dtA, B, C, BH // BG)
         for _, launch in fw.passes:
             launch()
-        args = (xdt, dtA, B, C, BH // BG, fw.states, fw.decay, fw.cbt)
+        args = (xdt, dtA, B, C, BH // BG, fw.states, fw.decay, fw.cbt, fw.y)
         got = ssd_scan_bwd_cuda(*args, dy)
         again = ssd_scan_bwd_cuda(*args, dy)
         shifted = ssd_scan_bwd_cuda(*args, torch.roll(dy, 1, dims=1)) if L > 1 else None
@@ -6099,11 +6185,12 @@ def _capture_ssd_backward(store: dict):
 
     original = ssd_binding.ssd_scan_bwd_cuda
 
-    def capture(xdt, dtA, B, C, n_rep, states, decay, cbt, dy):
+    def capture(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy):
         if not store:
-            store["args"] = tuple(t.clone() for t in (xdt, dtA, B, C, states, decay, cbt, dy))
+            store["args"] = tuple(t.clone() for t in (xdt, dtA, B, C, states, decay, cbt, y,
+                                                      dy))
             store["n_rep"] = n_rep
-        return original(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+        return original(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy)
 
     ssd_binding.ssd_scan_bwd_cuda = capture
     return original
@@ -6112,10 +6199,13 @@ def _capture_ssd_backward(store: dict):
 def mamba_training(cfg) -> tuple[dict, dict]:
     """(g): mamba2-370m at full width and depth, random weights from seed
     0, through ``train_loop`` on the card as (c) runs granite
-    (:func:`trained_figures`: the held-out batch's loss falling, 2 x 48
-    forward and 48 backward ssd launches a microbatch, ms a step,
-    tokens/s, peak GB, a traced step).  Returns the figures and the
-    captured backward inputs."""
+    (:func:`trained_figures`: 2 x 48 forward and 48 backward ssd launches a
+    microbatch, ms a step, tokens/s, peak GB, a traced step; the held-out
+    batch's loss read, and read again after the same steps with the float64
+    plain ssd backward in the kernels' place, neither gated); then the
+    first step's gradients against that plain backward's
+    (:func:`mamba_gradient_check`).  Returns the figures and the captured
+    backward inputs."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_binding
@@ -6131,30 +6221,133 @@ def mamba_training(cfg) -> tuple[dict, dict]:
         run = six_steps(model, cfg, 0, history)
     finally:
         ssd_binding.ssd_scan_bwd_cuda = original
-    out = trained_figures("mamba", "ssd_scan", model, cfg, opt_cfg, run, history)
+    out = trained_figures("mamba", "ssd_scan", model, cfg, opt_cfg, run, history,
+                          held_out_gate=False)
     del run
     gc.collect()
     torch.cuda.empty_cache()
     log_trained("g", "mamba2-370m", "ssd_scan", out)
+    # the same six steps with exact ssd gradients: the held-out loss's
+    # move under them, beside the kernels' (read, not gated)
+    history = []
+    ssd_binding.ssd_scan_bwd_cuda = _plain64_ssd_backward
+    try:
+        run = six_steps(model, cfg, 0, history)
+    finally:
+        ssd_binding.ssd_scan_bwd_cuda = original
+    out["held_out_loss_plain64"] = {"before": run["held_out_before"],
+                                    "after": run["held_out_after"]}
+    log(f"train (g): the same {TRAIN_STEPS} steps with the float64 plain ssd backward in the "
+        f"kernels' place: held-out loss {run['held_out_before']:.6f} before, "
+        f"{run['held_out_after']:.6f} after (the kernels': {out['held_out_loss']['after']:.6f})")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gradients"] = mamba_gradient_check(model, cfg)
     return out, captured
+
+
+def _plain64_ssd_backward(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy):
+    """The ssd backward binding's signature and result, from
+    ``ssd_scan_bwd_ref`` in float64 (rounded to float32 at the end)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    grads = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), n_rep, dy.double())
+    return tuple(t.float().contiguous() for t in grads)
+
+
+#: (g)'s gradient check, per leaf of mamba2-370m's tree, max |kernels -
+#: plain| over max |plain|: the first step's gradients in float32 compute
+#: with the ssd backward kernels against the same with the float64 plain
+#: backward in their place.  Float32 sums in another order, 3xTF32, and
+#: ddtA's row terms rounded in float32 and summed within each chunk, carried
+#: through 48 layers into A_log and dt_bias, the leaves that sum ddtA over a
+#: sequence.  Measured 3.3e-4 (A_log; the float32 plain backward 2.0e-5 there,
+#: the ddtA-zeroed control 1.75; NVIDIA H100 80GB HBM3, 700.00 W)
+MAMBA_GRAD_TOL = 1e-3
+
+
+def mamba_gradient_check(model, cfg) -> dict:
+    """(g)'s check of the gradients themselves.  Six steps at lr <= 1e-3
+    do not move mamba2-370m's held-out loss past its noise (bf16 compute;
+    (g) reads it with the kernels and with exact ssd gradients, and gates
+    here instead).  Seed 0's initial state, the first training batch (2
+    microbatches, remat), float32 compute: each leaf's gradient with the
+    ssd backward kernels within :data:`MAMBA_GRAD_TOL` of the same with
+    ``ssd_scan_bwd_ref`` in float64 in their place; the kernels with ddtA
+    zeroed (the control) must put some leaf outside."""
+    import torch
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import transformer
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_loop import init_state
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    binding = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    state = init_state(model, torch.Generator("cuda").manual_seed(0), AdamWConfig())
+    batch = DataPipeline(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab).batch_at(0)
+    kernels = binding.ssd_scan_bwd_cuda
+
+    def ddtA_zeroed(*args):
+        dxdt, ddtA, dB, dC = kernels(*args)
+        return dxdt, torch.zeros_like(ddtA), dB, dC
+
+    def grads(backward):
+        binding.ssd_scan_bwd_cuda = backward
+        leaves = [p.detach().float().requires_grad_(True) for p in tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        n = TRAIN_BATCH // TRAIN_MICRO
+        for i in range(TRAIN_MICRO):
+            model.loss_fn(params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()},
+                          remat=True).backward()
+        return [p.grad for p in leaves]
+
+    def worst(got, want):
+        return max(float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+                   for a, b in zip(got, want))
+
+    compute = transformer.COMPUTE_DTYPE
+    transformer.COMPUTE_DTYPE = torch.float32
+    try:
+        want = grads(_plain64_ssd_backward)
+        got = worst(grads(kernels), want)
+        control = worst(grads(ddtA_zeroed), want)
+    finally:
+        transformer.COMPUTE_DTYPE = compute
+        binding.ssd_scan_bwd_cuda = kernels
+    del want, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(got <= MAMBA_GRAD_TOL, f"mamba training: the first step's gradients with the ssd "
+          f"backward kernels, float32 compute: a leaf {got} of its max off the float64 plain "
+          f"backward's, over {MAMBA_GRAD_TOL}")
+    check(control > MAMBA_GRAD_TOL, f"mamba training: with ddtA zeroed the gradients read "
+          f"within the limit ({control})")
+    log(f"train (g): mamba2-370m's first-step gradients (float32 compute, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches) with the ssd backward kernels "
+        f"against the float64 plain backward in their place: worst leaf max |diff| / max "
+        f"|plain| {got:.3g} (limit {MAMBA_GRAD_TOL}); ddtA zeroed {control:.3g}")
+    return {"worst_leaf": got, "control": control}
 
 
 def time_ssd_backward(captured: dict) -> dict:
     """(h): one backward call at (g)'s captured inputs: checked against the
     float64 plain backward, timed whole by CUDA events and by kernel
     (:func:`pass_split_ms`), beside the float32 plain backward
-    (``ssd_scan_bwd_ref``), the bound of this data (:func:`ssd_bwd_bound`)
-    and the forward at the same inputs; no PyTorch call computes it."""
+    (``ssd_scan_bwd_ref``), the bound of this data (:func:`ssd_bwd_bound`),
+    each kernel's own (:func:`ssd_bwd_kernel_bounds`) and the forward at
+    the same inputs; no PyTorch call computes it."""
     import torch
 
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import backward_plan, plan, ssd_scan_bwd_cuda
 
-    xdt, dtA, B, C, states, decay, cbt, dy = captured["args"]
+    xdt, dtA, B, C, states, decay, cbt, y, dy = captured["args"]
     n_rep = captured["n_rep"]
     BH, L, P = xdt.shape
     BG, N = B.shape[0], B.shape[2]
-    got = ssd_scan_bwd_cuda(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+    got = ssd_scan_bwd_cuda(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy)
     want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), n_rep, dy.double())
     rel = max(rel_err(a.double(), b) for a, b in zip(got, want))
     max_abs = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
@@ -6164,10 +6357,10 @@ def time_ssd_backward(captured: dict) -> dict:
     torch.cuda.empty_cache()
 
     def bwd():
-        return ssd_scan_bwd_cuda(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+        return ssd_scan_bwd_cuda(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy)
 
     k1, k2 = cuda_ms(bwd, reps=10), cuda_ms(bwd, reps=10)
-    call = backward_plan(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+    call = backward_plan(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy)
     split = pass_split_ms(call)
     scratch = call.scratch_bytes()
     del call
@@ -6185,13 +6378,109 @@ def time_ssd_backward(captured: dict) -> dict:
         "ops": ops_count, "bytes": nbytes, "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
         "forward_ms": forward_ms, "scratch_bytes": scratch,
         "max_abs_err": max_abs, "max_rel_err": rel,
+        "kernel_bounds": ssd_bwd_kernel_bounds(BH, BG, L, P, N),
     }
     log(f"train (h): ssd backward at mamba's training inputs {out['shape']}: {out['ms']:.3f} "
-        f"ms ({out['tflops']:.2f} TFLOP/s of the recurrence's count; by kernel "
-        f"{ {n: round(t, 4) for n, t in split.items()} } ms), bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}: {ops_count / 1e9:.2f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} "
+        f"ms ({out['tflops']:.2f} TFLOP/s of the recurrence's count), bound {out['bound_ms']:.4f} "
+        f"ms ({out['bound_by']}: {ops_count / 1e9:.2f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} "
         f"MB), plain (float32) {plain_ms:.3f} ms, forward {forward_ms:.3f} ms; scratch "
         f"{scratch / 1e6:.1f} MB; == plain (max |diff| / max |plain| {rel:.3g})")
+    for line in ssd_bwd_split_lines(split, out["kernel_bounds"]):
+        log(f"train (h): {line}")
+    return out
+
+
+def ssd_bwd_split_lines(split: dict[str, float], bounds: dict[str, dict]) -> list[str]:
+    """One line a backward kernel: its ms beside its own bound."""
+    lines = []
+    for name, ms in split.items():
+        b = bounds[name]
+        tc = f", {b['tf32x3_ms']:.4f} at 3xTF32's 165 TFLOP/s" if b["tf32x3_ms"] else ""
+        lines.append(f"{name} {ms:.4f} ms, own bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                     f"{b['ops'] / 1e9:.2f} GFLOP at 67 TFLOP/s{tc}; {b['bytes'] / 1e6:.1f} MB)")
+    return lines
+
+
+#: (BH, BG, L, P, N): mamba2-370m's training-step inputs, a microbatch of 2
+#: x 4,096 tokens (32 heads of 64 on one group of state 128 a sequence)
+SSD_BWD_TIMED = (64, 2, 4096, 64, 128)
+#: the draws (seed, largest |dtA| a step) at :data:`SSD_BWD_TIMED` over
+#: which ``--ssd-bwd-times`` reads the backward's error without gating it:
+#: at strong decays the chunk's float32 cumsum, which the backward shares
+#: with the forward, puts dxdt and ddtA near SSD_BWD_TOL and on some draws
+#: over it (ROADMAP C11)
+SSD_BWD_SURVEY = tuple((seed, amax) for seed in (32, 33, 34, 35, 36) for amax in (12.0, 50.0))
+
+
+def ssd_bwd_times_phase() -> dict:
+    """``--ssd-bwd-times``: ssd_scan's backward at :data:`SSD_BWD_TIMED`
+    from seed 32, at |dtA| up to 0.5 and 50: held to the float64 plain
+    backward within :data:`SSD_BWD_TOL` and timed whole and by kernel, each
+    beside its own bound; then its error over :data:`SSD_BWD_SURVEY`'s
+    draws, not gated.  It reads the kernels from the binding's
+    ``BACKWARD_PASSES`` and passes the forward's y only where the binding's
+    ``backward_plan`` takes it, so a copy of this script in an unpacked
+    parent tree times the parent's kernels the same way.  It fails, after
+    printing everything, if a timed case is over the limit."""
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    # by path: the package's own ``ssd_scan`` is the ops function
+    binding = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    BH, BG, L, P, N = SSD_BWD_TIMED
+    n_rep = BH // BG
+    takes_y = "y" in inspect.signature(binding.backward_plan).parameters
+    bounds = ssd_bwd_kernel_bounds(BH, BG, L, P, N)
+    ops_count, nbytes = ssd_bwd_bound(BH, BG, L, P, N)
+
+    def run(g, amax):
+        """The inputs of one draw, the backward's arguments and its error."""
+        xdt, dtA, B, C, dy = ssd_bwd_inputs(g, BH, BG, L, P, N, amax)
+        fw = binding.plan(xdt, dtA, B, C, n_rep)
+        for _, launch in fw.passes:
+            launch()
+        args = (xdt, dtA, B, C, n_rep, fw.states, fw.decay, fw.cbt,
+                *((fw.y,) if takes_y else ()), dy)
+        got = binding.ssd_scan_bwd_cuda(*args)
+        want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), n_rep, dy.double())
+        return args, {n: rel_err(a.double(), b) for n, a, b in zip(SSD_GRAD_NAMES, got, want)}
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    out = {"tree": str(ROOT), "shape": list(SSD_BWD_TIMED),
+           "kernels": list(binding.BACKWARD_PASSES), "kernel_bounds": bounds,
+           "bound_ms": max(ops_count / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+           "cases": {}, "survey": {}}
+    for amax in (0.5, 50.0):
+        args, rel = run(g, amax)
+        call = binding.backward_plan(*args)
+        split = pass_split_ms(call, reps=20)
+        scratch = call.scratch_bytes()
+        del call
+        ms = min(cuda_ms(lambda: binding.ssd_scan_bwd_cuda(*args), reps=20) for _ in range(2))
+        out["cases"][f"|dtA|<={amax}"] = {"rel": rel, "ms": ms, "split_ms": split,
+                                          "scratch_bytes": scratch}
+        log(f"--ssd-bwd-times ({ROOT}) at {list(SSD_BWD_TIMED)}, |dtA| <= {amax}: {ms:.4f} ms "
+            f"whole (bound {out['bound_ms']:.4f}), scratch {scratch / 1e6:.1f} MB; max |kernel "
+            f"- plain| / max |plain| { {n: float(f'{e:.3g}') for n, e in rel.items()} }")
+        for line in ssd_bwd_split_lines(split, bounds):
+            log(f"--ssd-bwd-times:   {line}")
+        del args
+        torch.cuda.empty_cache()
+    for seed, amax in SSD_BWD_SURVEY:
+        _, rel = run(torch.Generator(device="cuda").manual_seed(seed), amax)
+        out["survey"][f"seed {seed} |dtA|<={amax}"] = rel
+        log(f"--ssd-bwd-times ({ROOT}) survey, seed {seed}, |dtA| <= {amax}: max |kernel - "
+            f"plain| / max |plain| { {n: float(f'{e:.3g}') for n, e in rel.items()} }")
+        torch.cuda.empty_cache()
+    worst = {n: max(r[n] for r in out["survey"].values()) for n in SSD_GRAD_NAMES}
+    log(f"--ssd-bwd-times ({ROOT}) survey over {len(SSD_BWD_SURVEY)} draws, worst "
+        f"{ {n: float(f'{e:.3g}') for n, e in worst.items()} } (not gated; limit {SSD_BWD_TOL})")
+    for label, case in out["cases"].items():
+        check(max(case["rel"].values()) <= SSD_BWD_TOL, f"--ssd-bwd-times at {label}: "
+              f"{case['rel']} over {SSD_BWD_TOL}")
     return out
 
 
@@ -6303,6 +6592,10 @@ def main() -> int:
         for label, t in times.items():
             log(relagg_times_line(label, t))
         print(json.dumps({"card": card, "tree": str(ROOT), "relagg": times}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--ssd-bwd-times"]:
+        _build.load("ssd_scan")
+        print(json.dumps({"card": card, "ssd_bwd_times": ssd_bwd_times_phase()}), flush=True)
         return 0
     if sys.argv[1:] == ["--mesh"]:
         _build.load("relagg")
@@ -6556,6 +6849,12 @@ def main() -> int:
              "library_ms": None, "plain_ms": sbt["plain_ms"],
              "max_abs_err": max(sbt["max_abs_err"], train["ssd_backward"]["max_abs_err"]),
              "split_ms": sbt["split_ms"], "tflops": sbt["tflops"],
+             # each kernel's own bound (ops, bytes, bound_ms, tf32x3_ms)
+             "kernel_bounds": sbt["kernel_bounds"],
+             # TF32 HMMA instructions of the tensor-core kernels, from the
+             # build report
+             "hmma_tf32": {name.split("::")[-1]: r["hmma_tf32"] for name, r in build.items()
+                           if r["source"] == "ssd_scan.cu"},
              "launches_train": train["mamba"]["backward_per_step"],
              "launches_train_forward": train["mamba"]["forward_per_step"],
              # registers and spills, from the build report

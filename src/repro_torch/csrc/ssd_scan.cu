@@ -71,7 +71,8 @@
 // rate, and pass 3, which runs near the memory rate.  Thread tiles of 8 x 8
 // and of 16 x 8, and a cp.async pipeline through persistent blocks, were
 // tried for passes 2 and 4 and gained at most a few per cent: not kept.
-// Tensor cores (3xTF32, to keep float32 accuracy) are the next step.
+// Tensor cores (3xTF32, to keep float32 accuracy, as the backward's
+// products below) are the next step.
 //
 // The backward (dxdt, ddtA, dB, dC against dy; no TPU counterpart: the
 // reference differentiates its plain forms) mirrors the four passes, with
@@ -86,35 +87,57 @@
 //   2. ssd_bwd_state_pass, grid (N P / 1024 x BH), mirror of pass 3:
 //      walks the chunks from last to first and rewrites gstates in place
 //      with g_c = dS_in[c + 1] + exp(cum_end[c + 1]) g_{c+1}; each warp
-//      writes its share of dd_c = <g_c, S_in[c]> to ddp (BH, n_chunks,
-//      8 x the pass's blocks a head), which b4 sums in order.
+//      writes its share of <g_c, S_in[c + 1]> to ddp (BH, n_chunks - 1, 8
+//      x the pass's blocks a head).
 //   3. ssd_bwd_chunk_dx, grid (n_chunks x BH, P/64), mirror of pass 4:
 //      dxdt_j = sum_{i>=j} (C_i . B_j) exp(cum_i - cum_j) dy_i +
-//      (exp(cum_end - cum_j) B_j) g_c, one product of K = Q + N; the scores
-//      are pass 1's cbt read transposed.
-//   4. ssd_bwd_chunk_dbc, grid (n_chunks x BG): the group's n_rep heads in
-//      order, dB and dC of the chunk summed over them in shared memory
-//      (dC_i = sum_j D_ij B_j + exp(cum_i) S_in dy_i, dB_j = sum_i D_ij
-//      C_i + exp(cum_end - cum_j) g_c xdt_j), and each head's ddtA: the
-//      reverse cumsum within the chunk of d cum_k = sum_j W_kj - sum_i W_ik
-//      + u_k - v_k (+ exp(cum_end) dd_c + sum_j v_j at the last row), with
-//      W = D o C B^T, u_k = C_k . (exp(cum_k) S_in dy_k) and v_k = B_k .
-//      (exp(cum_end - cum_k) g_c xdt_k).  W's diagonal and the last row's
-//      v add to d cum and take from it again: both are left out, which
-//      keeps ddtA's float32 error down at strong decays.
+//      (exp(cum_end - cum_j) B_j) g_c, the scores being pass 1's cbt read
+//      transposed; its epilogue writes each row's dy_t . y_t - xdt_t .
+//      dxdt_t over its P tile (y the forward's output) to rowterm.
+//   4. ssd_bwd_chunk_dbc, grid (n_chunks x slices x BG): a block takes a
+//      (group, chunk) and a slice of up to kSliceHeads = 8 of the group's
+//      heads.  Per head only the head's own products: D, and the state
+//      terms exp(cum_i) dy_i S_in^T of dC and exp(cum_end - cum_j) xdt_j
+//      g_c^T of dB, summed over the slice in one accumulator each; once a
+//      slice, D_sum = the slice's D summed, against B and C: dC_i = sum_j
+//      D_sum,ij B_j + ..., dB_j = sum_i D_sum,ij C_i + ... (B and C are
+//      the group's, so the product of the sum replaces a product a head).
+//      Each slice's share goes to parts (2, BG, slices, L, N).  Its
+//      exponents come from a float64 chunk cumsum (dB and dC feed nothing
+//      else); ssd_bwd_chunk_dx keeps the forward's float32 ones, which ddtA's
+//      row terms need (see there).
+//   5. ssd_bwd_dbc_sum: dB and dC, the slices' shares summed in order.
+//   6. ssd_bwd_ddtA, grid BH: <G_t, S_t> (G_t the gradient of the state
+//      after row t) is both ddtA_t + xdt_t . dxdt_t and dy_t . y_t +
+//      ddtA_{t+1}, so ddtA_t = sum_{s >= t} (dy_s . y_s - xdt_s . dxdt_s),
+//      and ddtA at chunk c + 1's first row is <g_c, S_in[c + 1]>: within
+//      each chunk the reverse cumsum of the row terms, plus that carry
+//      from ddp, in float64.  No product of its own.
+// The products of 3 and 4 run on the tensor cores as 3xTF32: each operand
+// split into a TF32 hi part (cvt.rna) and the rest rounded again, hi.hi +
+// hi.lo + lo.hi summed in float32 by mma.sync m16n8k8 (about float32's
+// accuracy; plain TF32 keeps three digits and is ruled out as above).  A
+// block of 8 warps computes a 64 x 64 output tile, each warp 16 x 32 of it;
+// operand tiles arrive through a two-stage cp.async ring (zeros past L, P
+// and N), so the next tile's loads run under the current products; the
+// exponentials, masks and sums stay float32 on the CUDA cores.  They take
+// 110,336 and 108,544 bytes of dynamic shared memory: two blocks an SM,
+// 128 registers a thread at most, no spills.  Tried for b4 and not kept,
+// each no faster on the H100 (PERF.md): 16 warps a block covering 128 of N
+// a walk (each operand read once), each stage split into hi and lo once a
+// block, the twelve products of a k step issued term by term or with the
+// small terms in an accumulator of their own, three or four ring stages.
 // No atomics: every sum has one owner and a fixed order, so the gradients
-// are the same bits from run to run.  b4 is one kernel, not a grid over
-// heads, because dB and dC sum over a group's heads; at mamba2-370m's
-// training inputs it runs 128 blocks that walk 32 heads each and takes
-// most of the backward's time (PERF.md): splitting the heads across
-// blocks with a fixed-order sum of their partials is the next step.
+// are the same bits from run to run, whatever the number of blocks in
+// flight.
 //
 // Grids and scratch at mamba2-370m's training inputs (a microbatch of B =
 // 2 x L = 4,096: BH 64, BG 2, P 64, N 128, 64 chunks): b1 8,064 blocks, b2
-// 512, b3 4,096, b4 128 with 137,216 bytes of dynamic shared memory each.
-// The forward's states (132.1 MB), decay and cbt (2.1 MB) are kept for the
-// backward; it adds gstates (132.1 MB) and ddp (1.0 MB).
-//
+// 512, b3 4,096, b4 512 (4 slices of 8 heads).  The forward's states
+// (132.1 MB), decay, cbt (2.1 MB) and y (67.1 MB) are kept for the
+// backward; it adds gstates (132.1 MB), parts (33.6 MB) and rowterm (1.0
+// MB).
+
 // Plain C interface, bound with ctypes: each entry returns the cudaError_t
 // of its launch (0 on success).
 
@@ -146,12 +169,12 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// acc[a][b] += sum_{k_begin <= k < k_end} As[k][4 tm + a] * Bs[k][4 tn + b]
-__device__ __forceinline__ void tile_fma_from(const float* __restrict__ As,
-                                              const float* __restrict__ Bs, int k_begin,
-                                              int k_end, int tm, int tn, float (&acc)[4][4]) {
+// acc[a][b] += sum_{k < k_end} As[k][4 tm + a] * Bs[k][4 tn + b]
+__device__ __forceinline__ void tile_fma(const float* __restrict__ As,
+                                         const float* __restrict__ Bs, int k_end,
+                                         int tm, int tn, float (&acc)[4][4]) {
 #pragma unroll 4
-  for (int k = k_begin; k < k_end; ++k) {
+  for (int k = 0; k < k_end; ++k) {
     const float4 a = *reinterpret_cast<const float4*>(As + k * kTile + 4 * tm);
     const float4 b = *reinterpret_cast<const float4*>(Bs + k * kTile + 4 * tn);
     const float av[4] = {a.x, a.y, a.z, a.w};
@@ -161,13 +184,6 @@ __device__ __forceinline__ void tile_fma_from(const float* __restrict__ As,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
-}
-
-// acc[a][b] += sum_{k < k_end} As[k][4 tm + a] * Bs[k][4 tn + b]
-__device__ __forceinline__ void tile_fma(const float* __restrict__ As,
-                                         const float* __restrict__ Bs, int k_end,
-                                         int tm, int tn, float (&acc)[4][4]) {
-  tile_fma_from(As, Bs, 0, k_end, tm, tn, acc);
 }
 
 // A k-major operand tile [k][c] from rows of a row-major array (row k at
@@ -229,12 +245,11 @@ __device__ __forceinline__ void store_cols(float* dst, const float4 (&v)[4],
 }
 
 // Inclusive cumsum of a[c0 .. c0 + Q) into cum (shared), zeros past L, by
-// warp 0: each lane sums two entries, then the lanes scan.  The caller
-// synchronises before reading cum.
-__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int c0, int L,
-                                             float* cum) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x, i = c0 + 2 * lane;
+// one warp (chunk_cumsum: warp 0): each lane sums two entries, then the
+// lanes scan.  The caller synchronises before reading cum.
+__device__ __forceinline__ void warp_cumsum(const float* __restrict__ a, int c0, int L,
+                                            float* cum) {
+  const int lane = threadIdx.x & 31, i = c0 + 2 * lane;
   const float a0 = i < L ? a[i] : 0.f;
   const float a1 = i + 1 < L ? a[i + 1] : 0.f;
   float incl = a0 + a1;
@@ -247,6 +262,34 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int c0
   cum[2 * lane] = excl + a0;
   cum[2 * lane + 1] = incl;
 }
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int c0, int L,
+                                             float* cum) {
+  if (threadIdx.x < 32) warp_cumsum(a, c0, L, cum);
+}
+
+// The same in float64, by the calling warp, for ssd_bwd_chunk_dbc: its
+// products take exp(cum_i - cum_j) where both are large (a chunk of strong
+// decays ends near -3,000) and their difference small; in float32 that
+// difference is off by ~1e-4 and so is the exp, in float64 it is exact to
+// well under float32's rounding.
+__device__ __forceinline__ void warp_cumsum64(const float* __restrict__ a, int c0, int L,
+                                              double* cum) {
+  const int lane = threadIdx.x & 31, i = c0 + 2 * lane;
+  const double a0 = i < L ? a[i] : 0.0;
+  const double a1 = i + 1 < L ? a[i + 1] : 0.0;
+  double incl = a0 + a1;
+  for (int off = 1; off < 32; off <<= 1) {
+    const double t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+  cum[2 * lane] = excl + a0;
+  cum[2 * lane + 1] = incl;
+}
+
+// exp(x - y) of two float64 chunk cumsums
+__device__ __forceinline__ float exp_diff(double x, double y) { return expf((float)(x - y)); }
 
 // Pass 1: cbt[g][c][j][i] = C_i . B_j for the tiles holding some j <= i.
 // Wholly upper tiles are never written, and pass 4 never reads them.
@@ -444,21 +487,101 @@ __global__ void __launch_bounds__(kThreads)
 // The backward: dxdt, ddtA, dB and dC against dy (see the header).
 // ---------------------------------------------------------------------------
 
-// The transposed scores tile [i][j] from what fetch_cols fetched of cbt
-// (row j of cbt holds C_i . B_j along i): C_i . B_j exp(cum_i - cum_j)
-// where j <= i < rows, else 0 (a select: cbt's upper entries are not
-// written by pass 1).
-__device__ __forceinline__ void store_scores_t(float* dst, const float4 (&v)[4],
-                                               const float* cum, int rows) {
+constexpr int kKs = 32;                 // the depth of a ring stage's operand tiles
+constexpr int kLdk = kKs + 4;           // row stride of a [row][k] ring tile
+constexpr int kLdd = kTile + 4;         // row stride of a 64 x 64 [m][k] tile
+constexpr int kLdn = kTile + 8;         // row stride of a [k][n] tile, 64 wide
+constexpr int kTileK = kTile * kLdk;    // floats of a [64][kLdk] tile
+constexpr int kEdge = kTile * kLdn;     // floats of a [64][kLdn] tile
+constexpr int kSliceHeads = 8;          // heads a ssd_bwd_chunk_dbc block sums over
+constexpr int kTileD = kTile * kLdd;    // floats of a [64][kLdd] tile
+constexpr int kDbcK = 64;               // the P depth of a ssd_bwd_chunk_dbc ring stage
+constexpr int kDbcStages = 2;           // its ring's stages, one loading under the products
+constexpr int kLdq = kDbcK + 4;         // row stride of its ring tiles
+constexpr int kDbcTile = kTile * kLdq;  // floats of one
+constexpr int kDbcStage = 2 * kDbcTile;  // a head's 64 rows of two operands
+constexpr int kDxStage = kTileK + kKs * kLdn;  // B [j][n] and g [n][p], kKs n each
+constexpr int kSumBlocks = 4096;        // the most blocks of ssd_bwd_dbc_sum's grid
+static_assert(kSliceHeads <= kThreads / 32, "one warp scans each head's chunk cumsum");
+static_assert(kEdge <= kDbcStages * kDbcStage, "B's or C's tile fits the dbc ring");
+
+// cp.async of 16 bytes, or 16 zero bytes where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// kRows x kCols floats of a row-major array (row r at src + r * ld) into dst
+// (row r at dst + r * kLd) by cp.async, zeros where r >= r_valid or the
+// column >= c_valid.  The caller commits.
+template <int kRows, int kCols, int kLd>
+__device__ __forceinline__ void cp_tile(float* dst, const float* __restrict__ src, size_t ld,
+                                        int r_valid, int c_valid) {
+  constexpr int kPerRow = kCols / 4;
+  for (int e = threadIdx.x; e < kRows * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, q = (e % kPerRow) * 4;
+    const bool ok = r < r_valid && q < c_valid;
+    cp_async16(dst + r * kLd + q, ok ? src + (size_t)r * ld + q : src, ok);
+  }
+}
+
+// The 3xTF32 split: hi = x rounded to TF32, lo = x - hi rounded again.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// d += a b on the tensor cores: one m16n8k8 TF32 product, float32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's 16 x 32 share of a 64 x 64 output tile: acc[f][q] at row m0 +
+// lane / 4 + 8 (q / 2), column n0 + 8 f + 2 (lane % 4) + q % 2, += the sum
+// over k0 <= k < k1 (multiples of 8) of s_m A[m][k] B[k][n], in 3xTF32
+// (lo.hi + hi.lo + hi.hi, the small terms first; lo.lo dropped).  A is
+// stored [m][k] at row stride lda, row m0 + lane / 4 scaled by s0 and the
+// row 8 below by s1; B is stored [n][k] (kNK) or [k][n] at row stride ldb.
+// The strides keep the fragment loads free of bank conflicts (lda and an
+// [n][k] ldb = 4 mod 32, a [k][n] ldb = 8 mod 32).
+template <bool kNK>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][4], const float* __restrict__ A, int lda,
+                                         const float* __restrict__ Bs, int ldb, int m0, int n0,
+                                         int k0, int k1, float s0, float s1) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const float* a0 = A + (m0 + gr) * lda + tq;
+  const float* a1 = a0 + 8 * lda;
+#pragma unroll 1
+  for (int k = k0; k < k1; k += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(a0[k] * s0, ah[0], al[0]);
+    split_tf32(a1[k] * s1, ah[1], al[1]);
+    split_tf32(a0[k + 4] * s0, ah[2], al[2]);
+    split_tf32(a1[k + 4] * s1, ah[3], al[3]);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int e = threadIdx.x + r * kThreads;
-    const int j = e & (kTile - 1), i = (e >> 6) * 4;
-    const float x[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      dst[(i + q) * kTile + j] =
-          j <= i + q && i + q < rows ? x[q] * expf(cum[i + q] - cum[j]) : 0.f;
+    for (int f = 0; f < 4; ++f) {
+      const int n = n0 + 8 * f + gr;
+      const float b0 = kNK ? Bs[n * ldb + k + tq] : Bs[(k + tq) * ldb + n];
+      const float b1 = kNK ? Bs[n * ldb + k + tq + 4] : Bs[(k + tq + 4) * ldb + n];
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b0, bh0, bl0);
+      split_tf32(b1, bh1, bl1);
+      mma_tf32(acc[f], al, bh0, bh1);
+      mma_tf32(acc[f], ah, bl0, bl1);
+      mma_tf32(acc[f], ah, bh0, bh1);
+    }
   }
 }
 
@@ -508,9 +631,9 @@ __global__ void __launch_bounds__(kThreads)
 // b2: walks the chunks from last to first, 4 state elements a thread, and
 // rewrites gs in place: gs[c] holds dS_in[c + 1] and becomes g_c =
 // dS_in[c + 1] + decay_{c+1} g_{c+1}, the gradient of chunk c's end state
-// from the chunks after it.  Each warp also writes its share of dd_c =
-// <g_c, S_in[c]> (S_in[c] = states[c - 1]; 0 for c = 0) to
-// ddp[bh][c][blockIdx.x's tile][warp], which b4 sums in order.
+// from the chunks after it.  Each warp also writes its share of <g_c,
+// S_in[c + 1]> (S_in[c + 1] = states[c]), which is ddtA at chunk c + 1's
+// first row, to ddp[bh][c][blockIdx.x's tile][warp]; b6 sums them in order.
 __global__ void __launch_bounds__(kThreads)
     ssd_bwd_state_pass(float* __restrict__ gs, const float* __restrict__ decay,
                        const float* __restrict__ states, float* __restrict__ ddp, int NP4,
@@ -523,7 +646,7 @@ __global__ void __launch_bounds__(kThreads)
   float4* gp = reinterpret_cast<float4*>(gs) + (size_t)bh * n_states * NP4 + e;
   const float4* sp = reinterpret_cast<const float4*>(states) + (size_t)bh * n_states * NP4 + e;
   const float* d = decay + (size_t)bh * n_states;
-  float* parts = ddp + ((size_t)bh * (n_states + 1) * tiles + tile) * kWarps + threadIdx.x / 32;
+  float* parts = ddp + ((size_t)bh * n_states * tiles + tile) * kWarps + threadIdx.x / 32;
   const size_t part_stride = (size_t)tiles * kWarps;  // from one chunk to the next
   float4 run = zero4();
   for (int k0 = n_states - 1; k0 >= 0; k0 -= kStateDepth) {
@@ -533,7 +656,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kStateDepth; ++u) {
       const int c = k0 - u;
       v[u] = in && c >= 0 ? gp[(size_t)c * NP4] : zero4();
-      sv[u] = in && c > 0 ? sp[(size_t)(c - 1) * NP4] : zero4();
+      sv[u] = in && c >= 0 ? sp[(size_t)c * NP4] : zero4();
       dk[u] = c >= 0 && c + 1 < n_states ? d[c + 1] : 0.f;
     }
 #pragma unroll
@@ -551,285 +674,336 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // b3: dxdt[bh][c0 + j][p0 + p] for the chunk's rows and the P tile
-// blockIdx.y: the transposed scores' product with dy, then, before the last
-// chunk, the state term (exp(cum_end - cum_j) B_j) . g_c as N / 64 more
-// tiles of K.
-__global__ void __launch_bounds__(kThreads)
-    ssd_bwd_chunk_dx(const float* __restrict__ dy, const float* __restrict__ dtA,
+// blockIdx.y, on the tensor cores: the transposed scores against dy (K = the
+// triangle's i >= j), then, before the last chunk, (exp(cum_end - cum_j)
+// B_j) . g_c, kKs of N at a time through a two-stage cp.async ring.  Its
+// epilogue writes ddtA's row terms, sum over the tile's p of dy y - xdt
+// dxdt, to rowterm[blockIdx.y][bh][c0 + j], from y's and xdt's tiles that
+// arrive under the products.
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_bwd_chunk_dx(const float* __restrict__ dy, const float* __restrict__ xdt,
+                     const float* __restrict__ y, const float* __restrict__ dtA,
                      const float* __restrict__ Bm, const float* __restrict__ cbt,
-                     const float* __restrict__ gs, float* __restrict__ dx, int L, int P, int N,
-                     int n_rep, int n_chunks) {
-  __shared__ __align__(16) float As[kTile * kTile];  // [i][j] scores, then [n][j] B
-  __shared__ __align__(16) float Bs[kTile * kTile];  // [i][p] dy, then [n][p] g
-  __shared__ float cum[kChunk];
-  __shared__ float wend[kChunk];  // exp(cum_end - cum_j)
+                     const float* __restrict__ gs, float* __restrict__ dx,
+                     float* __restrict__ rowterm, int L, int P, int N, int n_rep, int n_chunks,
+                     int BH) {
+  extern __shared__ __align__(16) float smem[];
+  float* St = smem;                 // the transposed scores [j][i]
+  float* Ys = St + kTile * kLdd;    // dy [i][p]
+  float* Yo = Ys + kEdge;           // the forward's y [j][p]
+  float* Xs = Yo + kEdge;           // xdt [j][p]
+  float* ring = Xs + kEdge;         // 2 stages of B [j][n] and g [n][p]
+  float* cum = ring + 2 * kDxStage;
+  float* red = cum + kChunk;        // [j][2]: each column half's row term
   const int c = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks, p0 = blockIdx.y * kTile;
   const int g = bh / n_rep, c0 = c * kChunk, rows = min(kChunk, L - c0);
-  const int tid = threadIdx.x, tm = tile_row(tid), tn = tile_col(tid);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
+  const bool state_out = c + 1 < n_chunks;  // only the last chunk is ragged
+  const int n_nk = state_out ? (N + kKs - 1) / kKs : 0;
   const float* Bg = Bm + ((size_t)g * L + c0) * N;
-  const float* G = c + 1 < n_chunks ? gs + ((size_t)bh * (n_chunks - 1) + c) * N * P + p0
-                                    : nullptr;
-  const int n_tiles = 1 + (c + 1 < n_chunks ? (N + kTile - 1) / kTile : 0);
-  // the triangle: warp w's rows j start at 16 (w / 2), so its scores need
-  // no i before that
-  const int tri_begin = 16 * ((tid >> 5) >> 1);
+  const float* G = state_out ? gs + ((size_t)bh * (n_chunks - 1) + c) * N * P + p0 : nullptr;
+  auto issue = [&](int nk, float* st) {
+    const int k0 = nk * kKs;
+    cp_tile<kTile, kKs, kLdk>(st, Bg + k0, N, rows, N - k0);
+    cp_tile<kKs, kTile, kLdn>(st + kTileK, G + (size_t)k0 * P, P, N - k0, P - p0);
+    cp_commit();
+  };
 
-  float4 va[4], vb[4];
-  fetch_cols(va, cbt + ((size_t)g * n_chunks + c) * kChunk * kChunk, kChunk, kChunk, kChunk);
-  fetch_rows(vb, dy + ((size_t)bh * L + c0) * P + p0, P, rows, P - p0);
+  cp_tile<kTile, kTile, kLdd>(St, cbt + ((size_t)g * n_chunks + c) * kChunk * kChunk, kChunk,
+                              kChunk, kChunk);
+  const size_t base = ((size_t)bh * L + c0) * P;
+  cp_tile<kTile, kTile, kLdn>(Ys, dy + base + p0, P, rows, P - p0);
+  // y and xdt are read last: in the first ring stage's group, if there is one
+  if (n_nk == 0) {
+    cp_tile<kTile, kTile, kLdn>(Yo, y + base + p0, P, rows, P - p0);
+    cp_tile<kTile, kTile, kLdn>(Xs, xdt + base + p0, P, rows, P - p0);
+  }
+  cp_commit();
+  if (n_nk > 0) {
+    cp_tile<kTile, kTile, kLdn>(Yo, y + base + p0, P, rows, P - p0);
+    cp_tile<kTile, kTile, kLdn>(Xs, xdt + base + p0, P, rows, P - p0);
+    issue(0, ring);
+  }
   chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  if (n_nk > 0)
+    cp_wait<1>();
+  else
+    cp_wait<0>();
   __syncthreads();
-  if (tid < kChunk) wend[tid] = expf(cum[kChunk - 1] - cum[tid]);  // read from tile 1 on
+  // C_i . B_j exp(cum_i - cum_j) where j <= i < rows, else 0 (a select:
+  // cbt's upper tiles are never written).  The exponents are the forward's
+  // own float32 ones (its cumsum, pass 4's scores, pass 2's weights): ddtA's
+  // row terms pair xdt . dxdt with dy . y, and their rounding cancels only
+  // where both come from the same exponents.
+  for (int e = tid; e < kTile * kTile; e += kThreads) {
+    const int j = e >> 6, i = e & (kTile - 1);
+    float* s = St + j * kLdd + i;
+    *s = j <= i && i < rows ? *s * expf(cum[i] - cum[j]) : 0.f;
+  }
+  __syncthreads();
 
   float acc[4][4] = {};
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t == 0)
-      store_scores_t(As, va, cum, rows);
-    else
-      store_cols(As, va, wend);
-    store_rows(Bs, vb, nullptr);
+  warp_mma<false>(acc, St, kLdd, Ys, kLdn, m0, n0, m0, kTile, 1.f, 1.f);  // i >= j
+  const float cend = cum[kChunk - 1];
+  const float w0 = expf(cend - cum[m0 + gr]), w1 = expf(cend - cum[m0 + gr + 8]);
+  for (int nk = 0; nk < n_nk; ++nk) {
+    if (nk + 1 < n_nk) {
+      issue(nk + 1, ring + ((nk + 1) & 1) * kDxStage);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
-    if (t + 1 < n_tiles) {
-      const int n0 = t * kTile;  // the next tile's first n
-      fetch_cols(va, Bg + n0, N, rows, N - n0);
-      fetch_rows(vb, G + (size_t)n0 * P, P, N - n0, P - p0);
-    }
-    tile_fma_from(As, Bs, t == 0 ? tri_begin : 0,
-                  t == 0 ? kTile : min(kTile, N - (t - 1) * kTile), tm, tn, acc);
-    __syncthreads();  // the products are done before the next tile's stores
+    const float* st = ring + (nk & 1) * kDxStage;
+    warp_mma<false>(acc, st, kLdk, st + kTileK, kLdn, m0, n0, 0, kKs, w0, w1);
+    __syncthreads();  // the stage is read before it is loaded again
   }
 
-  const int p = p0 + 4 * tn;
-  if (p < P) {
+  // dxdt, and each row's dy . y - xdt . dxdt over the tile: the 4 lanes of
+  // a row, then the two warps of its column halves, in a fixed order
+  float term[2] = {0.f, 0.f};
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = 4 * tm + a;
-      if (j < rows)
-        *reinterpret_cast<float4*>(dx + ((size_t)bh * L + c0 + j) * P + p) =
-            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  for (int f = 0; f < 4; ++f) {
+    const int col = n0 + 8 * f + 2 * tq, p = p0 + col;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = m0 + gr + 8 * h;
+      if (p < P && j < rows) {
+        const float2 d = make_float2(acc[f][2 * h], acc[f][2 * h + 1]);
+        *reinterpret_cast<float2*>(dx + base + (size_t)j * P + p) = d;
+        const int at = j * kLdn + col;
+        term[h] += Ys[at] * Yo[at] + Ys[at + 1] * Yo[at + 1] - (Xs[at] * d.x + Xs[at + 1] * d.y);
+      }
     }
   }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    term[h] += __shfl_xor_sync(0xffffffffu, term[h], 1);
+    term[h] += __shfl_xor_sync(0xffffffffu, term[h], 2);
+  }
+  if (tq == 0) {
+    red[(m0 + gr) * 2 + (warp & 1)] = term[0];
+    red[(m0 + gr + 8) * 2 + (warp & 1)] = term[1];
+  }
+  __syncthreads();
+  if (tid < rows)
+    rowterm[((size_t)blockIdx.y * BH + bh) * L + c0 + tid] = red[2 * tid] + red[2 * tid + 1];
 }
 
-// Each thread's share of sum_n V[row][n] acc[row][n] over its 4 x 4 cells
-// (rows 4 tm + a, columns n0 + 4 tn + b of V, zero past rows and nv) into
-// red[row][tn]: a fixed slot a thread, summed in order by the caller.
-__device__ __forceinline__ void row_dots(const float* __restrict__ V, int ld, int rows,
-                                         int nv, int tm, int tn, const float (&acc)[4][4],
-                                         float* red) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = 4 * tm + a;
-    float s = 0.f;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int n = 4 * tn + b;
-      if (i < rows && n < nv) s = fmaf(V[(size_t)i * ld + n], acc[a][b], s);
-    }
-    red[i * 16 + tn] = s;
-  }
-}
-
-// b4: per (batch x group, chunk), its n_rep heads in order: dC and dB of
-// the chunk's rows summed over the heads in shared memory, and each head's
-// ddtA.  Per head: D = (dy xdt^T) o exp(cum_i - cum_j) on the triangle
-// (one product over P), its row and column sums weighted by C B^T, then
-// per 64-wide tile of N the state term of dC (exp(cum_i) dy S_in^T, then
-// u_i = C_i . that row), D B, the state term of dB (exp(cum_end - cum_j)
-// xdt g^T, then v_j = B_j . that row) and D^T C.
-__global__ void __launch_bounds__(kThreads)
+// b4: per (batch x group, chunk, slice of up to kSliceHeads of the group's
+// heads), the slice's share of dC and dB of the chunk's rows, on the tensor
+// cores, into parts (2, BG, n_slices, L, N): dC's at 0, dB's at 1.  Walks
+// over the slice's heads and their P in steps of kDbcK, each through a
+// kDbcStages-stage cp.async ring of two operand tiles: (D) each head's D = (dy
+// xdt^T) o exp(cum_i - cum_j) on the triangle, summed over the slice in
+// shared memory, heads in order; then per 64 wide tile of N, (E) dC's state
+// term (exp(cum_i) dy) S_in^T summed over the heads in one accumulator,
+// then D_sum B; (F) dB's, (exp(cum_end - cum_j) xdt) g^T, then D_sum^T C.
+// Apart, the walks keep 16 accumulators a thread live: two blocks an SM
+// without spills.
+__global__ void __launch_bounds__(kThreads, 2)
     ssd_bwd_chunk_dbc(const float* __restrict__ xdt, const float* __restrict__ dy,
                       const float* __restrict__ dtA, const float* __restrict__ Bm,
-                      const float* __restrict__ Cm, const float* __restrict__ cbt,
-                      const float* __restrict__ states, const float* __restrict__ gs,
-                      const float* __restrict__ decay, const float* __restrict__ ddp,
-                      float* __restrict__ dB, float* __restrict__ dC,
-                      float* __restrict__ ddtA, int L, int P, int N, int n_rep,
-                      int n_chunks, int n_parts) {
+                      const float* __restrict__ Cm, const float* __restrict__ states,
+                      const float* __restrict__ gs, float* __restrict__ parts, int L, int P,
+                      int N, int n_rep, int n_chunks, int n_slices, int BG) {
+  enum Walk { kD, kE, kF };
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                  // an operand tile [k][m]
-  float* Bs = As + kTile * kTile;    // an operand tile [k][n]
-  float* Dt = Bs + kTile * kTile;    // D transposed, [j][i]
-  float* Dn = Dt + kTile * kTile;    // D, [i][j]
-  float* accC = Dn + kTile * kTile;  // dC [i][n], summed over the heads
-  float* accB = accC + kChunk * N;   // dB [j][n]
-  float* red = accB + kChunk * N;    // [row][16] partial row sums
-  float* cum = red + kChunk * 16;
-  float* ecum = cum + kChunk;        // exp(cum_i)
-  float* wend = ecum + kChunk;       // exp(cum_end - cum_j)
-  float* rsum = wend + kChunk;       // sum_j W[i][j]
-  float* csum = rsum + kChunk;       // sum_i W[i][j]
-  float* urow = csum + kChunk;       // u_i
-  float* vrow = urow + kChunk;       // v_j
+  float* ring = smem;                           // kDbcStages stages of kDbcStage
+  float* Dn = ring + kDbcStages * kDbcStage;    // D summed over the slice, [i][j]
+  float* Dt = Dn + kTileD;            // the same, [j][i]
+  double* cums = reinterpret_cast<double*>(Dt + kTileD);  // the heads' chunk cumsums
 
-  const int c = blockIdx.x % n_chunks, g = blockIdx.x / n_chunks, c0 = c * kChunk;
-  const int rows = min(kChunk, L - c0);
+  const int c = blockIdx.x % n_chunks, rest = blockIdx.x / n_chunks;
+  const int slice = rest % n_slices, g = rest / n_slices;
+  const int nh = min(kSliceHeads, n_rep - slice * kSliceHeads);
+  const int h0 = g * n_rep + slice * kSliceHeads;
+  const int c0 = c * kChunk, rows = min(kChunk, L - c0);
   const bool state_in = c > 0, state_out = c + 1 < n_chunks;
-  const int tid = threadIdx.x, tm = tile_row(tid), tn = tile_col(tid);
-  const int warp_row = 16 * ((tid >> 5) >> 1);  // the first of the warp's 16 rows
-  const float* Bg = Bm + ((size_t)g * L + c0) * N;
-  const float* Cg = Cm + ((size_t)g * L + c0) * N;
-  const float* cb = cbt + ((size_t)g * n_chunks + c) * kChunk * kChunk;  // [j][i]
-  for (int e = tid; e < 2 * kChunk * N; e += kThreads) accC[e] = 0.f;  // and accB
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
+  const int n_kp = (P + kDbcK - 1) / kDbcK, steps = nh * n_kp;
 
-  for (int r = 0; r < n_rep; ++r) {
-    const int bh = g * n_rep + r;
-    const float* X = xdt + ((size_t)bh * L + c0) * P;
-    const float* Y = dy + ((size_t)bh * L + c0) * P;
-    __syncthreads();  // the last head is done with every shared array
-    chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
-    if (tid >= 64 && tid < 64 + kChunk) {
-      urow[tid - 64] = 0.f;
-      vrow[tid - 64] = 0.f;
+  for (int e = tid; e < kTileD; e += kThreads) Dn[e] = 0.f;
+  if (warp < nh) warp_cumsum64(dtA + (size_t)(h0 + warp) * L, c0, L, cums + warp * kChunk);
+
+  // step r of a walk: head r / n_kp, P from (r % n_kp) kDbcK; the first tile
+  // holds the chunk's rows of dy (D, E) or xdt (F), the second xdt's (D) or
+  // the 64 rows of N from nb of S_in (E) or g (F)
+  auto issue = [&](Walk w, int nb, int r, float* st) {
+    const int bh = h0 + r / n_kp, k0 = (r % n_kp) * kDbcK;
+    const size_t row = ((size_t)bh * L + c0) * P + k0;
+    cp_tile<kTile, kDbcK, kLdq>(st, (w == kF ? xdt : dy) + row, P, rows, P - k0);
+    if (w == kD)
+      cp_tile<kTile, kDbcK, kLdq>(st + kDbcTile, xdt + row, P, rows, P - k0);
+    else
+      cp_tile<kTile, kDbcK, kLdq>(
+          st + kDbcTile,
+          (w == kE ? states + ((size_t)bh * (n_chunks - 1) + c - 1) * N * P
+                   : gs + ((size_t)bh * (n_chunks - 1) + c) * N * P) + (size_t)nb * P + k0,
+          P, N - nb, P - k0);
+    cp_commit();
+  };
+  // a walk's steps through the ring: step(r, stage) once the stage landed,
+  // the next kDbcStages - 1 stages loading meanwhile (one commit group a
+  // step, empty past the last, so that one wait count fits every step)
+  auto walk = [&](Walk w, int nb, auto&& step) {
+    for (int r = 0; r < kDbcStages - 1; ++r) {
+      if (r < steps)
+        issue(w, nb, r, ring + r * kDbcStage);
+      else
+        cp_commit();
     }
+    for (int r = 0; r < steps; ++r) {
+      const int ahead = r + kDbcStages - 1;  // into the stage step r - 1 read
+      if (ahead < steps)
+        issue(w, nb, ahead, ring + (ahead % kDbcStages) * kDbcStage);
+      else
+        cp_commit();
+      cp_wait<kDbcStages - 1>();
+      __syncthreads();
+      step(r, ring + (r % kDbcStages) * kDbcStage);
+      __syncthreads();  // the stage is read before it is loaded again
+    }
+  };
+  // the slice's D against the group's B or C (a [k][n] tile of 64 rows of
+  // the chunk and 64 of N from nb, loaded into the ring): acc += Dn B for
+  // dC (j <= i), Dt C for dB (i >= j); then acc to the slice's part
+  auto finish = [&](const float* M, const float* D, float* out, int nb, float (&acc)[4][4]) {
+    cp_tile<kTile, kTile, kLdn>(ring, M + ((size_t)g * L + c0) * N + nb, N, rows, N - nb);
+    cp_commit();
+    cp_wait<0>();
     __syncthreads();
-    if (tid < kChunk) {
-      ecum[tid] = expf(cum[tid]);
-      wend[tid] = expf(cum[kChunk - 1] - cum[tid]);
+    if (D == Dn)
+      warp_mma<false>(acc, Dn, kLdd, ring, kLdn, m0, n0, 0, m0 + 16, 1.f, 1.f);
+    else
+      warp_mma<false>(acc, Dt, kLdd, ring, kLdn, m0, n0, m0, kTile, 1.f, 1.f);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int n = nb + n0 + 8 * f + 2 * tq;
+      if (n >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = m0 + gr + 8 * h;
+        if (i < rows)
+          *reinterpret_cast<float2*>(out + (size_t)i * N + n) =
+              make_float2(acc[f][2 * h], acc[f][2 * h + 1]);
+      }
     }
+    __syncthreads();  // the tile is read before the ring is loaded again
+  };
 
-    // D = dy xdt^T over P: acc[a][b] at i = 4 tm + a, j = 4 tn + b
-    float acc[4][4] = {};
-    for (int p0 = 0; p0 < P; p0 += kTile) {
-      float4 vy[4], vx[4];
-      fetch_cols(vy, Y + p0, P, rows, P - p0);
-      fetch_cols(vx, X + p0, P, rows, P - p0);
-      __syncthreads();  // the last tile's products are done
-      store_cols(As, vy, nullptr);
-      store_cols(Bs, vx, nullptr);
-      __syncthreads();
-      tile_fma(As, Bs, min(kTile, P - p0), tm, tn, acc);
-    }
-    __syncthreads();  // the products are done before As holds W
+  {
+    float accD[4][4] = {};
+    walk(kD, 0, [&](int r, const float* st) {
+      warp_mma<true>(accD, st, kLdq, st + kDbcTile, kLdq, m0, n0, 0, kDbcK, 1.f, 1.f);
+      if (r % n_kp == n_kp - 1) {
+        // the head's D, selected onto the triangle, into the slice's sum
+        const double* cum = cums + (r / n_kp) * kChunk;
+#pragma unroll 1
+        for (int f = 0; f < 4; ++f)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = 4 * tm + a;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = 4 * tn + b;
-        const bool on = j <= i && i < rows;
-        const float d = on ? acc[a][b] * expf(cum[i] - cum[j]) : 0.f;
-        Dn[i * kTile + j] = d;
-        Dt[j * kTile + i] = d;
-        // W without its diagonal, which adds to d cum_i and takes from it
-        // again (and would cost float32 precision where it dwarfs the rest)
-        As[i * kTile + j] = j < i && i < rows ? d * cb[j * kChunk + i] : 0.f;
+          for (int q = 0; q < 4; ++q) {
+            const int i = m0 + gr + 8 * (q >> 1), j = n0 + 8 * f + 2 * tq + (q & 1);
+            Dn[i * kLdd + j] += j <= i && i < rows ? accD[f][q] * exp_diff(cum[i], cum[j]) : 0.f;
+            accD[f][q] = 0.f;
+          }
       }
-    }
-    __syncthreads();
-    if (tid < kChunk) {  // column sums, one column a thread, rows in order
-      float s = 0.f;
-      for (int i = 0; i < kChunk; ++i) s += As[i * kTile + tid];
-      csum[tid] = s;
-    } else if (tid < 2 * kChunk) {  // row sums, skewed across the lanes' banks
-      const int i = tid - kChunk;
-      float s = 0.f;
-      for (int k = 0; k < kChunk; ++k) s += As[i * kTile + ((k + i) & (kChunk - 1))];
-      rsum[i] = s;
-    }
+    });
+  }
+  for (int e = tid; e < kTile * kTile; e += kThreads) {
+    const int i = e >> 6, j = e & (kTile - 1);
+    Dt[j * kLdd + i] = Dn[i * kLdd + j];
+  }  // read after finish's barrier
 
-    for (int n0 = 0; n0 < N; n0 += kTile) {
-      const int nv = min(kTile, N - n0);
-      float4 va[4], vb[4];
-      // dC [i][n]: the state term exp(cum_i) dy_i S_in^T first, for u
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-      if (state_in) {
-        const float* S = states + ((size_t)bh * (n_chunks - 1) + c - 1) * N * P + (size_t)n0 * P;
-        for (int p0 = 0; p0 < P; p0 += kTile) {
-          fetch_cols(va, Y + p0, P, rows, P - p0);  // [p][i]
-          fetch_cols(vb, S + p0, P, nv, P - p0);    // [p][n]
-          __syncthreads();
-          store_cols(As, va, ecum);
-          store_cols(Bs, vb, nullptr);
-          __syncthreads();
-          tile_fma(As, Bs, min(kTile, P - p0), tm, tn, acc);
-        }
-        row_dots(Cg + n0, N, rows, nv, tm, tn, acc, red);
-        __syncthreads();
-        if (tid < kChunk) {
-          float s = 0.f;
-          for (int t = 0; t < 16; ++t) s += red[tid * 16 + t];
-          urow[tid] += s;
-        }
-      }
-      fetch_rows(vb, Bg + n0, N, rows, nv);
-      __syncthreads();
-      store_rows(Bs, vb, nullptr);
-      __syncthreads();
-      tile_fma_from(Dt, Bs, 0, warp_row + 16, tm, tn, acc);  // j <= i
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (4 * tn + b < nv) accC[(4 * tm + a) * N + n0 + 4 * tn + b] += acc[a][b];
-
-      // dB [j][n]: the state term exp(cum_end - cum_j) xdt_j g_c^T first, for v
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-      if (state_out) {
-        const float* G = gs + ((size_t)bh * (n_chunks - 1) + c) * N * P + (size_t)n0 * P;
-        for (int p0 = 0; p0 < P; p0 += kTile) {
-          fetch_cols(va, X + p0, P, rows, P - p0);  // [p][j]
-          fetch_cols(vb, G + p0, P, nv, P - p0);    // [p][n]
-          __syncthreads();
-          store_cols(As, va, wend);
-          store_cols(Bs, vb, nullptr);
-          __syncthreads();
-          tile_fma(As, Bs, min(kTile, P - p0), tm, tn, acc);
-        }
-        row_dots(Bg + n0, N, rows, nv, tm, tn, acc, red);
-        __syncthreads();
-        if (tid < kChunk) {
-          float s = 0.f;
-          for (int t = 0; t < 16; ++t) s += red[tid * 16 + t];
-          vrow[tid] += s;
-        }
-      }
-      fetch_rows(vb, Cg + n0, N, rows, nv);
-      __syncthreads();
-      store_rows(Bs, vb, nullptr);
-      __syncthreads();
-      tile_fma_from(Dn, Bs, warp_row, kTile, tm, tn, acc);  // i >= j
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (4 * tn + b < nv) accB[(4 * tm + a) * N + n0 + 4 * tn + b] += acc[a][b];
+  float* out_c = parts + (((size_t)g * n_slices + slice) * L + c0) * N;
+  float* out_b = parts + ((((size_t)BG + g) * n_slices + slice) * L + c0) * N;
+  for (int nb = 0; nb < N; nb += kTile) {
+    {
+      float acc[4][4] = {};
+      if (state_in)
+        walk(kE, nb, [&](int r, const float* st) {
+          const double* cum = cums + (r / n_kp) * kChunk;
+          warp_mma<true>(acc, st, kLdq, st + kDbcTile, kLdq, m0, n0, 0, kDbcK,
+                         exp_diff(cum[m0 + gr], 0.0), exp_diff(cum[m0 + gr + 8], 0.0));
+        });
+      finish(Bm, Dn, out_c, nb, acc);
     }
-
-    // d cum, then its reverse cumsum within the chunk, one thread in order
-    __syncthreads();
-    if (tid == 0) {
-      float end = 0.f;
-      if (state_out) {
-        float dd = 0.f;
-        if (state_in) {
-          const float* pp = ddp + ((size_t)bh * n_chunks + c) * n_parts;
-          for (int t = 0; t < n_parts; ++t) dd += pp[t];
-        }
-        // v at the last row adds to it and takes from it: left out
-        float vsum = 0.f;
-        for (int k = 0; k < kChunk - 1; ++k) vsum += vrow[k];
-        end = decay[(size_t)bh * (n_chunks - 1) + c] * dd + vsum;
-      }
-      float run = end;
-      for (int k = kChunk - 1; k >= 0; --k) {
-        run += rsum[k] - csum[k] + urow[k] - (k < kChunk - 1 ? vrow[k] : 0.f);
-        if (k < rows) ddtA[(size_t)bh * L + c0 + k] = run;
-      }
+    {
+      float acc[4][4] = {};
+      if (state_out)
+        walk(kF, nb, [&](int r, const float* st) {
+          const double* cum = cums + (r / n_kp) * kChunk;
+          const double cend = cum[kChunk - 1];
+          warp_mma<true>(acc, st, kLdq, st + kDbcTile, kLdq, m0, n0, 0, kDbcK,
+                         exp_diff(cend, cum[m0 + gr]), exp_diff(cend, cum[m0 + gr + 8]));
+        });
+      finish(Cm, Dt, out_b, nb, acc);
     }
   }
+}
 
-  __syncthreads();
-  for (int e = tid; e < rows * N; e += kThreads) {
-    const size_t at = ((size_t)g * L + c0) * N + e;
-    dC[at] = accC[e];
-    dB[at] = accB[e];
+// b5: dC and dB, each the sum of its slices' parts in slice order.
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_dbc_sum(const float4* __restrict__ parts, float4* __restrict__ dB,
+                    float4* __restrict__ dC, long long per_group, int BG, int n_slices) {
+  const long long total = 2LL * BG * per_group;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (long long)gridDim.x * kThreads) {
+    const long long which = e / ((long long)BG * per_group), rest = e % ((long long)BG * per_group);
+    const long long g = rest / per_group, at = rest % per_group;
+    const float4* p = parts + (which * BG + g) * n_slices * per_group + at;
+    float4 s = p[0];
+    for (int k = 1; k < n_slices; ++k) {
+      const float4 v = p[(size_t)k * per_group];
+      s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+    }
+    (which == 0 ? dC : dB)[rest] = s;
+  }
+}
+
+// b6: ddtA of head blockIdx.x, a chunk a warp: with r_s the row terms
+// summed over the P tiles in order, ddtA_t = sum_{t <= s < the chunk's end}
+// r_s + ddtA at the next chunk's first row, <g_c, S_in[c + 1]> (the state
+// pass's parts, summed in order; 0 after the last chunk).  Summing the row
+// terms of the whole sequence instead would reach the same value, but their
+// float32 rounding would add up along it, and so bias sums of ddtA over a
+// sequence such as A's gradient.  In float64, every sum in a fixed order.
+// ddtA_0 = exp(dtA_0) <G_0, S_-1> is 0, the scan starting from a zero state:
+// it is written as 0, not as the sum, of which only rounding would be left.
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_ddtA(const float* __restrict__ rowterm, const float* __restrict__ ddp,
+                 float* __restrict__ ddtA, int L, int BH, int n_ptiles, int n_parts) {
+  constexpr int kWarps = kThreads / 32;
+  const int bh = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+  auto row = [&](int t) {
+    double r = 0.0;
+    if (t < L)
+      for (int pt = 0; pt < n_ptiles; ++pt) r += (double)rowterm[((size_t)pt * BH + bh) * L + t];
+    return r;
+  };
+  for (int c = warp; c < n_chunks; c += kWarps) {
+    double carry = 0.0;
+    if (c + 1 < n_chunks) {
+      const float* parts = ddp + ((size_t)bh * (n_chunks - 1) + c) * n_parts;
+      for (int q = lane; q < n_parts; q += 32) carry += (double)parts[q];
+      for (int off = 16; off > 0; off >>= 1) carry += __shfl_xor_sync(0xffffffffu, carry, off);
+    }
+    const int t = c * kChunk + 2 * lane;
+    const double s1 = row(t + 1), s0 = row(t) + s1;  // the lane's own suffix sums
+    double incl = s0;  // the lanes from this one up
+    for (int off = 1; off < 32; off <<= 1) {
+      const double o = __shfl_down_sync(0xffffffffu, incl, off);
+      if (lane + off < 32) incl += o;
+    }
+    double above = __shfl_down_sync(0xffffffffu, incl, 1);
+    if (lane == 31) above = 0.0;
+    const double base = carry + above;
+    float* out = ddtA + (size_t)bh * L;
+    if (t < L) out[t] = t > 0 ? (float)(base + s0) : 0.f;
+    if (t + 1 < L) out[t + 1] = (float)(base + s1);
   }
 }
 
@@ -840,6 +1014,19 @@ int tiles_of(int d) { return (d + kTile - 1) / kTile; }
 unsigned grid_x(int per_head, int heads) {
   const long long x = (long long)per_head * heads;
   return x <= 0x7fffffff ? (unsigned)x : 0u;
+}
+
+// Lets the kernel take `bytes` of dynamic shared memory, with the largest
+// shared-memory carveout (two blocks an SM).  The attributes are the
+// function's, for the current device: setting them again costs little and
+// keeps several devices right.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 }  // namespace
@@ -908,19 +1095,27 @@ int ssd_chunk_out_launch(const void* xdt, const void* dtA, const void* C, const 
   return (int)cudaGetLastError();
 }
 
-// The backward.  dy (BH, L, P) float32; states, cbt and decay as the
-// forward left them; gs (BH, n_chunks - 1, N, P) scratch; ddp (BH,
-// n_chunks, ssd_bwd_parts(P, N)) scratch; dxdt (BH, L, P), ddtA (BH, L),
-// dB and dC (BG, L, N) outputs.
+// The backward.  dy and y (BH, L, P) float32, y the forward's output;
+// states, cbt and decay as the forward left them; scratch gs (BH, n_chunks
+// - 1, N, P), ddp (BH, n_chunks - 1, ssd_bwd_parts(P, N)), rowterm
+// (ceil(P / 64), BH, L) and parts (2, BG, ssd_bwd_slices(n_rep), L, N);
+// outputs dxdt (BH, L, P), ddtA (BH, L), dB and dC (BG, L, N).
 
-// The number of dd_c partial sums a (head, chunk) that b2 writes.
+// The slices of a group's heads that ssd_bwd_chunk_dbc sums apart.
+int ssd_bwd_slices(int n_rep) { return (n_rep + kSliceHeads - 1) / kSliceHeads; }
+
+// The partial sums of <g_c, S_in[c + 1]> a (head, chunk) that b2 writes.
 int ssd_bwd_parts(int P, int N) {
   return ((N * P / 4 + kThreads - 1) / kThreads) * (kThreads / 32);
 }
 
-// b4's dynamic shared memory in bytes at state size N.
-int ssd_bwd_dbc_smem(int N) {
-  return (int)sizeof(float) * (4 * kTile * kTile + 2 * kChunk * N + kChunk * 16 + 8 * kChunk);
+// The dynamic shared memory, in bytes, of ssd_bwd_chunk_dx and _dbc.
+int ssd_bwd_dx_smem() {
+  return (int)sizeof(float) * (kTile * kLdd + 3 * kEdge + 2 * kDxStage + 3 * kChunk);
+}
+int ssd_bwd_dbc_smem() {
+  return (int)sizeof(float) *
+         (kDbcStages * kDbcStage + 2 * kTileD + 2 * kSliceHeads * kChunk);
 }
 
 int ssd_bwd_dstate_launch(const void* dy, const void* dtA, const void* C, void* gs, int BH,
@@ -947,39 +1142,56 @@ int ssd_bwd_state_pass_launch(void* gs, const void* decay, const void* states, v
   return (int)cudaGetLastError();
 }
 
-int ssd_bwd_chunk_dx_launch(const void* dy, const void* dtA, const void* B, const void* cbt,
-                            const void* gs, void* dx, int BH, int L, int P, int N, int n_rep,
+int ssd_bwd_chunk_dx_launch(const void* dy, const void* xdt, const void* y, const void* dtA,
+                            const void* B, const void* cbt, const void* gs, void* dx,
+                            void* rowterm, int BH, int L, int P, int N, int n_rep,
                             void* stream) {
   if (BH <= 0 || L <= 0) return 0;
   const int nc = n_chunks_of(L);
   const unsigned x = grid_x(nc, BH);
   if (x == 0) return (int)cudaErrorInvalidConfiguration;
-  ssd_bwd_chunk_dx<<<dim3(x, tiles_of(P)), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)dy, (const float*)dtA, (const float*)B, (const float*)cbt,
-      (const float*)gs, (float*)dx, L, P, N, n_rep, nc);
+  const int smem = ssd_bwd_dx_smem();
+  const cudaError_t err = allow_smem(ssd_bwd_chunk_dx, smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chunk_dx<<<dim3(x, tiles_of(P)), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)dy, (const float*)xdt, (const float*)y, (const float*)dtA, (const float*)B,
+      (const float*)cbt, (const float*)gs, (float*)dx, (float*)rowterm, L, P, N, n_rep, nc, BH);
   return (int)cudaGetLastError();
 }
 
 int ssd_bwd_chunk_dbc_launch(const void* xdt, const void* dy, const void* dtA, const void* B,
-                             const void* C, const void* cbt, const void* states,
-                             const void* gs, const void* decay, const void* ddp, void* dB,
-                             void* dC, void* ddtA, int BG, int L, int P, int N, int n_rep,
-                             void* stream) {
+                             const void* C, const void* states, const void* gs, void* parts,
+                             int BG, int L, int P, int N, int n_rep, void* stream) {
   if (BG <= 0 || L <= 0) return 0;
-  const int nc = n_chunks_of(L);
-  const unsigned x = grid_x(nc, BG);
+  const int nc = n_chunks_of(L), ns = ssd_bwd_slices(n_rep);
+  const unsigned x = grid_x(nc * ns, BG);
   if (x == 0) return (int)cudaErrorInvalidConfiguration;
-  const int smem = ssd_bwd_dbc_smem(N);
-  // the attribute is the function's, for the current device; setting it
-  // again costs little and keeps several devices right
-  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_dbc,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = ssd_bwd_dbc_smem();
+  const cudaError_t err = allow_smem(ssd_bwd_chunk_dbc, smem);
   if (err != cudaSuccess) return (int)err;
   ssd_bwd_chunk_dbc<<<x, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)xdt, (const float*)dy, (const float*)dtA, (const float*)B,
-      (const float*)C, (const float*)cbt, (const float*)states, (const float*)gs,
-      (const float*)decay, (const float*)ddp, (float*)dB, (float*)dC, (float*)ddtA, L, P, N,
-      n_rep, nc, ssd_bwd_parts(P, N));
+      (const float*)xdt, (const float*)dy, (const float*)dtA, (const float*)B, (const float*)C,
+      (const float*)states, (const float*)gs, (float*)parts, L, P, N, n_rep, nc, ns, BG);
+  return (int)cudaGetLastError();
+}
+
+int ssd_bwd_dbc_sum_launch(const void* parts, void* dB, void* dC, int BG, int L, int N,
+                           int n_rep, void* stream) {
+  if (BG <= 0 || L <= 0) return 0;
+  const long long per_group = (long long)L * N / 4;
+  const long long blocks = (2 * BG * per_group + kThreads - 1) / kThreads;
+  ssd_bwd_dbc_sum<<<(unsigned)(blocks < kSumBlocks ? blocks : kSumBlocks), kThreads, 0,
+                    (cudaStream_t)stream>>>((const float4*)parts, (float4*)dB, (float4*)dC,
+                                            per_group, BG, ssd_bwd_slices(n_rep));
+  return (int)cudaGetLastError();
+}
+
+int ssd_bwd_ddtA_launch(const void* rowterm, const void* ddp, void* ddtA, int BH, int L, int P,
+                        int N, void* stream) {
+  if (BH <= 0 || L <= 0) return 0;
+  ssd_bwd_ddtA<<<(unsigned)BH, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)rowterm, (const float*)ddp, (float*)ddtA, L, BH, tiles_of(P),
+      ssd_bwd_parts(P, N));
   return (int)cudaGetLastError();
 }
 

@@ -29,9 +29,10 @@ BACKWARD_LAUNCHES = 0
 
 class SSDScan(torch.autograd.Function):
     """The forward kernels on the kernel layout (xdt, dtA, B, C), their
-    scratch kept for the backward kernels (CUDA tensors only).  Everything
-    is saved with ``save_for_backward``, so a non-reentrant checkpoint
-    drops it and recomputes it."""
+    scratch and output y kept for the backward kernels (CUDA tensors only;
+    ddtA's row terms are dy . y - xdt . dxdt).  Everything is saved with
+    ``save_for_backward``, so a non-reentrant checkpoint drops it and
+    recomputes it."""
 
     @staticmethod
     def forward(ctx, xdt, dtA, B, C, n_rep):
@@ -41,7 +42,7 @@ class SSDScan(torch.autograd.Function):
         call = plan(xdt, dtA, B, C, n_rep)
         for _, launch in call.passes:
             launch()
-        ctx.save_for_backward(xdt, dtA, B, C, call.states, call.decay, call.cbt)
+        ctx.save_for_backward(xdt, dtA, B, C, call.states, call.decay, call.cbt, call.y)
         ctx.n_rep = n_rep
         return call.y
 
@@ -50,8 +51,8 @@ class SSDScan(torch.autograd.Function):
         global BACKWARD_LAUNCHES
         from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_bwd_cuda
 
-        xdt, dtA, B, C, states, decay, cbt = ctx.saved_tensors
-        grads = ssd_scan_bwd_cuda(xdt, dtA, B, C, ctx.n_rep, states, decay, cbt,
+        xdt, dtA, B, C, states, decay, cbt, y = ctx.saved_tensors
+        grads = ssd_scan_bwd_cuda(xdt, dtA, B, C, ctx.n_rep, states, decay, cbt, y,
                                   dy.contiguous())
         BACKWARD_LAUNCHES += 1
         return (*grads, None)

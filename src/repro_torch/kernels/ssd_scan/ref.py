@@ -111,7 +111,32 @@ def ssd_scan_state_passing(xdt, dtA, B, C, n_rep, chunk: int = 64,
     return y
 
 
-def ssd_scan_bwd_ref(xdt, dtA, B, C, n_rep, dy, chunk: int = 64):
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds it."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of ``t``: hi = t rounded to TF32, lo = t - hi
+    rounded again, in ``t``'s dtype."""
+    hi = tf32_round(t.float()).to(t.dtype)
+    return hi, tf32_round((t - hi).float()).to(t.dtype)
+
+
+def einsum_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product ``einsum(eq, a, b)`` as the tensor cores take it in
+    3xTF32: each operand split into a TF32 hi and lo part, and hi.hi + hi.lo
+    + lo.hi summed (lo.lo dropped)."""
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    return torch.einsum(eq, a_hi, b_hi) + (torch.einsum(eq, a_hi, b_lo)
+                                           + torch.einsum(eq, a_lo, b_hi))
+
+
+def ssd_scan_bwd_ref(xdt, dtA, B, C, n_rep, dy, chunk: int = 64, *,
+                     ddtA_from_y: bool = False, tf32x3: bool = False,
+                     slice_heads: int | None = None):
     """The gradients of y = ssd_scan(xdt, dtA, B, C) against dy, written out
     (not autograd of a forward) in the steps the backward kernels take at
     their chunk Q: (dxdt (BH, L, P), ddtA (BH, L), dB (BG, L, N), dC (BG,
@@ -134,8 +159,28 @@ def ssd_scan_bwd_ref(xdt, dtA, B, C, n_rep, dy, chunk: int = 64):
           d cum within the chunk.  W's diagonal and v at the last row add
           to d cum and take from it again: both are left out, which keeps
           ddtA's float32 error down where they dwarf the rest (a strong
-          decay)."""
+          decay).
+
+    Three options, each off by default (today's numbers), give the
+    arithmetic of the backward kernels on the card:
+      ``ddtA_from_y``: ddtA from the row terms dy_t . y_t - xdt_t . dxdt_t
+          (<G_t, S_t> is both ddtA_t + xdt_t . dxdt_t and dy_t . y_t +
+          ddtA_{t+1}), with y from this function's own forward steps:
+          within each chunk their reverse cumsum, plus ddtA at the next
+          chunk's first row, <g_c, S_in[c + 1]>; the row terms in the
+          working dtype, their sums in float64; ddtA_0 = exp(dtA_0) <G_0,
+          S_-1> is 0 (a zero initial state); no W, u, v;
+      ``tf32x3``: each product the kernels run on the tensor cores (b3's
+          two, D, the state terms of dC and dB, D's products with B and C)
+          takes its operands split as 3xTF32 (:func:`einsum_3xtf32`), the
+          row scales exp(cum_i) and exp(cum_end - cum_j) applied to the
+          operand first; b1 stays in full precision;
+      ``slice_heads``: dB and dC regrouped as the kernel sums them: a
+          group's heads cut into slices of that many (the last may be
+          short), D summed over a slice before its products with B and C,
+          the slices' sums added in order."""
     f = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    mm = einsum_3xtf32 if tf32x3 else torch.einsum
     BH, L, P = xdt.shape
     BG, _, N = B.shape
     R, Q = n_rep, chunk
@@ -164,24 +209,52 @@ def ssd_scan_bwd_ref(xdt, dtA, B, C, n_rep, dy, chunk: int = 64):
     g = torch.zeros_like(s_local)
     for c in range(nc - 2, -1, -1):
         g[:, :, c] = ds_in[:, :, c + 1] + decay[:, :, c + 1, None, None] * g[:, :, c + 1]
-    dd = (g * s_in).sum((-2, -1))
     # b3
     cb = torch.einsum("gcin,gcjn->gcij", Cc, Bc)
-    dx = torch.einsum("grcij,grcip->grcjp", cb[:, None] * Lij, g_y) \
-        + torch.einsum("gcjn,grcj,grcnp->grcjp", Bc, wend, g)
+    if tf32x3:
+        dx = mm("grcij,grcip->grcjp", cb[:, None] * Lij, g_y) \
+            + mm("grcjn,grcnp->grcjp", Bc[:, None] * wend[..., None], g)
+    else:
+        dx = torch.einsum("grcij,grcip->grcjp", cb[:, None] * Lij, g_y) \
+            + torch.einsum("gcjn,grcj,grcnp->grcjp", Bc, wend, g)
     # b4
-    D = torch.einsum("grcip,grcjp->grcij", g_y, x) * Lij
-    dc_state = ecum[..., None] * torch.einsum("grcip,grcnp->grcin", g_y, s_in)
-    db_state = wend[..., None] * torch.einsum("grcjp,grcnp->grcjn", x, g)
-    dC = torch.einsum("grcij,gcjn->gcin", D, Bc) + dc_state.sum(1)
-    dB = torch.einsum("grcij,gcin->gcjn", D, Cc) + db_state.sum(1)
-    # the diagonal adds to both sums below and cancels: left out, it costs
-    # no precision where it dwarfs the rest (a strong decay)
-    W = torch.where(torch.eye(Q, dtype=torch.bool, device=xdt.device), 0.0, D * cb[:, None])
-    v = (Bc[:, None] * db_state).sum(-1)
-    v[..., -1] = 0.0  # v at the last row adds to it and takes from it: left out too
-    dcum = W.sum(-1) - W.sum(-2) + (Cc[:, None] * dc_state).sum(-1) - v
-    dcum[..., -1] += decay * dd + v.sum(-1)
-    ddtA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    D = mm("grcip,grcjp->grcij", g_y, x) * Lij
+    if tf32x3:
+        dc_state = mm("grcip,grcnp->grcin", ecum[..., None] * g_y, s_in)
+        db_state = mm("grcjp,grcnp->grcjn", wend[..., None] * x, g)
+    else:
+        dc_state = ecum[..., None] * torch.einsum("grcip,grcnp->grcin", g_y, s_in)
+        db_state = wend[..., None] * torch.einsum("grcjp,grcnp->grcjn", x, g)
+    if slice_heads is None:
+        dC = mm("grcij,gcjn->gcin", D, Bc) + dc_state.sum(1)
+        dB = mm("grcij,gcin->gcjn", D, Cc) + db_state.sum(1)
+    else:
+        dC = dB = 0
+        for h0 in range(0, R, slice_heads):
+            heads = slice(h0, h0 + slice_heads)
+            d_sum = D[:, heads].sum(1)
+            dC = dC + (mm("gcij,gcjn->gcin", d_sum, Bc) + dc_state[:, heads].sum(1))
+            dB = dB + (mm("gcij,gcin->gcjn", d_sum, Cc) + db_state[:, heads].sum(1))
+    if ddtA_from_y:
+        y = torch.einsum("grcij,grcjp->grcip", cb[:, None] * Lij, x) \
+            + ecum[..., None] * torch.einsum("gcin,grcnp->grcip", Cc, s_in)
+        row = ((g_y * y).sum(-1) - (x * dx).sum(-1)).double()
+        # ddtA at chunk c + 1's first row: <g_c, S_in[c + 1]>
+        carry = torch.zeros_like(row[..., 0])
+        carry[..., :-1] = (g[:, :, :-1] * s_in[:, :, 1:]).sum((-2, -1)).double()
+        ddtA = (torch.flip(torch.cumsum(torch.flip(row, (-1,)), -1), (-1,))
+                + carry[..., None]).to(f)
+        ddtA[:, :, 0, 0] = 0.0  # exp(dtA_0) <G_0, S_-1>: the scan starts from a zero state
+    else:
+        dd = (g * s_in).sum((-2, -1))
+        # the diagonal adds to both sums below and cancels: left out, it
+        # costs no precision where it dwarfs the rest (a strong decay)
+        W = torch.where(torch.eye(Q, dtype=torch.bool, device=xdt.device), 0.0,
+                        D * cb[:, None])
+        v = (Bc[:, None] * db_state).sum(-1)
+        v[..., -1] = 0.0  # v at the last row adds to it and takes from it: left out too
+        dcum = W.sum(-1) - W.sum(-2) + (Cc[:, None] * dc_state).sum(-1) - v
+        dcum[..., -1] += decay * dd + v.sum(-1)
+        ddtA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
     return (dx.reshape(BH, nc * Q, P)[:, :L], ddtA.reshape(BH, nc * Q)[:, :L],
             dB.reshape(BG, nc * Q, N)[:, :L], dC.reshape(BG, nc * Q, N)[:, :L])

@@ -7,8 +7,12 @@ C B^T once per group and chunk, each chunk's own end state, the states
 passed from chunk to chunk, and the outputs.  The wrapper allocates the
 scratch those passes hand on (:class:`Plan`).  Its backward
 (:data:`BACKWARD_PASSES`, :func:`backward_plan`) takes the forward's
-scratch and dy and gives dxdt, ddtA, dB and dC in four more launches.
-See the source's header for the bound and the design.
+scratch, its output y and dy and gives dxdt, ddtA, dB and dC in six more
+launches: the state gradients entering and leaving each chunk (and ddtA
+at each chunk's first row), dxdt with ddtA's row terms and dB and dC on
+the tensor cores (3xTF32), dB and dC summed over slices of each group's
+heads in order, and ddtA as a reverse cumsum of the row terms within each
+chunk.  See the source's header for the bound and the design.
 """
 from __future__ import annotations
 
@@ -25,9 +29,9 @@ PASSES = ("ssd_chunk_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
 #: the backward's kernels, in launch order; the first two run only when L
 #: spans more than one chunk
 BACKWARD_PASSES = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk_dx",
-                   "ssd_bwd_chunk_dbc")
-#: the largest state size the backward takes: its last kernel keeps dB and
-#: dC of a chunk, (64, N) each, in shared memory
+                   "ssd_bwd_chunk_dbc", "ssd_bwd_dbc_sum", "ssd_bwd_ddtA")
+#: the largest state size the backward takes: the largest its checks on the
+#: card cover (its kernels walk N in tiles of 64)
 MAX_BACKWARD_N = 256
 
 _ARGTYPES = {
@@ -37,8 +41,10 @@ _ARGTYPES = {
     "ssd_chunk_out_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
     "ssd_bwd_dstate_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
     "ssd_bwd_state_pass_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
-    "ssd_bwd_chunk_dx_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
-    "ssd_bwd_chunk_dbc_launch": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5,
+    "ssd_bwd_chunk_dx_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5,
+    "ssd_bwd_chunk_dbc_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5,
+    "ssd_bwd_dbc_sum_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
+    "ssd_bwd_ddtA_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
 }
 
 
@@ -50,10 +56,10 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         lib.ssd_scan_chunk.argtypes = []
         lib.ssd_scan_chunk.restype = ctypes.c_int
+        lib.ssd_bwd_slices.argtypes = [ctypes.c_int]
+        lib.ssd_bwd_slices.restype = ctypes.c_int
         lib.ssd_bwd_parts.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ssd_bwd_parts.restype = ctypes.c_int
-        lib.ssd_bwd_dbc_smem.argtypes = [ctypes.c_int]
-        lib.ssd_bwd_dbc_smem.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -170,33 +176,41 @@ class BackwardPlan(NamedTuple):
     """A backward call's gradients, its scratch and its launches in order.
     gstates (BH, n_chunks - 1, N, P): dS_in of each chunk past the first,
     then after the state pass g_c, the gradient of chunk c's end state;
-    ddp (BH, n_chunks, parts): the state pass's partial sums of <g_c,
-    S_in[c]>."""
+    ddp (BH, n_chunks - 1, parts): the state pass's partial sums of <g_c,
+    S_in[c + 1]>, ddtA at chunk c + 1's first row; rowterm (ceil(P / 64),
+    BH, L): each row's dy . y - xdt . dxdt over a P tile; parts (2, BG,
+    slices, L, N): each slice of a group's heads' share of dC (at 0) and dB
+    (at 1)."""
     dxdt: torch.Tensor
     ddtA: torch.Tensor
     dB: torch.Tensor
     dC: torch.Tensor
     gstates: torch.Tensor
     ddp: torch.Tensor
+    rowterm: torch.Tensor
+    parts: torch.Tensor
     passes: list[tuple[str, Callable[[], None]]]
 
     def scratch_bytes(self) -> int:
-        return self.gstates.nbytes + self.ddp.nbytes
+        return (self.gstates.nbytes + self.ddp.nbytes + self.rowterm.nbytes
+                + self.parts.nbytes)
 
 
 def backward_plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                   n_rep: int, states: torch.Tensor, decay: torch.Tensor, cbt: torch.Tensor,
-                  dy: torch.Tensor) -> BackwardPlan:
+                  y: torch.Tensor, dy: torch.Tensor) -> BackwardPlan:
     """Check the inputs and allocate the gradients and the scratch; launch
-    nothing.  ``states``, ``decay`` and ``cbt`` are a forward :class:`Plan`'s
-    after its launches (the states entering each chunk past the first),
-    from the same xdt, dtA, B and C; dy (BH, L, P) float32."""
+    nothing.  ``states``, ``decay``, ``cbt`` and ``y`` are a forward
+    :class:`Plan`'s after its launches (the states entering each chunk past
+    the first, and the output), from the same xdt, dtA, B and C; dy (BH,
+    L, P) float32."""
     _check(xdt, dtA, B, C, n_rep)
     BH, L, P = xdt.shape
     BG, N = B.shape[0], B.shape[2]
-    if dy.shape != xdt.shape or dy.dtype != torch.float32 or not dy.is_cuda:
-        raise ValueError(f"ssd_scan backward: dy {tuple(dy.shape)} {dy.dtype}, expected "
-                         f"{tuple(xdt.shape)} float32 on the card")
+    for name, t in (("y", y), ("dy", dy)):
+        if t.shape != xdt.shape or t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError(f"ssd_scan backward: {name} {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(xdt.shape)} float32 on the card")
     if N > MAX_BACKWARD_N:
         raise ValueError(f"ssd_scan backward takes N up to {MAX_BACKWARD_N}; got N={N}")
     lib = _lib()
@@ -207,37 +221,44 @@ def backward_plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torc
         raise ValueError(f"ssd_scan backward: the forward's scratch states "
                          f"{tuple(states.shape)}, decay {tuple(decay.shape)}, cbt "
                          f"{tuple(cbt.shape)} do not fit these inputs")
-    xdt, dtA, B, C, dy, states, decay, cbt = (
-        t.contiguous() for t in (xdt, dtA, B, C, dy, states, decay, cbt))
-    if any(t.data_ptr() % 16 for t in (xdt, B, C, dy, states, cbt)):
-        raise ValueError("ssd_scan backward takes 16-byte aligned xdt, B, C, dy and scratch")
+    xdt, dtA, B, C, y, dy, states, decay, cbt = (
+        t.contiguous() for t in (xdt, dtA, B, C, y, dy, states, decay, cbt))
+    if any(t.data_ptr() % 16 for t in (xdt, B, C, y, dy, states, cbt)):
+        raise ValueError("ssd_scan backward takes 16-byte aligned xdt, B, C, y, dy and scratch")
     dev = xdt.device
     dxdt = torch.empty_like(xdt)
     ddtA = torch.empty_like(dtA)
     dB = torch.empty_like(B)
     dC = torch.empty_like(C)
     gstates = torch.empty_like(states)
-    ddp = torch.empty((BH, nc if nc > 1 else 0, lib.ssd_bwd_parts(P, N)),
-                      dtype=torch.float32, device=dev)
+    ddp = torch.empty((BH, max(nc - 1, 0), lib.ssd_bwd_parts(P, N)), dtype=torch.float32,
+                      device=dev)
+    rowterm = torch.empty((-(-P // Q), BH, L), dtype=torch.float32, device=dev)
+    parts = torch.empty((2, BG, lib.ssd_bwd_slices(n_rep), L, N), dtype=torch.float32,
+                        device=dev)
     args = {
         "ssd_bwd_dstate": (dy, dtA, C, gstates, BH, L, P, N, n_rep),
         "ssd_bwd_state_pass": (gstates, decay, states, ddp, BH, L, P, N),
-        "ssd_bwd_chunk_dx": (dy, dtA, B, cbt, gstates, dxdt, BH, L, P, N, n_rep),
-        "ssd_bwd_chunk_dbc": (xdt, dy, dtA, B, C, cbt, states, gstates, decay, ddp, dB, dC,
-                              ddtA, BG, L, P, N, n_rep),
+        "ssd_bwd_chunk_dx": (dy, xdt, y, dtA, B, cbt, gstates, dxdt, rowterm, BH, L, P, N,
+                             n_rep),
+        "ssd_bwd_chunk_dbc": (xdt, dy, dtA, B, C, states, gstates, parts, BG, L, P, N, n_rep),
+        "ssd_bwd_dbc_sum": (parts, dB, dC, BG, L, N, n_rep),
+        "ssd_bwd_ddtA": (rowterm, ddp, ddtA, BH, L, P, N),
     }
-    names = BACKWARD_PASSES if nc > 1 else ("ssd_bwd_chunk_dx", "ssd_bwd_chunk_dbc")
-    return BackwardPlan(dxdt, ddtA, dB, dC, gstates, ddp, _launchers(lib, dev, args, names))
+    names = BACKWARD_PASSES if nc > 1 else BACKWARD_PASSES[2:]
+    return BackwardPlan(dxdt, ddtA, dB, dC, gstates, ddp, rowterm, parts,
+                        _launchers(lib, dev, args, names))
 
 
 def ssd_scan_bwd_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
                       C: torch.Tensor, n_rep: int, states: torch.Tensor,
-                      decay: torch.Tensor, cbt: torch.Tensor, dy: torch.Tensor
+                      decay: torch.Tensor, cbt: torch.Tensor, y: torch.Tensor,
+                      dy: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on the current stream: (dxdt, ddtA, dB,
     dC), dB and dC summed over each group's heads.  Does not
     synchronise."""
-    call = backward_plan(xdt, dtA, B, C, n_rep, states, decay, cbt, dy)
+    call = backward_plan(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy)
     for _, launch in call.passes:
         launch()
     return call.dxdt, call.ddtA, call.dB, call.dC

@@ -229,11 +229,37 @@ def test_ssd_bwd_bound_at_mamba_training(smoke):
 
 def test_ssd_backward_sweep_covers_the_forward_sweep(smoke):
     """(f) runs every shape of the forward's sweep, L = 1 and 70,000 heads
-    among them, and mamba2-370m's training inputs."""
+    among them, mamba2-370m's training inputs, 3 heads a group (which
+    ``ssd_bwd_chunk_dbc``'s slices of 8 do not divide) and N = 256."""
     shapes = {case[:5] for case in smoke.SSD_BWD_CASES}
     assert set(smoke.SSD_CASES) <= shapes
     assert (64, 2, 4096, 64, 128) in shapes
     assert any(case[2] == 1 for case in shapes) and any(case[0] == 70_000 for case in shapes)
+    assert any(BH // BG == 3 for BH, BG, *_ in shapes)
+    assert any(N == 256 for *_, N in shapes)
+
+
+def test_ssd_bwd_kernel_bounds_at_mamba_training(smoke):
+    """Each backward kernel's own bound at mamba2-370m's training inputs:
+    dB and dC 4 N P a row and head (8.59 GFLOP, 0.128 ms at 67 TFLOP/s),
+    dxdt and dS_in 2 N P each (4.29 GFLOP, 0.064 ms), the rest no
+    operations; together at most the whole backward's 10 N P; 3xTF32's
+    rate only for the two tensor-core kernels."""
+    BH, BG, L, P, N = 64, 2, 4096, 64, 128
+    b = smoke.ssd_bwd_kernel_bounds(BH, BG, L, P, N)
+    assert set(b) == {"ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk_dx",
+                      "ssd_bwd_chunk_dbc", "ssd_bwd_dbc_sum", "ssd_bwd_ddtA"}
+    dbc, dx = b["ssd_bwd_chunk_dbc"], b["ssd_bwd_chunk_dx"]
+    assert dbc["ops"] == 8_589_934_592 and dx["ops"] == b["ssd_bwd_dstate"]["ops"] == 4_294_967_296
+    assert dbc["bound_ms"] == pytest.approx(0.1282, abs=1e-4) and dbc["bound_by"] == "operations"
+    assert dx["bound_ms"] == pytest.approx(0.0641, abs=1e-4) and dx["bound_by"] == "operations"
+    assert dbc["tf32x3_ms"] == pytest.approx(8_589_934_592 / 165e12 * 1e3)
+    assert dx["tf32x3_ms"] == pytest.approx(dx["bytes"] / 3.35e12 * 1e3)  # bytes bound it there
+    assert dbc["bytes"] == 4 * (2 * BH * L * P + BH * L + 2 * BG * L * N)
+    assert all(b[k]["tf32x3_ms"] is None for k in b if k not in smoke.SSD_BWD_TC)
+    whole_ops, _ = smoke.ssd_bwd_bound(BH, BG, L, P, N)
+    assert sum(k["ops"] for k in b.values()) <= whole_ops
+    assert b["ssd_bwd_state_pass"]["ops"] == 0 and b["ssd_bwd_state_pass"]["bytes"] > 0
 
 
 @pytest.mark.parametrize("control,module,name,n_grads", [
@@ -256,3 +282,25 @@ def test_smoke_training_controls(smoke, monkeypatch, control, module, name, n_gr
     assert getattr(binding, name) is stub
     for i, (g, w) in enumerate(zip(got, grads)):
         assert torch.equal(g, torch.zeros_like(w) if i == 1 else w)
+
+
+def test_plain_ssd_backward_stands_in_for_the_binding(smoke):
+    """(g)'s exact-gradient runs put ``_plain64_ssd_backward`` in the ssd
+    backward binding's place: it takes the binding's arguments and returns
+    ``ssd_scan_bwd_ref`` in float64, rounded to float32."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+
+    binding = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    assert (list(inspect.signature(smoke._plain64_ssd_backward).parameters)
+            == list(inspect.signature(binding.ssd_scan_bwd_cuda).parameters))
+    rng = np.random.default_rng(7)
+    xdt, dy = (torch.as_tensor(rng.normal(size=(4, 70, 8)), dtype=torch.float32)
+               for _ in range(2))
+    dtA = torch.as_tensor(-rng.uniform(0.01, 0.5, size=(4, 70)), dtype=torch.float32)
+    B, C = (torch.as_tensor(rng.normal(size=(2, 70, 16)) * 0.3, dtype=torch.float32)
+            for _ in range(2))
+    got = smoke._plain64_ssd_backward(xdt, dtA, B, C, 2, None, None, None, None, dy)
+    want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), 2, dy.double())
+    assert all(g.dtype == torch.float32 and torch.equal(g, w.float()) for g, w in zip(got, want))

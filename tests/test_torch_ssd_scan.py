@@ -18,7 +18,15 @@ of the port's plain forms, each gradient within 1e-5 of its max |value|
 (float32 sums in another order; measured up to ~1e-6), beside a control
 (dy one position off) that must read far outside; and ``ops.ssd_scan``'s
 gradients in the model layout against ``jax.grad`` of the reference's.
+Its options, the arithmetic of the backward kernels on the card (ddtA from
+y, 3xTF32 products, dB and dC summed over slices of heads), in float32
+against ``jax.grad`` of the reference's recurrence and against the float64
+plain backward within 1e-4 of each gradient's max |value|, the card's limit
+(``chip_smoke.SSD_BWD_TOL``); in float64 the regrouped dB and dC and the
+identity's ddtA equal the default form within 1e-12.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,8 +38,9 @@ from repro.kernels.ssd_scan import ops as jax_ops
 from repro.kernels.ssd_scan import ref as jax_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_ref, ssd_scan_chunked,
-                                              ssd_scan_ref, ssd_scan_state_passing)
+from repro_torch.kernels.ssd_scan.ref import (einsum_3xtf32, ssd_scan_bwd_ref,
+                                              ssd_scan_chunked, ssd_scan_ref,
+                                              ssd_scan_state_passing, tf32_round)
 
 
 def _rel_err(t, j):
@@ -292,3 +301,108 @@ def test_chunked_gradient_is_finite_where_the_reference_is_nan(rng):
         # cancelling diagonal out, 1e-4 (measured 2.5e-5 to 3.3e-5)
         tol_g, tol_p = (2e-3, 1e-4) if name == "ddtA" else (BWD_TOL, BWD_TOL)
         assert _grad_rel(g, w) < tol_g and _grad_rel(p, w) < tol_p, name
+
+
+#: the backward kernels' arithmetic on the card (``ssd_scan_bwd_ref``'s
+#: options) against jax.grad of the recurrence and the float64 plain
+#: backward, per gradient, of its max |value|: the card's own limit
+KERNEL_ARITH_TOL = 1e-4
+KERNEL_OPTIONS = {
+    "identity": {"ddtA_from_y": True},
+    "tf32x3": {"tf32x3": True, "slice_heads": 8},
+    "both": {"ddtA_from_y": True, "tf32x3": True, "slice_heads": 8},
+}
+#: (BH, BG, L, P, N, largest |dtA| a step): ragged lengths; 1, 3 and 32
+#: heads a group; P and N of 16, and mamba2-370m's 64 and 128
+KERNEL_ARITH_SHAPES = [(2, 2, 100, 16, 16, 0.5), (6, 2, 150, 16, 16, 12.0),
+                       (32, 1, 130, 16, 16, 0.5), (4, 4, 130, 64, 128, 12.0),
+                       (6, 2, 90, 64, 128, 0.5), (32, 1, 100, 64, 128, 12.0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_arith_case(BH, BG, L, P, N, amax):
+    """Inputs (float32 numpy), jax.grad of the reference's recurrence in
+    float32, and the float64 plain backward."""
+    rng = np.random.default_rng(BH * 1000 + L)
+    arrs = (rng.normal(size=(BH, L, P)) * 0.5,
+            -(0.01 + (amax - 0.01) * rng.uniform(size=(BH, L))),
+            rng.normal(size=(BG, L, N)) * 0.3, rng.normal(size=(BG, L, N)) * 0.3)
+    arrs = tuple(a.astype(np.float32) for a in arrs)
+    dy = rng.normal(size=(BH, L, P)).astype(np.float32)
+    n_rep = BH // BG
+    jdy = jnp.asarray(dy)
+    recurrence = jax.grad(lambda *a: jnp.sum(jax_ref.ssd_scan_ref(*a, n_rep) * jdy),
+                          argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrs))
+    f64 = ssd_scan_bwd_ref(*(torch.as_tensor(a, dtype=torch.float64) for a in arrs), n_rep,
+                           torch.as_tensor(dy, dtype=torch.float64))
+    return arrs, dy, [np.asarray(g) for g in recurrence], [g.numpy() for g in f64]
+
+
+@pytest.mark.parametrize("option", sorted(KERNEL_OPTIONS))
+@pytest.mark.parametrize("BH,BG,L,P,N,amax", KERNEL_ARITH_SHAPES)
+def test_kernel_arithmetic_matches_jax_grad_and_float64(BH, BG, L, P, N, amax, option):
+    """``ssd_scan_bwd_ref`` with the backward kernels' arithmetic, in
+    float32: each gradient within 1e-4 of its max |value| of ``jax.grad``
+    of the reference's per-step recurrence and of the float64 plain
+    backward."""
+    arrs, dy, recurrence, f64 = _kernel_arith_case(BH, BG, L, P, N, amax)
+    got = ssd_scan_bwd_ref(*(torch.as_tensor(a) for a in arrs), BH // BG, torch.as_tensor(dy),
+                           **KERNEL_OPTIONS[option])
+    for name, g, r, w in zip(("dxdt", "ddtA", "dB", "dC"), got, recurrence, f64):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert _grad_rel(g, r) < KERNEL_ARITH_TOL, (name, "recurrence", _grad_rel(g, r))
+        assert _grad_rel(g, w) < KERNEL_ARITH_TOL, (name, "float64", _grad_rel(g, w))
+
+
+@pytest.mark.parametrize("slice_heads", [1, 3, 8, 12])
+def test_regrouped_dB_dC_equal_the_per_head_form(rng, slice_heads):
+    """In float64, dB and dC with D summed over slices of a group's heads
+    before its products with B and C (12 heads a group: slices that divide
+    it and one, 8, that does not) equal the per-head form within 1e-12, and
+    the option leaves dxdt and ddtA as they were."""
+    BH, BG, L, P, N = 24, 2, 150, 8, 16
+    tx = [torch.as_tensor(a) for a in _kernel_inputs(rng, BH, BG, L, P, N)]
+    dy = torch.as_tensor(rng.normal(size=(BH, L, P)))
+    want = ssd_scan_bwd_ref(*tx, BH // BG, dy)
+    got = ssd_scan_bwd_ref(*tx, BH // BG, dy, slice_heads=slice_heads)
+    for name, g, w in zip(("dxdt", "ddtA", "dB", "dC"), got, want):
+        assert g.dtype == torch.float64 and _grad_rel(g, w.numpy()) < 1e-12, name
+
+
+@pytest.mark.parametrize("BH,BG,L,amax", [(4, 2, 150, 0.5), (6, 2, 200, 12.0), (3, 3, 64, 0.5),
+                                         (3, 3, 1, 0.5)])
+def test_identity_ddtA_equals_the_chunk_form(rng, BH, BG, L, amax):
+    """In float64, ddtA as the reverse cumsum over the sequence of dy . y -
+    xdt . dxdt (y from the plain backward's own forward steps) equals the
+    within-chunk form (W, u, v and dd_c) within 1e-12, exactly 0 at the
+    first row (L = 1 among the cases); the other gradients are
+    unchanged."""
+    P, N = 8, 16
+    xdt, _, B, C = _kernel_inputs(rng, BH, BG, L, P, N)
+    dtA = -(0.01 + (amax - 0.01) * rng.uniform(size=(BH, L)))
+    tx = [torch.as_tensor(a) for a in (xdt, dtA, B, C)]
+    dy = torch.as_tensor(rng.normal(size=(BH, L, P)))
+    want = ssd_scan_bwd_ref(*tx, BH // BG, dy)
+    got = ssd_scan_bwd_ref(*tx, BH // BG, dy, ddtA_from_y=True)
+    for name, g, w in zip(("dxdt", "ddtA", "dB", "dC"), got, want):
+        assert g.dtype == torch.float64 and _grad_rel(g, w.numpy()) < 1e-12, name
+
+
+def test_tf32_round_is_cvt_rna():
+    """``tf32_round`` keeps 10 mantissa bits, rounding to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``); the 3xTF32 split keeps hi + lo
+    within 2^-22 of the value, and ``einsum_3xtf32`` a product within
+    float32's reach of the float64 one, where one TF32 pass is ~1e-3 off."""
+    x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-12, 2.0**-130],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 2.0**-130],
+                        dtype=torch.float32)
+    assert torch.equal(tf32_round(x), want)
+    rng = np.random.default_rng(5)
+    a, b = (torch.as_tensor(rng.normal(size=(64, 64)), dtype=torch.float32) for _ in range(2))
+    exact = a.double() @ b.double()
+    three = einsum_3xtf32("ik,kj->ij", a, b)
+    one = tf32_round(a) @ tf32_round(b)
+    scale = float(exact.abs().max())
+    assert float((three.double() - exact).abs().max()) / scale < 1e-6
+    assert float((one.double() - exact).abs().max()) / scale > 1e-4

@@ -452,6 +452,17 @@ def build_report() -> dict[str, dict]:
           f"an ssd_scan kernel spills: {ssd}")
     check(all(ssd[k]["hmma_tf32"] > 0 for k in SSD_BWD_TC),
           f"an ssd_scan backward kernel of {SSD_BWD_TC} has no TF32 HMMA: {ssd}")
+    # two blocks of 256 threads an SM for each tensor-core kernel: registers
+    # within half the SM's 65,536, shared memory (dynamic, static and the
+    # 1 KB a block the runtime keeps) within half its 233,472 bytes
+    lib = _build.load("ssd_scan")
+    for k, smem in (("ssd_bwd_chunk_dx", lib.ssd_bwd_dx_smem()),
+                    ("ssd_bwd_chunk_dbc", lib.ssd_bwd_dbc_smem())):
+        r = ssd[k]
+        fits = r["registers"] * 256 * 2 <= 65536 and 2 * (smem + r["smem"] + 1024) <= 233472
+        log(f"{k}: {smem} bytes of dynamic shared memory, {r['registers']} registers: "
+            f"{'two blocks an SM' if fits else 'fewer than two blocks an SM'}")
+        check(fits, f"{k} no longer runs two blocks an SM: {r}, {smem} bytes dynamic")
     return report
 
 
@@ -3695,8 +3706,12 @@ def fleet_routing(store, detail_rows: int, per_stmt: int, device, timed: bool) -
 def fleet_admission(store, device) -> dict:
     """(e): ``AdmissionPolicy(store=...)`` cold, then a second policy over
     the same store: its request statement is a store hit, its verdicts the
-    cold ones and the rules written out in Python."""
+    cold ones and the rules written out in Python.  Each policy's scheduler
+    is the one it builds by default, on a clock that does not advance: on
+    ``time.monotonic`` a busy host can let the flush window close a batch
+    early, and the warm drain's other bucket then saves a new entry."""
     from repro_torch.serve.admission import AdmissionPolicy
+    from repro_torch.serve.scheduler import CoalescingScheduler
 
     n = FLEET_ADMISSION_REQUESTS
     rng = np.random.default_rng(3)
@@ -3708,7 +3723,9 @@ def fleet_admission(store, device) -> dict:
                              float(fields["temperature"][i]), n) for i in range(n)]
     out, verdicts = {}, {}
     for phase in ("cold", "warm"):
-        ap = AdmissionPolicy(device=device, store=store)
+        sched = CoalescingScheduler(clock=lambda: 0.0, fuse=False, adaptive=False,
+                                    default_timeout_s=None)
+        ap = AdmissionPolicy(device=device, store=store, scheduler=sched)
         t0 = time.perf_counter()
         got = ap.evaluate_coalesced(fields)
         ms = (time.perf_counter() - t0) * 1e3
@@ -4280,7 +4297,12 @@ def relagg_variants_phase() -> dict:
 #: serving phase: (arch, the kernel its prefill runs, runs of the request
 #: mix); phi3 and gemma3 are served once, to keep the script in its time
 SERVE_ARCHS = (("granite3_2b", "flash_attention", 2), ("mamba2_370m", "ssd_scan", 2),
-               ("phi3_mini_38b", "flash_attention", 1), ("gemma3_12b", "flash_attention", 1))
+               ("phi3_mini_38b", "flash_attention", 1), ("gemma3_12b", "flash_attention", 1),
+               ("granite_moe_3b_a800m", "flash_attention", 1))
+#: the mixture-of-experts archs whose smoke configs the LM cross-device
+#: phase runs (granite-moe's also serves at full width above; mixtral-8x7b
+#: and jamba-1.5-large do not fit the card at full width in float32)
+MOE_SMOKE_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x7b", "jamba15_large_398b")
 #: archs whose smoke config runs at its published head dim in the LM
 #: cross-device phase (D = 96 and 256, the flash instances only they take)
 PUBLISHED_HEAD_DIM = ("phi3_mini_38b", "gemma3_12b")
@@ -4317,7 +4339,8 @@ def flash_kernel_phase(digest_only: bool = False) -> dict:
     runs in both.  The cases at head dims 16, 64 and 128 come first, from
     their own generator, and each output's sha256 is kept; with
     ``digest_only`` the phase stops after them.  phi3-mini-3.8b's and
-    gemma3-12b's head dims (96, 256) follow, from a second generator."""
+    gemma3-12b's head dims (96, 256) follow, from a second generator, then
+    granite-moe-3b-a800m's grouping of 24 query heads on 8."""
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
@@ -4365,6 +4388,11 @@ def flash_kernel_phase(digest_only: bool = False) -> dict:
                      (1, 4, 2, 200, 333, D, dt, {"causal": True}),
                      (1, 4, 1, 333, 200, D, dt, {"causal": False}),
                      (1, 4, 2, 70, 333, D, dt, {"causal": True, "q_offset": 263})]
+    # granite-moe-3b-a800m's heads, 24 query heads on 8 KV heads (a group
+    # of 3, which no other served model has): its first prefill batch's
+    # shape on the tensor cores, and a ragged one in float32
+    wide += [(4, 24, 8, 1819, 1819, 64, bf16, {"causal": True}),
+             (1, 24, 8, 300, 300, 64, f32, {"causal": True})]
     max_err = {f32: 0.0, bf16: 0.0}
     digests: dict[str, str] = {}
 
@@ -4708,7 +4736,8 @@ class LongestCall:
         return self.fn(*args, **kwargs)
 
 
-def device_busy(fn, host: bool = True) -> tuple[float | None, list, dict, int]:
+def device_busy(fn, host: bool = True,
+                annotation: str | None = None) -> tuple[float | None, list, dict, int]:
     """Device time (ms) of what ``fn`` runs on the card, as the union of the
     intervals of the device events (kernels, copies) in a ``torch.profiler``
     trace, the five kernels with the most device time, and the port's own
@@ -4717,7 +4746,11 @@ def device_busy(fn, host: bool = True) -> tuple[float | None, list, dict, int]:
     argument (``flash_fwd_bf16<96>``, the head dim), and the number of
     device events.  (None, [], {}, 0) if the trace holds no device event.
     ``host=False`` records no host operators, which keeps the profiler's own
-    host cost down over a long ``fn``."""
+    host cost down over a long ``fn``.  With ``annotation``, the name of
+    ``torch.profiler.record_function`` ranges that ``fn`` opens, the third
+    item also holds ``annotation``: the device time of the kernels launched
+    inside those ranges (ms) and their number (the ranges themselves are
+    not device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4728,7 +4761,7 @@ def device_busy(fn, host: bool = True) -> tuple[float | None, list, dict, int]:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA and e.name != annotation)
     if not spans:
         return None, [], {}, 0
     busy, end, by_name, port = 0.0, float("-inf"), {}, {}
@@ -4743,6 +4776,11 @@ def device_busy(fn, host: bool = True) -> tuple[float | None, list, dict, int]:
                 entry = port.setdefault(key, {"ms": 0.0, "launches": 0})
                 entry["ms"] += (b - a) / 1e3
                 entry["launches"] += 1
+    if annotation is not None:
+        ranges = [e for e in prof.events()
+                  if e.name == annotation and e.device_type == DeviceType.CPU]
+        port[annotation] = {"ms": sum(e.device_time_total for e in ranges) / 1e3,
+                            "launches": len(ranges)}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return busy / 1e3, [(name[:60], ms / 1e3) for name, ms in top], port, len(spans)
 
@@ -4751,8 +4789,13 @@ def busy_breakdown(model, reqs, expected) -> dict:
     """Device busy time of one prefill at the first batch's shape (the
     trace with more device events of two) and of 4 decode steps after it
     (profiled apart from the timed runs, whose host clock the profiler
-    would inflate)."""
+    would inflate).  For a model with MoE layers, also the device time of
+    the kernels launched inside them in the traced prefill (each ``moe``
+    call inside a ``record_function("moe")`` range) and its share of the
+    prefill's busy time."""
     import torch
+
+    from repro_torch.models import transformer as T
 
     batch = [r for r in reqs if expected[r.rid][0]][:SLOTS]
     S = max(len(r.prompt) for r in batch)
@@ -4770,17 +4813,40 @@ def busy_breakdown(model, reqs, expected) -> dict:
             nxt = state["logits"].argmax(-1).to(torch.int32)[:, None]
             state["logits"], state["cache"] = model.decode_step(state["cache"], nxt)
 
+    cfg = model.cfg
+    moe_layers = cfg.n_repeats * sum(spec.mlp == "moe" for spec in cfg.super_block)
+    has_moe = moe_layers > 0
+    annotation = "moe" if has_moe else None
+    moe = T.moe
+
+    def annotated_moe(*args, **kwargs):
+        with torch.profiler.record_function("moe"):
+            return moe(*args, **kwargs)
+
     prefill()  # warm
     # a trace now and then loses a device event (a flash kernel of
     # gemma3-12b's prefill, in a full run of this script) and never adds
     # one: the readings and the checks on the prefill's kernels take the
     # more complete of two traces of it
-    p_ms, p_top, p_port, _ = max((device_busy(prefill) for _ in range(2)), key=lambda r: r[3])
+    if has_moe:
+        T.moe = annotated_moe
+    try:
+        p_ms, p_top, p_port, _ = max((device_busy(prefill, annotation=annotation)
+                                      for _ in range(2)), key=lambda r: r[3])
+    finally:
+        T.moe = moe
     d_ms, d_top, _, _ = device_busy(decode)
     del state
-    return {"prefill_busy_ms": p_ms, "prefill_top": p_top, "prefill_port_kernels": p_port,
-            "decode_busy_ms_per_step": None if d_ms is None else d_ms / 4,
-            "decode_top": d_top}
+    out = {"prefill_busy_ms": p_ms, "prefill_top": p_top, "prefill_port_kernels": p_port,
+           "decode_busy_ms_per_step": None if d_ms is None else d_ms / 4,
+           "decode_top": d_top}
+    if has_moe and p_ms is not None:
+        layers = p_port.pop("moe")
+        check(layers["launches"] == moe_layers and layers["ms"] > 0,
+              f"{cfg.name} prefill: {layers['launches']} traced moe ranges with "
+              f"{layers['ms']:.3f} ms of kernels, expected {moe_layers} with some")
+        out.update(prefill_moe_ms=layers["ms"], prefill_moe_share=layers["ms"] / p_ms)
+    return out
 
 
 def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCall]:
@@ -4914,7 +4980,10 @@ def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCal
             + ("not measured (no device events in the trace)" if ms is None else
                f"{ms:.2f} ms of {wall:.2f} ms (idle share {1.0 - ms / wall:.3f}); top "
                f"{[(n, round(t, 2)) for n, t in busy[what + '_top']]}"
-               + (f"; port kernels {port}" if what == "prefill" else "")))
+               + (f"; port kernels {port}" if what == "prefill" else "")
+               + (f"; MoE layers {busy['prefill_moe_ms']:.2f} ms, a share of "
+                  f"{busy['prefill_moe_share']:.3f}"
+                  if what == "prefill" and "prefill_moe_ms" in busy else "")))
     walls = " s and ".join(f"{run['wall_s']:.2f}" for run in runs)
     log(f"{cfg.name}: served {len(reqs)} requests ({summary['rejected']} rejected by "
         f"admission, {generated} tokens) in {walls} s; prefill ms per batch "
@@ -5270,7 +5339,13 @@ def time_ssd(args) -> dict:
     }
 
 
-def lm_cross_device_phase() -> None:
+#: the MoE smoke configs' float32 cross-device gate, x max|logit|: float32
+#: on both sides (no TF32), the card's float32 flash and ssd kernels within
+#: 2e-5 and 3e-4 of their plain versions, sums in another order
+MOE_F32_TOL = 1e-3
+
+
+def lm_cross_device_phase() -> dict:
     """The smoke configs with the same parameters on the CPU and on the
     card: prefill logits, then 4 teacher-forced decode steps, within
     2e-2 x max|logit| (bf16 activations summed in another order); and the
@@ -5281,16 +5356,27 @@ def lm_cross_device_phase() -> None:
     two, the same run on the card with the plain version in place of the
     kernel (P in float32, never rounded to bf16) is read against the CPU:
     where the kernel's reading nears the tolerance, that tells its P
-    rounding from the rest of the card's arithmetic."""
+    rounding from the rest of the card's arithmetic.
+
+    The MoE archs (:data:`MOE_SMOKE_ARCHS`; jamba's hybrid stack runs
+    flash_attention and ssd_scan in one model) are gated with float32
+    activations and caches on both sides, within :data:`MOE_F32_TOL`: in
+    bf16 a token whose k-th and (k + 1)-th router weights lie within
+    rounding of each other can take another expert on the card than on the
+    CPU, a step in its logits.  Their bf16 run is read, not gated: its gap
+    beside the number of (token, layer) routes that differ.  Returns the
+    MoE archs' readings."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import config_for, smoke_config_for
-    from repro_torch.kernels.flash_attention import flash_attention as fa_binding
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
     from repro_torch.models import transformer as T
+    from repro_torch.models.layers import _router_probs
     from repro_torch.serve.admission import AdmissionPolicy
 
     def to_card(t):
@@ -5300,19 +5386,46 @@ def lm_cross_device_phase() -> None:
             return [to_card(v) for v in t]
         return t.to("cuda")
 
-    def teacher_forced(model, device, toks, steps):
-        """The prefill's logits and each decode step's, on the CPU."""
-        logits, cache = model.prefill(toks.to(device), max_len=64)
-        out = [logits.cpu()]
-        for nt in steps:
-            logits, cache = model.decode_step(cache, nt.to(device))
-            out.append(logits.cpu())
+    def teacher_forced(model, device, toks, steps, routes=None):
+        """The prefill's logits and each decode step's, on the CPU; with
+        ``routes``, each MoE call's chosen experts (a sorted row a token)
+        appended to it in call order."""
+        moe = T.moe
+
+        def recorded(params, x, top_k):
+            probs = _router_probs(params, x.reshape(-1, x.shape[-1]))
+            chosen = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :top_k]
+            routes.append(torch.sort(chosen, dim=-1)[0].cpu())
+            return moe(params, x, top_k)
+
+        if routes is not None:
+            T.moe = recorded
+        try:
+            logits, cache = model.prefill(toks.to(device), max_len=64)
+            out = [logits.cpu()]
+            for nt in steps:
+                logits, cache = model.decode_step(cache, nt.to(device))
+                out.append(logits.cpu())
+        finally:
+            T.moe = moe
         return out
 
     def worst(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
-    for arch, _, _ in SERVE_ARCHS:
+    def float32_compute():
+        """Patch the stack to float32 activations and caches; returns the
+        undo."""
+        saved = T.COMPUTE_DTYPE, T.init_cache.__defaults__
+        T.COMPUTE_DTYPE = torch.float32
+        T.init_cache.__defaults__ = (0, torch.float32, None)
+
+        def undo():
+            T.COMPUTE_DTYPE, T.init_cache.__defaults__ = saved
+        return undo
+
+    moe_out = {}
+    for arch in dict.fromkeys([a for a, _, _ in SERVE_ARCHS] + list(MOE_SMOKE_ARCHS)):
         cfg = smoke_config_for(arch)
         if arch in PUBLISHED_HEAD_DIM:
             cfg = dataclasses.replace(cfg, head_dim=config_for(arch).head_dim)
@@ -5323,6 +5436,43 @@ def lm_cross_device_phase() -> None:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
         steps = [torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32))
                  for _ in range(4)]
+        if arch in MOE_SMOKE_ARCHS:
+            undo = float32_compute()
+            try:
+                cpu = teacher_forced(models["cpu"], "cpu", toks, steps)
+                fa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0  # the card's float32 run only
+                card = teacher_forced(models["card"], "cuda", toks, steps)
+                launches = {"flash_attention": fa_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
+            finally:
+                undo()
+            tol = MOE_F32_TOL * float(cpu[0].abs().max())
+            check(all(bool(torch.isfinite(x).all()) for x in card),
+                  f"{cfg.name} smoke float32: non-finite logits on the card")
+            for step, (x, y) in enumerate(zip(cpu, card)):
+                err = float((x - y).abs().max())
+                what = "prefill" if step == 0 else f"decode {step - 1}"
+                check(err <= tol, f"{cfg.name} smoke float32 {what}: cpu vs card {err} > {tol}")
+            mixers = {spec.mixer for spec in cfg.super_block}
+            want = {"flash_attention": "attn" in mixers, "ssd_scan": "mamba" in mixers}
+            check(all((n > 0) == want[k] for k, n in launches.items()),
+                  f"{cfg.name} smoke float32 on the card: kernel launches {launches}, expected "
+                  f"some of {[k for k, w in want.items() if w]} and none of the others")
+            routes_cpu, routes_card = [], []
+            cpu16 = teacher_forced(models["cpu"], "cpu", toks, steps, routes_cpu)
+            card16 = teacher_forced(models["card"], "cuda", toks, steps, routes_card)
+            differ = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(routes_cpu, routes_card))
+            total = sum(a.shape[0] for a in routes_cpu)
+            moe_out[arch] = {"f32_max_abs_diff": worst(cpu, card), "f32_tol": tol,
+                             "f32_launches": launches, "bf16_max_abs_diff": worst(cpu16, card16),
+                             "bf16_max_abs_logit": float(cpu16[0].abs().max()),
+                             "bf16_routes_differ": differ, "routes": total}
+            log(f"LM cross-device: {cfg.name} smoke (MoE, {cfg.moe.n_experts} experts, top "
+                f"{cfg.moe.top_k}) prefill + 4 decode steps in float32, cpu vs card max |diff| "
+                f"{worst(cpu, card):.3g} (tolerance {tol:.3g}); card launches {launches}; in "
+                f"bf16, not gated: max |diff| {moe_out[arch]['bf16_max_abs_diff']:.3g} of "
+                f"max|logit| {moe_out[arch]['bf16_max_abs_logit']:.3g}, {differ} of {total} "
+                f"(token, layer) routes differ")
+            continue
         cpu = teacher_forced(models["cpu"], "cpu", toks, steps)
         card = teacher_forced(models["card"], "cuda", toks, steps)
         tol = 2e-2 * float(cpu[0].abs().max())
@@ -5332,6 +5482,9 @@ def lm_cross_device_phase() -> None:
             check(err <= tol, f"{cfg.name} smoke {what}: cpu vs card {err} > {tol}")
         plain = ""
         if arch in PUBLISHED_HEAD_DIM:
+            # by path: the package's own ``flash_attention`` is the ops function
+            fa_binding = importlib.import_module(
+                "repro_torch.kernels.flash_attention.flash_attention")
             kernel = fa_binding.flash_attention_cuda
             fa_binding.flash_attention_cuda = lambda q, k, v, **kw: flash_attention_ref(
                 q, k, v, **kw)
@@ -5353,6 +5506,7 @@ def lm_cross_device_phase() -> None:
     for name in a:
         check(np.array_equal(a[name], b[name]), f"admission {name}: cpu {a[name]} vs card {b[name]}")
     log("LM cross-device: admission verdicts cpu == card")
+    return moe_out
 
 
 # ---------------------------------------------------------------------------
@@ -6059,12 +6213,12 @@ def time_flash_backward(label: str, args: tuple, kw: dict) -> dict:
 
 
 #: ssd_scan's backward against ``ssd_scan_bwd_ref`` in float64, per
-#: gradient, max |kernel - plain| over max |plain|: float32 sums in another
-#: order, and the chunk's float32 cumsum of dtA (whose rounding grows with
-#: |cum|) in every exp(cum_i - cum_j).  Measured up to 2.1e-6 at |dtA| up to
-#: 0.5, 2.1e-5 up to 12, 7.2e-5 up to 50 (the forward shares that cumsum),
-#: and 1.7e-5 at mamba2-370m's own training inputs (NVIDIA H100 80GB HBM3,
-#: 700.00 W); the start was 1e-3
+#: gradient, max |kernel - plain| over max |plain|: float32 products and
+#: sums in another order.  With every exponent from one float64 chunk
+#: cumsum (C11), the worst over (f)'s 25 draws was 9.6e-6 (ddtA), 2.9e-6
+#: (dxdt), and at mamba2-370m's training shape at |dtA| up to 50 1.5e-6;
+#: with a float32 cumsum it was 7.2e-5, and up to 1.55e-4 on the survey's
+#: draws (NVIDIA H100 80GB HBM3, 700.00 W); the start was 1e-3
 SSD_BWD_TOL = 1e-4
 #: (BH, BG, L, P, N, largest |dtA| a step): the forward sweep's shapes
 #: (:data:`SSD_CASES`), mamba2-370m's training inputs (B = 2 a microbatch:
@@ -6079,7 +6233,27 @@ SSD_BWD_CASES = ([(*case, 0.5) for case in SSD_CASES]
                     (8, 2, 200, 64, 256, 0.5)])
 
 
+#: (BH, BG, L, P, N): mamba2-370m's training-step inputs, a microbatch of 2
+#: x 4,096 tokens (32 heads of 64 on one group of state 128 a sequence)
+SSD_BWD_TIMED = (64, 2, 4096, 64, 128)
+#: the draws (seed, largest |dtA| a step) at :data:`SSD_BWD_TIMED`, each
+#: from a generator of its own seed: at strong decays a float32 chunk
+#: cumsum put dxdt and ddtA over SSD_BWD_TOL on some of them (ROADMAP C11,
+#: closed by the kernels' float64 sums).  (f) gates them beside
+#: :data:`SSD_BWD_CASES`; ``--ssd-bwd-times`` reads them in whatever tree
+#: it runs in, without gating, so that a parent's kernels read too
+SSD_BWD_SURVEY = tuple((seed, amax) for seed in (32, 33, 34, 35, 36) for amax in (12.0, 50.0))
+
 SSD_GRAD_NAMES = ("dxdt", "ddtA", "dB", "dC")
+
+
+def ssd_bwd_gated_draws() -> list[tuple]:
+    """(f)'s draws in order, each (BH, BG, L, P, N, largest |dtA|, seed):
+    :data:`SSD_BWD_CASES` from one generator seeded 31 (seed None), then
+    :data:`SSD_BWD_SURVEY`'s draws at :data:`SSD_BWD_TIMED`, each from a
+    generator of its own seed, as ``--ssd-bwd-times`` draws them."""
+    return ([(*case, None) for case in SSD_BWD_CASES]
+            + [(*SSD_BWD_TIMED, amax, seed) for seed, amax in SSD_BWD_SURVEY])
 
 
 def ssd_bwd_inputs(g, BH: int, BG: int, L: int, P: int, N: int, amax: float):
@@ -6097,7 +6271,7 @@ def ssd_bwd_inputs(g, BH: int, BG: int, L: int, P: int, N: int, amax: float):
 
 def ssd_backward_checks() -> dict:
     """(f): the backward kernels against ``ssd_scan_bwd_ref`` in float64 at
-    :data:`SSD_BWD_CASES`, each gradient within :data:`SSD_BWD_TOL` of its
+    :func:`ssd_bwd_gated_draws`, each gradient within :data:`SSD_BWD_TOL` of its
     max |plain|; dy one position off must read outside the limit on every
     gradient (a control); two launches give the same bits; and
     ``ops.ssd_scan`` on model-layout inputs that require grad, inside a
@@ -6113,9 +6287,12 @@ def ssd_backward_checks() -> dict:
     names = SSD_GRAD_NAMES
     g = torch.Generator(device="cuda").manual_seed(31)
     errs, max_abs = {}, 0.0
-    for BH, BG, L, P, N, amax in SSD_BWD_CASES:
+    for BH, BG, L, P, N, amax, seed in ssd_bwd_gated_draws():
         label = f"BH={BH} BG={BG} L={L} P={P} N={N} |dtA|<={amax}"
-        xdt, dtA, B, C, dy = ssd_bwd_inputs(g, BH, BG, L, P, N, amax)
+        if seed is not None:
+            label += f" seed {seed}"
+        draw = g if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+        xdt, dtA, B, C, dy = ssd_bwd_inputs(draw, BH, BG, L, P, N, amax)
         fw = plan(xdt, dtA, B, C, BH // BG)
         for _, launch in fw.passes:
             launch()
@@ -6401,23 +6578,14 @@ def ssd_bwd_split_lines(split: dict[str, float], bounds: dict[str, dict]) -> lis
     return lines
 
 
-#: (BH, BG, L, P, N): mamba2-370m's training-step inputs, a microbatch of 2
-#: x 4,096 tokens (32 heads of 64 on one group of state 128 a sequence)
-SSD_BWD_TIMED = (64, 2, 4096, 64, 128)
-#: the draws (seed, largest |dtA| a step) at :data:`SSD_BWD_TIMED` over
-#: which ``--ssd-bwd-times`` reads the backward's error without gating it:
-#: at strong decays the chunk's float32 cumsum, which the backward shares
-#: with the forward, puts dxdt and ddtA near SSD_BWD_TOL and on some draws
-#: over it (ROADMAP C11)
-SSD_BWD_SURVEY = tuple((seed, amax) for seed in (32, 33, 34, 35, 36) for amax in (12.0, 50.0))
-
-
 def ssd_bwd_times_phase() -> dict:
     """``--ssd-bwd-times``: ssd_scan's backward at :data:`SSD_BWD_TIMED`
     from seed 32, at |dtA| up to 0.5 and 50: held to the float64 plain
     backward within :data:`SSD_BWD_TOL` and timed whole and by kernel, each
     beside its own bound; then its error over :data:`SSD_BWD_SURVEY`'s
-    draws, not gated.  It reads the kernels from the binding's
+    draws, not gated (train (f) gates them); the forward's time at
+    :data:`SSD_SERVING_TIMED` and at :data:`SSD_BWD_TIMED`; and a
+    mamba2-370m training step's (:func:`mamba_step_ms`).  It reads the kernels from the binding's
     ``BACKWARD_PASSES`` and passes the forward's y only where the binding's
     ``backward_plan`` takes it, so a copy of this script in an unpacked
     parent tree times the parent's kernels the same way.  It fails, after
@@ -6476,12 +6644,56 @@ def ssd_bwd_times_phase() -> dict:
             f"plain| / max |plain| { {n: float(f'{e:.3g}') for n, e in rel.items()} }")
         torch.cuda.empty_cache()
     worst = {n: max(r[n] for r in out["survey"].values()) for n in SSD_GRAD_NAMES}
+    out["survey_worst"] = worst
+    out["forward"] = {}
+    for label, (fBH, fBG, fL, fP, fN) in (("serving", SSD_SERVING_TIMED),
+                                          ("training", SSD_BWD_TIMED)):
+        # seed 37, |dtA| up to 0.5: held to the plain chunked form and
+        # timed as the serving path's captured call is
+        xdt, dtA, B, C, _ = ssd_bwd_inputs(torch.Generator(device="cuda").manual_seed(37),
+                                           fBH, fBG, fL, fP, fN, 0.5)
+        f = out["forward"][label] = time_ssd(((xdt, dtA, B, C, fBH // fBG), {}))
+        log(f"--ssd-bwd-times ({ROOT}) forward at {label} inputs {f['shape']}: {f['ms']:.4f} "
+            f"ms; max |kernel - plain| / max |plain| {f['max_rel_err']:.3g}")
+        del xdt, dtA, B, C
+        torch.cuda.empty_cache()
+    out["step"] = mamba_step_ms()
+    log(f"--ssd-bwd-times ({ROOT}) mamba2-370m training step ({TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, {TRAIN_MICRO} microbatches, remat): {out['step']['step_ms']:.1f} ms a step, "
+        f"steps 3-{TRAIN_STEPS}, losses {[round(x, 4) for x in out['step']['losses']]}")
     log(f"--ssd-bwd-times ({ROOT}) survey over {len(SSD_BWD_SURVEY)} draws, worst "
-        f"{ {n: float(f'{e:.3g}') for n, e in worst.items()} } (not gated; limit {SSD_BWD_TOL})")
+        f"{ {n: float(f'{e:.3g}') for n, e in worst.items()} } (not gated here, gated in "
+        f"train (f); limit {SSD_BWD_TOL})")
     for label, case in out["cases"].items():
         check(max(case["rel"].values()) <= SSD_BWD_TOL, f"--ssd-bwd-times at {label}: "
               f"{case['rel']} over {SSD_BWD_TOL}")
     return out
+
+
+#: (BH, BG, L, P, N): mamba2-370m's first serving batch, 4 prompts padded
+#: to 1,819 tokens (32 heads of 64 on one group of state 128 a prompt)
+SSD_SERVING_TIMED = (128, 4, 1819, 64, 128)
+
+
+def mamba_step_ms() -> dict:
+    """``--ssd-bwd-times``: mamba2-370m at full width and depth, (g)'s
+    :func:`six_steps` from seed 0; ms a step over steps 3 on (host clock
+    around each step)."""
+    import torch
+
+    from repro_torch.configs import config_for
+    from repro_torch.models import build_model
+
+    cfg = config_for("mamba2_370m")
+    history: list = []
+    run = six_steps(build_model(cfg), cfg, 0, history)
+    losses = [h["loss"] for h in history]
+    check(all(math.isfinite(x) for x in losses), f"--ssd-bwd-times mamba step: losses {losses}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = [h["seconds"] for h in history[2:]]
+    return {"step_ms": 1e3 * sum(timed) / len(timed), "losses": losses}
 
 
 def mamba_smoke_training(cfg) -> dict:
@@ -6709,7 +6921,7 @@ def main() -> int:
         log(f"{kernel} times ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    lm_cross_device_phase()
+    lm_cross = lm_cross_device_phase()
     log(f"LM cross-device phase ok in {time.perf_counter() - t0:.1f} s")
 
     gc.collect()
@@ -6723,6 +6935,7 @@ def main() -> int:
                     "fleet": fleet, "mesh": mesh,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
+                    "lm_cross_device_moe": lm_cross,
                     "train": train,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -35,8 +35,10 @@
 //      cum_j) o tri) xdt_c + (exp(cum_i) C_c) S_in[c], one product of K =
 //      Q + N; chunk 0 has no state term.
 // Passes 2 and 4 recompute their chunk's 64-entry cumsum from dtA (one warp,
-// 256 bytes) instead of reading one back: the same cost, and no (BH, L)
-// buffer.  Passes 3 and 4 stay apart: fused, the blocks of a head would
+// 512 bytes) instead of reading one back: the same cost, and no (BH, L)
+// buffer.  Every kernel, forward and backward, takes that cumsum in float64
+// (warp_cumsum64) and each exponent from it, so all of them read the same
+// sums.  Passes 3 and 4 stay apart: fused, the blocks of a head would
 // walk its chunks in order, 128 blocks for 132 SMs at mamba2-370m's
 // prefill.
 //
@@ -102,10 +104,7 @@
 //      slice, D_sum = the slice's D summed, against B and C: dC_i = sum_j
 //      D_sum,ij B_j + ..., dB_j = sum_i D_sum,ij C_i + ... (B and C are
 //      the group's, so the product of the sum replaces a product a head).
-//      Each slice's share goes to parts (2, BG, slices, L, N).  Its
-//      exponents come from a float64 chunk cumsum (dB and dC feed nothing
-//      else); ssd_bwd_chunk_dx keeps the forward's float32 ones, which ddtA's
-//      row terms need (see there).
+//      Each slice's share goes to parts (2, BG, slices, L, N).
 //   5. ssd_bwd_dbc_sum: dB and dC, the slices' shares summed in order.
 //   6. ssd_bwd_ddtA, grid BH: <G_t, S_t> (G_t the gradient of the state
 //      after row t) is both ddtA_t + xdt_t . dxdt_t and dy_t . y_t +
@@ -121,7 +120,7 @@
 // operand tiles arrive through a two-stage cp.async ring (zeros past L, P
 // and N), so the next tile's loads run under the current products; the
 // exponentials, masks and sums stay float32 on the CUDA cores.  They take
-// 110,336 and 108,544 bytes of dynamic shared memory: two blocks an SM,
+// 110,592 and 108,544 bytes of dynamic shared memory: two blocks an SM,
 // 128 registers a thread at most, no spills.  Tried for b4 and not kept,
 // each no faster on the H100 (PERF.md): 16 warps a block covering 128 of N
 // a walk (each operand read once), each stage split into hi and lo once a
@@ -244,34 +243,17 @@ __device__ __forceinline__ void store_cols(float* dst, const float4 (&v)[4],
   }
 }
 
-// Inclusive cumsum of a[c0 .. c0 + Q) into cum (shared), zeros past L, by
-// one warp (chunk_cumsum: warp 0): each lane sums two entries, then the
-// lanes scan.  The caller synchronises before reading cum.
-__device__ __forceinline__ void warp_cumsum(const float* __restrict__ a, int c0, int L,
-                                            float* cum) {
-  const int lane = threadIdx.x & 31, i = c0 + 2 * lane;
-  const float a0 = i < L ? a[i] : 0.f;
-  const float a1 = i + 1 < L ? a[i + 1] : 0.f;
-  float incl = a0 + a1;
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-  cum[2 * lane] = excl + a0;
-  cum[2 * lane + 1] = incl;
-}
-__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a, int c0, int L,
-                                             float* cum) {
-  if (threadIdx.x < 32) warp_cumsum(a, c0, L, cum);
-}
-
-// The same in float64, by the calling warp, for ssd_bwd_chunk_dbc: its
-// products take exp(cum_i - cum_j) where both are large (a chunk of strong
-// decays ends near -3,000) and their difference small; in float32 that
-// difference is off by ~1e-4 and so is the exp, in float64 it is exact to
-// well under float32's rounding.
+// Inclusive cumsum of a[c0 .. c0 + Q) into cum (shared), zeros past L, in
+// float64, by the calling warp: each lane sums two entries, then the lanes
+// scan.  Every exponent of the forward and the backward is a difference of
+// two of these sums (exp(cum_i - cum_j), exp(cum_end - cum_j)) or one of
+// them (exp(cum_i), exp(cum_end)): both may be large (a chunk of strong
+// decays ends near -3,000) and their difference small, which in float32 is
+// off by ~1e-4 and so is the exp; in float64 it is exact to well under
+// float32's rounding.  Every kernel takes the same sums, in the same order,
+// so the forward's y and the backward's dxdt see the same exponents (ddtA's
+// row terms dy . y - xdt . dxdt cancel only then).  The caller
+// synchronises before reading cum.
 __device__ __forceinline__ void warp_cumsum64(const float* __restrict__ a, int c0, int L,
                                               double* cum) {
   const int lane = threadIdx.x & 31, i = c0 + 2 * lane;
@@ -287,8 +269,14 @@ __device__ __forceinline__ void warp_cumsum64(const float* __restrict__ a, int c
   cum[2 * lane] = excl + a0;
   cum[2 * lane + 1] = incl;
 }
+// The same by warp 0 of the block (the passes with one head a block).
+__device__ __forceinline__ void chunk_cumsum64(const float* __restrict__ a, int c0, int L,
+                                               double* cum) {
+  if (threadIdx.x < 32) warp_cumsum64(a, c0, L, cum);
+}
 
-// exp(x - y) of two float64 chunk cumsums
+// exp(x - y) of two float64 chunk cumsums, the difference rounded once to
+// float32 (exp_diff(x, 0.0): exp(x) of one)
 __device__ __forceinline__ float exp_diff(double x, double y) { return expf((float)(x - y)); }
 
 // Pass 1: cbt[g][c][j][i] = C_i . B_j for the tiles holding some j <= i.
@@ -338,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
                     int n_states, int n_tiles_n) {
   __shared__ __align__(16) float Bs[kTile * kTile];  // [j][n]
   __shared__ __align__(16) float Xs[kTile * kTile];  // [j][p], times w_j
-  __shared__ float cum[kChunk];
+  __shared__ double cum[kChunk];
   __shared__ float w[kChunk];  // exp(cum_end - cum_j)
   const int c = blockIdx.x % n_states, bh = blockIdx.x / n_states, c0 = c * kChunk;
   const int n0 = (blockIdx.y % n_tiles_n) * kTile, p0 = (blockIdx.y / n_tiles_n) * kTile;
@@ -348,12 +336,13 @@ __global__ void __launch_bounds__(kThreads)
   float4 vb[4], vx[4];
   fetch_rows(vb, Bm + ((size_t)g * L + c0) * N + n0, N, kChunk, N - n0);
   fetch_rows(vx, xdt + ((size_t)bh * L + c0) * P + p0, P, kChunk, P - p0);
-  chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  chunk_cumsum64(dtA + (size_t)bh * L, c0, L, cum);
   store_rows(Bs, vb, nullptr);
   __syncthreads();
-  const float cend = cum[kChunk - 1];
-  if (tid < kChunk) w[tid] = expf(cend - cum[tid]);
-  if (blockIdx.y == 0 && tid == 0) decay[(size_t)bh * n_states + c] = expf(cend);
+  const double cend = cum[kChunk - 1];
+  if (tid < kChunk) w[tid] = exp_diff(cend, cum[tid]);
+  // float32 in scratch, from the float64 sum: passes 3 and b2 read it
+  if (blockIdx.y == 0 && tid == 0) decay[(size_t)bh * n_states + c] = exp_diff(cend, 0.0);
   __syncthreads();
   store_rows(Xs, vx, w);
   __syncthreads();
@@ -409,7 +398,7 @@ __global__ void __launch_bounds__(kThreads)
 // C_i . B_j exp(cum_i - cum_j) where j <= i < rows, else 0 (a select, not
 // a product: the upper tiles of cbt hold whatever the buffer held).
 __device__ __forceinline__ void store_scores(float* dst, const float4 (&v)[4],
-                                             const float* cum, int rows) {
+                                             const double* cum, int rows) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int e = threadIdx.x + r * kThreads;
@@ -418,7 +407,7 @@ __device__ __forceinline__ void store_scores(float* dst, const float4 (&v)[4],
     float o[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      o[q] = j <= i + q && i + q < rows ? x[q] * expf(cum[i + q] - cum[j]) : 0.f;
+      o[q] = j <= i + q && i + q < rows ? x[q] * exp_diff(cum[i + q], cum[j]) : 0.f;
     *reinterpret_cast<float4*>(dst + j * kTile + i) = make_float4(o[0], o[1], o[2], o[3]);
   }
 }
@@ -433,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
                   int N, int n_rep, int n_chunks) {
   __shared__ __align__(16) float As[kTile * kTile];  // [j][i] scores, then [n][i] C
   __shared__ __align__(16) float Bs[kTile * kTile];  // [j][p] xdt, then [n][p] state
-  __shared__ float cum[kChunk];
+  __shared__ double cum[kChunk];
   __shared__ float ecum[kChunk];  // exp(cum_i)
   const int c = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks, p0 = blockIdx.y * kTile;
   const int g = bh / n_rep, c0 = c * kChunk, rows = min(kChunk, L - c0);
@@ -449,9 +438,9 @@ __global__ void __launch_bounds__(kThreads)
   float4 va[4], vb[4];
   fetch_rows(va, cbt + ((size_t)g * n_chunks + c) * kChunk * kChunk, kChunk, kChunk, kChunk);
   fetch_rows(vb, xdt + ((size_t)bh * L + c0) * P + p0, P, rows, P - p0);
-  chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  chunk_cumsum64(dtA + (size_t)bh * L, c0, L, cum);
   __syncthreads();
-  if (tid < kChunk) ecum[tid] = expf(cum[tid]);  // read from tile 1 on
+  if (tid < kChunk) ecum[tid] = exp_diff(cum[tid], 0.0);  // read from tile 1 on
 
   float acc[4][4] = {};
   for (int t = 0; t < n_tiles; ++t) {
@@ -594,7 +583,7 @@ __global__ void __launch_bounds__(kThreads)
                    int N, int n_rep, int n_states, int n_tiles_n) {
   __shared__ __align__(16) float Cs[kTile * kTile];  // [i][n], times exp(cum_i)
   __shared__ __align__(16) float Ys[kTile * kTile];  // [i][p]
-  __shared__ float cum[kChunk];
+  __shared__ double cum[kChunk];
   __shared__ float ecum[kChunk];
   const int s = blockIdx.x % n_states, bh = blockIdx.x / n_states;
   const int c0 = (s + 1) * kChunk, rows = min(kChunk, L - c0);
@@ -605,10 +594,10 @@ __global__ void __launch_bounds__(kThreads)
   float4 vc[4], vy[4];
   fetch_rows(vc, Cm + ((size_t)g * L + c0) * N + n0, N, rows, N - n0);
   fetch_rows(vy, dy + ((size_t)bh * L + c0) * P + p0, P, rows, P - p0);
-  chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  chunk_cumsum64(dtA + (size_t)bh * L, c0, L, cum);
   store_rows(Ys, vy, nullptr);
   __syncthreads();
-  if (tid < kChunk) ecum[tid] = expf(cum[tid]);
+  if (tid < kChunk) ecum[tid] = exp_diff(cum[tid], 0.0);
   __syncthreads();
   store_rows(Cs, vc, ecum);
   __syncthreads();
@@ -693,8 +682,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* Yo = Ys + kEdge;           // the forward's y [j][p]
   float* Xs = Yo + kEdge;           // xdt [j][p]
   float* ring = Xs + kEdge;         // 2 stages of B [j][n] and g [n][p]
-  float* cum = ring + 2 * kDxStage;
-  float* red = cum + kChunk;        // [j][2]: each column half's row term
+  double* cum = reinterpret_cast<double*>(ring + 2 * kDxStage);  // 8-byte aligned
+  float* red = reinterpret_cast<float*>(cum + kChunk);  // [j][2]: each column half's row term
   const int c = blockIdx.x % n_chunks, bh = blockIdx.x / n_chunks, p0 = blockIdx.y * kTile;
   const int g = bh / n_rep, c0 = c * kChunk, rows = min(kChunk, L - c0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
@@ -725,7 +714,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_tile<kTile, kTile, kLdn>(Xs, xdt + base + p0, P, rows, P - p0);
     issue(0, ring);
   }
-  chunk_cumsum(dtA + (size_t)bh * L, c0, L, cum);
+  chunk_cumsum64(dtA + (size_t)bh * L, c0, L, cum);
   if (n_nk > 0)
     cp_wait<1>();
   else
@@ -733,20 +722,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
   // C_i . B_j exp(cum_i - cum_j) where j <= i < rows, else 0 (a select:
   // cbt's upper tiles are never written).  The exponents are the forward's
-  // own float32 ones (its cumsum, pass 4's scores, pass 2's weights): ddtA's
-  // row terms pair xdt . dxdt with dy . y, and their rounding cancels only
-  // where both come from the same exponents.
+  // own (the same float64 sums as pass 4's scores and pass 2's weights):
+  // ddtA's row terms pair xdt . dxdt with dy . y, and their rounding
+  // cancels only where both come from the same exponents.
   for (int e = tid; e < kTile * kTile; e += kThreads) {
     const int j = e >> 6, i = e & (kTile - 1);
     float* s = St + j * kLdd + i;
-    *s = j <= i && i < rows ? *s * expf(cum[i] - cum[j]) : 0.f;
+    *s = j <= i && i < rows ? *s * exp_diff(cum[i], cum[j]) : 0.f;
   }
   __syncthreads();
 
   float acc[4][4] = {};
   warp_mma<false>(acc, St, kLdd, Ys, kLdn, m0, n0, m0, kTile, 1.f, 1.f);  // i >= j
-  const float cend = cum[kChunk - 1];
-  const float w0 = expf(cend - cum[m0 + gr]), w1 = expf(cend - cum[m0 + gr + 8]);
+  const double cend = cum[kChunk - 1];
+  const float w0 = exp_diff(cend, cum[m0 + gr]), w1 = exp_diff(cend, cum[m0 + gr + 8]);
   for (int nk = 0; nk < n_nk; ++nk) {
     if (nk + 1 < n_nk) {
       issue(nk + 1, ring + ((nk + 1) & 1) * kDxStage);
@@ -1111,7 +1100,8 @@ int ssd_bwd_parts(int P, int N) {
 
 // The dynamic shared memory, in bytes, of ssd_bwd_chunk_dx and _dbc.
 int ssd_bwd_dx_smem() {
-  return (int)sizeof(float) * (kTile * kLdd + 3 * kEdge + 2 * kDxStage + 3 * kChunk);
+  return (int)(sizeof(float) * (kTile * kLdd + 3 * kEdge + 2 * kDxStage + 2 * kChunk) +
+               sizeof(double) * kChunk);
 }
 int ssd_bwd_dbc_smem() {
   return (int)sizeof(float) *

@@ -1,15 +1,14 @@
 """Shared layers: a port of ``src/repro/models/layers.py`` (RMSNorm,
 rotary embeddings, the SwiGLU MLP and their initialisers, ``:1-66``; the
-chunked cross-entropy ``chunked_softmax_xent``, ``:134-174``).
+mixture of experts ``init_moe``, ``moe`` and ``moe_aux_loss``, ``:71-131``;
+the chunked cross-entropy ``chunked_softmax_xent``, ``:134-174``).
 
 Parameters are float32 tensors; compute is bf16 with float32 norms and
 activations, as in the reference: weights are cast to the activations'
 dtype where the reference casts them (``.astype(dt)``).  Initialisers draw
 from an explicit ``torch.Generator`` (the reference's PRNG keys give other
 numbers; parity tests carry parameters across with
-:func:`repro_torch.models.convert.params_from_reference`).  MoE
-(``init_moe``, ``moe``, ``moe_aux_loss``) waits for the MoE configs
-(ROADMAP A19).
+:func:`repro_torch.models.convert.params_from_reference`).
 """
 from __future__ import annotations
 
@@ -70,6 +69,75 @@ def mlp(params, x):
     u = x @ params["w_up"].to(dt)
     h = F.silu(g.float()).to(dt) * u
     return h @ params["w_down"].to(dt)
+
+
+# ------------------------------------------------------------------ MoE
+def init_moe(generator, d_model, d_ff, n_experts, storage_experts=None, device=None):
+    """``storage_experts`` >= n_experts pads the expert axis (the stored
+    experts, E): pad experts hold zeros and are never routed to (the
+    router's width stays n_experts)."""
+    E = storage_experts or n_experts
+
+    def padded(shape):
+        w = _dense_init(generator, (n_experts,) + shape, device=device)
+        if E > n_experts:
+            w = torch.cat([w, w.new_zeros((E - n_experts,) + shape)], dim=0)
+        return w
+
+    return {
+        "router": _dense_init(generator, (d_model, n_experts), device=device),
+        "w_gate": padded((d_model, d_ff)),
+        "w_up": padded((d_model, d_ff)),
+        "w_down": padded((d_ff, d_model)),
+    }
+
+
+def _router_probs(params, x):
+    """The router's softmax over the n_experts routable columns, float32."""
+    return torch.softmax(x.float() @ params["router"].float(), dim=-1)
+
+
+def moe(params, x, top_k: int):
+    """The reference's dense one-hot dispatch: every token through every
+    stored expert, as batched products over the expert axis, and a top-k
+    combine weight (zero for the experts not chosen, and for pad experts)
+    summing the experts' outputs.  Its work is E / top_k times that of the
+    routed experts alone (granite-moe-3b-a800m: 48 stored experts, top 8),
+    but it has no host sync and no data-dependent shape.
+
+    The top k are taken by a stable descending sort: among equal weights
+    the lower index first, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order).  Gradients reach the chosen weights through the
+    softmax, not the indices, as under ``jax.grad``."""
+    dt, lead = x.dtype, x.shape[:-1]
+    xt = x.reshape(-1, x.shape[-1])  # (T, d)
+    weights = _router_probs(params, xt)
+    top_w, top_i = torch.sort(weights, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :top_k], top_i[:, :top_k]
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    n_storage = params["w_gate"].shape[0]  # >= the router's width when padded
+    combine = top_w.new_zeros((xt.shape[0], n_storage)).scatter(-1, top_i, top_w)  # (T, E)
+
+    g = torch.matmul(xt, params["w_gate"].to(dt))  # (E, T, f)
+    u = torch.matmul(xt, params["w_up"].to(dt))
+    h = F.silu(g.float()).to(dt) * u
+    y = torch.bmm(h, params["w_down"].to(dt))  # (E, T, d)
+    # sum over e of y[e, t] combine[t, e]: one (d, E) x (E, 1) product a
+    # token, y read in place through a transposed view
+    out = torch.bmm(y.permute(1, 2, 0), combine.to(dt)[:, :, None])[:, :, 0]
+    return out.reshape(*lead, out.shape[-1])
+
+
+def moe_aux_loss(params, x):
+    """Load-balancing auxiliary loss (Switch-style): n_experts x the sum
+    over experts of the mean router probability times the share of tokens
+    whose largest probability it holds (``argmax``: the first among
+    equals, as in the reference)."""
+    probs = _router_probs(params, x)
+    n = probs.shape[-1]
+    frac = probs.reshape(-1, n).mean(dim=0)
+    load = F.one_hot(probs.argmax(dim=-1).reshape(-1), n).float().mean(dim=0)
+    return n * torch.sum(frac * load)
 
 
 # ------------------------------------------------------------------ losses

@@ -1,6 +1,6 @@
 """Model assembly: a port of ``src/repro/models/transformer.py`` for the
-decoder stacks of dense attention and Mamba-2 super-blocks, with the
-reference's three entry points:
+decoder stacks of attention and Mamba-2 super-blocks with dense or
+mixture-of-experts MLPs, with the reference's three entry points:
 
   * ``loss_fn(params, batch, cfg)``         — next-token CE (chunked)
   * ``prefill(params, tokens, cfg, ...)``   — forward + KV/SSM cache
@@ -24,8 +24,7 @@ reference wraps its scan body in ``jax.checkpoint``.
 The decode cache is a dict ``{"pos": int, "layers": [one dict per
 super-block]}``; decode updates its tensors in place.  Not in this slice,
 each raising ``NotImplementedError``: MLA (A17), the ``cross`` mixer,
-``encode`` and memory inputs (A18), and MoE layers (A19), which keeps
-jamba's hybrid stack out of training too.
+``encode`` and memory inputs (A18).
 """
 from __future__ import annotations
 
@@ -37,8 +36,8 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig, LayerSpec
 from repro_torch.models.layers import (COMPUTE_DTYPE, _dense_init,
-                                       chunked_softmax_xent, init_mlp, init_rmsnorm,
-                                       mlp, rmsnorm)
+                                       chunked_softmax_xent, init_mlp, init_moe,
+                                       init_rmsnorm, mlp, moe, rmsnorm)
 
 
 def _unported(what: str, item: str):
@@ -53,8 +52,6 @@ def _check_supported(cfg: ArchConfig) -> None:
     for spec in cfg.super_block:
         if spec.mixer not in ("attn", "mamba", "none") or spec.cross_memory:
             _unported(f"the {spec.mixer!r} mixer with cross memory", "A18")
-        if spec.mlp not in ("dense", "none"):
-            _unported(f"the {spec.mlp!r} MLP", "A19")
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +108,8 @@ class Layer(Params):
             h = h + o
         if spec.mlp == "dense":
             h = h + mlp(self["mlp"], rmsnorm(h, self["norm2"], cfg.norm_eps))
+        elif spec.mlp == "moe":
+            h = h + moe(self["moe"], rmsnorm(h, self["norm2"], cfg.norm_eps), cfg.moe.top_k)
         return h, nc
 
 
@@ -154,6 +153,10 @@ def _init_layer(generator, spec: LayerSpec, cfg: ArchConfig, device):
     if spec.mlp == "dense":
         out["norm2"] = init_rmsnorm(cfg.d_model, device)
         out["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, device)
+    elif spec.mlp == "moe":
+        out["norm2"] = init_rmsnorm(cfg.d_model, device)
+        out["moe"] = init_moe(generator, cfg.d_model, cfg.moe.d_ff_expert or cfg.d_ff,
+                              cfg.moe.n_experts, cfg.moe.storage_experts, device)
     return out
 
 
@@ -210,6 +213,8 @@ def _layer_seq(lp, spec: LayerSpec, x, cfg: ArchConfig, q_offset: int, causal: b
         x = x + o
     if spec.mlp == "dense":
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps))
+    elif spec.mlp == "moe":
+        x = x + moe(lp["moe"], rmsnorm(x, lp["norm2"], cfg.norm_eps), cfg.moe.top_k)
     return x, cache_out
 
 

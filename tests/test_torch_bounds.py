@@ -239,6 +239,20 @@ def test_ssd_backward_sweep_covers_the_forward_sweep(smoke):
     assert any(N == 256 for *_, N in shapes)
 
 
+def test_ssd_bwd_survey_draws_are_gated(smoke):
+    """(f) gates every draw of ``--ssd-bwd-times``' survey (ROADMAP C11):
+    each (seed, largest |dtA|) at mamba2-370m's training inputs is one of
+    (f)'s cases with its own generator seed, after the shared-generator
+    cases, whose shapes and order stay those of ``SSD_BWD_CASES``."""
+    draws = smoke.ssd_bwd_gated_draws()
+    survey = [(seed, amax) for *_, amax, seed in draws if seed is not None]
+    assert len(smoke.SSD_BWD_SURVEY) == 10
+    assert sorted(smoke.SSD_BWD_SURVEY) == sorted(survey)
+    assert all(tuple(d[:5]) == smoke.SSD_BWD_TIMED for d in draws if d[6] is not None)
+    assert [tuple(d[:6]) for d in draws if d[6] is None] == list(smoke.SSD_BWD_CASES)
+    assert {amax for _, amax in smoke.SSD_BWD_SURVEY} == {12.0, 50.0}
+
+
 def test_ssd_bwd_kernel_bounds_at_mamba_training(smoke):
     """Each backward kernel's own bound at mamba2-370m's training inputs:
     dB and dC 4 N P a row and head (8.59 GFLOP, 0.128 ms at 67 TFLOP/s),

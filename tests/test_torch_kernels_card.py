@@ -27,7 +27,9 @@ within 1e-4 of max |grad|.
 ssd_scan's backward kernels (through ``ops.SSDScan``) against
 ``ssd_scan_bwd_ref`` in float64 within 1e-4 of each gradient's max
 |value| (3 and 12 heads a group, which slices of 8 heads do not divide,
-and N = 256 among the shapes); two launches give the same bits, also at
+and N = 256 among the shapes; ``chip_smoke.py``'s ten survey draws at
+mamba2-370m's training inputs, |dtA| up to 12 and 50); two launches give
+the same bits, also at
 mamba2-370m's training inputs with |dtA| up to 50; under a checkpoint, the
 gradients of the model-layout inputs against torch autograd of the plain
 version on the CPU within 1e-4."""
@@ -62,6 +64,7 @@ pytestmark = [
     (1, 4, 2, 333, 200, 96),
     (1, 4, 2, 200, 333, 256),  # gemma3-12b's head dim, GQA
     (1, 4, 4, 333, 200, 256),
+    (1, 24, 8, 300, 300, 64),  # granite-moe-3b-a800m's heads, a group of 3
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -381,6 +384,37 @@ def test_ssd_backward_is_deterministic(rng, L, amax):
     first = ssd_scan_bwd_cuda(xdt, dtA, B, C, 32, fw.states, fw.decay, fw.cbt, fw.y, dy)
     second = ssd_scan_bwd_cuda(xdt, dtA, B, C, 32, fw.states, fw.decay, fw.cbt, fw.y, dy)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+#: ``chip_smoke.py``'s ``SSD_BWD_SURVEY``: (seed, largest |dtA|) draws at
+#: mamba2-370m's training inputs, where a float32 chunk cumsum put dxdt and
+#: ddtA over 1e-4 (ROADMAP C11)
+SSD_BWD_SURVEY = [(seed, amax) for seed in (32, 33, 34, 35, 36) for amax in (12.0, 50.0)]
+
+
+@pytest.mark.parametrize("seed,amax", SSD_BWD_SURVEY)
+def test_ssd_backward_survey_draws_within_1e4(seed, amax):
+    """The survey's draws, made as ``chip_smoke.py`` makes them (a CUDA
+    generator of the draw's seed; BH 64, BG 2, L 4,096, P 64, N 128): every
+    gradient within 1e-4 of its max against ``ssd_scan_bwd_ref`` in
+    float64, now that every exponent comes from one float64 chunk cumsum."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import plan, ssd_scan_bwd_cuda
+
+    BH, BG, L, P, N = 64, 2, 4096, 64, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xdt = torch.randn((BH, L, P), generator=g, device="cuda") * 0.5
+    dtA = -(0.01 + (amax - 0.01) * torch.rand((BH, L), generator=g, device="cuda"))
+    B = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+    C = torch.randn((BG, L, N), generator=g, device="cuda") * 0.3
+    dy = torch.randn((BH, L, P), generator=g, device="cuda")
+    fw = plan(xdt, dtA, B, C, BH // BG)
+    for _, launch in fw.passes:
+        launch()
+    got = ssd_scan_bwd_cuda(xdt, dtA, B, C, BH // BG, fw.states, fw.decay, fw.cbt, fw.y, dy)
+    want = ssd_scan_bwd_ref(*(t.double() for t in (xdt, dtA, B, C)), BH // BG, dy.double())
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a.double(), b) < 1e-4, _rel(a.double(), b)
 
 
 def test_ssd_autograd_function_under_checkpoint(rng):

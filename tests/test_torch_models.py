@@ -157,6 +157,8 @@ def _carried(ref_cfg, cfg, seed=0):
 
 
 def _prefill_then_decode(ref_cfg, cfg, rng, tol, steps=4):
+    """Prefill a 20-token prompt, then ``steps`` decode steps, in both
+    packages: each step's logits within ``tol`` x the prefill's max|logit|."""
     model, params, port = _carried(ref_cfg, cfg)
     toks = rng.integers(0, cfg.vocab, (2, 20)).astype(np.int32)
     jl, jc = model.prefill(params, jnp.asarray(toks), max_len=32)
@@ -174,25 +176,48 @@ def _prefill_then_decode(ref_cfg, cfg, rng, tol, steps=4):
 #: archs whose parity runs at the published head dim (the flash instances
 #: at D = 96 and 256 that only they take on the card)
 PUBLISHED_HEAD_DIM = ("phi3_mini_38b", "gemma3_12b")
+#: the mixture-of-experts archs' smoke configs: granite-moe (8 experts, top
+#: 4), mixtral (4, top 2, a 16-token window) and jamba's hybrid stack (Mamba
+#: and attention layers, MoE on alternate ones)
+MOE_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x7b", "jamba15_large_398b")
 
 
 @pytest.mark.parametrize("arch,which", [("granite3_2b", "plain"), ("granite3_2b", "window"),
                                         ("granite3_2b", "int8"), ("mamba2_370m", "plain"),
                                         ("phi3_mini_38b", "head_dim"),
-                                        ("gemma3_12b", "head_dim")])
+                                        ("gemma3_12b", "head_dim"),
+                                        ("granite_moe_3b_a800m", "plain"),
+                                        ("mixtral_8x7b", "plain"),
+                                        ("jamba15_large_398b", "eager")])
 def test_prefill_and_decode_match_reference(rng, arch, which):
     """bf16 activations, as served: within 2e-2 x max|logit|.  The 20-token
-    prompt is longer than gemma3's 16-token window, so its decode runs the
-    ring buffer."""
-    ref_cfg, cfg = _variant(arch, which)
-    _prefill_then_decode(ref_cfg, cfg, rng, 2e-2)
+    prompt is longer than gemma3's and mixtral's 16-token windows, so their
+    decode runs the ring buffer.
+
+    ``"eager"``: the reference runs un-jitted (``jax.disable_jit``), the
+    arithmetic the port follows.  Under ``jit`` XLA rounds bf16 at other
+    places, and a token whose k-th and (k + 1)-th router weights lie within
+    that rounding takes another expert: on jamba's smoke input 3 of the
+    last MoE layer's 40 routes move, and its jitted logits lie 3.9e-2 x
+    max|logit| from its own un-jitted ones.  The port is within 6e-3 of
+    the un-jitted reference there (granite-moe's and mixtral's bf16 logits
+    equal the un-jitted reference's bits); the float32 test below holds all
+    three against the jitted reference at 1e-4."""
+    ref_cfg, cfg = _variant(arch, "plain" if which == "eager" else which)
+    if which == "eager":
+        with jax.disable_jit():
+            _prefill_then_decode(ref_cfg, cfg, rng, 2e-2)
+    else:
+        _prefill_then_decode(ref_cfg, cfg, rng, 2e-2)
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", *PUBLISHED_HEAD_DIM])
+@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", *PUBLISHED_HEAD_DIM,
+                                  *MOE_ARCHS])
 def test_prefill_and_decode_match_reference_float32(rng, monkeypatch, arch):
     """The same stack with float32 activations and caches in both packages:
     within 1e-4 x max|logit|, so the bf16 test's slack is rounding only
-    (phi3 and gemma3 at their published head dims)."""
+    (phi3 and gemma3 at their published head dims; the MoE archs route
+    each token to the same experts in both)."""
     monkeypatch.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TT, "COMPUTE_DTYPE", torch.float32)
     monkeypatch.setattr(RT.init_cache, "__defaults__", (0, jnp.float32))
@@ -226,10 +251,32 @@ def test_parameter_names_follow_the_reference():
             "params.blocks.0.layer0.mlp.w_down", "params.blocks.0.layer0.norm2"} <= names
     assert not any(p.requires_grad for p in model.parameters())
     assert all(p.dtype == torch.float32 for p in model.parameters())
+    # MoE leaves, pad experts included (granite-moe's smoke config stored
+    # padded to 12 experts, as its full config pads 40 to 48): the port's
+    # own draw and the reference's carried across have the reference's
+    # names and shapes, and the carried values are the reference's
+    ref_cfg, cfg = (dataclasses.replace(c, moe=dataclasses.replace(c.moe, pad_experts_to=12))
+                    for c in (smoke_config_for("granite_moe_3b_a800m"),
+                              tconfigs.smoke_config_for("granite_moe_3b_a800m")))
+    ref = ref_build(ref_cfg).init(jax.random.PRNGKey(0))
+    want = {f"params.blocks.{r}.layer0.moe.{leaf}": np.asarray(w[r])
+            for leaf, w in ref["blocks"]["layer0"]["moe"].items()
+            for r in range(cfg.n_repeats)}
+    assert want["params.blocks.1.layer0.moe.w_up"].shape == (12, cfg.d_model, 64)
+    assert want["params.blocks.0.layer0.moe.router"].shape == (cfg.d_model, 8)
+    for model in (build_model(cfg, "cpu").init(),
+                  params_from_reference(jax.tree.map(np.asarray, ref), cfg, "cpu")):
+        got = {n: p for n, p in model.named_parameters() if ".moe." in n}
+        assert set(got) == set(want)
+        for name, value in want.items():
+            assert tuple(got[name].shape) == value.shape, name
+            if name.rsplit(".", 1)[1] != "router":
+                assert bool((got[name][8:] == 0).all()), name
+    np.testing.assert_array_equal(got["params.blocks.1.layer0.moe.w_down"].numpy(),
+                                  want["params.blocks.1.layer0.moe.w_down"])
 
 
-@pytest.mark.parametrize("arch,item", [("minicpm3_4b", "A17"), ("seamless_m4t_large_v2", "A18"),
-                                       ("mixtral_8x7b", "A19")])
+@pytest.mark.parametrize("arch,item", [("minicpm3_4b", "A17"), ("seamless_m4t_large_v2", "A18")])
 def test_unported_families_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(tconfigs.smoke_config_for(arch), "cpu").init()

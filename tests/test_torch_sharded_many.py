@@ -278,15 +278,29 @@ def _sc_fused_padded(M, mesh_of):
     return _fused(M, mesh_of, "fused_padded", 18)
 
 
+def _frozen_clock() -> float:
+    return 0.0
+
+
 def _sc_admission(M, mesh_of):
+    # each package's scheduler as AdmissionPolicy builds it by default, on a
+    # clock that does not advance during the scenario: on time.monotonic a
+    # drain's submits may straddle the flush window under load and split the
+    # batches otherwise
     if M is PC:
         from repro_torch.serve.admission import AdmissionPolicy
+        from repro_torch.serve.scheduler import CoalescingScheduler
 
-        ap = AdmissionPolicy(device="cpu", froid=True, mesh=mesh_of(N_POS))
+        sched = CoalescingScheduler(clock=_frozen_clock, fuse=False, adaptive=False,
+                                    default_timeout_s=None)
+        ap = AdmissionPolicy(device="cpu", froid=True, mesh=mesh_of(N_POS), scheduler=sched)
     else:
         from repro.serve.admission import AdmissionPolicy
+        from repro.serve.scheduler import CoalescingScheduler
 
-        ap = AdmissionPolicy(froid=True, mesh=mesh_of(N_POS))
+        sched = CoalescingScheduler(clock=_frozen_clock, fuse=False, adaptive=False,
+                                    default_timeout_s=None)
+        ap = AdmissionPolicy(froid=True, mesh=mesh_of(N_POS), scheduler=sched)
     reqs = _admission_requests()
     co = ap.evaluate_coalesced(reqs)
     stmt = ap.request_statement()

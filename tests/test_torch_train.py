@@ -378,6 +378,20 @@ def test_mamba_loss_fn_and_gradients_match_reference(monkeypatch, compute, seq):
                           MAMBA_CHUNKED_GRAD_TOL[compute] if seq > 64 else None)
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "jamba15_large_398b"])
+def test_moe_loss_fn_and_gradients_match_reference(monkeypatch, arch):
+    """The mixture-of-experts stacks' smoke configs at 40 tokens in float32
+    compute, the dense case's float32 limits: granite-moe (8 experts, top 4)
+    and jamba's hybrid stack (Mamba and attention layers, MoE on alternate
+    ones).  Not in bf16: there a token whose k-th and (k + 1)-th router
+    weights lie within bf16 rounding of each other takes another expert in
+    one package than in the other, a step in the loss and not a rounding
+    (measured: the loss 2.6e-3 apart for both archs against the jitted
+    reference, 160 tokens x 2 or 4 MoE layers; granite-moe's equal to the
+    un-jitted reference's within 1e-4)."""
+    _loss_and_grads_match(monkeypatch, "float32", arch)
+
+
 #: final parameters after 8 steps, (max, mean) absolute.  mamba: 6e-3 and
 #: 2e-4 (0.8 and 2.7% of the summed learning rate; measured 4.25e-3 on
 #: ``w_in`` and 1.35e-4: as in the dense case, a coordinate whose tiny
@@ -456,12 +470,6 @@ def test_launcher_trains_mamba_on_the_cpu(tmp_path, capsys):
 
 def test_training_raises_outside_the_slice():
     mamba = build_model(tconfigs.smoke_config_for("mamba2_370m"), "cpu")
-    jamba = build_model(tconfigs.smoke_config_for("jamba15_large_398b"), "cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
-             "labels": torch.zeros((1, 8), dtype=torch.long)}
-    # jamba's hybrid stack has MoE layers
-    with pytest.raises(NotImplementedError, match="A19"):
-        jamba.loss_fn({}, batch)
     from repro_torch.models import model_zoo
 
     with pytest.raises(NotImplementedError, match="A16.3"):

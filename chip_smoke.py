@@ -132,13 +132,16 @@ script exits non-zero:
    the first's ``"shard"`` entry, rows bit for bit; (e) ``ROUTED`` sharded
    ``execute_many`` == FROID serial, the router keyed by the shard token;
    (f) where there are several cards, (a)-(e) again over all of them;
-7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96)
-   and gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
-   layers) at their published widths and depths, one after the other,
+7. serving — granite-3-2b, mamba2-370m, phi3-mini-3.8b (head dim 96),
+   gemma3-12b (head dim 256, 1,024-token windows on 40 of its 48
+   layers), granite-moe-3b-a800m and minicpm3-4b (multi-head latent
+   attention: flash at qk 64 + 32 = 96 with v's 64 zero-padded to 96, and
+   decode against the compressed latent cache) at their published widths
+   and depths, one after the other,
    through ``ServeEngine.run`` with Froid-compiled admission on the card:
    8 requests with 512-2048-token prompts plus one 33,000-token prompt
    that the ``admit`` rule rejects, served twice (granite, mamba) or once
-   (phi3, gemma3), with the kernel launches counted over the first run,
+   (the others), with the kernel launches counted over the first run,
    the peak device memory, granite also through ``submit``/``drain``
    (equal to ``run``'s completions), and a traced prefill's port kernels
    checked by name and count (the bf16 flash kernel at the model's head dim, the four
@@ -153,9 +156,11 @@ script exits non-zero:
    one 64-key tile out and must read above the limit (over the rows that
    tile reaches, and at granite's layer over all rows as well);
 9. LM cross-device — the smoke configs' prefill and decode logits (phi3's
-   and gemma3's at their published head dims, 96 and 256, beside the same
-   with the plain version in place of the kernel on the card) and the
-   admission verdicts on the CPU and on the card;
+   and gemma3's at their published head dims, 96 and 256, and minicpm3's
+   at its smoke MLA dims and again at the published ones, qk 64 + 32 and
+   v 64, each of the last three beside the same with the plain version in
+   place of the kernel on the card) and the admission verdicts on the CPU
+   and on the card;
 10. training (ROADMAP A16.1, A16.2) — (a) flash_attention's backward kernels
    (``flash_bwd_preprocess``, then dK/dV and dQ: on the tensor cores in
    bf16, ``flash_bwd_dkdv_bf16`` and ``flash_bwd_dq_bf16``; on the CUDA
@@ -4295,10 +4300,13 @@ def relagg_variants_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 #: serving phase: (arch, the kernel its prefill runs, runs of the request
-#: mix); phi3 and gemma3 are served once, to keep the script in its time
+#: mix); all but granite and mamba are served once, to keep the script in
+#: its time.  minicpm3-4b's MLA layers hand flash q and k at 64 + 32 = 96
+#: and v's 64 zero-padded to 96: its flash instance is <96>
 SERVE_ARCHS = (("granite3_2b", "flash_attention", 2), ("mamba2_370m", "ssd_scan", 2),
                ("phi3_mini_38b", "flash_attention", 1), ("gemma3_12b", "flash_attention", 1),
-               ("granite_moe_3b_a800m", "flash_attention", 1))
+               ("granite_moe_3b_a800m", "flash_attention", 1),
+               ("minicpm3_4b", "flash_attention", 1))
 #: the mixture-of-experts archs whose smoke configs the LM cross-device
 #: phase runs (granite-moe's also serves at full width above; mixtral-8x7b
 #: and jamba-1.5-large do not fit the card at full width in float32)
@@ -4306,6 +4314,11 @@ MOE_SMOKE_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x7b", "jamba15_large_398b")
 #: archs whose smoke config runs at its published head dim in the LM
 #: cross-device phase (D = 96 and 256, the flash instances only they take)
 PUBLISHED_HEAD_DIM = ("phi3_mini_38b", "gemma3_12b")
+#: archs whose smoke config runs a second time in the LM cross-device phase
+#: with the published MLA dims (minicpm3-4b: ranks 768 and 256, qk 64 + 32,
+#: v 64 padded to 96, so the card runs the <96> instance; the smoke dims'
+#: 24 runs the <64> one)
+PUBLISHED_MLA = ("minicpm3_4b",)
 SLOTS, MAX_LEN, MAX_NEW, N_REQUESTS, LONG_PROMPT = 4, 4096, 32, 8, 33_000
 
 
@@ -5352,11 +5365,13 @@ def lm_cross_device_phase() -> dict:
     admission verdicts at the rules' edges, equal.  phi3's and gemma3's
     smoke configs take their published head dims (96, 256), so the card
     runs those flash instances; gemma3's 16-token window is shorter than
-    the 24-token prompt, and its embeddings are tied.  Beside each of those
-    two, the same run on the card with the plain version in place of the
-    kernel (P in float32, never rounded to bf16) is read against the CPU:
-    where the kernel's reading nears the tolerance, that tells its P
-    rounding from the rest of the card's arithmetic.
+    the 24-token prompt, and its embeddings are tied.  minicpm3's
+    (:data:`PUBLISHED_MLA`) runs twice: at its smoke MLA dims, then at the
+    published ones.  Beside each run at a published dim, the same run on
+    the card with the plain version in place of the kernel (P in float32,
+    never rounded to bf16) is read against the CPU: where the kernel's
+    reading nears the tolerance, that tells its P rounding from the rest
+    of the card's arithmetic.
 
     The MoE archs (:data:`MOE_SMOKE_ARCHS`; jamba's hybrid stack runs
     flash_attention and ssd_scan in one model) are gated with float32
@@ -5425,10 +5440,17 @@ def lm_cross_device_phase() -> dict:
         return undo
 
     moe_out = {}
+    runs = []  # (arch, smoke config, whether it takes a published dim)
     for arch in dict.fromkeys([a for a, _, _ in SERVE_ARCHS] + list(MOE_SMOKE_ARCHS)):
         cfg = smoke_config_for(arch)
         if arch in PUBLISHED_HEAD_DIM:
             cfg = dataclasses.replace(cfg, head_dim=config_for(arch).head_dim)
+        runs.append((arch, cfg, arch in PUBLISHED_HEAD_DIM))
+        if arch in PUBLISHED_MLA:
+            full = config_for(arch)
+            runs.append((arch, dataclasses.replace(cfg, mla=full.mla, head_dim=full.head_dim),
+                         True))
+    for arch, cfg, published in runs:
         tree = T.init_params(torch.Generator("cpu").manual_seed(0), cfg, "cpu")
         models = {"cpu": build_model(cfg, "cpu").load(tree),
                   "card": build_model(cfg).load(to_card(tree))}
@@ -5474,14 +5496,21 @@ def lm_cross_device_phase() -> dict:
                 f"(token, layer) routes differ")
             continue
         cpu = teacher_forced(models["cpu"], "cpu", toks, steps)
+        fa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0  # the card's run only
         card = teacher_forced(models["card"], "cuda", toks, steps)
+        mixers = {spec.mixer for spec in cfg.super_block}
+        launches = {"flash_attention": fa_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
+        want = {"flash_attention": "attn" in mixers, "ssd_scan": "mamba" in mixers}
+        check(all((n > 0) == want[k] for k, n in launches.items()),
+              f"{cfg.name} smoke on the card: kernel launches {launches}, expected some of "
+              f"{[k for k, w in want.items() if w]} and none of the others")
         tol = 2e-2 * float(cpu[0].abs().max())
         for step, (x, y) in enumerate(zip(cpu, card)):
             err = float((x - y).abs().max())
             what = "prefill" if step == 0 else f"decode {step - 1}"
             check(err <= tol, f"{cfg.name} smoke {what}: cpu vs card {err} > {tol}")
         plain = ""
-        if arch in PUBLISHED_HEAD_DIM:
+        if published:
             # by path: the package's own ``flash_attention`` is the ops function
             fa_binding = importlib.import_module(
                 "repro_torch.kernels.flash_attention.flash_attention")
@@ -5494,7 +5523,9 @@ def lm_cross_device_phase() -> dict:
                 fa_binding.flash_attention_cuda = kernel
             plain = (f"; with the plain version (P in float32) in place of the kernel on the "
                      f"card {worst(cpu, card_plain):.3g}")
-        log(f"LM cross-device: {cfg.name} smoke (head dim {cfg.head_dim}) prefill + 4 decode "
+        dims = (f"MLA qk {cfg.mla.qk_nope_head_dim} + {cfg.mla.qk_rope_head_dim}, v "
+                f"{cfg.mla.v_head_dim}" if cfg.mla else f"head dim {cfg.head_dim}")
+        log(f"LM cross-device: {cfg.name} smoke ({dims}) prefill + 4 decode "
             f"steps, cpu vs card max |diff| {worst(cpu, card):.3g} (tolerance {tol:.3g})"
             + plain)
     plen = [2048, 2049, 8192, 8193, 32768, 32769, 100, 5000]

@@ -5,18 +5,23 @@ flash_attention kernel), the int8 KV-cache codec and the single-token
 ``attention_decode`` (plain torch, as the reference uses no kernel there,
 ``:112-120``), including the sliding-window ring buffer.
 
+Multi-head latent attention (MLA, ``:127-241``): ``init_mla``, the
+sequence form ``mla_seq`` (through the flash_attention kernel, v
+zero-padded to q's head dim) and ``mla_decode`` against the compressed
+latent cache (plain torch, as the reference).
+
 ``params`` is anything indexable by the reference's keys (a dict of
 tensors, or the port's :class:`repro_torch.models.transformer.Params`).
-MLA (``:127-241``) and cross-attention (``:245-279``) wait for their
-configs: they raise.
+Cross-attention (``:245-279``) waits for its configs: it raises.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _dense_init, apply_rope
+from repro_torch.models.layers import _dense_init, apply_rope, init_rmsnorm, rmsnorm
 
 
 def init_attention(generator, cfg: ArchConfig, device=None):
@@ -132,12 +137,107 @@ def attention_decode(params, x, cache, pos: int, cfg: ArchConfig, *,
     return o @ params["wo"].to(dt), new_cache
 
 
-def init_mla(*args, **kwargs):
-    raise NotImplementedError("MLA (models/attention.py:127-241) is not ported "
-                              "yet: ROADMAP A17")
+# ------------------------------------------------------------------ MLA
+def init_mla(generator, cfg: ArchConfig, device=None):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": _dense_init(generator, (D, m.q_lora_rank), device=device),
+        "q_norm": init_rmsnorm(m.q_lora_rank, device),
+        "w_uq": _dense_init(generator, (m.q_lora_rank, H * qh), device=device),
+        "w_dkv": _dense_init(generator, (D, m.kv_lora_rank + m.qk_rope_head_dim),
+                             device=device),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, device),
+        "w_ukv": _dense_init(generator, (m.kv_lora_rank,
+                                         H * (m.qk_nope_head_dim + m.v_head_dim)),
+                             device=device),
+        "wo": _dense_init(generator, (H * m.v_head_dim, D), device=device),
+    }
 
 
-mla_seq = mla_decode = init_mla
+def _mla_query(params, x, cfg: ArchConfig, positions):
+    """(q_nope (B, H, S, nope), roped q_rope (B, H, S, rope)) for x (B, S, D)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    dt = x.dtype
+    cq = rmsnorm(x @ params["w_dq"].to(dt), params["q_norm"], cfg.norm_eps)
+    q = (cq @ params["w_uq"].to(dt)).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim).transpose(1, 2)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
+
+
+def _mla_expand(params, latent, cfg: ArchConfig, positions):
+    """The latent (B, S, kv_rank + rope) up-projected: k_nope and v
+    (B, S, H, nope) and (B, S, H, v), and the roped k_rope (B, 1, S, rope)
+    that every head shares."""
+    m = cfg.mla
+    B, S, _ = latent.shape
+    c_kv, k_rope = latent.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rmsnorm(c_kv, params["kv_norm"], cfg.norm_eps)
+    kv = (c_kv @ params["w_ukv"].to(latent.dtype)).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, None], positions[:, None, :], cfg.rope_theta)
+    return k_nope, v, k_rope
+
+
+def mla_seq(params, x, cfg: ArchConfig, *, q_offset: int = 0):
+    """Multi-head latent attention, sequence form.  The cache is the
+    compressed latent (B, S, kv_rank + rope_dim), pre-norm and pre-rope in
+    the activations' dtype.  Returns (out, latent)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dt = x.dtype
+    positions = q_offset + torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_query(params, x, cfg, positions)
+    latent = x @ params["w_dkv"].to(dt)
+    k_nope, v, k_rope = _mla_expand(params, latent, cfg, positions)
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)  # (B, H, S, qk)
+    # k_rope broadcast over the heads, written out: the kernel takes a
+    # contiguous k, never a stride-0 head axis
+    k_full = torch.cat([k_nope.transpose(1, 2),
+                        k_rope.expand(B, H, S, m.qk_rope_head_dim)], dim=-1)
+    # v's head dim may differ from q's and k's: zero-padded for the
+    # kernel, the output sliced back (the scale stays q's D ** -0.5)
+    v_p = F.pad(v.transpose(1, 2), (0, q_full.shape[-1] - m.v_head_dim))
+    o = flash_attention(q_full, k_full, v_p, causal=True, q_offset=q_offset)
+    o = o[..., :m.v_head_dim].transpose(1, 2).reshape(B, S, H * m.v_head_dim)
+    return o @ params["wo"].to(dt), latent
+
+
+def mla_decode(params, x, latent_cache, pos: int, cfg: ArchConfig):
+    """Single-token MLA decode against the compressed latent cache
+    (B, S_cache, kv_rank + rope_dim): the new latent written at ``pos``
+    in place (past the end, on the last slot, as dynamic_update_slice
+    clamps its start), then the whole cache normalised, up-projected and
+    roped at positions 0..S_cache-1, the slots past ``pos`` masked.
+    Returns (out, latent_cache)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    dt = x.dtype
+    S_cache = latent_cache.shape[1]
+    slot = min(pos, S_cache - 1)
+    latent_cache[:, slot:slot + 1] = x @ params["w_dkv"].to(dt)
+    positions = torch.arange(S_cache, device=x.device)[None, :]
+
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_query(params, x, cfg, posv)  # (B, H, 1, .)
+    k_nope, v, k_rope = _mla_expand(params, latent_cache, cfg, positions)
+
+    s = (torch.einsum("bhqd,bshd->bhqs", q_nope.float(), k_nope.float())
+         + torch.einsum("bhqd,bsd->bhqs", q_rope.float(), k_rope[:, 0].float())
+         ) * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    valid = torch.arange(S_cache, device=x.device) <= pos
+    s = torch.where(valid, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqs,bshd->bhqd", p, v.float()).to(dt)
+    o = o.transpose(1, 2).reshape(B, 1, H * m.v_head_dim)
+    return o @ params["wo"].to(dt), latent_cache
 
 
 def init_cross_attention(*args, **kwargs):

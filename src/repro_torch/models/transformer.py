@@ -1,6 +1,7 @@
 """Model assembly: a port of ``src/repro/models/transformer.py`` for the
-decoder stacks of attention and Mamba-2 super-blocks with dense or
-mixture-of-experts MLPs, with the reference's three entry points:
+decoder stacks of attention (GQA or multi-head latent attention) and
+Mamba-2 super-blocks with dense or mixture-of-experts MLPs, with the
+reference's three entry points:
 
   * ``loss_fn(params, batch, cfg)``         — next-token CE (chunked)
   * ``prefill(params, tokens, cfg, ...)``   — forward + KV/SSM cache
@@ -22,9 +23,10 @@ reference wraps its scan body in ``jax.checkpoint``.
 
 ``shard_batch`` (``dist/activations.py``) is the identity on one card.
 The decode cache is a dict ``{"pos": int, "layers": [one dict per
-super-block]}``; decode updates its tensors in place.  Not in this slice,
-each raising ``NotImplementedError``: MLA (A17), the ``cross`` mixer,
-``encode`` and memory inputs (A18).
+super-block]}``, each layer's entry ``kv``, ``latent`` (MLA) or ``ssm``;
+decode updates its tensors in place.  Not in this slice, each raising
+``NotImplementedError``: the ``cross`` mixer, ``encode`` and memory inputs
+(A18).
 """
 from __future__ import annotations
 
@@ -45,8 +47,6 @@ def _unported(what: str, item: str):
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.mla is not None:
-        _unported("MLA attention", "A17")
     if cfg.n_encoder_layers or cfg.vision_tokens:
         _unported("encoder and vision memory", "A18")
     for spec in cfg.super_block:
@@ -97,9 +97,11 @@ class Layer(Params):
         nc = {}
         if spec.mixer == "attn":
             hh = rmsnorm(h, self["norm1"], cfg.norm_eps)
-            o, kv = ATT.attention_decode(self["attn"], hh, c["kv"], pos, cfg,
-                                         window=spec.window)
-            nc["kv"] = kv
+            if cfg.mla:
+                o, nc["latent"] = ATT.mla_decode(self["attn"], hh, c["latent"], pos, cfg)
+            else:
+                o, nc["kv"] = ATT.attention_decode(self["attn"], hh, c["kv"], pos, cfg,
+                                                   window=spec.window)
             h = h + o
         elif spec.mixer == "mamba":
             hh = rmsnorm(h, self["norm1"], cfg.norm_eps)
@@ -146,7 +148,8 @@ def _init_layer(generator, spec: LayerSpec, cfg: ArchConfig, device):
     out = {}
     if spec.mixer == "attn":
         out["norm1"] = init_rmsnorm(cfg.d_model, device)
-        out["attn"] = ATT.init_attention(generator, cfg, device)
+        out["attn"] = (ATT.init_mla(generator, cfg, device) if cfg.mla
+                       else ATT.init_attention(generator, cfg, device))
     elif spec.mixer == "mamba":
         out["norm1"] = init_rmsnorm(cfg.d_model, device)
         out["mamba"] = SSM.init_mamba(generator, cfg, device)
@@ -201,9 +204,11 @@ def _layer_seq(lp, spec: LayerSpec, x, cfg: ArchConfig, q_offset: int, causal: b
     cache_out = {}
     if spec.mixer == "attn":
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        o, kv = ATT.attention_seq(lp["attn"], h, cfg, window=spec.window,
-                                  q_offset=q_offset, causal=causal)
-        cache_out["kv"] = kv
+        if cfg.mla:
+            o, cache_out["latent"] = ATT.mla_seq(lp["attn"], h, cfg, q_offset=q_offset)
+        else:
+            o, cache_out["kv"] = ATT.attention_seq(lp["attn"], h, cfg, window=spec.window,
+                                                   q_offset=q_offset, causal=causal)
         x = x + o
     elif spec.mixer == "mamba":
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
@@ -294,7 +299,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, memory_len: int = 0,
         layers = {}
         for i, spec in enumerate(cfg.super_block):
             c = {}
-            if spec.mixer == "attn":
+            if spec.mixer == "attn" and cfg.mla:
+                m = cfg.mla
+                c["latent"] = torch.zeros(
+                    (batch, max_len, m.kv_lora_rank + m.qk_rope_head_dim), dtype=dtype,
+                    device=device)
+            elif spec.mixer == "attn":
                 kv_shape = (batch, cfg.n_kv_heads, _cache_len(spec, max_len),
                             cfg.head_dim)
                 if cfg.kv_cache_int8:
@@ -359,6 +369,9 @@ def prefill(params, tokens, cfg: ArchConfig, memory=None, max_len=None):
                     parts = (k, v)
                 dst["kv"] = tuple(_place(buf, arr, S, spec.window)
                                   for buf, arr in zip(dst["kv"], parts))
+            if "latent" in dst:
+                # the prompt's latent at positions 0..S-1 (sequence on dim 1)
+                dst["latent"][:, :S] = src["latent"]
             if "ssm" in dst:
                 conv, ssd = src["ssm"]
                 dst["ssm"] = (conv.to(dst["ssm"][0].dtype), ssd)

@@ -8,7 +8,9 @@ Tolerances are the reference's own (``tests/test_kernels.py``):
 flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
 outputs compared in float32; bf16 runs the tensor-core kernel, float32 the
 CUDA-core one; head dims 16, 64, 96, 128 and 256, and 24, 32 and 80
-zero-padded to the next of them); ssd_scan a max error
+zero-padded to the next of them; minicpm3-4b's MLA layout, 40 heads at
+D = 96 with v's last 32 columns zero, whose output's last 32 columns
+must be exactly zero); ssd_scan a max error
 below 3e-4 of max|y| in float32, and
 the states its state pass leaves within 1e-5 of the plain version of its
 passes.  The kernels sum in another order than the plain versions (tiles
@@ -153,6 +155,26 @@ def test_flash_kernel_pads_between_instances(D, window, dtype):
     b = flash_attention_ref(q, k, v, causal=True, window=window)
     np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
                                atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_minicpm3_mla_layout(rng, dtype):
+    """minicpm3-4b's MLA layer as ``mla_seq`` hands it to the kernel: 40
+    query heads on 40 KV heads at D = 96 (qk 64 + 32), v's head dim 64
+    zero-padded to 96, causal, over lengths the 64-row tiles do not divide.
+    Equal to the plain version; the output's last 32 columns exactly zero."""
+    q, k = (torch.as_tensor(rng.normal(size=(2, 40, 333, 96)), device="cuda").to(dtype)
+            for _ in range(2))
+    v = torch.nn.functional.pad(
+        torch.as_tensor(rng.normal(size=(2, 40, 333, 64)), device="cuda").to(dtype), (0, 32))
+    before = fa_ops.LAUNCHES
+    a = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1 and a.shape == q.shape and a.dtype == dtype
+    b = flash_attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+    assert not a[..., 64:].any()
 
 
 def _ssd_inputs(rng, BH, BG, L, P, N):

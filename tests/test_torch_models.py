@@ -53,10 +53,16 @@ def _variant(name: str, which: str):
     """A smoke config, plain, with a sliding window or an int8 KV cache
     (granite), or at the arch's published head dim (``"head_dim"``: phi3's
     96 with MHA; gemma3's 256 with local/local/global layers, a 16-token
-    window and tied embeddings), in the reference's and the port's
-    dataclasses."""
+    window and tied embeddings), or with the published MLA dims
+    (``"mla"``: minicpm3-4b's ranks 768 and 256, qk 64 + 32, v 64, so that
+    v is padded to 96), in the reference's and the port's dataclasses."""
     ref, port = smoke_config_for(name), tconfigs.smoke_config_for(name)
-    if which == "head_dim":
+    if which == "mla":
+        full = config_for(name)
+        ref = dataclasses.replace(ref, mla=full.mla, head_dim=full.head_dim)
+        port = dataclasses.replace(port, mla=tconfigs.config_for(name).mla,
+                                   head_dim=full.head_dim)
+    elif which == "head_dim":
         hd = config_for(name).head_dim
         ref, port = dataclasses.replace(ref, head_dim=hd), dataclasses.replace(port, head_dim=hd)
     elif which == "window":
@@ -187,6 +193,7 @@ MOE_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x7b", "jamba15_large_398b")
                                         ("phi3_mini_38b", "head_dim"),
                                         ("gemma3_12b", "head_dim"),
                                         ("granite_moe_3b_a800m", "plain"),
+                                        ("minicpm3_4b", "plain"), ("minicpm3_4b", "mla"),
                                         ("mixtral_8x7b", "plain"),
                                         ("jamba15_large_398b", "eager")])
 def test_prefill_and_decode_match_reference(rng, arch, which):
@@ -212,17 +219,20 @@ def test_prefill_and_decode_match_reference(rng, arch, which):
 
 
 @pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", *PUBLISHED_HEAD_DIM,
-                                  *MOE_ARCHS])
+                                  *MOE_ARCHS, "minicpm3_4b", "minicpm3_4b+mla"])
 def test_prefill_and_decode_match_reference_float32(rng, monkeypatch, arch):
     """The same stack with float32 activations and caches in both packages:
     within 1e-4 x max|logit|, so the bf16 test's slack is rounding only
     (phi3 and gemma3 at their published head dims; the MoE archs route
-    each token to the same experts in both)."""
+    each token to the same experts in both; ``+mla``: minicpm3-4b at the
+    published MLA dims)."""
     monkeypatch.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TT, "COMPUTE_DTYPE", torch.float32)
     monkeypatch.setattr(RT.init_cache, "__defaults__", (0, jnp.float32))
     monkeypatch.setattr(TT.init_cache, "__defaults__", (0, torch.float32, None))
-    ref_cfg, cfg = _variant(arch, "head_dim" if arch in PUBLISHED_HEAD_DIM else "plain")
+    arch, _, which = arch.partition("+")
+    which = which or ("head_dim" if arch in PUBLISHED_HEAD_DIM else "plain")
+    ref_cfg, cfg = _variant(arch, which)
     _prefill_then_decode(ref_cfg, cfg, rng, 1e-4)
     model, params, port = _carried(ref_cfg, cfg, seed=1)
     toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
@@ -230,7 +240,7 @@ def test_prefill_and_decode_match_reference_float32(rng, monkeypatch, arch):
                 RT.forward(params, jnp.asarray(toks), ref_cfg)) < 1e-4
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", "minicpm3_4b"])
 def test_decode_continues_prefill(rng, arch):
     """The port's own check: prefill over S tokens then one decode step
     gives the logits of a prefill over S + 1 tokens."""
@@ -276,7 +286,8 @@ def test_parameter_names_follow_the_reference():
                                   want["params.blocks.1.layer0.moe.w_down"])
 
 
-@pytest.mark.parametrize("arch,item", [("minicpm3_4b", "A17"), ("seamless_m4t_large_v2", "A18")])
+@pytest.mark.parametrize("arch,item", [("llama32_vision_90b", "A18"),
+                                       ("seamless_m4t_large_v2", "A18")])
 def test_unported_families_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(tconfigs.smoke_config_for(arch), "cpu").init()

@@ -392,6 +392,14 @@ def test_moe_loss_fn_and_gradients_match_reference(monkeypatch, arch):
     _loss_and_grads_match(monkeypatch, "float32", arch)
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_mla_loss_fn_and_gradients_match_reference(monkeypatch, compute):
+    """minicpm3-4b's smoke config (multi-head latent attention: qk 16 + 8,
+    v 16 zero-padded to 24 for flash_attention) at 40 tokens, the dense
+    case's limits in both computes."""
+    _loss_and_grads_match(monkeypatch, compute, "minicpm3_4b")
+
+
 #: final parameters after 8 steps, (max, mean) absolute.  mamba: 6e-3 and
 #: 2e-4 (0.8 and 2.7% of the summed learning rate; measured 4.25e-3 on
 #: ``w_in`` and 1.35e-4: as in the dense case, a coordinate whose tiny

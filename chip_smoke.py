@@ -4300,10 +4300,13 @@ def relagg_variants_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 #: serving phase: (arch, the kernel its prefill runs, runs of the request
-#: mix); all but granite and mamba are served once, to keep the script in
-#: its time.  minicpm3-4b's MLA layers hand flash q and k at 64 + 32 = 96
-#: and v's 64 zero-padded to 96: its flash instance is <96>
-SERVE_ARCHS = (("granite3_2b", "flash_attention", 2), ("mamba2_370m", "ssd_scan", 2),
+#: mix); each is served once, to keep the script in its time (granite and
+#: mamba were served twice, their tokens held equal across the runs, until
+#: the whole script passed 720 s with the cross models added: 744 s on an
+#: H100 whose host ran the host-paced phases ~25% slower than before).
+#: minicpm3-4b's MLA layers hand flash q and k at 64 + 32 = 96 and v's 64
+#: zero-padded to 96: its flash instance is <96>
+SERVE_ARCHS = (("granite3_2b", "flash_attention", 1), ("mamba2_370m", "ssd_scan", 1),
                ("phi3_mini_38b", "flash_attention", 1), ("gemma3_12b", "flash_attention", 1),
                ("granite_moe_3b_a800m", "flash_attention", 1),
                ("minicpm3_4b", "flash_attention", 1))
@@ -4319,6 +4322,20 @@ PUBLISHED_HEAD_DIM = ("phi3_mini_38b", "gemma3_12b")
 #: v 64 padded to 96, so the card runs the <96> instance; the smoke dims'
 #: 24 runs the <64> one)
 PUBLISHED_MLA = ("minicpm3_4b",)
+#: the models that attend to a memory (ROADMAP A18), served after the
+#: others through ``Model.prefill(tokens, memory)`` and ``decode_step``
+#: (the engine passes no memory, as the reference's does not): (arch,
+#: super-blocks kept, None for all).  seamless-m4t-large-v2 whole (24
+#: encoder and 24 decoder layers); llama-3.2-vision-90b at full width, 2 of
+#: its 20 super-blocks (10 layers, 2 of them cross-attention: 10.66 B
+#: float32 parameters, 42.6 GB; the whole model, 87.67 B, does not fit)
+CROSS_SERVE = (("seamless_m4t_large_v2", None), ("llama32_vision_90b", 2))
+#: every cross-attention gate's value wherever a cross model runs on the
+#: card: a fresh gate is 0, and tanh(0) = 0 would hide cross-attention
+CROSS_GATE = 1.0
+#: the cross models' prompts: 4 of this many tokens (the request mix's
+#: longest prompt, its first batch's length)
+CROSS_PROMPT = 1819
 SLOTS, MAX_LEN, MAX_NEW, N_REQUESTS, LONG_PROMPT = 4, 4096, 32, 8, 33_000
 
 
@@ -4353,7 +4370,9 @@ def flash_kernel_phase(digest_only: bool = False) -> dict:
     their own generator, and each output's sha256 is kept; with
     ``digest_only`` the phase stops after them.  phi3-mini-3.8b's and
     gemma3-12b's head dims (96, 256) follow, from a second generator, then
-    granite-moe-3b-a800m's grouping of 24 query heads on 8."""
+    granite-moe-3b-a800m's grouping of 24 query heads on 8, then
+    cross-attention's calls without the causal mask (seamless-m4t's and
+    llama-3.2-vision's layouts)."""
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
@@ -4406,6 +4425,15 @@ def flash_kernel_phase(digest_only: bool = False) -> dict:
     # shape on the tensor cores, and a ragged one in float32
     wide += [(4, 24, 8, 1819, 1819, 64, bf16, {"causal": True}),
              (1, 24, 8, 300, 300, 64, f32, {"causal": True})]
+    # cross-attention's calls, without the causal mask, in both dtypes, at
+    # seamless-m4t's layout (16 heads on 16, D = 64) and llama-3.2-vision's
+    # (64 on 8, D = 128): a 1,819-token prompt against the 1,601 patches
+    # (25 key tiles of 64 and one of a single key), and decode's one query
+    # row (one row of a 64-row tile) against 1,601 and 1,819 keys
+    for Hq, Hk, D in ((16, 16, 64), (64, 8, 128)):
+        for dt in (f32, bf16):
+            wide += [(1, Hq, Hk, 1819, 1601, D, dt, {"causal": False})]
+            wide += [(4, Hq, Hk, 1, Sk, D, dt, {"causal": False}) for Sk in (1601, 1819)]
     max_err = {f32: 0.0, bf16: 0.0}
     digests: dict[str, str] = {}
 
@@ -4732,16 +4760,18 @@ class LongestCall:
     """Wraps a kernel binding: passes every call through, counts the calls
     of each kind and keeps, for each kind, the arguments of the one with
     the longest sequence (dim 1 of the first argument for ssd_scan's
-    (BH, L, P), dim 2 for attention's q).  Kinds: ``"window"`` for an
-    attention call with a window (gemma3's local layers), else ``"full"``."""
+    (BH, L, P), dim 2 for attention's q).  Kinds: ``kind_of(args, kwargs)``
+    where given, else ``"window"`` for an attention call with a window
+    (gemma3's local layers) and ``"full"`` for the rest."""
 
-    def __init__(self, fn, seq_dim: int):
-        self.fn, self.seq_dim = fn, seq_dim
+    def __init__(self, fn, seq_dim: int, kind_of=None):
+        self.fn, self.seq_dim, self.kind_of = fn, seq_dim, kind_of
         self.calls: dict[str, tuple] = {}
         self.counts: dict[str, int] = {}
 
     def __call__(self, *args, **kwargs):
-        kind = "window" if kwargs.get("window") is not None else "full"
+        kind = (self.kind_of(args, kwargs) if self.kind_of is not None
+                else "window" if kwargs.get("window") is not None else "full")
         self.counts[kind] = self.counts.get(kind, 0) + 1
         kept = self.calls.get(kind)
         if kept is None or args[0].shape[self.seq_dim] > kept[0][0].shape[self.seq_dim]:
@@ -5013,12 +5043,234 @@ def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCal
     return summary, capture
 
 
+def set_gates(tree, value: float = CROSS_GATE) -> None:
+    """Every ``gate`` leaf of a parameter tree (dicts and lists of
+    tensors) set to ``value`` in place."""
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            if key == "gate":
+                v.fill_(value)
+            else:
+                set_gates(v, value)
+    elif isinstance(tree, list):
+        for v in tree:
+            set_gates(v, value)
+
+
+def cross_layer_counts(cfg) -> dict[str, int]:
+    """A model's flash calls by kind in one prefill: the encoder's layers
+    (no causal mask), the decoder's self-attention layers (causal), and the
+    layers that attend to the memory (the ``cross`` mixer or a
+    ``cross_memory`` sublayer; no causal mask), each once a super-block."""
+    per = {"self": sum(s.mixer == "attn" for s in cfg.super_block),
+           "cross": sum(s.mixer == "cross" or s.cross_memory for s in cfg.super_block)}
+    counts = {"encoder": cfg.n_encoder_layers, **{k: n * cfg.n_repeats for k, n in per.items()}}
+    return {k: n for k, n in counts.items() if n}
+
+
+def cross_kinds():
+    """A ``kind_of`` for :class:`LongestCall` over a cross model's flash
+    calls: ``"decode_cross"`` for one query row, ``"self"`` under the causal
+    mask, and without it ``"encoder"`` before the first causal call of the
+    run (the encoder runs first) and ``"cross"`` after."""
+    seen = {"causal": False}
+
+    def kind_of(args, kwargs) -> str:
+        if args[0].shape[2] == 1:
+            return "decode_cross"
+        if kwargs.get("causal", True):
+            seen["causal"] = True
+            return "self"
+        return "cross" if seen["causal"] else "encoder"
+
+    return kind_of
+
+
+def cross_serving_phase(arch: str, repeats, device: str = "cuda", config=None,
+                        prompt: int = CROSS_PROMPT) -> tuple[dict, LongestCall]:
+    """Serve ``arch`` (a model that attends to a memory) at full width on
+    the card, its depth cut to ``repeats`` super-blocks where given, every
+    gate at :data:`CROSS_GATE`: one prefill of 4 x ``prompt`` tokens with
+    the memory (vision patches or audio frames as long as the
+    prompt, unit normal), both from numpy seed 0, then ``MAX_NEW - 1``
+    greedy decode steps.  flash_attention's launches counted over that run
+    (prefill: the encoder's, the self-attention's and the cross layers';
+    each decode step: the cross layers' only); a traced prefill's and a
+    traced decode step's port kernels checked by name and count; a memory
+    drawn from seed 1 must move the prefill's logits.  A warm prefill is
+    timed after the run (the run's own is the model's first, cold: its
+    shapes are new to cuBLAS).  Returns the summary
+    and the capture of the run's flash calls by kind (:func:`cross_kinds`).
+    ``device="cpu"`` with a smoke ``config`` rehearses it on the CPU
+    (untimed, no trace)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import config_for
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+
+    full = config or config_for(arch)
+    cfg = full if repeats is None else dataclasses.replace(full, n_repeats=repeats)
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device)
+    tree = model.init_params(torch.Generator(device).manual_seed(0))
+    set_gates(tree)
+    model.load(tree)
+    del tree
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    cut = "" if repeats is None else f" ({repeats} of {full.n_repeats} super-blocks)"
+    log(f"{cfg.name}{cut}: {cfg.n_layers} decoder layers, {cfg.n_encoder_layers} encoder "
+        f"layers, d_model {cfg.d_model}, head dim {cfg.head_dim}, {n_params:,} float32 "
+        f"parameters ({n_params * 4 / 1e9:.2f} GB) initialised on {device} in "
+        f"{time.perf_counter() - t0:.1f} s, gates at {CROSS_GATE}")
+    M = cfg.vision_tokens or prompt
+
+    def inputs(seed: int):
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab, (SLOTS, prompt)).astype(np.int32)
+        memory = rng.standard_normal((SLOTS, M, cfg.d_model), dtype=np.float32)
+        return (torch.as_tensor(toks, device=device),
+                torch.as_tensor(memory, device=device).to(torch.bfloat16))
+
+    toks, memory = inputs(0)
+    per = cross_layer_counts(cfg)
+    binding = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    capture = LongestCall(binding.flash_attention_cuda, 2, kind_of=cross_kinds())
+    state = {}
+
+    def prefill(mem=memory):
+        state["logits"], state["cache"] = model.prefill(toks, mem, max_len=MAX_LEN)
+
+    def decode():
+        nxt = state["logits"].argmax(-1).to(torch.int32)[:, None]
+        state["logits"], state["cache"] = model.decode_step(state["cache"], nxt)
+        return nxt
+
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = 0  # counts from here to the end of this run only
+    binding.flash_attention_cuda = capture
+    generated, finite, decode_ms = [], True, []
+    try:
+        t = time.perf_counter()
+        prefill()
+        sync()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        finite &= bool(torch.isfinite(state["logits"]).all())
+        first_logits = state["logits"].float()
+        for _ in range(MAX_NEW - 1):
+            t = time.perf_counter()
+            generated.append(decode())
+            sync()
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+            finite &= bool(torch.isfinite(state["logits"]).all())
+        generated.append(state["logits"].argmax(-1).to(torch.int32)[:, None])
+    finally:
+        binding.flash_attention_cuda = capture.fn
+    launches = fa_ops.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    tokens = torch.cat(generated, dim=1).cpu()
+    check(finite, f"{cfg.name}: non-finite logits")
+    check(tokens.shape == (SLOTS, MAX_NEW) and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          f"{cfg.name}: generated tokens {tuple(tokens.shape)} out of the vocabulary")
+    want = {**per, "decode_cross": per["cross"] * (MAX_NEW - 1)}
+    check(capture.counts == want, f"{cfg.name}: flash calls by kind {capture.counts}, "
+          f"expected {want}")
+    check(launches == sum(want.values()), f"{cfg.name}: flash launches {launches}, "
+          f"expected {sum(want.values())} ({want})")
+    # the memory reaches the logits: another memory, other logits
+    _, other = inputs(1)
+    prefill(other)
+    moved = float((state["logits"].float() - first_logits).abs().max())
+    check(moved > 0.0, f"{cfg.name}: a memory drawn from another seed left the logits as "
+          f"they were")
+    del other
+    # a warm prefill, timed; then traces (device events only): a prefill
+    # (the more complete of two) and one decode step
+    sync()
+    t = time.perf_counter()
+    prefill()
+    sync()
+    prefill_warm_ms = (time.perf_counter() - t) * 1e3
+    p_ms, p_top, p_port, d_ms, d_top, d_port = None, [], {}, None, [], {}
+    if on_card:
+        p_ms, p_top, p_port, _ = max((device_busy(prefill, host=False) for _ in range(2)),
+                                     key=lambda r: r[3])
+        d_ms, d_top, d_port, _ = device_busy(decode, host=False)
+    n_prefill = sum(per.values())
+    if p_ms is not None:
+        flash = {name: e["launches"] for name, e in p_port.items()
+                 if name.startswith("flash_fwd") and "<" in name}
+        want_p = {f"flash_fwd_bf16<{cfg.head_dim}>": n_prefill}
+        check(flash == want_p and "flash_fwd_kernel" not in p_port,
+              f"{cfg.name} prefill: flash instances in the trace {flash}, expected {want_p} "
+              f"and no flash_fwd_kernel")
+    if d_ms is not None:
+        got = d_port.get(f"flash_fwd_bf16<{cfg.head_dim}>", {}).get("launches", 0)
+        check(got == per["cross"] and "flash_fwd_kernel" not in d_port,
+              f"{cfg.name} decode step: flash_fwd_bf16<{cfg.head_dim}> x {got} in the trace, "
+              f"expected {per['cross']} (the cross layers, one query row each)")
+    del state
+    decode_mean = float(np.mean(decode_ms))
+    wall_ms = prefill_ms + sum(decode_ms)
+    summary = {
+        "arch": cfg.name, "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+        "super_blocks": cfg.n_repeats, "super_blocks_published": full.n_repeats,
+        "params": n_params, "batch": SLOTS, "prompt": prompt, "memory_len": M,
+        "gate": CROSS_GATE, "prefill_ms": prefill_ms, "prefill_warm_ms": prefill_warm_ms,
+        "decode_ms_per_step": decode_mean,
+        "decode_ms": decode_ms, "generated_tokens": SLOTS * MAX_NEW,
+        "tokens_per_s": SLOTS * MAX_NEW / (wall_ms / 1e3), "peak_gb": peak / 1e9,
+        "launches": launches, "launches_by_kind": dict(capture.counts),
+        "memory_moves_logits": moved / float(first_logits.abs().max()),
+        "prefill_busy_ms": p_ms, "prefill_top": p_top, "prefill_port_kernels": p_port,
+        "decode_busy_ms_per_step": d_ms, "decode_top": d_top, "decode_port_kernels": d_port,
+        "prefill_device_idle_share": None if p_ms is None else 1.0 - p_ms / prefill_warm_ms,
+        "decode_device_idle_share": None if d_ms is None else 1.0 - d_ms / decode_mean,
+    }
+    log(f"{cfg.name}{cut}: prefill of {SLOTS} x {prompt} tokens over a memory of {M} "
+        f"{prefill_ms:.1f} ms, warm {prefill_warm_ms:.1f} ms (traced busy "
+        + ("not measured" if p_ms is None else f"{p_ms:.2f} ms; port kernels {p_port}")
+        + f"), decode {decode_mean:.2f} ms a step (traced busy "
+        + ("not measured" if d_ms is None else f"{d_ms:.2f} ms; port kernels {d_port}")
+        + f"), {summary['tokens_per_s']:.1f} tokens/s, peak {summary['peak_gb']:.2f} GB; "
+        f"flash launches {launches} ({dict(capture.counts)}); a memory from seed 1 moves "
+        f"the prefill's logits by {summary['memory_moves_logits']:.3g} x max|logit|")
+    del model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return summary, capture
+
+
 def valid_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int) -> int:
     """(query, key) pairs the attention mask lets through, per (b, head)."""
     qpos = q_offset + np.arange(Sq, dtype=np.int64)
     hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1, np.int64)
     lo = np.maximum(0, qpos - window + 1) if window is not None else np.zeros(Sq, np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(B: int, Hq: int, Hk: int, Sq: int, Sk: int, D: int, itemsize: int,
+                causal: bool = True, window=None, q_offset: int = 0) -> dict:
+    """The least time the card could take for one flash_attention call: 4 D
+    operations per (query, key) pair the mask lets through at the bf16
+    tensor-core peak, against q, k, v and o moved once each (K and V once
+    for the n_rep query heads that share them) at the HBM rate; the larger
+    of the two, and which it is."""
+    pairs = valid_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
+    ops_count = 4 * D * pairs
+    nbytes = (2 * B * Hq * Sq * D + 2 * B * Hk * Sk * D) * itemsize
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_count / BF16_OPS_PER_S * 1e3
+    return {"pairs": pairs, "ops": ops_count, "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 #: the bf16 kernel against the plain version computed in float32 on the
@@ -5062,10 +5314,9 @@ def plain_f32_without(q, k, v, kw, keys: range):
 def time_flash(args, all_rows_control: bool = True) -> dict:
     """flash_attention on the serving path's own inputs: checked against the
     plain version, timed beside it, beside ``scaled_dot_product_attention``
-    (with the window as a boolean mask where there is one) and beside the
-    bound of this data: 4 D operations per (query, key) pair the mask lets
-    through at the bf16 tensor-core peak, against q, k, v and o moved once
-    each (K and V once for the n_rep heads that share them).  In bf16 the
+    (with the window as a boolean mask where there is one; without the
+    causal mask where the call has none) and beside the bound of this data
+    (:func:`flash_bound`).  In bf16 the
     kernel is also held by mean |diff| to the plain version in float32
     (:data:`FLASH_MEAN_LIMIT`), over all rows and over the rows that the
     middle 64-key tile reaches, beside the same measure of the plain version
@@ -5088,7 +5339,8 @@ def time_flash(args, all_rows_control: bool = True) -> dict:
     ref = flash_attention_ref(q, k, v, **kw)
     ok, err = allclose(out, ref, flash_tol(q.dtype))
     check(ok, f"flash_attention at the serving inputs: max |kernel - plain| {err}")
-    sdpa_ok = causal and q_offset == 0 and Sq == Sk and kw.get("sm_scale") is None
+    sdpa_ok = (q_offset == 0 and kw.get("sm_scale") is None
+               and (Sq == Sk or not causal) and (window is None or causal))
     # the causal window as SDPA's boolean mask (True: attend); every row
     # keeps its own key, so no row is empty
     window_mask = None if window is None else _mask(Sq, Sk, True, window, 0, q.device)
@@ -5097,7 +5349,7 @@ def time_flash(args, all_rows_control: bool = True) -> dict:
         if window_mask is not None:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=window_mask,
                                                   enable_gqa=True)
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
     lib_err = float((library().float() - ref.float()).abs().max()) if sdpa_ok else None
     del ref
@@ -5146,22 +5398,16 @@ def time_flash(args, all_rows_control: bool = True) -> dict:
         lambda: flash_attention_ref(q, k, v, **kw), lambda: flash_attention_cuda(q, k, v, **kw),
         lambda: flash_attention_cuda(q, k, v, **kw), lambda: flash_attention_ref(q, k, v, **kw)))
     lib_ms = cuda_ms(library, reps=10) if sdpa_ok else None
-    pairs = valid_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
-    ops_count = 4 * D * pairs
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = ops_count / BF16_OPS_PER_S * 1e3
+    bound = flash_bound(B, Hq, k.shape[1], Sq, Sk, D, q.element_size(), causal, window,
+                        q_offset)
     return {
         "shape": [B, Hq, k.shape[1], Sq, Sk, D], "dtype": str(q.dtype), "kwargs": kw,
-        "pairs": pairs, "ops": ops_count, "bytes": nbytes,
-        "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        **bound, "ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
         "max_abs_err": err, "max_abs_err_f32": err32, "library_max_abs_err": lib_err,
         "mean_abs_err_vs_f32": mean_diff, "mean_limit": limit, "control_dropped_tile": control,
         "mean_abs_err_vs_f32_reach": mean_diff_r, "mean_limit_reach": limit_r,
         "control_dropped_tile_reach": control_r, "library_mean_abs_err_vs_f32": sdpa_mean,
-        "tflops": ops_count / (min(k1, k2) * 1e-3) / 1e12,
+        "tflops": bound["ops"] / (min(k1, k2) * 1e-3) / 1e12,
     }
 
 
@@ -5379,8 +5625,16 @@ def lm_cross_device_phase() -> dict:
     bf16 a token whose k-th and (k + 1)-th router weights lie within
     rounding of each other can take another expert on the card than on the
     CPU, a step in its logits.  Their bf16 run is read, not gated: its gap
-    beside the number of (token, layer) routes that differ.  Returns the
-    MoE archs' readings."""
+    beside the number of (token, layer) routes that differ.
+
+    The cross-attention archs' smoke configs (:data:`CROSS_SERVE`, every
+    gate at :data:`CROSS_GATE`; llama-3.2-vision's also at its published
+    head dim 128, so the card runs ``<128>`` on a model) over a unit-normal
+    memory, in bf16 at the same 2e-2 x max|logit|, their flash launches
+    counted (the prefill's calls, then one a cross layer a decode step);
+    a control: the card over a memory drawn from another seed must read
+    outside the limit.  Returns the MoE archs' readings and the cross
+    archs' (``{"moe": ..., "cross": ...}``)."""
     import dataclasses
 
     import torch
@@ -5401,10 +5655,10 @@ def lm_cross_device_phase() -> dict:
             return [to_card(v) for v in t]
         return t.to("cuda")
 
-    def teacher_forced(model, device, toks, steps, routes=None):
-        """The prefill's logits and each decode step's, on the CPU; with
-        ``routes``, each MoE call's chosen experts (a sorted row a token)
-        appended to it in call order."""
+    def teacher_forced(model, device, toks, steps, routes=None, memory=None):
+        """The prefill's logits (over ``memory`` where given) and each
+        decode step's, on the CPU; with ``routes``, each MoE call's chosen
+        experts (a sorted row a token) appended to it in call order."""
         moe = T.moe
 
         def recorded(params, x, top_k):
@@ -5416,7 +5670,8 @@ def lm_cross_device_phase() -> dict:
         if routes is not None:
             T.moe = recorded
         try:
-            logits, cache = model.prefill(toks.to(device), max_len=64)
+            logits, cache = model.prefill(
+                toks.to(device), None if memory is None else memory.to(device), max_len=64)
             out = [logits.cpu()]
             for nt in steps:
                 logits, cache = model.decode_step(cache, nt.to(device))
@@ -5427,6 +5682,19 @@ def lm_cross_device_phase() -> dict:
 
     def worst(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    def with_plain_flash(run):
+        """``run()`` with the plain version in the kernel's place on the card."""
+        # by path: the package's own ``flash_attention`` is the ops function
+        fa_binding = importlib.import_module(
+            "repro_torch.kernels.flash_attention.flash_attention")
+        kernel = fa_binding.flash_attention_cuda
+        fa_binding.flash_attention_cuda = lambda q, k, v, **kw: flash_attention_ref(
+            q, k, v, **kw)
+        try:
+            return run()
+        finally:
+            fa_binding.flash_attention_cuda = kernel
 
     def float32_compute():
         """Patch the stack to float32 activations and caches; returns the
@@ -5450,6 +5718,13 @@ def lm_cross_device_phase() -> dict:
             full = config_for(arch)
             runs.append((arch, dataclasses.replace(cfg, mla=full.mla, head_dim=full.head_dim),
                          True))
+    # the cross models' smoke configs over a memory (A18), llama-3.2-vision's
+    # again at its published head dim 128
+    cross_runs = [(arch, smoke_config_for(arch)) for arch, _ in CROSS_SERVE]
+    cross_runs.append(("llama32_vision_90b", dataclasses.replace(
+        smoke_config_for("llama32_vision_90b"),
+        head_dim=config_for("llama32_vision_90b").head_dim)))
+    cross_out = {}
     for arch, cfg, published in runs:
         tree = T.init_params(torch.Generator("cpu").manual_seed(0), cfg, "cpu")
         models = {"cpu": build_model(cfg, "cpu").load(tree),
@@ -5511,16 +5786,8 @@ def lm_cross_device_phase() -> dict:
             check(err <= tol, f"{cfg.name} smoke {what}: cpu vs card {err} > {tol}")
         plain = ""
         if published:
-            # by path: the package's own ``flash_attention`` is the ops function
-            fa_binding = importlib.import_module(
-                "repro_torch.kernels.flash_attention.flash_attention")
-            kernel = fa_binding.flash_attention_cuda
-            fa_binding.flash_attention_cuda = lambda q, k, v, **kw: flash_attention_ref(
-                q, k, v, **kw)
-            try:
-                card_plain = teacher_forced(models["card"], "cuda", toks, steps)
-            finally:
-                fa_binding.flash_attention_cuda = kernel
+            card_plain = with_plain_flash(
+                lambda: teacher_forced(models["card"], "cuda", toks, steps))
             plain = (f"; with the plain version (P in float32) in place of the kernel on the "
                      f"card {worst(cpu, card_plain):.3g}")
         dims = (f"MLA qk {cfg.mla.qk_nope_head_dim} + {cfg.mla.qk_rope_head_dim}, v "
@@ -5528,6 +5795,49 @@ def lm_cross_device_phase() -> dict:
         log(f"LM cross-device: {cfg.name} smoke ({dims}) prefill + 4 decode "
             f"steps, cpu vs card max |diff| {worst(cpu, card):.3g} (tolerance {tol:.3g})"
             + plain)
+    for arch, cfg in cross_runs:
+        tree = T.init_params(torch.Generator("cpu").manual_seed(0), cfg, "cpu")
+        set_gates(tree)
+        models = {"cpu": build_model(cfg, "cpu").load(tree),
+                  "card": build_model(cfg).load(to_card(tree))}
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+        steps = [torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32))
+                 for _ in range(4)]
+        M = cfg.vision_tokens or 24  # audio frames as long as the prompt
+        memory, redrawn = (torch.as_tensor(np.random.default_rng(seed).standard_normal(
+            (2, M, cfg.d_model), dtype=np.float32)).to(torch.bfloat16) for seed in (2, 3))
+        cpu = teacher_forced(models["cpu"], "cpu", toks, steps, memory=memory)
+        fa_ops.LAUNCHES = 0  # the card's run only
+        card = teacher_forced(models["card"], "cuda", toks, steps, memory=memory)
+        launches = fa_ops.LAUNCHES
+        per = cross_layer_counts(cfg)
+        want = sum(per.values()) + 4 * per["cross"]
+        check(launches == want, f"{cfg.name} smoke on the card: flash launches {launches}, "
+              f"expected {want} (prefill {per}, then the cross layers a decode step)")
+        tol = 2e-2 * float(cpu[0].abs().max())
+        for step, (x, y) in enumerate(zip(cpu, card)):
+            err = float((x - y).abs().max())
+            what = "prefill" if step == 0 else f"decode {step - 1}"
+            check(err <= tol, f"{cfg.name} smoke {what}: cpu vs card {err} > {tol}")
+        # control: the card over a memory drawn from another seed must read
+        # outside the limit against the CPU
+        other = teacher_forced(models["card"], "cuda", toks, steps, memory=redrawn)
+        control = worst(cpu, other)
+        check(control > tol, f"{cfg.name} smoke: with the memory redrawn the card reads "
+              f"{control}, within the limit {tol}: the check cannot see the memory")
+        card_plain = with_plain_flash(
+            lambda: teacher_forced(models["card"], "cuda", toks, steps, memory=memory))
+        log(f"LM cross-device: {cfg.name} smoke (head dim {cfg.head_dim}, memory of {M}, "
+            f"gates at {CROSS_GATE}) prefill + 4 decode steps, cpu vs card max |diff| "
+            f"{worst(cpu, card):.3g} (tolerance {tol:.3g}); with the plain version (P in "
+            f"float32) in place of the kernel on the card {worst(cpu, card_plain):.3g}; card "
+            f"flash launches {launches}; with the memory redrawn {control:.3g}")
+        cross_out[cfg.name + ("" if cfg.head_dim == smoke_config_for(arch).head_dim
+                              else f"/head_dim{cfg.head_dim}")] = {
+            "max_abs_diff": worst(cpu, card), "tol": tol, "launches": launches,
+            "plain_on_card_max_abs_diff": worst(cpu, card_plain),
+            "redrawn_memory_diff": control}
     plen = [2048, 2049, 8192, 8193, 32768, 32769, 100, 5000]
     reqs = {"tier": np.array([0, 1, 2, 0, 1, 2, 0, 1]), "prompt_len": np.array(plen),
             "max_new_tokens": np.array([32, 5000, 300, 2000, 10, 10, 256, 1024]),
@@ -5537,7 +5847,7 @@ def lm_cross_device_phase() -> dict:
     for name in a:
         check(np.array_equal(a[name], b[name]), f"admission {name}: cpu {a[name]} vs card {b[name]}")
     log("LM cross-device: admission verdicts cpu == card")
-    return moe_out
+    return {"moe": moe_out, "cross": cross_out}
 
 
 # ---------------------------------------------------------------------------
@@ -6926,30 +7236,48 @@ def main() -> int:
 
     # lm_times: per serving path ("granite3_2b", "gemma3_12b/window", ...)
     serving, lm_times = {}, {}
+
+    def time_captured(arch: str, kernel: str, capture, path_of) -> None:
+        t0 = time.perf_counter()
+        for kind, args in sorted(capture.calls.items()):
+            path = path_of(kind)
+            if kernel == "flash_attention":
+                # every row of a call without the causal mask reaches the
+                # middle key tile: the control holds over all rows there
+                t = time_flash(args, all_rows_control=(arch == "granite3_2b"
+                                                       or not args[1].get("causal", True)))
+            else:
+                t = time_ssd(args)
+            # the run's launches of this kind of call
+            t = lm_times[path] = {**t, "kernel": kernel, "launches": capture.counts[kind]}
+            lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+                   else "none (no PyTorch call computes it)")
+            mask = f" {t['kwargs']}" if kernel == "flash_attention" else ""
+            log(f"{kernel} at {path}'s serving inputs {t['shape']}{mask} "
+                f"({t['launches']} launches in the first run): == plain (max abs err "
+                f"{t['max_abs_err']:.3g}); kernel {t['ms']:.4f} ms ({t['tflops']:.2f} "
+                f"TFLOP/s), plain {t['plain_ms']:.4f} ms, library {lib}, bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['ops'] / 1e9:.3f} GFLOP, "
+                f"{t['bytes'] / 1e6:.3f} MB)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{kernel} times ok in {time.perf_counter() - t0:.1f} s")
+
     for arch, kernel, n_runs in SERVE_ARCHS:
         t0 = time.perf_counter()
         serving[arch], capture = serving_phase(arch, kernel, n_runs)
         log(f"serving phase {arch} ok in {time.perf_counter() - t0:.1f} s")
+        time_captured(arch, kernel, capture,
+                      lambda kind: arch if len(capture.calls) == 1 else f"{arch}/{kind}")
+        del capture
+    # the models that attend to a memory (A18): one prefill and 31 decode
+    # steps each, then flash at each kind of call they made
+    for arch, repeats in CROSS_SERVE:
         t0 = time.perf_counter()
-        for kind, args in sorted(capture.calls.items()):
-            path = arch if len(capture.calls) == 1 else f"{arch}/{kind}"
-            if kernel == "flash_attention":
-                t = time_flash(args, all_rows_control=arch == "granite3_2b")
-            else:
-                t = time_ssd(args)
-            # the first run's launches of this kind of call
-            t = lm_times[path] = {**t, "kernel": kernel, "launches": capture.counts[kind]}
-            lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
-                   else "none (no PyTorch call computes it)")
-            log(f"{kernel} at {path}'s serving inputs {t['shape']} ({t['launches']} launches "
-                f"in the first run): == plain (max abs err {t['max_abs_err']:.3g}); kernel "
-                f"{t['ms']:.4f} ms ({t['tflops']:.2f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
-                f"library {lib}, bound {t['bound_ms']:.5f} ms ({t['bound_by']}: "
-                f"{t['ops'] / 1e9:.3f} GFLOP, {t['bytes'] / 1e6:.3f} MB)")
-        del capture, args
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"{kernel} times ok in {time.perf_counter() - t0:.1f} s")
+        serving[arch], capture = cross_serving_phase(arch, repeats)
+        log(f"serving phase {arch} ok in {time.perf_counter() - t0:.1f} s")
+        time_captured(arch, "flash_attention", capture, lambda kind: f"{arch}/{kind}")
+        del capture
 
     t0 = time.perf_counter()
     lm_cross = lm_cross_device_phase()
@@ -6966,7 +7294,8 @@ def main() -> int:
                     "fleet": fleet, "mesh": mesh,
                     "relagg_q5": q5,
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
-                    "lm_cross_device_moe": lm_cross,
+                    "lm_cross_device_moe": lm_cross["moe"],
+                    "lm_cross_device_cross": lm_cross["cross"],
                     "train": train,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -7044,11 +7373,17 @@ def main() -> int:
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"], "ok": True,
          # every serving path's own run: its launches, and the times at the
-         # inputs it handed the kernel (head dims 64, 96, 256)
+         # inputs it handed the kernel (head dims 64, 96, 128, 256); the
+         # cross models' paths by kind of call (encoder, self, cross,
+         # decode_cross)
          "paths": [{"path": path, "head_dim": t["shape"][5], "launches": t["launches"],
+                    "causal": t["kwargs"].get("causal", True),
                     "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                     "library_ms": t["library_ms"]} for path, t in flash_paths.items()],
+         # the cross models' runs (prefill and 31 decode steps), the count
+         # set to 0 just before each
+         "launches_cross": {arch: serving[arch]["launches"] for arch, _ in CROSS_SERVE},
          # the backward kernels (no TPU counterpart: the reference
          # differentiates its plain attention), timed at granite-3-2b's
          # training inputs; launches a training step of granite-3-2b

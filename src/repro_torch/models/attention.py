@@ -10,9 +10,13 @@ sequence form ``mla_seq`` (through the flash_attention kernel, v
 zero-padded to q's head dim) and ``mla_decode`` against the compressed
 latent cache (plain torch, as the reference).
 
+Cross-attention (``:245-279``): ``init_cross_attention`` (the attention's
+leaves and a 0-d ``gate``), ``cross_memory`` (k and v from the memory,
+once a sequence) and ``cross_attention`` (through the flash_attention
+kernel without the causal mask, in prefill and in decode).
+
 ``params`` is anything indexable by the reference's keys (a dict of
 tensors, or the port's :class:`repro_torch.models.transformer.Params`).
-Cross-attention (``:245-279``) waits for its configs: it raises.
 """
 from __future__ import annotations
 
@@ -240,9 +244,38 @@ def mla_decode(params, x, latent_cache, pos: int, cfg: ArchConfig):
     return o @ params["wo"].to(dt), latent_cache
 
 
-def init_cross_attention(*args, **kwargs):
-    raise NotImplementedError("cross-attention (models/attention.py:245-279) is "
-                              "not ported yet: ROADMAP A18")
+# ------------------------------------------------------------ cross-attn
+def init_cross_attention(generator, cfg: ArchConfig, device=None):
+    """The attention's leaves and a 0-d float32 ``gate``, zero as drawn: a
+    fresh cross-attention adds nothing to the residual (tanh(0) = 0)."""
+    p = init_attention(generator, cfg, device)
+    p["gate"] = torch.zeros((), dtype=torch.float32, device=device or generator.device)
+    return p
 
 
-cross_attention = cross_memory = init_cross_attention
+def cross_attention(params, x, memory_kv, cfg: ArchConfig):
+    """x (B, S, D) attends to a fixed memory (vision patches or the
+    encoder's output) through the flash_attention kernel without the
+    causal mask, in prefill (S tokens) and in decode (one).  memory_kv:
+    (k, v) each (B, Hkv, M, hd), from :func:`cross_memory`."""
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd).transpose(1, 2)
+    k, v = memory_kv
+    o = flash_attention(q, k.to(dt), v.to(dt), causal=False)
+    o = o.transpose(1, 2).reshape(B, S, H * hd)
+    return torch.tanh(params["gate"]).to(dt) * (o @ params["wo"].to(dt))
+
+
+def cross_memory(params, memory, cfg: ArchConfig):
+    """Cross-attention's (k, v), each (B, Hkv, M, hd) in the memory's
+    dtype and without rope, from memory embeddings (B, M, D): computed
+    once a sequence, in prefill."""
+    B, M, D = memory.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    dt = memory.dtype
+    k = (memory @ params["wk"].to(dt)).reshape(B, M, Hkv, hd).transpose(1, 2)
+    v = (memory @ params["wv"].to(dt)).reshape(B, M, Hkv, hd).transpose(1, 2)
+    # laid out once here, not copied again by every decode step's kernel call
+    return k.contiguous(), v.contiguous()

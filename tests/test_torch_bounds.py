@@ -9,9 +9,15 @@ it imports numpy and the standard library only.
   chunk at the serving path's lengths, and the bound ``ssd_bound`` takes
   the function's shapes only, nothing of the kernel (its chunk).
 
+- flash_attention's ``flash_bound`` at the cross models' calls
+  (seamless-m4t's encoder and cross layers, llama-3.2-vision's
+  self-attention and cross layers, a decode step's cross call).
+
 Beside the bounds, helpers its checks rest on: the head dim read from a
 flash kernel's name, the capture of the longest serving call of each kind
-(gemma3's local and global layers), and the source edits its
+(gemma3's local and global layers; the cross models' encoder, self,
+cross and decode calls), the cross models' calls by kind, the serving
+step of the cross models rehearsed on the CPU, and the source edits its
 ``--flash-variants`` mode builds.
 """
 import ast
@@ -139,6 +145,104 @@ def test_flash_bound_at_phi3_and_gemma3_prefill(smoke, B, Hq, D, window, ops, ms
     assert pairs == (1_655_290 if window is None else 1_338_880)
     assert 4 * D * pairs * B * Hq == ops
     assert ops / smoke.BF16_OPS_PER_S * 1e3 == pytest.approx(ms, abs=1e-5)
+
+
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,causal,gflop,ms,by", [
+    # granite-3-2b's prefill, as the inline count gave it before the helper
+    (4, 32, 8, 1819, 1819, 64, True, 54.24, 0.0548, "operations"),
+    # seamless-m4t-large-v2's encoder layer, and its cross layer (frames as
+    # long as the prompt), without the causal mask
+    (4, 16, 16, 1819, 1819, 64, False, 54.21, 0.0548, "operations"),
+    # llama-3.2-vision-90b's self-attention layer (64 heads on 8, D 128)
+    (4, 64, 8, 1819, 1819, 128, True, 216.8, 0.2192, "operations"),
+    # its cross layer: the prompt against 1,601 patches
+    (4, 64, 8, 1819, 1601, 128, False, 381.7, 0.3859, "operations"),
+    # a decode step's cross call, one query row: K and V read once
+    (4, 64, 8, 1, 1601, 128, False, 0.2098, 0.00787, "bytes"),
+    (4, 16, 16, 1, 1819, 64, False, 0.02980, 0.00890, "bytes"),
+])
+def test_flash_bound_at_the_cross_models(smoke, B, Hq, Hk, Sq, Sk, D, causal, gflop, ms, by):
+    """``flash_bound`` at granite's prefill and the cross models' calls
+    (bf16): 4 B Hq Sq Sk D
+    operations at 989 TFLOP/s without the causal mask, about half that
+    under it; a decode call's K and V (26.2 MB for llama-3.2-vision, 29.8 MB
+    for seamless; q and o add 0.13 and 0.02 MB) at 3.35 TB/s."""
+    b = smoke.flash_bound(B, Hq, Hk, Sq, Sk, D, 2, causal)
+    assert b["ops"] / 1e9 == pytest.approx(gflop, rel=1e-3)
+    assert b["bound_ms"] == pytest.approx(ms, rel=2e-3)
+    assert b["bound_by"] == by
+    assert b["bytes"] == 2 * (2 * B * Hq * Sq * D + 2 * B * Hk * Sk * D)
+    if not causal:
+        assert b["ops"] == 4 * B * Hq * Sq * Sk * D
+    if Sq == 1:
+        kv = 2 * 2 * B * Hk * Sk * D
+        assert kv / 1e6 == pytest.approx(26.2 if Hq == 64 else 29.8, abs=0.05)
+
+
+def test_cross_kinds_tell_the_calls_apart(smoke):
+    """seamless's encoder calls come first (no causal mask), then each
+    decoder layer's causal self-attention and its cross call; decode's
+    calls hold one query row."""
+    kind_of = smoke.cross_kinds()
+    q = np.zeros((1, 2, 5, 4))
+    kinds = [kind_of((q,), {"causal": False}), kind_of((q,), {"causal": False}),
+             kind_of((q,), {"causal": True}), kind_of((q,), {"causal": False}),
+             kind_of((np.zeros((1, 2, 1, 4)),), {"causal": False})]
+    assert kinds == ["encoder", "encoder", "self", "cross", "decode_cross"]
+
+
+@pytest.mark.parametrize("arch,counts", [
+    ("seamless_m4t_large_v2", {"encoder": 24, "self": 24, "cross": 24}),
+    ("llama32_vision_90b", {"self": 80, "cross": 20}),
+])
+def test_cross_layer_counts_at_the_published_configs(smoke, arch, counts):
+    """72 flash calls a seamless prefill; llama's cross layer every fifth
+    (``<128>`` x 10 at the 2 super-blocks the card serves)."""
+    import dataclasses
+
+    from repro_torch.configs import config_for
+
+    assert smoke.cross_layer_counts(config_for(arch)) == counts
+    if arch == "llama32_vision_90b":
+        cut = dataclasses.replace(config_for(arch), n_repeats=2)
+        assert smoke.cross_layer_counts(cut) == {"self": 8, "cross": 2}
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "llama32_vision_90b"])
+def test_cross_serving_phase_rehearsal(smoke, monkeypatch, arch):
+    """``cross_serving_phase`` on the CPU at the smoke config, 24-token
+    prompts, with flash's card path stood in for: every flash call goes to
+    the binding's ``flash_attention_cuda`` (the plain version here) and is
+    counted, as on the card.  Its own checks pass (calls by kind, launches,
+    finite logits, tokens in the vocabulary, a redrawn memory moving the
+    logits), and the capture keeps one call of each kind."""
+    import importlib
+
+    from repro_torch.configs import smoke_config_for
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention
+
+    binding = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    monkeypatch.setattr(binding, "flash_attention_cuda",
+                        lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw))
+
+    def through_binding(q, k, v, causal=True, window=None, q_offset=0, sm_scale=None):
+        ops.LAUNCHES += 1
+        return binding.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                            q_offset=q_offset, sm_scale=sm_scale)
+
+    monkeypatch.setattr(attention, "flash_attention", through_binding)
+    cfg = smoke_config_for(arch)
+    summary, capture = smoke.cross_serving_phase(arch, None, "cpu", cfg, prompt=24)
+    per = smoke.cross_layer_counts(cfg)
+    assert summary["launches"] == sum(per.values()) + per["cross"] * (smoke.MAX_NEW - 1)
+    assert set(capture.calls) == {*per, "decode_cross"}
+    (q, k, _), kw = capture.calls["cross"]
+    assert kw["causal"] is False and k.shape[2] == (cfg.vision_tokens or 24)
+    assert capture.calls["decode_cross"][0][0].shape[2] == 1
+    assert summary["generated_tokens"] == smoke.SLOTS * smoke.MAX_NEW
+    assert summary["memory_moves_logits"] > 0
 
 
 @pytest.mark.parametrize("name,D", [

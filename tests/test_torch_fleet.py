@@ -60,8 +60,18 @@ def fleet_setup(seed: int, n_rows: int, policy):
     return setup
 
 
+def _frozen_clock() -> float:
+    return 0.0
+
+
 def _fleet(seed, n_rows, policy, **kw):
-    return FleetEngine(fleet_setup(seed, n_rows, policy), device="cpu", **kw)
+    # each worker's scheduler on a clock that does not advance: on
+    # time.monotonic a submit that lands after the coalesce window drains
+    # the open batch early, so under host load a wave could run before a
+    # broadcast that the test makes between its submits and its drain
+    return FleetEngine(fleet_setup(seed, n_rows, policy), device="cpu",
+                       scheduler_factory=lambda: CoalescingScheduler(clock=_frozen_clock),
+                       **kw)
 
 
 def check_fleet_oracle_port(seed: int, n_rows: int, *, workers: int = 2, store=None,

@@ -8,7 +8,9 @@ Tolerances are the reference's own (``tests/test_kernels.py``):
 flash_attention 2e-5 in float32 and 2e-2 in bf16 (absolute and relative,
 outputs compared in float32; bf16 runs the tensor-core kernel, float32 the
 CUDA-core one; head dims 16, 64, 96, 128 and 256, and 24, 32 and 80
-zero-padded to the next of them; minicpm3-4b's MLA layout, 40 heads at
+zero-padded to the next of them; cross-attention's calls without the
+causal mask, 1,819 queries or one against 1,601 or 1,819 keys, at
+seamless-m4t's and llama-3.2-vision's layouts; minicpm3-4b's MLA layout, 40 heads at
 D = 96 with v's last 32 columns zero, whose output's last 32 columns
 must be exactly zero); ssd_scan a max error
 below 3e-4 of max|y| in float32, and
@@ -111,6 +113,27 @@ def test_flash_kernel_decode_offset(rng, D, dtype):
                                atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
     empty = fa_ops.flash_attention(q, k, v, causal=False, window=4, q_offset=600)
     assert not empty.any()
+
+
+@pytest.mark.parametrize("Hq,Hk,D", [(16, 16, 64), (64, 8, 128)])
+@pytest.mark.parametrize("Sq,Sk", [(1819, 1601), (1, 1601), (1, 1819)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_cross_attention(rng, Hq, Hk, D, Sq, Sk, dtype):
+    """Cross-attention's calls: no causal mask, a prompt of 1,819 queries
+    against llama-3.2-vision's 1,601 patches (25 key tiles of 64 and one
+    of a single key), and decode's single query row against 1,601 and
+    1,819 keys (one row of a 64-row tile), at seamless's layout (16 heads
+    on 16, D = 64) and llama-3.2-vision's (64 on 8, D = 128)."""
+    B = 1 if Sq > 1 else 4
+    q = torch.as_tensor(rng.normal(size=(B, Hq, Sq, D)), device="cuda").to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hk, Sk, D)), device="cuda").to(dtype)
+            for _ in range(2))
+    a = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert a.dtype == dtype and a.shape == q.shape
+    b = flash_attention_ref(q, k, v, causal=False)
+    np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
 
 @pytest.mark.parametrize("D", [96, 256])

@@ -155,23 +155,61 @@ def test_mamba_seq_and_decode(rng):
         assert _err(tstate[1], jstate[1]) < 1e-5
 
 
+#: the value every cross-attention gate is set to in both packages: a
+#: fresh gate is 0, and tanh(0) = 0 hides cross-attention from a parity test
+GATE = 1.0
+
+
+def _gated(tree, value=GATE):
+    """``tree`` (the reference's dicts of arrays) with every ``gate`` leaf
+    set to ``value``."""
+    return {k: _gated(v, value) if isinstance(v, dict)
+            else (jnp.full_like(v, value) if k == "gate" else v) for k, v in tree.items()}
+
+
 def _carried(ref_cfg, cfg, seed=0):
     model = ref_build(ref_cfg)
-    params = model.init(jax.random.PRNGKey(seed))
+    params = _gated(model.init(jax.random.PRNGKey(seed)))
     port = params_from_reference(jax.tree.map(np.asarray, params), cfg, "cpu")
     return model, params, port
 
 
-def _prefill_then_decode(ref_cfg, cfg, rng, tol, steps=4):
-    """Prefill a 20-token prompt, then ``steps`` decode steps, in both
-    packages: each step's logits within ``tol`` x the prefill's max|logit|."""
+def _memory(cfg, rng, S, batch=2):
+    """A model's memory input (B, M, D) as float32 numpy, unit scale:
+    vision patches (M = ``cfg.vision_tokens``) or audio frames as long as
+    the prompt (the reference's ``_memory_spec``); None for a decoder."""
+    M = cfg.vision_tokens or (S if cfg.n_encoder_layers else 0)
+    return rng.normal(size=(batch, M, cfg.d_model)).astype(np.float32) if M else None
+
+
+def _mem_args(memory, dtype):
+    """The memory as each package takes it, in ``dtype`` (the compute
+    dtype): (jax array or None, tensor or None)."""
+    if memory is None:
+        return None, None
+    return (jnp.asarray(memory, dtype),
+            torch.as_tensor(memory).to(torch.float32 if dtype == jnp.float32 else torch.bfloat16))
+
+
+def _prefill_then_decode(ref_cfg, cfg, rng, tol, steps=4, dtype=jnp.bfloat16):
+    """Prefill a 20-token prompt (with a memory where the model attends to
+    one, in ``dtype``), then ``steps`` decode steps, in both packages: each
+    step's logits within ``tol`` x the prefill's max|logit|.  A model with
+    a memory is run again with the memory redrawn, as a control that must
+    read outside the limit."""
     model, params, port = _carried(ref_cfg, cfg)
     toks = rng.integers(0, cfg.vocab, (2, 20)).astype(np.int32)
-    jl, jc = model.prefill(params, jnp.asarray(toks), max_len=32)
-    tl, tc = port.prefill(torch.as_tensor(toks), max_len=32)
+    memory = _memory(cfg, rng, 20)
+    jm, tm = _mem_args(memory, dtype)
+    jl, jc = model.prefill(params, jnp.asarray(toks), jm, max_len=32)
+    tl, tc = port.prefill(torch.as_tensor(toks), tm, max_len=32)
     scale = float(np.abs(np.asarray(jl)).max())
     assert float(np.abs(tl.numpy() - np.asarray(jl)).max()) <= tol * scale
     assert tc["pos"] == 20 == int(jc["pos"])
+    if memory is not None:
+        _, other = _mem_args(_memory(cfg, np.random.default_rng(99), 20), dtype)
+        ol, _ = port.prefill(torch.as_tensor(toks), other, max_len=32)
+        assert float(np.abs(ol.numpy() - np.asarray(jl)).max()) > tol * scale
     for _ in range(steps):
         nt = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
         jl, jc = model.decode_step(params, jc, jnp.asarray(nt))
@@ -186,6 +224,10 @@ PUBLISHED_HEAD_DIM = ("phi3_mini_38b", "gemma3_12b")
 #: 4), mixtral (4, top 2, a 16-token window) and jamba's hybrid stack (Mamba
 #: and attention layers, MoE on alternate ones)
 MOE_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x7b", "jamba15_large_398b")
+#: the archs that attend to a memory: llama-3.2-vision (a cross-attention
+#: layer every fifth, over vision patches) and seamless (an encoder, and a
+#: cross-attention sublayer in every decoder layer)
+CROSS_ARCHS = ("llama32_vision_90b", "seamless_m4t_large_v2")
 
 
 @pytest.mark.parametrize("arch,which", [("granite3_2b", "plain"), ("granite3_2b", "window"),
@@ -195,7 +237,9 @@ MOE_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x7b", "jamba15_large_398b")
                                         ("granite_moe_3b_a800m", "plain"),
                                         ("minicpm3_4b", "plain"), ("minicpm3_4b", "mla"),
                                         ("mixtral_8x7b", "plain"),
-                                        ("jamba15_large_398b", "eager")])
+                                        ("jamba15_large_398b", "eager"),
+                                        ("llama32_vision_90b", "eager"),
+                                        ("seamless_m4t_large_v2", "eager")])
 def test_prefill_and_decode_match_reference(rng, arch, which):
     """bf16 activations, as served: within 2e-2 x max|logit|.  The 20-token
     prompt is longer than gemma3's and mixtral's 16-token windows, so their
@@ -209,7 +253,13 @@ def test_prefill_and_decode_match_reference(rng, arch, which):
     max|logit| from its own un-jitted ones.  The port is within 6e-3 of
     the un-jitted reference there (granite-moe's and mixtral's bf16 logits
     equal the un-jitted reference's bits); the float32 test below holds all
-    three against the jitted reference at 1e-4."""
+    three against the jitted reference at 1e-4.  The cross-attention archs
+    (gates at :data:`GATE`, a unit-scale memory) also against the
+    un-jitted reference: under ``jit`` the bf16 stack over a memory rounds
+    elsewhere, and over seeds 0-2 their logits lie 0.7e-2 to 2.3e-2 x
+    max|logit| from the jitted reference's and 0 to 1.4e-2 from the
+    un-jitted one's (mostly bit-equal); the float32 test holds them to the
+    jitted reference at 1e-4."""
     ref_cfg, cfg = _variant(arch, "plain" if which == "eager" else which)
     if which == "eager":
         with jax.disable_jit():
@@ -219,13 +269,16 @@ def test_prefill_and_decode_match_reference(rng, arch, which):
 
 
 @pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", *PUBLISHED_HEAD_DIM,
-                                  *MOE_ARCHS, "minicpm3_4b", "minicpm3_4b+mla"])
+                                  *MOE_ARCHS, "minicpm3_4b", "minicpm3_4b+mla",
+                                  *CROSS_ARCHS, "llama32_vision_90b+head_dim"])
 def test_prefill_and_decode_match_reference_float32(rng, monkeypatch, arch):
     """The same stack with float32 activations and caches in both packages:
     within 1e-4 x max|logit|, so the bf16 test's slack is rounding only
     (phi3 and gemma3 at their published head dims; the MoE archs route
     each token to the same experts in both; ``+mla``: minicpm3-4b at the
-    published MLA dims)."""
+    published MLA dims; the cross-attention archs with their gates set
+    and a memory, which a redrawn memory must move outside the limit, and
+    llama-3.2-vision again at its published head dim 128)."""
     monkeypatch.setattr(RT, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TT, "COMPUTE_DTYPE", torch.float32)
     monkeypatch.setattr(RT.init_cache, "__defaults__", (0, jnp.float32))
@@ -233,23 +286,30 @@ def test_prefill_and_decode_match_reference_float32(rng, monkeypatch, arch):
     arch, _, which = arch.partition("+")
     which = which or ("head_dim" if arch in PUBLISHED_HEAD_DIM else "plain")
     ref_cfg, cfg = _variant(arch, which)
-    _prefill_then_decode(ref_cfg, cfg, rng, 1e-4)
+    _prefill_then_decode(ref_cfg, cfg, rng, 1e-4, dtype=jnp.float32)
     model, params, port = _carried(ref_cfg, cfg, seed=1)
     toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
-    assert _err(TT.forward(port.params, torch.as_tensor(toks), cfg),
-                RT.forward(params, jnp.asarray(toks), ref_cfg)) < 1e-4
+    jm, tm = _mem_args(_memory(cfg, rng, 9), jnp.float32)
+    assert _err(TT.forward(port.params, torch.as_tensor(toks), cfg, tm),
+                RT.forward(params, jnp.asarray(toks), ref_cfg, jm)) < 1e-4
 
 
-@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", "minicpm3_4b"])
+@pytest.mark.parametrize("arch", ["granite3_2b", "mamba2_370m", "minicpm3_4b", *CROSS_ARCHS])
 def test_decode_continues_prefill(rng, arch):
     """The port's own check: prefill over S tokens then one decode step
-    gives the logits of a prefill over S + 1 tokens."""
+    gives the logits of a prefill over S + 1 tokens (over one memory, the
+    gates set to :data:`GATE`; seamless's frames stay 16 long)."""
     cfg = tconfigs.smoke_config_for(arch)
     model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(3))
+    for name, p in model.named_parameters():
+        if name.endswith(".gate"):
+            p.data.fill_(GATE)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 17)).astype(np.int32))
-    _, cache = model.prefill(toks[:, :16], max_len=32)
+    memory = _memory(cfg, rng, 16)
+    memory = None if memory is None else torch.as_tensor(memory).bfloat16()
+    _, cache = model.prefill(toks[:, :16], memory, max_len=32)
     stepped, _ = model.decode_step(cache, toks[:, 16:])
-    whole, _ = model.prefill(toks, max_len=32)
+    whole, _ = model.prefill(toks, memory, max_len=32)
     assert float((stepped - whole).abs().max()) <= 2e-2 * float(whole.abs().max())
 
 
@@ -286,11 +346,17 @@ def test_parameter_names_follow_the_reference():
                                   want["params.blocks.1.layer0.moe.w_down"])
 
 
-@pytest.mark.parametrize("arch,item", [("llama32_vision_90b", "A18"),
-                                       ("seamless_m4t_large_v2", "A18")])
+@pytest.mark.parametrize("arch,item", [("llama32_vision_90b", "A16.3"),
+                                       ("seamless_m4t_large_v2", "A16.3")])
 def test_unported_families_raise(arch, item):
+    """Every family builds; what still raises is the dry run's helpers."""
+    from repro_torch.models import model_zoo
+
+    model = build_model(tconfigs.smoke_config_for(arch), "cpu").init()
     with pytest.raises(NotImplementedError, match=item):
-        build_model(tconfigs.smoke_config_for(arch), "cpu").init()
+        model.init_shapes()
+    with pytest.raises(NotImplementedError, match=item):
+        model_zoo.input_specs(model.cfg, "decode_32k")
 
 
 def test_entry_points_default_to_the_card():

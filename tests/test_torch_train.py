@@ -85,13 +85,33 @@ def _np(a):
     return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
+#: the value every cross-attention gate is set to (a fresh gate is 0, and
+#: tanh(0) = 0 would hide cross-attention and give the rest of its layer
+#: no gradient)
+GATE = 1.0
+
+
+def _gated(tree):
+    """The reference's tree with every ``gate`` leaf set to :data:`GATE`."""
+    return {k: _gated(v) if isinstance(v, dict)
+            else (jnp.full_like(v, GATE) if k == "gate" else v) for k, v in tree.items()}
+
+
+def _gates(tree) -> list:
+    """The ``gate`` leaves of a reference-layout tree, in order."""
+    return [x for k, v in tree.items()
+            for x in (_gates(v) if isinstance(v, dict) else [v] if k == "gate" else [])]
+
+
 def _carried(seed=0, arch="granite3_2b"):
-    """The reference's model, optimizer config and fresh state, and the
-    same state carried across to the port."""
+    """The reference's model, optimizer config and fresh state (its gates,
+    where it has any, at :data:`GATE`), and the same state carried across
+    to the port."""
     ref_cfg, cfg = smoke_config_for(arch), tconfigs.smoke_config_for(arch)
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=50)
     ref_model = ref_build(ref_cfg)
     ref_state = ref_init_state(ref_model, jax.random.PRNGKey(seed), RO.AdamWConfig(**kw))
+    ref_state.params = _gated(ref_state.params)
     state = state_from_reference(
         {"params": jax.tree.map(_np, ref_state.params), "opt": jax.tree.map(_np, ref_state.opt)},
         cfg, "cpu")
@@ -334,6 +354,10 @@ def _loss_and_grads_match(monkeypatch, compute, arch="granite3_2b", seq=40, grad
         monkeypatch.setattr(TT, "COMPUTE_DTYPE", torch.float32)
     ref_batch = RefPipeline(batch=4, seq_len=seq, vocab=cfg.vocab, seed=2).batch_at(0)
     batch = DataPipeline(batch=4, seq_len=seq, vocab=cfg.vocab, seed=2, device="cpu").batch_at(0)
+    memory = _memory(cfg, seq, seed=3)
+    if memory is not None:
+        ref_batch = {**ref_batch, "memory": jnp.asarray(memory)}
+        batch = {**batch, "memory": torch.as_tensor(memory)}
     cast = compute == "bfloat16"
     rv, rg = _ref_loss_and_grads(ref_model, ref_state.params, ref_batch, cast)
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
@@ -347,9 +371,26 @@ def _loss_and_grads_match(monkeypatch, compute, arch="granite3_2b", seq=40, grad
     errs = [_rel(a, b) for a, b in zip(jax.tree.leaves(grads), jax.tree.leaves(rg))]
     assert max(errs) < grad_tol, errs
     # control: the next batch's loss reads outside the loss limit
-    other = model.loss_fn(masters, DataPipeline(batch=4, seq_len=seq, vocab=cfg.vocab,
-                                                 seed=2, device="cpu").batch_at(1))
+    nxt = DataPipeline(batch=4, seq_len=seq, vocab=cfg.vocab, seed=2, device="cpu").batch_at(1)
+    other = model.loss_fn(masters, nxt if memory is None else {**nxt, "memory": batch["memory"]})
     assert _rel(float(other.detach()), float(rv)) > loss_tol
+    if memory is not None:
+        # the gates' gradients are among the leaves compared above, and not 0
+        assert _gates(grads) and all(float(np.abs(g).max()) > 0 for g in _gates(grads))
+        # control: the memory redrawn moves the loss outside its limit
+        redrawn = model.loss_fn(masters, {**batch, "memory": torch.as_tensor(
+            _memory(cfg, seq, seed=4))})
+        assert _rel(float(redrawn.detach()), float(rv)) > loss_tol
+
+
+def _memory(cfg, seq: int, seed: int):
+    """A memory input (4, M, D) as float32 numpy from ``seed``, unit scale:
+    vision patches or audio frames as long as the tokens; None for a
+    decoder."""
+    M = cfg.vision_tokens or (seq if cfg.n_encoder_layers else 0)
+    if not M:
+        return None
+    return np.random.default_rng(seed).normal(size=(4, M, cfg.d_model)).astype(np.float32)
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
@@ -389,6 +430,29 @@ def test_moe_loss_fn_and_gradients_match_reference(monkeypatch, arch):
     (measured: the loss 2.6e-3 apart for both archs against the jitted
     reference, 160 tokens x 2 or 4 MoE layers; granite-moe's equal to the
     un-jitted reference's within 1e-4)."""
+    _loss_and_grads_match(monkeypatch, "float32", arch)
+
+
+@pytest.mark.parametrize("arch", ["llama32_vision_90b", "seamless_m4t_large_v2"])
+def test_cross_loss_fn_and_gradients_match_reference(monkeypatch, arch):
+    """The cross-attention archs' smoke configs with ``batch["memory"]``
+    (llama-3.2-vision: 8 patches through one cross layer; seamless: 40
+    frames through its 2-layer encoder, then a cross sublayer in each
+    decoder layer) at 40 tokens, the gates at :data:`GATE`, in float32
+    compute at the dense case's float32 limits: every leaf's gradient, the
+    gates' and the encoder's included; a redrawn memory as a second
+    control.
+
+    Not in bf16 (measured against the jitted reference; the un-jitted one
+    in brackets).  The loss lies 9.5e-5 (1.8e-7) apart for llama and
+    1.28e-4 (1.76e-4) for seamless, about the dense case's 1e-4, and the
+    gradients' worst leaf 3.4e-2 (0.7e-2) and 3.0e-2 (1.7e-2) x its max,
+    about its 3e-2.  A gate's gradient is one sum over B x S x D bf16
+    products that nearly cancel, and no bf16 run holds it to a few percent.
+    The float32 reference gives -3.92e-4 for llama's gate and -1.53e-3,
+    -1.63e-3 for seamless's two.  The port's bf16 gives -4.74e-4 and
+    -1.91e-3, -1.28e-3.  The reference's own bf16 gives 0.0 (-3.20e-4) and
+    -5.95e-3, -0.87e-3 (-6.36e-3, -1.54e-3)."""
     _loss_and_grads_match(monkeypatch, "float32", arch)
 
 

@@ -207,7 +207,22 @@ script exits non-zero:
    beside its bound (the reverse recurrence's work) and each kernel's own
    share of it, the plain backward and the forward; (i) mamba's smoke
    config card against CPU over 8 steps as (d), the control zeroing the
-   ssd backward's ddtA.
+   ssd backward's ddtA;
+11. dry run (ROADMAP A16.3(a)) — each kernel launch's fake version
+   (``repro_torch::flash_attention_fwd`` / ``_bwd``,
+   ``repro_torch::ssd_scan_fwd`` / ``_bwd``) against the launch at the
+   serving and training inputs the earlier phases captured (shapes, dtypes
+   and strides of every output), and the ssd binding's Python copies of
+   the library's sizes against the library; ``FlopCounterMode`` of
+   granite-3-2b's and mamba2-370m's first-batch prefill (4 x 1,819
+   tokens) on the card equal to the same call's on ``meta``; the dry run's
+   one-card (``1x1``) ``per_device_total`` against
+   ``torch.cuda.max_memory_allocated`` for granite-3-2b's and
+   mamba2-370m's training steps at (c)'s and (g)'s cut (4 x 4,096
+   tokens, 2 microbatches) and the two prefills, within
+   :data:`DRYRUN_MEMORY_TOL`; one dry-run cell through its command line
+   in a subprocess.  The phase's host half (the predictions on ``meta``
+   and that cell) needs no card and starts before the build.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -262,6 +277,15 @@ loss falling), then (d)'s and (i)'s card-against-CPU checks from the same
 seeds: copied into another source tree, it runs that tree's kernels the
 same way.
 
+    python3 chip_smoke.py --dryrun
+
+builds flash_attention and ssd_scan alone and runs the dry-run phase (11)
+alone, then the host cost of the kernels' custom ops: granite-3-2b's and
+seamless-m4t-large-v2's decode (4 sequences, a 2,048-position cache,
+bf16 weights) in ms a step with the ops and with the launches called
+directly, and one flash call at seamless's decode cross shape in µs, in
+turns.
+
     python3 chip_smoke.py --flash-variants
 
 builds the edits of ``csrc/flash_attention.cu`` in :data:`FLASH_VARIANTS`
@@ -285,10 +309,20 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+try:  # the kernels' operation counts, shared with the dry run
+    from repro_torch.launch.roofline import (flash_bwd_ops, flash_ops,  # noqa: E402
+                                             ssd_bwd_ops_needed, ssd_ops_needed, valid_pairs)
+    PORT_IMPORT_ERROR = None
+except ImportError as e:  # the script alone: main() says the sources are missing
+    PORT_IMPORT_ERROR = e
+
 #: H100 SXM data sheet: device-memory rate, float32 (non-tensor-core) peak
 #: and dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -4923,7 +4957,7 @@ def serving_phase(arch: str, kernel: str, n_runs: int) -> tuple[dict, LongestCal
     # ops function)
     binding = importlib.import_module(f"repro_torch.kernels.{kernel}.{kernel}")
     attr, seq_dim = (("flash_attention_cuda", 2) if kernel == "flash_attention"
-                     else ("ssd_scan_cuda", 1))
+                     else ("plan", 1))
 
     runs = []
     capture = None
@@ -5249,14 +5283,6 @@ def cross_serving_phase(arch: str, repeats, device: str = "cuda", config=None,
     return summary, capture
 
 
-def valid_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int) -> int:
-    """(query, key) pairs the attention mask lets through, per (b, head)."""
-    qpos = q_offset + np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1, np.int64)
-    lo = np.maximum(0, qpos - window + 1) if window is not None else np.zeros(Sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def flash_bound(B: int, Hq: int, Hk: int, Sq: int, Sk: int, D: int, itemsize: int,
                 causal: bool = True, window=None, q_offset: int = 0) -> dict:
     """The least time the card could take for one flash_attention call: 4 D
@@ -5265,7 +5291,7 @@ def flash_bound(B: int, Hq: int, Hk: int, Sq: int, Sk: int, D: int, itemsize: in
     for the n_rep query heads that share them) at the HBM rate; the larger
     of the two, and which it is."""
     pairs = valid_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
-    ops_count = 4 * D * pairs
+    ops_count = flash_ops(B, Hq, Sq, Sk, D, causal, window, q_offset)
     nbytes = (2 * B * Hq * Sq * D + 2 * B * Hk * Sk * D) * itemsize
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_count / BF16_OPS_PER_S * 1e3
@@ -5411,26 +5437,6 @@ def time_flash(args, all_rows_control: bool = True) -> dict:
     }
 
 
-def ssd_ops_needed(BH: int, BG: int, L: int, P: int, N: int, Q: int) -> int:
-    """Operations of the chunked form at chunk Q on this data: per chunk of
-    r rows, the lower triangle of C B^T (r(r+1)/2 N multiply-adds) once per
-    group, since it does not depend on the head; per head, that triangle's
-    product with xdt (r(r+1)/2 P), C S for every chunk after the first
-    (r N P) and the state update for every chunk but the last (r N P).
-    It grows with Q; at Q = 1 it is the recurrence's own work."""
-    per_group = per_head = 0
-    for c, c0 in enumerate(range(0, L, Q)):
-        r = min(Q, L - c0)
-        tri = r * (r + 1) // 2
-        per_group += tri * N
-        per_head += tri * P
-        if c > 0:
-            per_head += r * N * P
-        if c0 + Q < L:
-            per_head += r * N * P
-    return 2 * (per_group * BG + per_head * BH)
-
-
 #: the chunk at which ssd_scan's bound is counted: 1, the per-step
 #: recurrence (S_t = exp(dtA_t) S_{t-1} + B_t xdt_t^T, y_t = C_t S_t, ~4 N P
 #: operations a row and head).  At the serving path's lengths every longer
@@ -5454,19 +5460,6 @@ def ssd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
           f"operations than chunk {SSD_BOUND_CHUNK}; the bound would not be a least time")
     nbytes = 4 * (2 * BH * L * P + BH * L + 2 * BG * L * N)
     return ops_count, nbytes
-
-
-def ssd_bwd_ops_needed(BH: int, L: int, P: int, N: int) -> int:
-    """Operations of ssd_scan's backward at chunk 1, the reverse
-    recurrence: per row and head, G_t = C_t dy_t^T + exp(dtA_{t+1}) G_{t+1},
-    dxdt_t = G_t^T B_t, dB_t = G_t xdt_t, dC_t = S_t dy_t and the forward
-    state S_t recomputed alongside, each N P multiply-adds: 10 N P
-    operations, 2.5x the forward's 4 N P (dB and dC summed over a group's
-    heads inside those multiply-adds).  ddtA_t = exp(dtA_t) <G_t, S_{t-1}>
-    needs no N P term of its own: <G_t, S_t> is both ddtA_t + xdt_t . dxdt_t
-    and dy_t . y_t + ddtA_{t+1}, so ddtA is the reverse cumsum of
-    dy_t . y_t - xdt_t . dxdt_t, O(P) a row with y the forward's output."""
-    return 10 * N * P * L * BH
 
 
 def ssd_bwd_bound(BH: int, BG: int, L: int, P: int, N: int) -> tuple[int, int]:
@@ -6523,9 +6516,9 @@ def time_flash_backward(label: str, args: tuple, kw: dict) -> dict:
     lib_both = cuda_ms(sdpa_fwd_bwd, reps=10)
     fwd_plain = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=10)
     fwd_lse = cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True, **kw), reps=10)
-    pairs = valid_pairs(Sq, Sk, kw.get("causal", True), kw.get("window"),
-                        kw.get("q_offset", 0)) * B * Hq
-    ops_count = 5 * 2 * D * pairs
+    mask = (kw.get("causal", True), kw.get("window"), kw.get("q_offset", 0))
+    pairs = valid_pairs(Sq, Sk, *mask) * B * Hq
+    ops_count = flash_bwd_ops(B, Hq, Sq, Sk, D, *mask)
     nbytes = (3 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size()
               + lse.numel() * lse.element_size())
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -7101,9 +7094,346 @@ def train_phase() -> dict:
     return out
 
 
-def card_name_and_power() -> str:
+#: the dry-run phase's cells on the card: (arch, kind, tokens a sequence,
+#: sequences, microbatches): the first serving batch's prefill and the
+#: training cut of train (c) and (g)
+DRYRUN_CELLS = (("granite3_2b", "prefill", 1819, 4, 0), ("mamba2_370m", "prefill", 1819, 4, 0),
+                ("granite3_2b", "train", 4096, 4, 2), ("mamba2_370m", "train", 4096, 4, 2))
+#: the dry run's one-card per_device_total against the card's
+#: max_memory_allocated for the same call: at most this far apart
+DRYRUN_MEMORY_TOL = 0.25
+#: the binding entry points each custom op launches through, by op
+LAUNCH_ENTRIES = {"flash_attention_fwd": ("flash_attention", "flash_attention_cuda"),
+                  "flash_attention_bwd": ("flash_attention", "flash_attention_bwd_cuda"),
+                  "ssd_scan_fwd": ("ssd_scan", "plan"),
+                  "ssd_scan_bwd": ("ssd_scan", "ssd_scan_bwd_cuda")}
+
+
+class Like(tuple):
+    """A tensor argument kept as (shape, dtype): nothing stays alive."""
+
+
+@contextlib.contextmanager
+def launch_inputs(store: dict):
+    """Inside, the first call of each launch entry point
+    (:data:`LAUNCH_ENTRIES`) leaves its arguments in ``store`` by op name,
+    tensors as :class:`Like`."""
+    import torch
+
+    patched = []
+    for op, (kernel, attr) in LAUNCH_ENTRIES.items():
+        binding = importlib.import_module(f"repro_torch.kernels.{kernel}.{kernel}")
+        fn = getattr(binding, attr)
+
+        def record(*args, op=op, fn=fn, **kwargs):
+            store.setdefault(op, (tuple(Like((tuple(a.shape), a.dtype))
+                                        if isinstance(a, torch.Tensor) else a for a in args),
+                                  kwargs))
+            return fn(*args, **kwargs)
+
+        setattr(binding, attr, record)
+        patched.append((binding, attr, fn))
+    try:
+        yield store
+    finally:
+        for binding, attr, fn in patched:
+            setattr(binding, attr, fn)
+
+
+def fake_agreement(label: str, op: str, captured) -> list:
+    """The op's launch on zero tensors of the captured shapes against its
+    fake version on ``meta`` tensors of the same: every output's shape,
+    dtype and strides equal."""
+    import torch
+
+    args, kw = captured
+    mask = (kw.get("causal", True), kw.get("window"), kw.get("q_offset", 0), kw.get("sm_scale"))
+    extra = {"flash_attention_fwd": (*mask, kw.get("return_lse", False)),
+             "flash_attention_bwd": mask}.get(op, ())
+    fn = getattr(torch.ops.repro_torch, op)
+
+    def inputs(device):
+        return [torch.zeros(a[0], dtype=a[1], device=device) if isinstance(a, Like) else a
+                for a in args] + list(extra)
+
+    real, fake = fn(*inputs("cuda")), fn(*inputs("meta"))
+    torch.cuda.synchronize()
+    for i, (r, f) in enumerate(zip(real, fake, strict=True)):
+        check((r.shape, r.dtype, r.stride()) == (f.shape, f.dtype, f.stride()),
+              f"{op} at {label}: output {i} launched {tuple(r.shape)} {r.dtype} {r.stride()}, "
+              f"fake {tuple(f.shape)} {f.dtype} {f.stride()}")
+    return [[list(r.shape), str(r.dtype).removeprefix("torch.")] for r in real]
+
+
+def ssd_size_copies(captured: dict) -> dict:
+    """The ssd binding's Python copies of the library's sizes (the chunk,
+    ``ssd_bwd_parts``, ``ssd_bwd_slices``) against the library: at the
+    captured backward's P, N and heads a group, and over a sweep."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as binding
+
+    lib = binding._lib()
+    check(binding.CHUNK == binding.chunk(), f"ssd_scan: Python chunk {binding.CHUNK}, "
+          f"library {binding.chunk()}")
+    (xdt, _, B, _, n_rep, *_), _ = captured["ssd_scan_bwd"]
+    P, N = xdt[0][2], B[0][2]
+    cases = [(P, N, n_rep)] + [(p, n, r) for p in (4, 16, 64, 128, 256)
+                               for n in (4, 16, 64, 128, 256) for r in (1, 7, 8, 9, 32, 70)]
+    for p, n, r in cases:
+        check(binding.bwd_parts(p, n) == lib.ssd_bwd_parts(p, n)
+              and binding.bwd_slices(r) == lib.ssd_bwd_slices(r),
+              f"ssd_scan: Python sizes at P={p}, N={n}, n_rep={r}: parts "
+              f"{binding.bwd_parts(p, n)} / {lib.ssd_bwd_parts(p, n)}, slices "
+              f"{binding.bwd_slices(r)} / {lib.ssd_bwd_slices(r)}")
+    return {"cases": len(cases), "chunk": binding.CHUNK, "parts": binding.bwd_parts(P, N),
+            "slices": binding.bwd_slices(n_rep), "at": [P, N, n_rep]}
+
+
+DRYRUN_CLI = ("mamba2_370m", "decode_32k", "single")
+
+
+def dryrun_cli_start(out: str) -> subprocess.Popen:
+    """One cell through the dry run's command line, in a subprocess of its
+    own (:data:`DRYRUN_CLI`), as its test runs one."""
+    arch, shape, mesh = DRYRUN_CLI
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", mesh, "--out", out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def dryrun_cli_check(proc: subprocess.Popen, out: str) -> dict:
+    """The command-line cell's outcome: rc 0, status ok, flops and memory
+    above 0."""
+    text, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"dry-run cell: rc {proc.returncode}\n{text[-4000:]}")
+    with open(os.path.join(out, ".".join(DRYRUN_CLI) + ".json")) as f:
+        rec = json.load(f)
+    check(rec["status"] == "ok" and rec["roofline"]["flops"] > 0
+          and rec["memory"]["per_device_total"] > 0
+          and rec["roofline"]["dominant"] in ("compute", "memory", "collective"),
+          f"dry-run cell: {rec}")
+    return {"per_device_total": rec["memory"]["per_device_total"],
+            "flops": rec["roofline"]["flops"], "dominant": rec["roofline"]["dominant"]}
+
+
+def dryrun_prediction(arch: str, kind: str, S: int, B: int, mb: int) -> dict:
+    """A :data:`DRYRUN_CELLS` cell's one-card (``1x1``) dry-run record on
+    ``meta``: its memory, its traced flops (``FlopCounterMode``'s formulas
+    over the step) and the seconds it took."""
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.models.config import ShapeConfig
+
+    t0 = time.perf_counter()
+    rec = dryrun_cell(arch, ShapeConfig(f"{kind}_{S}", S, B, kind), mesh_name="1x1",
+                      microbatches=mb)
+    return {"memory": rec["memory"], "meta_flops": rec["roofline"]["flops"],
+            "seconds": time.perf_counter() - t0}
+
+
+class DryRunStart(NamedTuple):
+    """The dry-run phase's host half, started ahead of its card half: the
+    predictions of :data:`DRYRUN_CELLS` (futures of a process of its own)
+    and the command-line cell's subprocess, writing into ``cli_out``."""
+    predictions: list
+    cli: subprocess.Popen
+    cli_out: str
+
+
+@contextlib.contextmanager
+def dryrun_started():
+    """Start the dry-run phase's host half, which needs no card: the
+    predictions in a spawned process and the command-line cell in a
+    subprocess, so that they run beside the build (and whatever else
+    precedes :func:`dryrun_phase`); on leaving, both are stopped."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as cli_out, \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        predictions = [pool.submit(dryrun_prediction, *cell) for cell in DRYRUN_CELLS]
+        cli = dryrun_cli_start(cli_out)
+        try:
+            yield DryRunStart(predictions, cli, cli_out)
+        finally:
+            for future in predictions:
+                future.cancel()
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+
+
+def dryrun_phase(started: DryRunStart) -> dict:
+    """(11): each cell of :data:`DRYRUN_CELLS` predicted by the dry run on
+    one card (``1x1``, on ``meta``, in a process of its own, started by
+    :func:`dryrun_started`) and run on the card by the same ``make_step``:
+    ``per_device_total`` against ``max_memory_allocated`` above what was
+    allocated before the step's arguments, and for the prefills
+    ``FlopCounterMode`` on the card against on ``meta``; each kernel
+    launch's fake version against the launch at the inputs those runs
+    handed it; the ssd binding's size copies; the command-line cell."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import config_for
+    from repro_torch.launch.dryrun import make_step
+    from repro_torch.models.config import ShapeConfig
+
+    t0 = time.perf_counter()
+    out = {"cells": {}, "fakes": {}}
+    for (arch, kind, S, B, mb), future in zip(DRYRUN_CELLS, started.predictions):
+        label = f"{arch}/{kind}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        step = make_step(config_for(arch), ShapeConfig(f"{kind}_{S}", S, B, kind), B,
+                         "cuda", torch.Generator("cuda").manual_seed(0),
+                         microbatches=max(mb, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        captured = {}
+        with launch_inputs(captured), FlopCounterMode(display=False) as card:
+            result = step.run()
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        del result, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        for op, call in captured.items():
+            out["fakes"][f"{op}@{label}"] = fake_agreement(label, op, call)
+        if arch == "mamba2_370m" and kind == "train":
+            out["ssd_sizes"] = ssd_size_copies(captured)
+        t_wait = time.perf_counter()
+        pred = future.result()
+        predicted = pred["memory"]["per_device_total"]
+        ratio = predicted / measured
+        check(abs(ratio - 1) <= DRYRUN_MEMORY_TOL,
+              f"dry run at {label}: predicted {predicted / 1e9:.3f} GB, measured "
+              f"{measured / 1e9:.3f} GB (ratio {ratio:.3f})")
+        cell = {"predicted_bytes": predicted, "measured_bytes": measured, "ratio": ratio,
+                "memory": pred["memory"], "prediction_s": pred["seconds"],
+                "waited_s": time.perf_counter() - t_wait,
+                "card_flops": card.get_total_flops(), "meta_flops": pred["meta_flops"]}
+        if kind == "prefill":
+            check(cell["card_flops"] == cell["meta_flops"],
+                  f"dry run at {label}: FlopCounterMode on the card "
+                  f"{cell['card_flops']}, the dry run's on meta {cell['meta_flops']}")
+        out["cells"][label] = cell
+        log(f"dry run {label} ({B} x {S}{f', {mb} microbatches' if mb else ''}): "
+            f"predicted {predicted / 1e9:.3f} GB, measured {measured / 1e9:.3f} GB, "
+            f"ratio {ratio:.4f}; flops card {cell['card_flops']:.6g}, meta "
+            f"{cell['meta_flops']:.6g}; prediction {pred['seconds']:.1f} s (waited "
+            f"{cell['waited_s']:.1f} s); fakes == launches: {sorted(captured)}")
+    check({op.split("@")[0] for op in out["fakes"]} == set(LAUNCH_ENTRIES),
+          f"dry run: fakes checked for {sorted(out['fakes'])}, not every op")
+    out["cli"] = dryrun_cli_check(started.cli, started.cli_out)
+    # the card's memory, which the dry run's report holds each cell to
+    # (launch/report.py's HBM_PER_CHIP)
+    out["memory_total"] = card_name_and_power("name,memory.total")
+    log(f"card memory (nvidia-smi name,memory.total): {out['memory_total']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dry-run phase ok in {out['seconds']:.1f} s (its host half started before the "
+        f"build)")
+    return out
+
+
+#: decode steps timed a turn in :func:`decode_host_cost`
+HOST_COST_STEPS = 20
+
+
+def decode_host_cost() -> dict:
+    """The host cost of the custom ops at a decode step: granite-3-2b's
+    and seamless-m4t-large-v2's decode (4 sequences, a 2,048-position
+    cache, bf16 weights, a step over a full cache) in ms a step, the flash
+    calls going through ``repro_torch::flash_attention_fwd`` or to the
+    launch directly, in turns (op, direct, direct, op); then one call's
+    (:func:`flash_call_host_us`)."""
+    import torch
+
+    from repro_torch.configs import config_for
+    from repro_torch.kernels.flash_attention import flash_attention as binding
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.dryrun import make_step
+    from repro_torch.models.config import ShapeConfig
+
+    def direct(q, k, v, *, sm_scale, causal, window, q_offset):
+        return binding.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                            q_offset=q_offset, sm_scale=sm_scale)
+
+    through_op = ops._forward
+    out = {}
+    for arch in ("granite3_2b", "seamless_m4t_large_v2"):
+        step = make_step(config_for(arch), ShapeConfig("decode_2k", 2048, 4, "decode"), 4,
+                         "cuda", torch.Generator("cuda").manual_seed(0))
+        ops.LAUNCHES = 0
+        step.run()
+        calls = ops.LAUNCHES
+        ms = {"op": [], "direct": []}
+        try:
+            for arm in ("op", "direct", "direct", "op"):
+                ops._forward = through_op if arm == "op" else direct
+                step.run()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(HOST_COST_STEPS):
+                    step.run()
+                torch.cuda.synchronize()
+                ms[arm].append((time.perf_counter() - t) * 1e3 / HOST_COST_STEPS)
+        finally:
+            ops._forward = through_op
+        out[arch] = {"flash_calls_a_step": calls, "op_ms": ms["op"], "direct_ms": ms["direct"]}
+        log(f"custom-op host cost at {arch}'s decode ({calls} flash calls a step): "
+            f"ms a step through the op {ms['op']}, direct {ms['direct']}")
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["per_call"] = flash_call_host_us()
+    return out
+
+
+#: calls issued a turn in :func:`flash_call_host_us`
+HOST_COST_CALLS = 200
+
+
+def flash_call_host_us() -> dict:
+    """The host time of one flash call at seamless-m4t-large-v2's decode
+    cross-attention (q 4 x 16 x 1 x 64 on a 1,536-frame memory, bf16, no
+    mask), in µs: the time to issue :data:`HOST_COST_CALLS` calls, and to
+    finish them, over the count, through ``repro_torch::flash_attention_fwd``
+    and to the launch directly, in turns (op, direct, direct, op)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as binding
+
+    g = torch.Generator("cuda").manual_seed(0)
+    q = torch.randn((4, 16, 1, 64), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((4, 16, 1536, 64), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    arms = {"op": lambda: torch.ops.repro_torch.flash_attention_fwd(q, k, v, False, None, 0,
+                                                                     None, False),
+            "direct": lambda: binding.flash_attention_cuda(q, k, v, causal=False)}
+    out = {f"{arm}_{what}": [] for arm in arms for what in ("issue_us", "done_us")}
+    for arm in ("op", "direct", "direct", "op"):
+        arms[arm]()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(HOST_COST_CALLS):
+            arms[arm]()
+        issued = time.perf_counter()
+        torch.cuda.synchronize()
+        done = time.perf_counter()
+        out[f"{arm}_issue_us"].append((issued - t) * 1e6 / HOST_COST_CALLS)
+        out[f"{arm}_done_us"].append((done - t) * 1e6 / HOST_COST_CALLS)
+    log(f"custom-op host cost a flash call at seamless's decode cross shape: issue µs "
+        f"through the op {out['op_issue_us']}, direct {out['direct_issue_us']}; to done "
+        f"{out['op_done_us']}, {out['direct_done_us']}")
+    return out
+
+
+def card_name_and_power(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -7120,13 +7450,13 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not beside {__file__}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if PORT_IMPORT_ERROR is not None:
+        raise PORT_IMPORT_ERROR
     t_start = time.perf_counter()
     card = card_name_and_power()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan.ssd_scan import BACKWARD_PASSES
 
     if sys.argv[1:] == ["--flash-digest"]:
         digests = flash_kernel_phase(digest_only=True)["digests"]
@@ -7162,6 +7492,14 @@ def main() -> int:
         print(json.dumps({"card": card, "tree": str(ROOT), "train_seeds": train_seeds_phase()}),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        with dryrun_started() as started:
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                list(pool.map(_build.load, ("flash_attention", "ssd_scan")))
+            out = {"dryrun": dryrun_phase(started)}
+        out["host_cost"] = decode_host_cost()
+        print(json.dumps({"card": card, **out}, default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--train"]:
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             list(pool.map(_build.load, ("flash_attention", "ssd_scan")))
@@ -7171,6 +7509,18 @@ def main() -> int:
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
+    # the dry run's host half needs no card: it runs beside the build and
+    # the kernel phase, which time nothing
+    with dryrun_started() as started:
+        return whole_run(card, t_start, started)
+
+
+def whole_run(card: str, t_start: float, started: DryRunStart) -> int:
+    """Every phase in turn (the script run with no arguments)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan.ssd_scan import BACKWARD_PASSES
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -7287,6 +7637,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase()
     bt, sbt = train["backward_times"], train["ssd_backward_times"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun = dryrun_phase(started)
 
     log(json.dumps({"main_path_warm_ms": main["times"], "iterative": iterative,
                     "scan_sync": scan_sync, "cursor": cursor, "correlated": correlated,
@@ -7296,7 +7649,7 @@ def main() -> int:
                     "relagg_q12": q12, "serving": serving, "lm_kernels": lm_times,
                     "lm_cross_device_moe": lm_cross["moe"],
                     "lm_cross_device_cross": lm_cross["cross"],
-                    "train": train,
+                    "train": train, "dryrun": dryrun,
                     "flash_sweep": flash, "ssd_sweep": ssd, "build": build}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -11,8 +11,11 @@ axes is replicated, never padded):
   ``data`` alone when the pod product doesn't divide).  1-D leaves (norm
   scales, gates) are replicated.
 * **Batches** — leading (batch) dim over ``(pod, data)``.
-* **Decode caches** — dim 1 (batch; dim 0 is the stacked-repeat axis) over
-  ``(pod, data)``; the head axis (dim 2) over ``model`` when it divides.
+* **Decode caches** — the port's own layout (``models/transformer.py::
+  init_cache``: one dict per super-block, leaves ``(batch, heads?, …)``):
+  dim 0 (batch) over ``(pod, data)``; the head-like dim 1 over ``model``
+  when it divides.  The reference's rule, shifted one dim left past its
+  stacked-repeat axis.
 
 All rules only read ``mesh.shape`` (a name→size mapping), so they work on
 stand-in meshes for layout validation without any devices.  A tree is a
@@ -148,7 +151,18 @@ def _fsdp_entry(mesh, shape, taken: int | None):
 
 def param_specs(tree, mesh, cfg):
     """PartitionSpec per leaf: TP over ``model`` on a trailing dim, FSDP
-    over ``(pod, data)`` on the largest remaining dim."""
+    over ``(pod, data)`` on the largest remaining dim.
+
+    On the port's own tree (``blocks`` a list of one dict per repeat) a
+    leaf has no repeat axis, and two kinds of leaf are split less than the
+    reference splits their stacked leaf: every 1-D leaf (norm scales,
+    ``A_log``, ``D``, ``dt_bias``), replicated, where the stacked 2-D leaf
+    is split over ``model`` on its own dim and over the data axes on its
+    repeats; and the 2-D leaves whose own dims do not divide the data axes
+    (Mamba's ``conv_w``, the MoE ``router``), which the reference splits
+    over them on the repeats.  Those leaves are the whole of the
+    per-device difference between the two layouts; every other leaf gets
+    the reference's spec without the repeat axis."""
     model = mesh.shape.get("model", 1)
 
     def spec_for(leaf):
@@ -187,19 +201,25 @@ def batch_specs(tree, mesh, cfg):
 
 
 def cache_specs(tree, mesh, cfg):
-    """Decode-cache leaves are (repeats, batch, heads?, …): batch over the
-    data(+pod) axes, the head-like dim 2 over ``model`` when it divides."""
+    """Specs of the port's decode cache (``init_cache``'s tree): each leaf
+    (batch, heads?, …) gets batch over the data(+pod) axes and the
+    head-like dim 1 over ``model`` when it divides and the leaf has at
+    least 3 dims.  That is the reference's spec of its stacked leaf
+    (repeats, batch, heads?, …) without the repeat axis, so a leaf's
+    per-device bytes are the reference leaf's over the repeat count.
+    ``pos``, a Python int, gets ``PartitionSpec()``, as the reference's
+    0-d ``pos``."""
     model = mesh.shape.get("model", 1)
 
     def spec_for(leaf):
-        shape = tuple(leaf.shape)
+        shape = tuple(getattr(leaf, "shape", ()))
         nd = len(shape)
-        if nd < 2:
-            return PartitionSpec(*(None,) * nd)
+        if nd == 0:
+            return PartitionSpec()
         entries = [None] * nd
-        entries[1] = pick_data_axes(mesh, shape[1])
-        if model > 1 and nd >= 4 and shape[2] % model == 0 and shape[2] >= model:
-            entries[2] = "model"
+        entries[0] = pick_data_axes(mesh, shape[0])
+        if model > 1 and nd >= 3 and shape[1] % model == 0 and shape[1] >= model:
+            entries[1] = "model"
         return PartitionSpec(*entries)
 
     return _tree_map(spec_for, tree)

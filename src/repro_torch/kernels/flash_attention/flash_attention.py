@@ -71,6 +71,12 @@ def _lib() -> ctypes.CDLL:
 def _check(q, k, v, window):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_cuda takes CUDA tensors")
+    check_inputs(q, k, v, window)
+
+
+def check_inputs(q, k, v, window):
+    """The launch's checks that need no device: dtypes, shapes, a compiled
+    head dim, the window (the fake versions in ``ops.py`` take them too)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_cuda takes bf16 or float32 q, k, v of "
                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")

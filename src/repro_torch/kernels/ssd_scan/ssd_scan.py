@@ -67,12 +67,69 @@ def _lib() -> ctypes.CDLL:
 
 
 def chunk() -> int:
-    """The chunk length the kernels take."""
+    """The chunk length the kernels take, read from the library."""
     return _lib().ssd_scan_chunk()
 
 
-def _n_chunks(L: int, Q: int) -> int:
+#: Python copies of the library's sizes, for the fake versions in
+#: ``ops.py`` (which run without the library); ``chip_smoke.py`` holds each
+#: to the library's value on the card.  The chunk (``ssd_scan_chunk()``,
+#: ``kChunk``) and the heads a ``ssd_bwd_chunk_dbc`` block sums over
+#: (``kSliceHeads``)
+CHUNK = 64
+SLICE_HEADS = 8
+#: threads a block of ``ssd_bwd_state_pass`` (``kThreads``)
+_STATE_PASS_THREADS = 256
+
+
+def bwd_slices(n_rep: int) -> int:
+    """The library's ``ssd_bwd_slices(n_rep)``: the slices of a group's
+    heads that ``ssd_bwd_chunk_dbc`` sums apart."""
+    return -(-n_rep // SLICE_HEADS)
+
+
+def bwd_parts(P: int, N: int) -> int:
+    """The library's ``ssd_bwd_parts(P, N)``: the partial sums of <g_c,
+    S_in[c + 1]> a (head, chunk) that ``ssd_bwd_state_pass`` writes, one
+    a warp of its blocks (4 state elements a thread)."""
+    return -(-(N * P // 4) // _STATE_PASS_THREADS) * (_STATE_PASS_THREADS // 32)
+
+
+def n_chunks(L: int, Q: int) -> int:
     return -(-L // Q)
+
+
+def forward_buffers(xdt: torch.Tensor, B: torch.Tensor, Q: int) -> tuple:
+    """The forward's output and scratch on xdt's device, at chunk ``Q``:
+    (y, cbt, states, decay) as :class:`Plan` lays them out.  :func:`plan`
+    allocates them at the library's chunk, the fake version in ``ops.py``
+    at :data:`CHUNK` on ``meta``."""
+    BH, L, P = xdt.shape
+    BG, N = B.shape[0], B.shape[2]
+    nc = n_chunks(L, Q)
+    f32 = dict(dtype=torch.float32)
+    return (xdt.new_empty((BH, L, P)), xdt.new_empty((BG, nc, Q, Q), **f32),
+            xdt.new_empty((BH, max(nc - 1, 0), N, P), **f32),
+            xdt.new_empty((BH, max(nc - 1, 0)), **f32))
+
+
+def backward_buffers(xdt: torch.Tensor, B: torch.Tensor, Q: int, n_parts: int,
+                     n_slices: int) -> tuple:
+    """The backward's gradients and scratch on xdt's device, at chunk
+    ``Q`` with ``n_parts`` partial sums a (head, chunk) and ``n_slices``
+    slices a group: (dxdt, ddtA, dB, dC, gstates, ddp, rowterm, parts) as
+    :class:`BackwardPlan` lays them out.  :func:`backward_plan` allocates
+    them at the library's sizes; the fake version in ``ops.py`` and the dry
+    run's count of the scratch at the Python copies on ``meta``."""
+    BH, L, P = xdt.shape
+    BG, N = B.shape[0], B.shape[2]
+    nc = n_chunks(L, Q)
+    f32 = dict(dtype=torch.float32)
+    return (xdt.new_empty((BH, L, P)), xdt.new_empty((BH, L)), B.new_empty((BG, L, N)),
+            B.new_empty((BG, L, N)), xdt.new_empty((BH, max(nc - 1, 0), N, P), **f32),
+            xdt.new_empty((BH, max(nc - 1, 0), n_parts), **f32),
+            xdt.new_empty((-(-P // Q), BH, L), **f32),
+            xdt.new_empty((2, BG, n_slices, L, N), **f32))
 
 
 class Plan(NamedTuple):
@@ -92,9 +149,15 @@ class Plan(NamedTuple):
 
 
 def _check(xdt, dtA, B, C, n_rep) -> None:
-    ts = (xdt, dtA, B, C)
-    if not all(t.is_cuda for t in ts):
+    if not all(t.is_cuda for t in (xdt, dtA, B, C)):
         raise ValueError("ssd_scan_cuda takes CUDA tensors")
+    check_inputs(xdt, dtA, B, C, n_rep)
+
+
+def check_inputs(xdt, dtA, B, C, n_rep) -> None:
+    """The forward's checks that need no device: dtypes and shapes (the
+    fake versions in ``ops.py`` take them too)."""
+    ts = (xdt, dtA, B, C)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"ssd_scan_cuda takes float32 inputs; got "
                         f"{[t.dtype for t in ts]}")
@@ -122,12 +185,8 @@ def plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     xdt, dtA, B, C = (t.contiguous() for t in (xdt, dtA, B, C))
     if any(t.data_ptr() % 16 for t in (xdt, B, C)):
         raise ValueError("ssd_scan_cuda takes 16-byte aligned xdt, B and C")
-    nc = _n_chunks(L, Q)
-    y = torch.empty_like(xdt)
-    cbt = torch.empty((BG, nc, Q, Q), dtype=torch.float32, device=xdt.device)
-    states = torch.empty((BH, max(nc - 1, 0), N, P), dtype=torch.float32,
-                         device=xdt.device)
-    decay = torch.empty((BH, max(nc - 1, 0)), dtype=torch.float32, device=xdt.device)
+    nc = n_chunks(L, Q)
+    y, cbt, states, decay = forward_buffers(xdt, B, Q)
     # tensors, not their pointers: the launches hold them alive
     args = {
         "ssd_chunk_cb": (B, C, cbt, BG, L, N),
@@ -196,6 +255,26 @@ class BackwardPlan(NamedTuple):
                 + self.parts.nbytes)
 
 
+def check_backward_inputs(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy, Q: int) -> None:
+    """The backward's checks that need no device, at chunk ``Q``: the
+    forward's inputs, y and dy, N, and the forward's scratch."""
+    check_inputs(xdt, dtA, B, C, n_rep)
+    BH, L, P = xdt.shape
+    BG, N = B.shape[0], B.shape[2]
+    for name, t in (("y", y), ("dy", dy)):
+        if t.shape != xdt.shape or t.dtype != torch.float32:
+            raise ValueError(f"ssd_scan backward: {name} {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(xdt.shape)} float32")
+    if N > MAX_BACKWARD_N:
+        raise ValueError(f"ssd_scan backward takes N up to {MAX_BACKWARD_N}; got N={N}")
+    nc = n_chunks(L, Q)
+    if states.shape != (BH, max(nc - 1, 0), N, P) or decay.shape != (BH, max(nc - 1, 0)) \
+            or cbt.shape != (BG, nc, Q, Q):
+        raise ValueError(f"ssd_scan backward: the forward's scratch states "
+                         f"{tuple(states.shape)}, decay {tuple(decay.shape)}, cbt "
+                         f"{tuple(cbt.shape)} do not fit these inputs")
+
+
 def backward_plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                   n_rep: int, states: torch.Tensor, decay: torch.Tensor, cbt: torch.Tensor,
                   y: torch.Tensor, dy: torch.Tensor) -> BackwardPlan:
@@ -205,37 +284,20 @@ def backward_plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torc
     the first, and the output), from the same xdt, dtA, B and C; dy (BH,
     L, P) float32."""
     _check(xdt, dtA, B, C, n_rep)
-    BH, L, P = xdt.shape
-    BG, N = B.shape[0], B.shape[2]
-    for name, t in (("y", y), ("dy", dy)):
-        if t.shape != xdt.shape or t.dtype != torch.float32 or not t.is_cuda:
-            raise ValueError(f"ssd_scan backward: {name} {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(xdt.shape)} float32 on the card")
-    if N > MAX_BACKWARD_N:
-        raise ValueError(f"ssd_scan backward takes N up to {MAX_BACKWARD_N}; got N={N}")
+    if not (y.is_cuda and dy.is_cuda):
+        raise ValueError("ssd_scan backward takes y and dy on the card")
     lib = _lib()
     Q = lib.ssd_scan_chunk()
-    nc = _n_chunks(L, Q)
-    if states.shape != (BH, max(nc - 1, 0), N, P) or decay.shape != (BH, max(nc - 1, 0)) \
-            or cbt.shape != (BG, nc, Q, Q):
-        raise ValueError(f"ssd_scan backward: the forward's scratch states "
-                         f"{tuple(states.shape)}, decay {tuple(decay.shape)}, cbt "
-                         f"{tuple(cbt.shape)} do not fit these inputs")
+    check_backward_inputs(xdt, dtA, B, C, n_rep, states, decay, cbt, y, dy, Q)
+    BH, L, P = xdt.shape
+    BG, N = B.shape[0], B.shape[2]
+    nc = n_chunks(L, Q)
     xdt, dtA, B, C, y, dy, states, decay, cbt = (
         t.contiguous() for t in (xdt, dtA, B, C, y, dy, states, decay, cbt))
     if any(t.data_ptr() % 16 for t in (xdt, B, C, y, dy, states, cbt)):
         raise ValueError("ssd_scan backward takes 16-byte aligned xdt, B, C, y, dy and scratch")
-    dev = xdt.device
-    dxdt = torch.empty_like(xdt)
-    ddtA = torch.empty_like(dtA)
-    dB = torch.empty_like(B)
-    dC = torch.empty_like(C)
-    gstates = torch.empty_like(states)
-    ddp = torch.empty((BH, max(nc - 1, 0), lib.ssd_bwd_parts(P, N)), dtype=torch.float32,
-                      device=dev)
-    rowterm = torch.empty((-(-P // Q), BH, L), dtype=torch.float32, device=dev)
-    parts = torch.empty((2, BG, lib.ssd_bwd_slices(n_rep), L, N), dtype=torch.float32,
-                        device=dev)
+    dxdt, ddtA, dB, dC, gstates, ddp, rowterm, parts = backward_buffers(
+        xdt, B, Q, lib.ssd_bwd_parts(P, N), lib.ssd_bwd_slices(n_rep))
     args = {
         "ssd_bwd_dstate": (dy, dtA, C, gstates, BH, L, P, N, n_rep),
         "ssd_bwd_state_pass": (gstates, decay, states, ddp, BH, L, P, N),
@@ -247,7 +309,7 @@ def backward_plan(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor, C: torc
     }
     names = BACKWARD_PASSES if nc > 1 else BACKWARD_PASSES[2:]
     return BackwardPlan(dxdt, ddtA, dB, dC, gstates, ddp, rowterm, parts,
-                        _launchers(lib, dev, args, names))
+                        _launchers(lib, xdt.device, args, names))
 
 
 def ssd_scan_bwd_cuda(xdt: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,

@@ -91,7 +91,9 @@ def mamba_seq(params, x_in, cfg: ArchConfig, collect_cache: bool = True):
     if not collect_cache:
         return out, None
 
-    conv_state = xBC[:, -(k - 1):, :] if k > 1 else xBC.new_zeros((B, 0, conv_dim))
+    # a copy: a view would keep the whole projection (B, S, ...) alive in
+    # the decode cache
+    conv_state = xBC[:, -(k - 1):, :].clone() if k > 1 else xBC.new_zeros((B, 0, conv_dim))
     # exact final SSD state for the prefill->decode handoff:
     #   S = sum_s exp(cumA_S - cumA_s) . B_s (x) (dt_s x_s)
     dtA = dt * A  # (B, S, H)

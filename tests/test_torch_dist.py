@@ -11,7 +11,9 @@ Then ``place`` (blocks in mesh order, views where the data already is,
 one copy a distinct device) and the meshes' refusals where too few CUDA
 devices exist.
 """
+import dataclasses
 import functools
+import math
 
 import jax
 import numpy as np
@@ -23,7 +25,10 @@ from repro.dist import sharding as RS
 from repro.models import build_model, input_specs
 from repro.models.config import SHAPES
 from repro.models.model_zoo import shape_supported
+from repro_torch.configs import config_for as port_config_for
 from repro_torch.dist import sharding as PS
+from repro_torch.models import build_model as build_port_model
+from repro_torch.models import model_zoo as PI
 from repro_torch.launch.mesh import (Mesh, make_mesh, make_production_mesh,
                                      make_small_mesh)
 
@@ -106,20 +111,113 @@ GRANITE_SHAPES = sorted(n for n, sh in SHAPES.items()
                         if shape_supported(config_for("granite3_2b"), sh)[0])
 
 
+def _shards(spec, mesh) -> int:
+    return math.prod(mesh.shape[a] for e in spec if e is not None
+                     for a in (e if isinstance(e, tuple) else (e,)))
+
+
+def _cache_against_the_reference(arch, shape, m, int8=False):
+    """C13: the port's rule on the port's own cache (``input_specs``' meta
+    tree, ``pos`` included) against the reference's on its stacked cache:
+    each port leaf of repeat r gets the reference leaf's spec without the
+    repeat axis, and 1/R of its bytes on one device."""
+    cfg = dataclasses.replace(config_for(arch), kv_cache_int8=int8)
+    ref = input_specs(cfg, shape)["cache"]
+    port = PI.input_specs(dataclasses.replace(port_config_for(arch), kv_cache_int8=int8),
+                          shape.name)["cache"]
+    r_specs = RS.cache_specs(ref, m, cfg)
+    p_specs = PS.cache_specs(port, m, cfg)
+    assert p_specs["pos"] == PS.PartitionSpec() == tuple(r_specs["pos"])
+    R = len(port["layers"])
+    assert R == cfg.n_repeats
+    ref_leaves = _leaves(ref["layers"], lambda x: hasattr(x, "shape"))
+    ref_specs = _leaves(r_specs["layers"], lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    checked = 0
+    for r, (blk, blk_specs) in enumerate(zip(port["layers"], p_specs["layers"])):
+        leaves = _leaves(blk, lambda x: isinstance(x, torch.Tensor))
+        specs = _leaves(blk_specs, lambda x: isinstance(x, PS.PartitionSpec))
+        assert leaves.keys() == specs.keys() == ref_leaves.keys()
+        for k, leaf in leaves.items():
+            assert tuple(specs[k]) == tuple(ref_specs[k])[1:], (r, k)
+            ref_bytes = math.prod(ref_leaves[k].shape) * np.dtype(ref_leaves[k].dtype).itemsize
+            assert leaf.numel() * leaf.element_size() / _shards(specs[k], m) * R == \
+                ref_bytes / _shards(ref_specs[k], m), (r, k)
+            checked += 1
+    assert checked
+
+
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("shape", GRANITE_SHAPES)
 def test_batch_and_cache_specs_equal_the_reference(shape, mesh):
-    """granite-3-2b's input specs: a batch's leading dim, a decode cache's
-    batch and head dims."""
+    """granite-3-2b's input specs: a batch's leading dim, and a decode
+    cache's batch and head dims on the port's own cache (C13)."""
     cfg = config_for("granite3_2b")
     sh = SHAPES[shape]
     m = StandIn(MESHES[mesh])
     sp = input_specs(cfg, sh)
     if sh.kind == "decode":
-        _same_specs(RS.cache_specs(sp["cache"], m, cfg),
-                    PS.cache_specs(_meta(sp["cache"]), m, cfg))
+        _cache_against_the_reference("granite3_2b", sh, m)
     _same_specs(RS.batch_specs({"tokens": sp["tokens"]}, m, cfg),
                 PS.batch_specs(_meta({"tokens": sp["tokens"]}), m, cfg))
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_specs_on_the_port_layout(arch, mesh):
+    """C13 on every architecture, decode shape and mesh: every cache kind
+    (kv, the MLA latent, the ssm conv and state, memory_kv, and the int8
+    kv with its scales)."""
+    m = StandIn(MESHES[mesh])
+    for int8 in (False, True):
+        for sh in SHAPES.values():
+            if sh.kind == "decode" and shape_supported(config_for(arch), sh)[0]:
+                _cache_against_the_reference(arch, sh, m, int8)
+
+
+#: the leaves the port's rule splits less than the reference's splits their
+#: stacked leaf: the 1-D ones (replicated, where the stacked 2-D leaf is
+#: split over model and over data on its repeats), and the 2-D ones whose
+#: data split is on the repeat axis (their own dims do not divide it)
+REPLICATED_BY_THE_PORT = {"norm1", "norm2", "norm_x", "q_norm", "kv_norm", "gate_norm",
+                          "A_log", "D", "dt_bias", "conv_w", "router"}
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_specs_on_the_port_layout(arch, mesh):
+    """``param_specs`` on the port's unstacked tree: each leaf's per-device
+    bytes, summed over the repeats, equal the reference's stacked leaf's,
+    but for :data:`REPLICATED_BY_THE_PORT`, whose leaves hold more."""
+    m = StandIn(MESHES[mesh])
+    cfg = config_for(arch)
+    ref = _param_shapes(arch)
+    r_specs = _leaves(RS.param_specs(ref, m, cfg),
+                      lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    port = build_port_model(port_config_for(arch), "meta").init_shapes()
+    p_specs = _leaves(PS.param_specs(port, m, cfg), lambda x: isinstance(x, PS.PartitionSpec))
+    p_leaves = _leaves(port, lambda x: isinstance(x, torch.Tensor))
+    replicated = set()
+    for k, leaf in _leaves(ref, lambda x: hasattr(x, "shape")).items():
+        ref_bytes = math.prod(leaf.shape) * np.dtype(leaf.dtype).itemsize \
+            / _shards(r_specs[k], m)
+        if "blocks" in k:
+            i = k.index("blocks")
+            mine = [p for p in p_leaves if p[:i + 1] == k[:i + 1] and p[i + 2:] == k[i + 1:]]
+            assert len(mine) == leaf.shape[0]
+        else:
+            mine = [k]
+        got = sum(p_leaves[p].numel() * p_leaves[p].element_size() / _shards(p_specs[p], m)
+                  for p in mine)
+        # a 1-D leaf is replicated by the rule; the reference's stacked 2-D
+        # leaf is split over its own dim (model) and its repeats (data)
+        split_less = "blocks" in k and (tuple(r_specs[k])[:1] not in ((), (None,))
+                                        or p_leaves[mine[0]].dim() == 1)
+        if split_less:
+            replicated.add(k[-1])
+            assert got > ref_bytes, k
+        else:
+            assert got == ref_bytes, k
+    assert replicated <= REPLICATED_BY_THE_PORT
 
 
 def test_shardings_for_and_named_shardings():

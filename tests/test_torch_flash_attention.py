@@ -109,10 +109,32 @@ def test_ops_picks_the_reference_form(rng, Sq, Sk):
     _close(out, jax_flash(jq, jk, jv, causal=True), 2e-5)
 
 
-def test_ops_has_no_fallback_off_the_cpu():
+def test_ops_has_no_fallback_off_the_cpu(monkeypatch):
+    """Off the CPU the plain version never runs: a ``meta`` tensor takes
+    the card's path to the launch, where the kernel's fake version stands
+    in (the dry run's trace), and counts no launch."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ops, "flash_attention_ref", plain)
+    monkeypatch.setattr(ops, "flash_attention_chunked", plain)
     q = torch.empty((1, 2, 4, 64), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.flash_attention(q, q[:, :1], q[:, :1])
+    before = ops.LAUNCHES
+    out = ops.flash_attention(q, q[:, :1], q[:, :1])
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert ops.LAUNCHES == before
+
+
+def test_ops_raise_on_a_device_without_a_kernel():
+    """A tensor neither on the CPU, on the card nor on ``meta`` raises
+    before anything runs: no plain version, no launch."""
+    from types import SimpleNamespace
+
+    q = SimpleNamespace(device=torch.device("xpu"), shape=(1, 2, 4, 64))
+    before = ops.LAUNCHES
+    with pytest.raises(ValueError, match="no kernel for xpu"):
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES == before
 
 
 def test_binding_head_dims_are_the_compiled_instances():

@@ -41,6 +41,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.train.straggler, repro_torch.data.pipeline\n"
         "import repro_torch.dist.compress, repro_torch.dist.activations\n"
         "import repro_torch.launch.train, repro_torch.models.convert\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.report, repro_torch.launch.roofline\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.ssd_scan.ops\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(loaded)\n"
         "sys.exit(1 if loaded else 0)\n"

@@ -349,14 +349,35 @@ def test_parameter_names_follow_the_reference():
 @pytest.mark.parametrize("arch,item", [("llama32_vision_90b", "A16.3"),
                                        ("seamless_m4t_large_v2", "A16.3")])
 def test_unported_families_raise(arch, item):
-    """Every family builds; what still raises is the dry run's helpers."""
+    """Every family builds, and since ``item`` (A16.3(a)) the dry run's
+    helpers no longer raise for them: ``init_shapes`` is the drawn tree's
+    shapes on ``meta``, and a decode cell's cache holds the memory's k and
+    v."""
     from repro_torch.models import model_zoo
 
     model = build_model(tconfigs.smoke_config_for(arch), "cpu").init()
-    with pytest.raises(NotImplementedError, match=item):
-        model.init_shapes()
-    with pytest.raises(NotImplementedError, match=item):
-        model_zoo.input_specs(model.cfg, "decode_32k")
+    shapes = {f"params.{k}": v for k, v in _flat_names(model.init_shapes()).items()}
+    got = dict(model.named_parameters())
+    assert shapes.keys() == got.keys()
+    assert all(v.device.type == "meta" and v.shape == got[k].shape for k, v in shapes.items())
+    cache = model_zoo.input_specs(model.cfg, "decode_32k")["cache"]
+    kv = [c["memory_kv"] for blk in cache["layers"] for c in blk.values() if "memory_kv" in c]
+    mem = model_zoo.memory_len_for(model.cfg, model_zoo.SHAPES["decode_32k"])
+    assert kv and all(t.shape[2] == mem for pair in kv for t in pair)
+
+
+def _flat_names(tree, prefix=""):
+    """``{dotted name: leaf}``, as ``named_parameters`` names them."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_names(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
 
 def test_entry_points_default_to_the_card():

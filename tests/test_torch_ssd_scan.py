@@ -148,10 +148,32 @@ def test_decode_steps_match_the_scan(rng):
     np.testing.assert_allclose(state.numpy(), np.asarray(jstate), atol=1e-5, rtol=1e-5)
 
 
-def test_ops_has_no_fallback_off_the_cpu():
+def test_ops_has_no_fallback_off_the_cpu(monkeypatch):
+    """Off the CPU the plain version never runs: a ``meta`` tensor takes
+    the card's path to the launch, where the kernels' fake version stands
+    in (the dry run's trace), and counts no launch."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ops, "ssd_scan_chunked", plain)
+    monkeypatch.setattr(ops, "ssd_scan_ref", plain)
     x = torch.empty((1, 4, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, :1], x[:, :, :1])
+    before = ops.LAUNCHES
+    y = ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, :1], x[:, :, :1])
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert ops.LAUNCHES == before
+
+
+def test_ops_raise_on_a_device_without_a_kernel():
+    """A tensor neither on the CPU, on the card nor on ``meta`` raises
+    before anything runs: no plain version, no launch."""
+    from types import SimpleNamespace
+
+    x = SimpleNamespace(device=torch.device("xpu"), shape=(1, 4, 2, 8))
+    before = ops.LAUNCHES
+    with pytest.raises(ValueError, match="no kernel for xpu"):
+        ops.ssd_scan(x, x, x, x, x)
+    assert ops.LAUNCHES == before
 
 
 #: the plain backward against jax.grad / autograd, per gradient, of its

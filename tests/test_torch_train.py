@@ -541,13 +541,20 @@ def test_launcher_trains_mamba_on_the_cpu(tmp_path, capsys):
 
 
 def test_training_raises_outside_the_slice():
+    """The dry run's stand-ins are ported (A16.3(a)); training over several
+    distinct devices is not (A16.3(b))."""
     mamba = build_model(tconfigs.smoke_config_for("mamba2_370m"), "cpu")
+    from repro_torch.launch.mesh import make_small_mesh
     from repro_torch.models import model_zoo
+    from repro_torch.train.elastic import reshard_state
 
+    specs = model_zoo.input_specs(mamba.cfg, "train_4k")
+    assert specs["tokens"].shape == specs["labels"].shape == (256, 4096)
+    shapes = mamba.init_shapes()
+    assert all(t.device.type == "meta" for t in tree_leaves(shapes))
+    state = mamba.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A16.3"):
-        model_zoo.input_specs(mamba.cfg, "train_4k")
-    with pytest.raises(NotImplementedError, match="A16.3"):
-        mamba.init_shapes()
+        reshard_state(state, make_small_mesh(data=2, devices=["cpu", "meta"]), mamba.cfg)
 
 
 def test_init_state_draws_float32_masters_and_zero_moments():
